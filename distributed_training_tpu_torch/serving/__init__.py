@@ -1,0 +1,17 @@
+"""Serving: paged KV cache, continuous-batching engine, HTTP server.
+
+- ``kv_cache.py`` — the paged KV pool and its host-side allocator;
+- ``engine.py``   — the continuous-batching engine (prefill + decode
+  programs, prefix sharing, sessions);
+- ``server.py``   — the stdlib HTTP generate endpoint.
+"""
+
+from distributed_training_tpu_torch.serving.engine import (  # noqa: F401
+    Engine,
+    EngineConfig,
+    Request,
+)
+from distributed_training_tpu_torch.serving.kv_cache import (  # noqa: F401
+    PagedCacheConfig,
+    PagedKVCache,
+)
