@@ -6,15 +6,24 @@ Run from the repository root on a machine with one NVIDIA card::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``distributed_training_tpu_torch/
-csrc/`` (one ``nvcc`` per source, all at once), holds each kernel
-against its plain PyTorch version at the serving shapes and times both,
-serves gpt2_125m at full width over HTTP through ``Engine`` +
-``ServingServer`` (random weights from a seed, batched prefill, paged
-decode), runs the sequential prefill whose first chunk takes the flash
-kernel, checks float32 greedy tokens against the dense full-context
-forward, and traces one serving burst with ``torch.profiler`` (device
-busy and idle share, top kernels). Each phase prints one JSON line;
-any failure raises and exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
+csrc/`` (one ``nvcc`` per source, all at once) and holds each kernel
+against its plain PyTorch version at the shapes its path gives it,
+timing both beside a PyTorch library call where one exists. Then it
+drives both main paths at full width of gpt2_125m, random weights from a
+seed:
+
+- serving: ``Engine`` + ``ServingServer`` over HTTP (batched prefill,
+  paged decode), the sequential prefill whose first chunk takes the
+  flash forward, float32 greedy tokens against the dense forward, and a
+  ``torch.profiler`` trace of one burst;
+- training: the trainer CLI (``python -m distributed_training_tpu_torch.
+  train model=gpt2_125m train=gpt2``) for 20 steps with the fused flash
+  backward and a few with the split one, float32 losses of flash (fused,
+  split) against naive attention at reduced depth, and a profiler trace
+  of training steps.
+
+Each phase prints one JSON line; any failure raises and exits non-zero.
+The last line is ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. Without a CUDA card, or without the
 repository beside it, it exits non-zero before printing any result.
@@ -23,8 +32,11 @@ repository beside it, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -42,7 +54,21 @@ PEAK_BYTES = 3.35e12
 # only in summation order.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_TOL = 1e-3
+# The backward kernels' gradients are held with the same tolerances
+# relative to each gradient's largest magnitude: bf16 rounds the outputs
+# and p/ds, dq sums up to S terms, and the fused kernel's atomic dq sums
+# in an order that changes from run to run.
+# f32 training parity: flash (fused or split) against naive attention,
+# same weights and batches; the losses differ by summation order only
+# (atomics in the fused dq), 1e-4 relative after a few steps.
+TRAIN_PARITY_RTOL = 1e-4
 SEED = 0
+KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
+           "paged_decode")
+# gpt2_125m training at full width (conf/train/gpt2.yaml: batch 8, seq
+# 1024, bf16 compute, f32 params, AdamW, remat "mlp").
+TRAIN_STEPS = 20
+TRAIN_SPLIT_STEPS = 4
 
 
 def emit(obj: dict) -> None:
@@ -210,6 +236,70 @@ def _paged_case(timer, B, H, Hkv, hd, ps, max_len, dtype) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _bwd_case(timer, B, H, Hkv, S, D, dtype, split, window=0,
+              grads_dtype=None, library=False) -> dict:
+    """The backward kernels on one shape: fused (B2) or the split pair
+    (B3a dq, B3b dk/dv), each held against flash_bwd_reference."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn(B, h, S, D, generator=g, device="cuda").to(dtype)
+               for h in (H, Hkv, Hkv))
+    do = torch.randn(B, H, S, D, generator=g, device="cuda").to(dtype)
+    kw = dict(causal=True, window=window)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, do, lse, delta)
+    kw["grads_dtype"] = grads_dtype
+    ref = fa.flash_bwd_reference(q, k, v, None, lse, do, delta=delta, **kw)
+    if split:
+        runs = {"flash_bwd_dq": (lambda: fa.flash_bwd_dq(*args, **kw),
+                                 ref[:1], 6),
+                "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*args, **kw),
+                                  ref[1:], 8)}
+    else:
+        runs = {"flash_bwd_fused": (lambda: fa.flash_bwd_fused(*args, **kw),
+                                    ref, 10)}
+    live = fa._live_mask(S, S, True, window, "cuda")
+    pairs = int(live.sum()) * B * H
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    gsize = torch.empty((), dtype=grads_dtype or dtype).element_size()
+    res = {"shape": [B, H, Hkv, S, D], "dtype": str(dtype).split(".")[1],
+           "window": window, "grads_dtype": str(grads_dtype or dtype)
+           .split(".")[1]}
+    for name, (fn, want, flops_per_dim) in runs.items():
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        errs = []
+        for a, b in zip(got, want):
+            scale = max(b.float().abs().max().item(), 1.0)
+            err = (a.float() - b.float()).abs().max().item()
+            check(err <= TOL[grads_dtype or dtype] * scale,
+                  f"{name} {B}x{H}/{Hkv}x{S}x{D} {dtype} w={window}: max "
+                  f"err {err} > {TOL[grads_dtype or dtype]} x {scale}")
+            errs.append(err)
+        out_bytes = sum(t.numel() for t in got) * gsize
+        bound_ms, bound_by = bound(flops_per_dim * D * pairs,
+                                   in_bytes + out_bytes, dtype)
+        res[name] = {"max_abs_err": max(errs), "ms": timer.ms(fn),
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    plain = timer.ms(lambda: fa.flash_bwd_reference(
+        q, k, v, None, lse, do, delta=delta, **kw), runs=10)
+    lib = None
+    if library:
+        # Yardstick only: the backward of one SDPA call at the same
+        # shape (the port never calls SDPA).
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*xs, is_causal=True,
+                                           enable_gqa=Hkv != H)
+        lib = timer.ms(lambda: torch.autograd.grad(o, xs, do,
+                                                   retain_graph=True))
+    for name in runs:
+        res[name].update(plain_ms=plain, library_ms=lib)
+    return res
+
+
 def phase_kernels() -> dict:
     timer = Timer()
     bf16, f32 = torch.bfloat16, torch.float32
@@ -224,10 +314,27 @@ def phase_kernels() -> dict:
                                out_dtype=f32),
         "f32": _flash_case(timer, 2, 12, 12, 256, 64, f32),
     }
+    flash["train"] = _flash_case(timer, 8, 12, 12, 1024, 64, bf16,
+                                 library=True)
     paged = {"main": _paged_case(timer, 8, 12, 12, 64, 16, 1024, bf16),
              "f32_gqa": _paged_case(timer, 8, 12, 4, 64, 16, 1024, f32)}
     emit({"phase": "kernels", "flash_fwd": flash, "paged_decode": paged})
-    return {"flash_fwd": flash["main"], "paged_decode": paged["main"]}
+    bwd = {}
+    for split in (False, True):
+        tag = "split" if split else "fused"
+        bwd[f"{tag}_train"] = _bwd_case(timer, 8, 12, 12, 1024, 64, bf16,
+                                        split, library=True)
+        bwd[f"{tag}_gqa"] = _bwd_case(timer, 8, 12, 4, 1024, 64, bf16, split)
+        bwd[f"{tag}_window"] = _bwd_case(timer, 8, 12, 12, 1024, 64, bf16,
+                                         split, window=256)
+        bwd[f"{tag}_f32"] = _bwd_case(timer, 2, 12, 12, 256, 64, f32, split)
+        bwd[f"{tag}_grads_f32"] = _bwd_case(timer, 8, 12, 12, 1024, 64, bf16,
+                                            split, grads_dtype=f32)
+    emit({"phase": "kernels_bwd", **bwd})
+    return {"flash_fwd": flash["train"], "paged_decode": paged["main"],
+            "flash_bwd_fused": bwd["fused_train"]["flash_bwd_fused"],
+            "flash_bwd_dq": bwd["split_train"]["flash_bwd_dq"],
+            "flash_bwd_dkv": bwd["split_train"]["flash_bwd_dkv"]}
 
 
 def _gpt2(dtype: str):
@@ -255,20 +362,22 @@ def _engine(model, params, **over):
     return Engine(model, params, EngineConfig(**kw))
 
 
-def _reset_counts():
+def _wrappers() -> dict:
     from distributed_training_tpu_torch.ops import flash_attention as fa
     from distributed_training_tpu_torch.ops import paged_attention as pa
 
-    fa.flash_fwd.launches = 0
-    pa.paged_attention.launches = 0
+    return {"flash_fwd": fa.flash_fwd, "flash_bwd_fused": fa.flash_bwd_fused,
+            "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "paged_decode": pa.paged_attention}
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _read_counts() -> dict:
-    from distributed_training_tpu_torch.ops import flash_attention as fa
-    from distributed_training_tpu_torch.ops import paged_attention as pa
-
-    return {"flash_fwd": fa.flash_fwd.launches,
-            "paged_decode": pa.paged_attention.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _post(port: int, body: dict):
@@ -445,9 +554,26 @@ def phase_trace(prompts: list, new_tokens: int) -> None:
         eng.run_until_drained()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    emit({"phase": "trace", "dtype": "bfloat16", "requests": len(prompts),
+          **_device_time(prof, wall_us),
+          "decode_launches": eng.decode_launches,
+          "prefill_launches": eng.prefill_launches})
+
+
+def _device_time(prof, wall_us: float, top_n: int = 8) -> dict:
+    """Device busy time (the union of kernel and copy intervals), the
+    idle share of the host wall time, and the kernels that took the most
+    device time. ``record_function`` ranges (the telemetry spans) also
+    appear on the device's timeline as annotations; they are not work."""
+    events = prof.events()
+    ranges = {"step", "compile", "data_wait", "data_assemble", "ckpt_save",
+              "ckpt_restore"}
+    ranges |= {e.name for e in events
+               if getattr(e, "is_user_annotation", False)}
     spans, per_name = [], {}
-    for e in prof.events():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+    for e in events:
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and e.name not in ranges):
             spans.append((e.time_range.start, e.time_range.end))
             tot, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
@@ -455,14 +581,184 @@ def phase_trace(prompts: list, new_tokens: int) -> None:
     for a, b in sorted(spans):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
-    emit({"phase": "trace", "dtype": "bfloat16", "requests": len(prompts),
-          "wall_us": wall_us, "device_busy_us": busy,
-          "device_idle_share": 1.0 - busy / wall_us,
-          "decode_launches": eng.decode_launches,
-          "prefill_launches": eng.prefill_launches,
-          "top_kernels": [{"name": k[:80], "us": v[0], "count": v[1]}
-                          for k, v in top]})
+    check(busy > 0, "the trace holds no device time")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    return {"wall_us": wall_us, "device_busy_us": busy,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "top_kernels": [{"name": k[:80], "us": v[0], "count": v[1]}
+                            for k, v in top]}
+
+
+def _train_overrides(out_dir: str, steps: int, batch: int = 8,
+                     extra: tuple = ()) -> list:
+    """The trainer CLI on gpt2_125m / conf/train/gpt2.yaml, cut to
+    ``steps`` steps of one epoch."""
+    return ["model=gpt2_125m", "train=gpt2",
+            f"train.batch_size={batch}",
+            f"train.dataset_size={steps * batch}", "train.total_epochs=1",
+            "train.log_every=1", "run.log_level=WARNING",
+            f"run.output_dir={out_dir}", *extra]
+
+
+def _metrics_rows(out_dir: str) -> list:
+    path = os.path.join(out_dir, "default", "metrics.jsonl")
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if "loss" in r]
+
+
+def phase_train(tmp: str) -> dict:
+    """The trainer CLI's main at full width for TRAIN_STEPS steps."""
+    from distributed_training_tpu_torch.models.transformer import (
+        PRESETS,
+        Transformer,
+        TransformerConfig,
+    )
+    from distributed_training_tpu_torch.train import cli
+
+    out = os.path.join(tmp, "train")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    check(cli.main(_train_overrides(out, TRAIN_STEPS)) == 0, "train failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    rows = _metrics_rows(out)
+    losses = [r["loss"] for r in rows]
+    check(len(losses) == TRAIN_STEPS, f"{len(losses)} loss rows")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    for name in ("flash_fwd", "flash_bwd_fused"):
+        check(launches[name] == 12 * TRAIN_STEPS,
+              f"{name} launched {launches[name]} times, not 12 x "
+              f"{TRAIN_STEPS}")
+    ckpt = os.path.join(out, "default", "checkpoints", str(TRAIN_STEPS),
+                        "state.pt")
+    check(os.path.exists(ckpt), "no checkpoint written")
+    # Each metrics row reads its loss (a device sync), so a row's rate
+    # covers one whole step; the first rows hold the first launches.
+    step_s = float(np.median([1.0 / r["steps_per_sec"] for r in rows[3:]]))
+    tokens = 8 * 1024
+    model = Transformer(TransformerConfig(**PRESETS["gpt2_125m"]))
+    flops = model.flops_per_sample() * 8
+    info = {"phase": "train", "model": "gpt2_125m", "config": "gpt2.yaml",
+            "batch": 8, "seq": 1024, "steps": TRAIN_STEPS, "wall_s": wall,
+            "median_step_s": step_s, "tokens_per_s": tokens / step_s,
+            "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+            "mfu_logged_median": float(np.median(
+                [r.get("mfu", float("nan")) for r in rows[3:]])),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "grad_norm_last": rows[-1].get("grad_norm"),
+            "launches": launches, "checkpoint": ckpt}
+    emit(info)
+    return launches
+
+
+def phase_train_split(tmp: str) -> dict:
+    """The same CLI at full width with the split backward (B3a + B3b)."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.train import cli
+
+    out = os.path.join(tmp, "train_split")
+    fa.FORCE_SPLIT_BWD = True
+    try:
+        _reset_counts()
+        check(cli.main(_train_overrides(out, TRAIN_SPLIT_STEPS)) == 0,
+              "split train failed")
+        torch.cuda.synchronize()
+        launches = _read_counts()
+    finally:
+        fa.FORCE_SPLIT_BWD = False
+    losses = [r["loss"] for r in _metrics_rows(out)]
+    check(all(math.isfinite(x) for x in losses), f"non-finite {losses}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[name] == 12 * TRAIN_SPLIT_STEPS,
+              f"split: {name} launched {launches[name]} times")
+    check(launches["flash_bwd_fused"] == 0, "split run took the fused kernel")
+    emit({"phase": "train_split", "steps": TRAIN_SPLIT_STEPS,
+          "losses": losses, "launches": launches})
+    return launches
+
+
+def phase_train_parity(tmp: str) -> None:
+    """float32, 2 layers at full width, batch 4: the same 4 steps (lr 0
+    on the first, then the full rate) with flash (fused), flash (split)
+    and naive attention."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.train import cli
+
+    runs = {}
+    for name, impl, split in (("naive", "naive", False),
+                              ("flash_fused", "flash", False),
+                              ("flash_split", "flash", True)):
+        out = os.path.join(tmp, f"parity_{name}")
+        fa.FORCE_SPLIT_BWD = split
+        try:
+            _reset_counts()
+            check(cli.main(_train_overrides(
+                out, 4, batch=4,
+                extra=("train.dtype=float32", "+model.n_layers=2",
+                       "train.warmup_steps=1",
+                       f"model.attention_impl={impl}"))) == 0,
+                f"parity run {name} failed")
+            launches = _read_counts()
+        finally:
+            fa.FORCE_SPLIT_BWD = False
+        runs[name] = {"losses": [r["loss"] for r in _metrics_rows(out)],
+                      "launches": launches}
+    want = runs["naive"]["losses"]
+    check(runs["naive"]["launches"]["flash_fwd"] == 0, "naive took flash")
+    for name in ("flash_fused", "flash_split"):
+        got = runs[name]["losses"]
+        check(len(got) == len(want) == 4, f"{name}: {got}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        runs[name]["max_rel_diff"] = rel
+        check(rel <= TRAIN_PARITY_RTOL,
+              f"{name} losses {got} vs naive {want}: rel {rel}")
+        check(runs[name]["launches"]["flash_fwd"] == 2 * 4,
+              f"{name} flash forward launches")
+    emit({"phase": "train_parity", "dtype": "float32", "n_layers": 2,
+          "batch": 4, "steps": 4, "warmup_steps": 1,
+          "rtol": TRAIN_PARITY_RTOL, **runs})
+
+
+def phase_train_trace() -> None:
+    """Where a training step's time goes: 3 steps at full width under
+    ``torch.profiler``, after 2 unprofiled ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_tpu_torch.config import load_config
+    from distributed_training_tpu_torch.data import (
+        ShardedDataLoader,
+        build_dataset,
+    )
+    from distributed_training_tpu_torch.models.registry import build_model
+    from distributed_training_tpu_torch.runtime import initialize_runtime
+    from distributed_training_tpu_torch.train.trainer import Trainer
+
+    cfg = load_config(overrides=["model=gpt2_125m", "train=gpt2",
+                                 "train.dataset_size=40"])
+    rt = initialize_runtime(cfg)
+    loader = ShardedDataLoader(
+        build_dataset(cfg.train.dataset, _defaults={"size": 40, "seed": 0},
+                      **cfg.train.dataset_kwargs), rt, batch_size=8)
+    model = build_model(cfg.model.name, dtype=cfg.train.dtype,
+                        device=rt.device, **cfg.model.kwargs)
+    trainer = Trainer(cfg, rt, model, loader)
+    batches = iter(loader.epoch(0))
+    for _ in range(2):
+        trainer.train_step(next(batches))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            trainer.train_step(next(batches))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    batches.close()
+    emit({"phase": "train_trace", "steps": 3, "batch": 8, "seq": 1024,
+          **_device_time(prof, wall_us, top_n=12)})
 
 
 def main() -> int:
@@ -485,19 +781,37 @@ def main() -> int:
     seq_launches = phase_sequential(long, 64, batched)
     phase_parity([p for p in prompts if len(p) >= 128][:2], 16)
     phase_trace(prompts, 64)
+    with tempfile.TemporaryDirectory(prefix="dtt_chip_smoke_") as tmp:
+        train_launches = phase_train(tmp)
+        split_launches = phase_train_split(tmp)
+        phase_train_parity(tmp)
+    phase_train_trace()
     sources = {
         "flash_fwd": ("distributed_training_tpu_torch/csrc/flash_fwd.cu",
                       "distributed_training_tpu/ops/flash_attention.py:187"),
+        "flash_bwd_fused": (
+            "distributed_training_tpu_torch/csrc/flash_bwd.cu",
+            "distributed_training_tpu/ops/flash_attention.py:398"),
+        "flash_bwd_dq": (
+            "distributed_training_tpu_torch/csrc/flash_bwd.cu",
+            "distributed_training_tpu/ops/flash_attention.py:296"),
+        "flash_bwd_dkv": (
+            "distributed_training_tpu_torch/csrc/flash_bwd.cu",
+            "distributed_training_tpu/ops/flash_attention.py:346"),
         "paged_decode": (
             "distributed_training_tpu_torch/csrc/paged_decode.cu",
             "distributed_training_tpu/ops/paged_attention.py:152")}
+    # Launches: the sum over the paths driven above, each counted from 0
+    # (serving, sequential prefill, training, split-backward training).
+    paths = (serve_launches, seq_launches, train_launches, split_launches)
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name in KERNELS:
+        src, replaces = sources[name]
         m = measured[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": serve_launches[name] + seq_launches[name],
+            "launches": sum(p[name] for p in paths),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})

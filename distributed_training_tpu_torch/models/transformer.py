@@ -1,4 +1,4 @@
-"""Decoder-only transformer (port of ``models/transformer.py``), inference.
+"""Decoder-only transformer (port of ``models/transformer.py``).
 
 Same configuration (``TransformerConfig``, ``PRESETS``) and the same
 weight pytree as the JAX package: a nested dict of tensors with stacked
@@ -8,11 +8,21 @@ weight pytree as the JAX package: a nested dict of tensors with stacked
 ``models/convert.py`` carries JAX weights across leaf for leaf. A Python
 loop over layers replaces ``lax.scan``.
 
-This slice ports the inference forward (``apply``), which is the
-serving engine's dense reference. Training features — dropout, remat,
-MoE, pipeline and sequence parallelism, the loss — wait for the training
-slices (ROADMAP.md queue A) and raise ``NotImplementedError`` when asked
-for.
+``apply`` is the inference forward (the serving engine's dense
+reference); ``loss`` is the training forward, differentiable by autograd
+through the stacked leaves (the tied ``tok_embed`` takes both the
+embedding-gather and the head gradient). Remat keeps the JAX policies'
+intent with ``torch.utils.checkpoint``, and never around attention: the
+flash kernel's residuals (q, k, v, out, lse) stay saved by its autograd
+Function, so its forward launches once per layer per step:
+
+- ``mlp``: recompute only the MLP sub-block ``gelu(h @ wi + bi) @ wo``;
+- ``mlp_pre``: also save the pre-gelu ``h @ wi + bi``;
+- ``selective`` and ``full``: recompute everything in the block but
+  attention (in the JAX package ``full`` re-runs attention too).
+
+Dropout, MoE, pipeline and sequence parallelism wait for later slices
+(ROADMAP.md queue A) and raise ``NotImplementedError`` when asked for.
 """
 
 from __future__ import annotations
@@ -21,8 +31,10 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from distributed_training_tpu_torch.ops.attention import dot_product_attention
+from distributed_training_tpu_torch.ops.xent import lm_cross_entropy
 from distributed_training_tpu_torch.runtime import make_generator, resolve_device
 
 
@@ -179,6 +191,23 @@ def layer_slice(params: dict, i: int) -> dict:
     return {k: {n: w[i] for n, w in params[k].items()} for k in _STACKED}
 
 
+def _layers(params: dict, n_layers: int) -> list[dict]:
+    """Every layer's weights, each stacked leaf unbound once (one
+    backward ``stack`` per leaf instead of a full-size scatter per
+    layer)."""
+    parts = {k: {n: w.unbind(0) for n, w in params[k].items()}
+             for k in _STACKED}
+    return [{k: {n: ws[i] for n, ws in parts[k].items()} for k in _STACKED}
+            for i in range(n_layers)]
+
+
+def _checkpoint(fn, *args):
+    """Recompute ``fn`` in the backward instead of saving what it
+    computes (non-reentrant; no RNG inside, so no RNG state kept)."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def _rope(q: torch.Tensor, k: torch.Tensor,
           positions: torch.Tensor) -> tuple:
     """Rotary position embedding (half-split rotation, base 10000) on
@@ -208,10 +237,13 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor,
 
 class Transformer:
     """Functional decoder-only transformer: ``init`` makes the weight
-    pytree, ``apply`` runs the dense forward over it.
+    pytree, ``apply`` runs the dense inference forward over it and
+    ``loss`` the training forward.
 
     ``device=None`` runs on the CUDA card and raises without one; pass
     ``device="cpu"`` to run on the CPU."""
+
+    batch_keys: tuple[str, ...] = ("tokens",)
 
     def __init__(self, cfg: TransformerConfig, device=None):
         if cfg.moe_num_experts > 0:
@@ -279,27 +311,49 @@ class Transformer:
                                      window=window)
 
     def _block(self, x: torch.Tensor, layer: dict,
-               positions: torch.Tensor) -> torch.Tensor:
-        """One decoder block. x: (B, S, D) in compute dtype."""
+               positions: torch.Tensor, remat: str | None = None
+               ) -> torch.Tensor:
+        """One decoder block. x: (B, S, D) in compute dtype. ``remat``:
+        the remat policy to apply (None: save everything autograd
+        needs)."""
         c = self.cfg
         dt = x.dtype
-        a = layer["attn"]
-        h = _layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
-        q = torch.einsum("bsd,dhk->bshk", h, a["wq"].to(dt))
-        k = torch.einsum("bsd,dhk->bshk", h, a["wk"].to(dt))
-        v = torch.einsum("bsd,dhk->bshk", h, a["wv"].to(dt))
-        if c.pos_encoding == "rope":
-            q, k = _rope(q, k, positions)
-        attn = self._attention(q, k, v)
-        x = x + torch.einsum("bshk,hkd->bsd", attn, a["wo"].to(dt))
-        h = _layer_norm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
-        m = layer["mlp"]
-        u = F.gelu(torch.einsum("bsd,df->bsf", h, m["wi"].to(dt))
-                   + m["bi"].to(dt), approximate="tanh")
-        return x + (torch.einsum("bsf,fd->bsd", u, m["wo"].to(dt))
-                    + m["bo"].to(dt))
+        a, m = layer["attn"], layer["mlp"]
 
-    def _trunk(self, params: dict, tokens: torch.Tensor) -> tuple:
+        def qkv(x):
+            h = _layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
+            q = torch.einsum("bsd,dhk->bshk", h, a["wq"].to(dt))
+            k = torch.einsum("bsd,dhk->bshk", h, a["wk"].to(dt))
+            v = torch.einsum("bsd,dhk->bshk", h, a["wv"].to(dt))
+            if c.pos_encoding == "rope":
+                q, k = _rope(q, k, positions)
+            return q, k, v
+
+        def mlp_pre(h):
+            return (torch.einsum("bsd,df->bsf", h, m["wi"].to(dt))
+                    + m["bi"].to(dt))
+
+        def mlp_post(u):
+            return (torch.einsum("bsf,fd->bsd",
+                                 F.gelu(u, approximate="tanh"),
+                                 m["wo"].to(dt)) + m["bo"].to(dt))
+
+        def out(x, attn):
+            x = x + torch.einsum("bshk,hkd->bsd", attn, a["wo"].to(dt))
+            h = _layer_norm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
+            if remat == "mlp":
+                return x + _checkpoint(lambda h: mlp_post(mlp_pre(h)), h)
+            if remat == "mlp_pre":
+                return x + _checkpoint(mlp_post, mlp_pre(h))
+            return x + mlp_post(mlp_pre(h))
+
+        if remat in ("full", "selective"):
+            q, k, v = _checkpoint(qkv, x)
+            return _checkpoint(out, x, self._attention(q, k, v))
+        return out(x, self._attention(*qkv(x)))
+
+    def _trunk(self, params: dict, tokens: torch.Tensor,
+               remat: str | None = None) -> tuple:
         """tokens (B, S) → final-norm hidden states (B, S, D) in compute
         dtype, plus the (zero) aux loss."""
         c = self.cfg
@@ -310,8 +364,8 @@ class Transformer:
         positions = torch.arange(S, device=self.device)
         if c.pos_encoding == "learned":
             x = x + params["pos_embed"].to(dt)[:S]
-        for i in range(c.n_layers):
-            x = self._block(x, layer_slice(params, i), positions)
+        for layer in _layers(params, c.n_layers):
+            x = self._block(x, layer, positions, remat)
         x = _layer_norm(x, params["final_norm"]["scale"],
                         params["final_norm"]["bias"])
         return x, torch.zeros((), dtype=torch.float32, device=self.device)
@@ -325,16 +379,102 @@ class Transformer:
     def apply(self, params: dict, tokens, rng=None,
               train: bool = False) -> tuple:
         """tokens (B, S) int → logits (B, S, V) f32, aux loss scalar.
-
-        Inference only in this slice: dropout in training mode waits for
-        the training slice."""
+        No gradients: training goes through ``loss``. Dropout in
+        training mode raises, as in ``loss``."""
         del rng
         if train and self.cfg.dropout > 0.0:
             raise NotImplementedError(
-                "training-mode dropout waits for ROADMAP.md queue A "
-                "'Training main path'")
+                "training-mode dropout waits for ROADMAP.md queue A item 3 "
+                "'Training main path' (the RoPE/GQA half)")
         tokens = torch.as_tensor(tokens)
         x, aux = self._trunk(params, tokens)
         logits = torch.einsum("bsd,dv->bsv", x,
                               self._head(params).to(x.dtype))
         return logits.float(), aux
+
+    # -- training ------------------------------------------------------------
+
+    def loss(self, params: dict, batch, rng=None,
+             train: bool = True) -> tuple:
+        """Next-token loss over ``batch["tokens"]`` (B, S + 1): the
+        model reads ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``.
+        Returns (scalar f32 loss, metrics), differentiable in the params
+        by autograd. Negative target ids are masked pad positions: the
+        loss is the mean over real tokens. ``loss_impl="fused"`` takes the
+        chunked head (ops/xent.py, no (B, S, V) residual); ``"dense"``
+        the full logits. Remat (``cfg.remat``) applies when gradients are
+        being recorded."""
+        del rng
+        c = self.cfg
+        if train and c.dropout > 0.0:
+            raise NotImplementedError(
+                "training-mode dropout waits for ROADMAP.md queue A item 3 "
+                "'Training main path' (the RoPE/GQA half)")
+        tokens = torch.as_tensor(batch["tokens"]).to(
+            device=self.device, dtype=torch.long)
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        remat = (c.remat_policy if c.remat and torch.is_grad_enabled()
+                 else None)
+        x, _ = self._trunk(params, inputs, remat)
+        head = self._head(params).to(x.dtype)
+        if c.loss_impl == "fused":
+            nll = lm_cross_entropy(x, head, targets,
+                                   chunk_rows=c.xent_chunk_rows)
+        else:
+            logits = torch.einsum("bsd,dv->bsv", x, head).float()
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -torch.gather(logp, -1,
+                                targets.clamp(min=0)[..., None])[..., 0]
+            nll = torch.where(targets >= 0, nll, 0.0)
+        valid = (targets >= 0).sum().clamp(min=1)
+        loss = nll.sum() / valid
+        metrics = {"loss": loss.detach(),
+                   "perplexity": torch.exp(loss.detach())}
+        return loss, metrics
+
+    # -- accounting ----------------------------------------------------------
+
+    def num_params(self) -> int:
+        def count(tree):
+            if isinstance(tree, dict):
+                return sum(count(v) for v in tree.values())
+            n = 1
+            for d in tree:
+                n *= d
+            return n
+        return count(param_shapes(self.cfg))
+
+    def flops_per_token(self, seq_len: int | None = None) -> float:
+        """Forward + backward FLOPs per token: 6 * N plus the attention
+        quadratic term (causal: half; sliding window: the band's mean
+        width), the JAX package's PaLM-appendix accounting."""
+        c = self.cfg
+        S = seq_len or c.max_seq_len
+        if c.attention_window:
+            W = min(c.attention_window, S)
+            avg_keys = W - W * (W - 1) / (2 * S)
+        else:
+            avg_keys = S * 0.5
+        return 6.0 * self.num_params() + 12 * c.n_layers * c.d_model * avg_keys
+
+    def flops_per_sample(self) -> float:
+        S = self.cfg.max_seq_len
+        return self.flops_per_token(S) * S
+
+
+def build_transformer(name: str, loss: str = "auto",
+                      dtype: str = "bfloat16", device=None,
+                      **kwargs) -> Transformer:
+    """Build from a preset name or raw kwargs (the registry's entry),
+    as the JAX ``build_transformer``; ``device`` as ``Transformer``."""
+    if name == "moe_transformer":
+        raise NotImplementedError(
+            "MoE layers wait for ROADMAP.md queue A 'Remaining "
+            "parallelism and models'")
+    preset = dict(PRESETS.get(name, {}))
+    preset.update(kwargs)
+    preset.setdefault("dtype", dtype)
+    if loss != "auto":
+        preset["loss_name"] = loss
+    return Transformer(TransformerConfig(**preset), device=device)
+

@@ -2,8 +2,12 @@
 
 - ``naive``: straightforward attention (einsum, softmax, einsum) — the
   numerics reference every kernel is tested against.
-- ``flash``: the hand-written Hopper flash-attention forward
-  (ops/flash_attention.py, csrc/flash_fwd.cu).
+- ``flash``: the hand-written Hopper flash attention
+  (ops/flash_attention.py: csrc/flash_fwd.cu forward, csrc/flash_bwd.cu
+  backward, under one autograd Function).
+
+Both carry gradients: naive through autograd over its torch ops, flash
+through the backward kernels.
 - ``ring``/``ulysses``: sequence-parallel attention waits for the
   sharded slices (ROADMAP.md queue A).
 """

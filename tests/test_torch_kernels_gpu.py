@@ -7,7 +7,10 @@ and skips without one. On a machine with a card run
 
 (no JAX needed). Tolerances: 2e-2 for bf16 (output rounding, one bf16
 ulp is 2**-7 relative, plus summation order), 1e-4 for f32 (summation
-order).
+order). The backward kernels' gradients are held with the same
+tolerances relative to each gradient's largest magnitude: dq sums over
+up to S keys, and the fused kernel's atomic dq sums in an order that
+changes from run to run.
 """
 
 import numpy as np
@@ -109,3 +112,81 @@ def test_engine_greedy_matches_dense_on_gpu(cuda, mode, chunk):
     assert got == want
     assert pa.paged_attention.launches > p0
     assert (fa.flash_fwd.launches > f0) is (mode == "sequential")
+
+
+def _bwd_inputs(cuda, B, H, Hkv, S, D, dtype, causal, window):
+    q = torch.randn(B, H, S, D, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(B, Hkv, S, D, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, S, D, generator=cuda, device="cuda").to(dtype)
+    do = torch.randn(B, H, S, D, generator=cuda, device="cuda").to(dtype)
+    out, lse = fa.flash_fwd_reference(q, k, v, causal=causal, window=window)
+    return q, k, v, out, lse, do
+
+
+def _close(got, want, tol):
+    scale = max(want.float().abs().max().item(), 1.0)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * scale, f"max err {err} > {tol} x {scale}"
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,S,D,causal,window", [
+    (8, 4, 256, 64, True, 100), (4, 4, 128, 16, False, 0),
+    (4, 2, 192, 256, True, 0), (12, 12, 1024, 64, True, 0),
+    (4, 1, 256, 128, True, 0)])
+def test_flash_bwd_matches_plain(cuda, monkeypatch, split, dtype, H, Hkv,
+                                 S, D, causal, window):
+    """B2 (fused) and B3a/B3b (split) against flash_bwd_reference."""
+    monkeypatch.setattr(fa, "FORCE_SPLIT_BWD", split)
+    q, k, v, out, lse, do = _bwd_inputs(cuda, 2, H, Hkv, S, D, dtype,
+                                        causal, window)
+    counts = (fa.flash_bwd_fused.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    got = fa.flash_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_reference(q, k, v, out, lse, do, causal=causal,
+                                  window=window)
+    assert (fa.flash_bwd_fused.launches - counts[0],
+            fa.flash_bwd_dq.launches - counts[1],
+            fa.flash_bwd_dkv.launches - counts[2]) == (
+                (0, 1, 1) if split else (1, 0, 0))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close(g, w, TOL[dtype])
+
+
+def test_flash_bwd_hooks_delta_and_grads_dtype(cuda, monkeypatch):
+    """The ring callers' hooks: a precomputed delta with out=None, and
+    f32 gradients from bf16 inputs, on both paths."""
+    q, k, v, out, lse, do = _bwd_inputs(cuda, 2, 8, 2, 256, 64,
+                                        torch.bfloat16, True, 0)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    want = fa.flash_bwd_reference(q, k, v, None, lse, do, causal=True,
+                                  delta=delta, grads_dtype=torch.float32)
+    for split in (False, True):
+        monkeypatch.setattr(fa, "FORCE_SPLIT_BWD", split)
+        got = fa.flash_bwd(q, k, v, None, lse, do, causal=True, delta=delta,
+                           grads_dtype=torch.float32)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            _close(g, w, 1e-4)
+
+
+def test_flash_attention_autograd_on_gpu(cuda):
+    """The autograd Function: one forward launch, one backward launch,
+    gradients equal to the naive attention's in f32."""
+    from distributed_training_tpu_torch.ops.attention import _naive_attention
+    x = [torch.randn(2, 256, h, 32, generator=cuda, device="cuda",
+                     requires_grad=True) for h in (8, 2, 2)]
+    f0, b0 = fa.flash_fwd.launches, fa.flash_bwd_fused.launches
+    out = fa.flash_attention(*x, causal=True, window=50)
+    g = torch.randn(out.shape, generator=cuda, device="cuda")
+    got = torch.autograd.grad(out, x, g)
+    assert (fa.flash_fwd.launches - f0, fa.flash_bwd_fused.launches - b0) \
+        == (1, 1)
+    ref = _naive_attention(*x, causal=True, window=50)
+    want = torch.autograd.grad(ref, x, g)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
