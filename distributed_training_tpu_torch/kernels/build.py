@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, ``build/lib<name>-<digest>.so``, where the digest covers the
-source, the shared header and the compiler flags: a changed source is
+source, every header it includes (``#include "..."``, followed
+recursively) and the compiler flags: a changed source or header is
 rebuilt, an unchanged one is loaded as it is. Nothing is built when a
 module is imported; the first launch of a kernel builds it, and
 ``build()`` builds several at once, one ``nvcc`` process for each source,
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +26,8 @@ import time
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_DIR = os.path.join(PKG, "build")
-KERNELS = ("flash_fwd", "flash_bwd", "paged_decode")
+KERNELS = ("flash_fwd", "flash_bwd", "paged_decode", "flash_fwd_sm90",
+           "flash_bwd_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,11 +58,22 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
 def _sources(name: str) -> list[str]:
+    """The kernel's source, then every header of ``csrc/`` it includes,
+    directly or through another header."""
     if name not in KERNELS:
         raise KeyError(f"unknown kernel '{name}' (have {KERNELS})")
-    return [os.path.join(CSRC, f"{name}.cu"),
-            os.path.join(CSRC, "common.cuh")]
+    found = [os.path.join(CSRC, f"{name}.cu")]
+    for path in found:
+        with open(path) as f:
+            for inc in _INCLUDE.findall(f.read()):
+                dep = os.path.join(os.path.dirname(path), inc)
+                if dep not in found:
+                    found.append(dep)
+    return found
 
 
 def library_path(name: str) -> str:
@@ -73,7 +87,8 @@ def library_path(name: str) -> str:
 def build(names=KERNELS) -> dict[str, float]:
     """Build every kernel in ``names`` whose library is missing, one
     ``nvcc`` per source, all running at once. Returns the wall seconds
-    each build took (0.0 for a library that was already there)."""
+    from the start until each build ended (0.0 for a library that was
+    already there)."""
     with _lock:
         return _build_locked(tuple(names))
 
@@ -85,21 +100,28 @@ def _build_locked(names: tuple) -> dict[str, float]:
     if not todo:
         return secs
     nvcc = nvcc_path()
-    procs = {}
+    procs, logs = {}, {}
     t0 = time.perf_counter()
+
+    def reap(name, proc):
+        logs[name], _ = proc.communicate()
+        secs[name] = time.perf_counter() - t0
+
     for name in todo:
         # Write beside the target and rename: a reader never sees a
         # half-written library.
         tmp = f"{library_path(name)}.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, _sources(name)[0]]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        # One reader per process, so each build's seconds end with it.
+        reader = threading.Thread(target=reap, args=(name, proc))
+        reader.start()
+        procs[name] = (tmp, proc, reader)
     failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        secs[name] = time.perf_counter() - t0
-        build_logs[name] = log
+    for name, (tmp, proc, reader) in procs.items():
+        reader.join()
+        log = build_logs[name] = logs[name]
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
             continue

@@ -3,8 +3,9 @@
 - ``naive``: straightforward attention (einsum, softmax, einsum) — the
   numerics reference every kernel is tested against.
 - ``flash``: the hand-written Hopper flash attention
-  (ops/flash_attention.py: csrc/flash_fwd.cu forward, csrc/flash_bwd.cu
-  backward, under one autograd Function).
+  (ops/flash_attention.py: forward and backward kernels under one
+  autograd Function; bf16 at head dim 64/128 on the tensor-core kernels
+  csrc/flash_{fwd,bwd}_sm90.cu, the rest on csrc/flash_{fwd,bwd}.cu).
 
 Both carry gradients: naive through autograd over its torch ops, flash
 through the backward kernels.

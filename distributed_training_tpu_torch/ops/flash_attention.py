@@ -1,14 +1,18 @@
 """Flash attention on Hopper: the port of ``ops/flash_attention.py``.
 
 - ``flash_fwd`` is the counterpart of the JAX package's ``_flash_fwd``:
-  it launches ``csrc/flash_fwd.cu`` (which replaces the Pallas
-  ``_fwd_kernel``).
+  it launches a kernel that replaces the Pallas ``_fwd_kernel``.
 - ``flash_bwd`` is the counterpart of ``_flash_bwd``: by default the
-  fused kernel (``csrc/flash_bwd.cu``'s dk/dv kernel with an atomic f32
-  dq, replacing ``_bwd_fused_kernel``), or with ``DTT_FLASH_SPLIT_BWD=1``
-  the split pair (replacing ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``).
-  It keeps the JAX hooks ring callers use: a precomputed ``delta`` and
-  ``grads_dtype``.
+  fused kernel (dk/dv with an f32 dq added in device memory, replacing
+  ``_bwd_fused_kernel``), or with ``DTT_FLASH_SPLIT_BWD=1`` the split
+  pair of ``csrc/flash_bwd.cu`` (replacing ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel``). It keeps the JAX hooks ring callers use: a
+  precomputed ``delta`` and ``grads_dtype``.
+- ``_design`` picks the forward's and the fused backward's kernel by
+  input dtype and head dim: "wgmma" (``csrc/flash_fwd_sm90.cu``,
+  ``csrc/flash_bwd_sm90.cu``: bf16 tensor-core products) for bf16 at
+  head dim 64 or 128, "simt" (``csrc/flash_fwd.cu``,
+  ``csrc/flash_bwd.cu``: f32 FMAs) for f32 and every other head dim.
 - ``flash_attention`` is a ``torch.autograd.Function`` over the two that
   saves (q, k, v, out, lse), so the backward never re-runs the forward.
 
@@ -31,14 +35,20 @@ import torch
 
 from distributed_training_tpu_torch.kernels import build
 
-# Hopper tiles. The kernel's q-tile is fixed at 64 rows (four threads
+# Tiles of the SIMT forward. Its q-tile is fixed at 64 rows (four threads
 # per row, 256 threads); the k-tile is a template choice. Both were
 # timed on the card by chip_smoke.py (PERF.md); unlike the TPU's VMEM
 # the 227 KB of shared memory holds a 64 x 64 f32 logits tile plus the
-# q/k/v tiles at head_dim <= 256.
+# q/k/v tiles at head_dim <= 256. The tensor-core kernels choose their
+# own tiles (64 queries x 64 keys, SM90_TILE), as the backward does.
 BLOCK_Q = 64
 BLOCK_K_CHOICES = (64, 32)
 DEFAULT_BLOCK_K = 64
+SM90_TILE = 64
+# Head dims the tensor-core kernels are built for; read by ``_design``
+# alone. f32 stays on the SIMT kernels by design: TF32 tensor cores keep
+# about three decimal digits, and the f32 paths are held to 1e-4.
+_WGMMA_HEAD_DIMS = (64, 128)
 NO_KEY_LSE = -1e30    # lse of a row with no live key (as the TPU kernel)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # DTT_FLASH_SPLIT_BWD=1 takes the split backward (dq kernel + dk/dv
@@ -99,6 +109,15 @@ def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return True
 
 
+def _design(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel the forward and the fused backward launch for inputs
+    of ``dtype`` at ``head_dim``: "wgmma" or "simt". A declared choice,
+    not a fallback: a tensor-core kernel that fails raises."""
+    if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
 def _live_mask(S: int, Sk: int, causal: bool, window: int, device):
     """(S, Sk) bool: the (query, key) pairs the mask keeps, or None."""
     if not causal:
@@ -149,6 +168,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _sm90_lib() -> ctypes.CDLL:
+    lib = build.load("flash_fwd_sm90")
+    lib.flash_fwd_sm90.restype = ctypes.c_int
+    lib.flash_fwd_sm90.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, block_q: int = 0, block_k: int = 0,
               out_dtype: torch.dtype | None = None, window: int = 0
@@ -157,8 +185,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``out_dtype`` (default q.dtype), lse (B, H, S, 1) f32).
 
     CPU tensors run ``flash_fwd_reference``. CUDA tensors launch the
-    kernel on the current stream (``flash_fwd.launches`` counts those
-    launches) or raise if it cannot take them."""
+    kernel ``_design`` picks on the current stream (``flash_fwd.launches``
+    counts those launches, ``flash_fwd.launches_by_design`` each
+    design's) or raise if it cannot take them. ``block_q``/``block_k``
+    are the SIMT kernel's tiles; the tensor-core kernel has its own."""
     out_dtype = out_dtype or q.dtype
     if not q.is_cuda:
         return flash_fwd_reference(q, k, v, causal=causal, window=window,
@@ -193,18 +223,28 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((B, H, S, D), dtype=out_dtype, device=q.device)
     lse = torch.empty((B, H, S, 1), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    code = lib.flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, H, Hkv, S, Sk, D, int(causal), int(window),
-        bk, D ** -0.5, _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, "flash_fwd", code)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr())
+    design = _design(q.dtype, D)
+    if design == "wgmma":
+        lib, name = _sm90_lib(), "flash_fwd_sm90"
+        code = lib.flash_fwd_sm90(
+            *ptrs, B, H, Hkv, S, Sk, D, int(causal), int(window), D ** -0.5,
+            _DTYPE_CODE[out_dtype], stream)
+    else:
+        lib, name = _lib(), "flash_fwd"
+        code = lib.flash_fwd(
+            *ptrs, B, H, Hkv, S, Sk, D, int(causal), int(window), bk,
+            D ** -0.5, _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype], stream)
+    build.check(lib, name, code)
     flash_fwd.launches += 1
+    flash_fwd.launches_by_design[design] += 1
     return out, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_by_design = {"wgmma": 0, "simt": 0}
 
 
 def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -253,6 +293,15 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.flash_bwd_dq.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
+def _bwd_sm90_lib() -> ctypes.CDLL:
+    lib = build.load("flash_bwd_sm90")
+    lib.flash_bwd_sm90.restype = ctypes.c_int
+    lib.flash_bwd_sm90.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return lib
 
 
@@ -323,18 +372,35 @@ def _launch_dkv(ops, dims, dq_acc, dk, dv):
     build.check(lib, "flash_bwd", code)
 
 
+def _launch_bwd_sm90(ops, dims, dq_acc, dk, dv):
+    q = ops[0]
+    lib = _bwd_sm90_lib()
+    code = lib.flash_bwd_sm90(
+        *(t.data_ptr() for t in ops), dq_acc.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *dims, q.shape[3] ** -0.5, _DTYPE_CODE[dk.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, "flash_bwd_sm90", code)
+
+
 def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool,
                     window: int = 0, grads_dtype=None):
-    """The fused backward kernel (B2's counterpart) on CUDA tensors:
-    (dq, dk, dv), dk/dv group-summed to Hkv heads. dq accumulates by
-    atomicAdd into a zeroed f32 buffer, cast to the gradient dtype
-    after. Counts its launches in ``flash_bwd_fused.launches``."""
+    """The fused backward kernel (B2's counterpart) that ``_design``
+    picks, on CUDA tensors: (dq, dk, dv), dk/dv group-summed to Hkv
+    heads. dq is added into a zeroed f32 buffer by atomics (vector
+    reductions on the wgmma route), cast to the gradient dtype after.
+    Counts its launches in ``flash_bwd_fused.launches`` and
+    ``flash_bwd_fused.launches_by_design``."""
     ops, dims, gdt = _bwd_args(q, k, v, do, lse, delta, causal, window,
                                grads_dtype)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = _dkv_out(q, k, gdt)
-    _launch_dkv(ops, dims, dq, dk, dv)
+    design = _design(q.dtype, q.shape[3])
+    if design == "wgmma":
+        _launch_bwd_sm90(ops, dims, dq, dk, dv)
+    else:
+        _launch_dkv(ops, dims, dq, dk, dv)
     flash_bwd_fused.launches += 1
+    flash_bwd_fused.launches_by_design[design] += 1
     Hkv = k.shape[1]
     return dq.to(gdt), _group_sum(dk, Hkv, gdt), _group_sum(dv, Hkv, gdt)
 
@@ -371,6 +437,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
 
 
 flash_bwd_fused.launches = 0
+flash_bwd_fused.launches_by_design = {"wgmma": 0, "simt": 0}
 flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0
 

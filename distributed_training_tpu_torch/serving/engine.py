@@ -83,7 +83,7 @@ FAULTS_ITEM = "ROADMAP.md queue A 'Serving: fault hooks'"
 _PROGRAM_KERNELS = {
     "decode": ("paged_decode",),
     "prefill_batch": (),
-    "prefill_first": ("flash_fwd",),
+    "prefill_first": ("flash_fwd", "flash_fwd_sm90"),
     "prefill_cont": (),
     "cow": (),
 }

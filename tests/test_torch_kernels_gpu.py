@@ -10,7 +10,18 @@ ulp is 2**-7 relative, plus summation order), 1e-4 for f32 (summation
 order). The backward kernels' gradients are held with the same
 tolerances relative to each gradient's largest magnitude: dq sums over
 up to S keys, and the fused kernel's atomic dq sums in an order that
-changes from run to run.
+changes from run to run. Each forward and fused-backward case also
+checks that the launch took the design ``_design`` names (bf16 at head
+dim 64/128: the tensor-core kernels; the rest: the SIMT kernels).
+
+f32 gradients of bf16 inputs: 1e-4 of the largest gradient on the SIMT
+kernels, which sum the logits in the plain version's order; 1e-3 on the
+tensor-core kernel, which sums them in another: p and ds are rounded to
+bf16 at the same points, but a value on a rounding boundary may round
+the other way, and the plain version against itself with the head-dim
+sum permuted already moves these gradients past 1e-4
+(tests/test_torch_flash_design.py). The plain version's gradients
+rounded to bf16 (half a bf16 ulp, 2e-3 or more of the largest) fail it.
 """
 
 import numpy as np
@@ -30,6 +41,7 @@ from distributed_training_tpu_torch.serving.engine import (
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+WGMMA_GRADS_F32_TOL = 1e-3
 
 
 @pytest.fixture
@@ -50,11 +62,43 @@ def test_flash_fwd_matches_plain(cuda, dtype, H, Hkv, S, D, causal,
     k = torch.randn(2, Hkv, S, D, generator=cuda, device="cuda").to(dtype)
     v = torch.randn(2, Hkv, S, D, generator=cuda, device="cuda").to(dtype)
     before = fa.flash_fwd.launches
+    design = fa._design(dtype, D)
+    by_design = fa.flash_fwd.launches_by_design[design]
     o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window,
                           block_k=block_k)
     ro, rl = fa.flash_fwd_reference(q, k, v, causal=causal, window=window)
     assert fa.flash_fwd.launches == before + 1
+    assert fa.flash_fwd.launches_by_design[design] == by_design + 1
     tol = TOL[dtype]
+    torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, rl, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("H,Hkv,Sq,Sk,D,causal,window,out_dtype", [
+    (4, 4, 200, 200, 64, True, 0, None),
+    (8, 2, 300, 300, 128, True, 0, None),
+    (4, 2, 256, 256, 128, True, 70, None),
+    (4, 4, 100, 260, 64, False, 0, None),
+    (4, 1, 192, 192, 64, True, 33, torch.float32),
+    (16, 16, 1024, 1024, 128, True, 0, torch.float32)],
+    ids=["ragged", "gqa-d128-ragged", "window-d128", "noncausal-sq-sk",
+         "f32-out-window-gqa", "d128-long-f32-out"])
+def test_flash_fwd_wgmma_route(cuda, H, Hkv, Sq, Sk, D, causal, window,
+                               out_dtype):
+    """The tensor-core forward on bf16: GQA, window, non-causal Sq != Sk,
+    lengths that are not a multiple of its 64-row tile, f32 output."""
+    bf16 = torch.bfloat16
+    q = torch.randn(2, H, Sq, D, generator=cuda, device="cuda").to(bf16)
+    k = torch.randn(2, Hkv, Sk, D, generator=cuda, device="cuda").to(bf16)
+    v = torch.randn(2, Hkv, Sk, D, generator=cuda, device="cuda").to(bf16)
+    before = dict(fa.flash_fwd.launches_by_design)
+    kw = dict(causal=causal, window=window, out_dtype=out_dtype)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    ro, rl = fa.flash_fwd_reference(q, k, v, **kw)
+    assert fa.flash_fwd.launches_by_design == dict(
+        before, wgmma=before["wgmma"] + 1)
+    assert o.dtype == (out_dtype or bf16)
+    tol = TOL[bf16]
     torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, rl, rtol=1e-4, atol=1e-4)
 
@@ -123,10 +167,14 @@ def _bwd_inputs(cuda, B, H, Hkv, S, D, dtype, causal, window):
     return q, k, v, out, lse, do
 
 
-def _close(got, want, tol):
+def _rel_err(got, want):
     scale = max(want.float().abs().max().item(), 1.0)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= tol * scale, f"max err {err} > {tol} x {scale}"
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def _close(got, want, tol):
+    err = _rel_err(got, want)
+    assert err <= tol, f"max err {err} of the largest > {tol}"
 
 
 @pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])
@@ -143,6 +191,8 @@ def test_flash_bwd_matches_plain(cuda, monkeypatch, split, dtype, H, Hkv,
                                         causal, window)
     counts = (fa.flash_bwd_fused.launches, fa.flash_bwd_dq.launches,
               fa.flash_bwd_dkv.launches)
+    design = fa._design(dtype, D)
+    by_design = fa.flash_bwd_fused.launches_by_design[design]
     got = fa.flash_bwd(q, k, v, out, lse, do, causal=causal, window=window)
     torch.cuda.synchronize()
     want = fa.flash_bwd_reference(q, k, v, out, lse, do, causal=causal,
@@ -151,26 +201,74 @@ def test_flash_bwd_matches_plain(cuda, monkeypatch, split, dtype, H, Hkv,
             fa.flash_bwd_dq.launches - counts[1],
             fa.flash_bwd_dkv.launches - counts[2]) == (
                 (0, 1, 1) if split else (1, 0, 0))
+    assert fa.flash_bwd_fused.launches_by_design[design] == (
+        by_design + (0 if split else 1))
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         _close(g, w, TOL[dtype])
 
 
+@pytest.mark.parametrize("H,Hkv,Sq,Sk,D,causal,window,grads_dtype", [
+    (4, 4, 200, 200, 64, True, 0, None),
+    (8, 2, 300, 300, 128, True, 90, None),
+    (4, 2, 192, 192, 128, True, 0, torch.float32),
+    (4, 4, 100, 260, 64, False, 0, None),
+    (4, 1, 256, 256, 64, True, 50, torch.float32),
+    (16, 16, 1024, 1024, 128, True, 0, None)],
+    ids=["ragged", "gqa-window-d128-ragged", "gqa-d128-f32-grads",
+         "noncausal-sq-sk", "gqa-window-f32-grads", "d128-long"])
+def test_flash_bwd_fused_wgmma_route(cuda, H, Hkv, Sq, Sk, D, causal,
+                                     window, grads_dtype):
+    """The tensor-core fused backward on bf16: GQA, window, lengths that
+    are not a multiple of its 64-row tiles, non-causal Sq != Sk, f32
+    gradients; dq through its vector reductions."""
+    bf16 = torch.bfloat16
+    q = torch.randn(2, H, Sq, D, generator=cuda, device="cuda").to(bf16)
+    k = torch.randn(2, Hkv, Sk, D, generator=cuda, device="cuda").to(bf16)
+    v = torch.randn(2, Hkv, Sk, D, generator=cuda, device="cuda").to(bf16)
+    do = torch.randn(2, H, Sq, D, generator=cuda, device="cuda").to(bf16)
+    out, lse = fa.flash_fwd_reference(q, k, v, causal=causal, window=window)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, do, lse, delta)
+    kw = dict(causal=causal, window=window, grads_dtype=grads_dtype)
+    before = dict(fa.flash_bwd_fused.launches_by_design)
+    got = fa.flash_bwd_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_fused.launches_by_design == dict(
+        before, wgmma=before["wgmma"] + 1)
+    want = fa.flash_bwd_reference(q, k, v, None, lse, do, delta=delta, **kw)
+    tol = TOL[bf16] if grads_dtype is None else WGMMA_GRADS_F32_TOL
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == (grads_dtype or bf16)
+        assert g.shape == w.shape
+        _close(g, w, tol)
+    if grads_dtype is not None:
+        # The control: gradients rounded to bf16 fail the limit.
+        assert max(_rel_err(w.to(bf16), w) for w in want) > tol
+
+
 def test_flash_bwd_hooks_delta_and_grads_dtype(cuda, monkeypatch):
     """The ring callers' hooks: a precomputed delta with out=None, and
-    f32 gradients from bf16 inputs, on both paths."""
-    q, k, v, out, lse, do = _bwd_inputs(cuda, 2, 8, 2, 256, 64,
-                                        torch.bfloat16, True, 0)
-    delta = (do.float() * out.float()).sum(-1, keepdim=True)
-    want = fa.flash_bwd_reference(q, k, v, None, lse, do, causal=True,
-                                  delta=delta, grads_dtype=torch.float32)
-    for split in (False, True):
+    f32 gradients from bf16 inputs, on every kernel: split (SIMT) and
+    fused on the tensor cores at head dim 64, fused on SIMT at head dim
+    96."""
+    for D, split, design, tol in ((64, True, None, 1e-4),
+                                  (64, False, "wgmma", WGMMA_GRADS_F32_TOL),
+                                  (96, False, "simt", 1e-4)):
+        q, k, v, out, lse, do = _bwd_inputs(cuda, 2, 8, 2, 256, D,
+                                            torch.bfloat16, True, 0)
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        want = fa.flash_bwd_reference(q, k, v, None, lse, do, causal=True,
+                                      delta=delta, grads_dtype=torch.float32)
         monkeypatch.setattr(fa, "FORCE_SPLIT_BWD", split)
+        before = dict(fa.flash_bwd_fused.launches_by_design)
         got = fa.flash_bwd(q, k, v, None, lse, do, causal=True, delta=delta,
                            grads_dtype=torch.float32)
+        assert fa.flash_bwd_fused.launches_by_design == (
+            before if split else dict(before, **{design: before[design] + 1}))
         for g, w in zip(got, want):
             assert g.dtype == torch.float32
-            _close(g, w, 1e-4)
+            _close(g, w, tol)
 
 
 def test_flash_attention_autograd_on_gpu(cuda):
