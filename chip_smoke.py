@@ -8,10 +8,11 @@ Run from the repository root on a machine with one NVIDIA card::
 It builds the port's CUDA kernels from ``distributed_training_tpu_torch/
 csrc/`` (one ``nvcc`` per source, all at once) and holds each kernel
 against its plain PyTorch version at the shapes its path gives it,
-timing both beside a PyTorch library call where one exists. The flash
-forward and fused backward have two designs (``_design``): bf16 at head
-dim 64/128 takes the tensor-core kernels, f32 and other head dims the
-SIMT ones, and each case reports the design its launch took. Then it
+timing both beside a PyTorch library call where one exists. Every flash
+kernel (forward, fused backward, split dq and dk/dv) has two designs
+(``_design``): bf16 at head dim 64/128 takes the tensor-core kernels,
+f32 and other head dims the SIMT ones, and each case reports the design
+its launch took. Then it
 drives both main paths at full width of gpt2_125m, random weights from
 a seed:
 
@@ -21,12 +22,12 @@ a seed:
   ``torch.profiler`` trace of one burst;
 - training: the trainer CLI (``python -m distributed_training_tpu_torch.
   train model=gpt2_125m train=gpt2``) for 20 steps with the fused flash
-  backward and a few with the split one (every bf16 flash launch on the
+  backward and 10 with the split one (every bf16 flash launch on the
   tensor-core design), float32 losses of flash (fused, split; the SIMT
-  design) and bfloat16 losses and gradient norms of flash (tensor
-  cores) against naive attention at reduced depth, with a planted fault
-  that must fail the same limits, and a profiler trace of training
-  steps.
+  design) and bfloat16 losses and gradient norms of flash (fused, split;
+  tensor cores) against naive attention at reduced depth, with a
+  planted fault that must fail the same limits, and profiler traces of
+  training steps with each backward.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -74,8 +75,8 @@ LSE_TOL = 1e-3
 # above that and below the control, the plain version's gradients
 # rounded to bf16, which err by half a bf16 ulp of the largest gradient
 # (2e-3 to 3.9e-3 of it, wherever it falls in its binade). The split
-# kernels at head dim 64 sum the logits as the plain version does and
-# keep 1e-4.
+# pair takes the same limit on the tensor cores (it sums the logits in
+# the fused kernel's order); on SIMT, at head dim 96, it keeps 1e-4.
 GRADS_F32_OF_BF16_TOL = 1e-3
 # f32 training parity: flash (fused or split) against naive attention,
 # same weights and batches; the losses differ by summation order only
@@ -98,7 +99,7 @@ KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
 # gpt2_125m training at full width (conf/train/gpt2.yaml: batch 8, seq
 # 1024, bf16 compute, f32 params, AdamW, remat "mlp").
 TRAIN_STEPS = 20
-TRAIN_SPLIT_STEPS = 4
+TRAIN_SPLIT_STEPS = 10
 
 
 def emit(obj: dict) -> None:
@@ -289,9 +290,12 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def _bwd_case(timer, B, H, Hkv, S, D, dtype, split, window=0,
               grads_dtype=None, library=False) -> dict:
     """The backward kernels on one shape: fused (B2) or the split pair
-    (B3a dq, B3b dk/dv), each held against flash_bwd_reference. Where
-    the limit is GRADS_F32_OF_BF16_TOL, the plain version's gradients
-    rounded to bf16 must fail it (the control)."""
+    (B3a dq, B3b dk/dv), each held against flash_bwd_reference, with the
+    design each launch took. Where the limit is GRADS_F32_OF_BF16_TOL,
+    the plain version's gradients rounded to bf16 must fail it (the
+    control). The split kernels use no atomics: a second launch must
+    give the same bits. ``pair_ms`` times dq and dk/dv back to back, as
+    ``flash_bwd`` runs them."""
     from distributed_training_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -305,12 +309,15 @@ def _bwd_case(timer, B, H, Hkv, S, D, dtype, split, window=0,
     kw["grads_dtype"] = grads_dtype
     ref = fa.flash_bwd_reference(q, k, v, None, lse, do, delta=delta, **kw)
     if split:
-        runs = {"flash_bwd_dq": (lambda: fa.flash_bwd_dq(*args, **kw),
+        runs = {"flash_bwd_dq": (fa.flash_bwd_dq,
+                                 lambda: (fa.flash_bwd_dq(*args, **kw),),
                                  ref[:1], 6),
-                "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*args, **kw),
+                "flash_bwd_dkv": (fa.flash_bwd_dkv,
+                                  lambda: fa.flash_bwd_dkv(*args, **kw),
                                   ref[1:], 8)}
     else:
-        runs = {"flash_bwd_fused": (lambda: fa.flash_bwd_fused(*args, **kw),
+        runs = {"flash_bwd_fused": (fa.flash_bwd_fused,
+                                    lambda: fa.flash_bwd_fused(*args, **kw),
                                     ref, 10)}
     live = fa._live_mask(S, S, True, window, "cuda")
     pairs = int(live.sum()) * B * H
@@ -319,37 +326,46 @@ def _bwd_case(timer, B, H, Hkv, S, D, dtype, split, window=0,
     res = {"shape": [B, H, Hkv, S, D], "dtype": str(dtype).split(".")[1],
            "window": window, "grads_dtype": str(grads_dtype or dtype)
            .split(".")[1]}
-    if split:
-        res["design"] = "simt"
-    for name, (fn, want, flops_per_dim) in runs.items():
-        before = dict(fa.flash_bwd_fused.launches_by_design)
+    for name, (wrapper, fn, want, flops_per_dim) in runs.items():
+        before = dict(wrapper.launches_by_design)
         got = fn()
-        got = got if isinstance(got, tuple) else (got,)
         torch.cuda.synchronize()
-        if not split:
-            res["design"] = _design_taken(fa.flash_bwd_fused, before)
+        entry = {"design": _design_taken(wrapper, before)}
         tol = TOL[grads_dtype or dtype]
-        if not split and dtype == torch.bfloat16 \
-                and grads_dtype == torch.float32:
+        # f32 gradients of bf16 inputs: GRADS_F32_OF_BF16_TOL on the
+        # tensor cores and on the fused SIMT kernel; the split SIMT pair
+        # keeps TOL.
+        if dtype == torch.bfloat16 and grads_dtype == torch.float32 \
+                and (entry["design"] == "wgmma" or not split):
             tol = GRADS_F32_OF_BF16_TOL
             # The control: a kernel that rounded its f32 gradients to
             # bf16 must fail this limit.
             ctrl = max(_rel_err(w.to(torch.bfloat16), w) for w in want)
             check(ctrl > tol, f"{name}: bf16-rounded control {ctrl} within "
                   f"the limit {tol}")
-            res["bf16_rounded_control_rel_err"] = ctrl
-        res["tol"] = tol
+            entry["bf16_rounded_control_rel_err"] = ctrl
         errs = [_rel_err(a, b) for a, b in zip(got, want)]
         check(max(errs) <= tol,
               f"{name} {B}x{H}/{Hkv}x{S}x{D} {dtype} w={window}: error "
               f"{max(errs)} of the largest gradient > {tol}")
+        if split:
+            again = fn()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name}: a second launch gave other bits")
+            entry["bit_identical"] = True
         out_bytes = sum(t.numel() for t in got) * gsize
         bound_ms, bound_by = bound(flops_per_dim * D * pairs,
                                    in_bytes + out_bytes, dtype)
-        res[name] = {"max_abs_err": max((a.float() - b.float()).abs().max()
-                                        .item() for a, b in zip(got, want)),
-                     "max_rel_err": max(errs), "ms": timer.ms(fn),
-                     "bound_ms": bound_ms, "bound_by": bound_by}
+        res[name] = dict(
+            entry, tol=tol,
+            max_abs_err=max((a.float() - b.float()).abs().max().item()
+                            for a, b in zip(got, want)),
+            max_rel_err=max(errs), ms=timer.ms(fn), bound_ms=bound_ms,
+            bound_by=bound_by)
+    if split:
+        dq_fn, dkv_fn = runs["flash_bwd_dq"][1], runs["flash_bwd_dkv"][1]
+        res["pair_ms"] = timer.ms(lambda: (dq_fn(), dkv_fn()))
     plain = timer.ms(lambda: fa.flash_bwd_reference(
         q, k, v, None, lse, do, delta=delta, **kw), runs=10)
     lib = None
@@ -401,20 +417,25 @@ def phase_kernels() -> dict:
         bwd[f"{tag}_window"] = _bwd_case(timer, 8, 12, 12, 1024, 64, bf16,
                                          split, window=256)
         bwd[f"{tag}_f32"] = _bwd_case(timer, 2, 12, 12, 256, 64, f32, split)
-        # bf16 in, f32 gradients: fused on the tensor cores at
-        # GRADS_F32_OF_BF16_TOL, split on SIMT at 1e-4.
+        # bf16 in, f32 gradients: on the tensor cores at
+        # GRADS_F32_OF_BF16_TOL, with its control.
         bwd[f"{tag}_grads_f32"] = _bwd_case(timer, 8, 12, 12, 1024, 64, bf16,
                                             split, grads_dtype=f32)
-    # The SIMT fused kernel on bf16 inputs (head dim 32), f32 gradients
-    # at GRADS_F32_OF_BF16_TOL.
+        bwd[f"{tag}_ragged"] = _bwd_case(timer, 4, 12, 12, 1000, 64, bf16,
+                                         split)
+        # transformer_1b's attention: B 2, H 16, S 2048, D 128.
+        bwd[f"{tag}_d128"] = _bwd_case(timer, 2, 16, 16, 2048, 128, bf16,
+                                       split, library=True)
+        bwd[f"{tag}_d128_gqa_window_grads_f32"] = _bwd_case(
+            timer, 2, 16, 4, 2048, 128, bf16, split, window=512,
+            grads_dtype=f32)
+    # The SIMT kernels on bf16 inputs with f32 gradients: fused at head
+    # dim 32 (GRADS_F32_OF_BF16_TOL), the split pair at head dim 96 (TOL,
+    # 1e-4).
     bwd["fused_simt_d32_grads_f32"] = _bwd_case(
         timer, 8, 12, 12, 1024, 32, bf16, False, grads_dtype=f32)
-    bwd["fused_ragged"] = _bwd_case(timer, 4, 12, 12, 1000, 64, bf16, False)
-    bwd["fused_d128"] = _bwd_case(timer, 2, 16, 16, 2048, 128, bf16, False,
-                                  library=True)
-    bwd["fused_d128_gqa_window_grads_f32"] = _bwd_case(
-        timer, 2, 16, 4, 2048, 128, bf16, False, window=512,
-        grads_dtype=f32)
+    bwd["split_simt_d96_grads_f32"] = _bwd_case(
+        timer, 2, 8, 2, 256, 96, bf16, True, grads_dtype=f32)
     emit({"phase": "kernels_bwd", **bwd})
     return {"flash_fwd": flash["train"], "paged_decode": paged["main"],
             "flash_bwd_fused": bwd["fused_train"]["flash_bwd_fused"],
@@ -468,7 +489,7 @@ def _read_counts() -> dict:
 
 
 def _read_designs() -> dict:
-    """Launches per design of the two wrappers that have two."""
+    """Launches per design of the wrappers that have two designs."""
     return {name: dict(fn.launches_by_design)
             for name, fn in _wrappers().items()
             if hasattr(fn, "launches_by_design")}
@@ -735,12 +756,15 @@ def phase_train(tmp: str) -> tuple:
     rows = _metrics_rows(out)
     losses = [r["loss"] for r in rows]
     check(len(losses) == TRAIN_STEPS, f"{len(losses)} loss rows")
-    _check_designs(designs, "wgmma", "train (bf16, head dim 64)")
+    _check_designs({n: designs[n] for n in ("flash_fwd", "flash_bwd_fused")},
+                   "wgmma", "train (bf16, head dim 64)")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     for name in ("flash_fwd", "flash_bwd_fused"):
         check(launches[name] == 12 * TRAIN_STEPS,
               f"{name} launched {launches[name]} times, not 12 x "
               f"{TRAIN_STEPS}")
+    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+          "fused train took the split kernels")
     ckpt = os.path.join(out, "default", "checkpoints", str(TRAIN_STEPS),
                         "state.pt")
     check(os.path.exists(ckpt), "no checkpoint written")
@@ -766,7 +790,9 @@ def phase_train(tmp: str) -> tuple:
 
 
 def phase_train_split(tmp: str) -> tuple:
-    """The same CLI at full width with the split backward (B3a + B3b)."""
+    """The same CLI at full width with the split backward (B3a + B3b),
+    every flash launch on the tensor-core design, for
+    TRAIN_SPLIT_STEPS steps."""
     from distributed_training_tpu_torch.ops import flash_attention as fa
     from distributed_training_tpu_torch.train import cli
 
@@ -780,17 +806,23 @@ def phase_train_split(tmp: str) -> tuple:
         launches, designs = _read_counts(), _read_designs()
     finally:
         fa.FORCE_SPLIT_BWD = False
-    losses = [r["loss"] for r in _metrics_rows(out)]
+    rows = _metrics_rows(out)
+    losses = [r["loss"] for r in rows]
+    check(len(losses) == TRAIN_SPLIT_STEPS, f"{len(losses)} loss rows")
     check(all(math.isfinite(x) for x in losses), f"non-finite {losses}")
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    split = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    for name in split:
         check(launches[name] == 12 * TRAIN_SPLIT_STEPS,
               f"split: {name} launched {launches[name]} times")
     check(launches["flash_bwd_fused"] == 0, "split run took the fused kernel")
-    _check_designs({"flash_fwd": designs["flash_fwd"]}, "wgmma",
+    _check_designs({n: designs[n] for n in split}, "wgmma",
                    "train_split (bf16, head dim 64)")
+    # As in phase train: each row's rate covers one whole step.
+    step_s = float(np.median([1.0 / r["steps_per_sec"] for r in rows[3:]]))
     emit({"phase": "train_split", "steps": TRAIN_SPLIT_STEPS,
-          "losses": losses, "launches": launches,
-          "launches_by_design": designs})
+          "batch": 8, "seq": 1024, "median_step_s": step_s,
+          "tokens_per_s": 8 * 1024 / step_s, "losses": losses,
+          "launches": launches, "launches_by_design": designs})
     return launches, designs
 
 
@@ -822,10 +854,10 @@ def phase_train_parity(tmp: str) -> None:
         runs[name] = {"losses": [r["loss"] for r in _metrics_rows(out)],
                       "launches": launches, "launches_by_design": designs}
         if impl == "flash":
-            _check_designs({"flash_fwd": designs["flash_fwd"]}, "simt",
+            names = (("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if split
+                     else ("flash_fwd", "flash_bwd_fused"))
+            _check_designs({n: designs[n] for n in names}, "simt",
                            f"parity {name} (f32)")
-            if not split:
-                _check_designs(designs, "simt", f"parity {name} (f32)")
     want = runs["naive"]["losses"]
     check(runs["naive"]["launches"]["flash_fwd"] == 0, "naive took flash")
     for name in ("flash_fused", "flash_split"):
@@ -857,19 +889,21 @@ def _rel_diffs(got: list, want: list) -> float:
 def phase_train_bf16_parity(tmp: str) -> None:
     """bfloat16, 2 layers at full width, batch 4: the same 4 steps (lr 0
     on the first, then the full rate) with flash on the tensor-core
-    kernels and with naive attention; then the control, flash with the
-    backward's gradients zeroed, which must fail the limits."""
+    kernels (the fused backward, then the split pair) and with naive
+    attention; then the control, flash with the backward's gradients
+    zeroed, which must fail the limits."""
     from distributed_training_tpu_torch.ops import flash_attention as fa
     from distributed_training_tpu_torch.train import cli
 
     runs = {}
-    for name in ("naive", "flash", "zeroed_attention_grads"):
+    for name in ("naive", "flash", "flash_split", "zeroed_attention_grads"):
         impl = "naive" if name == "naive" else "flash"
         out = os.path.join(tmp, f"bf16_parity_{name}")
         _reset_counts()
         real = fa.flash_bwd
         if name == "zeroed_attention_grads":
             fa.flash_bwd = _zeroed(real)
+        fa.FORCE_SPLIT_BWD = name == "flash_split"
         try:
             check(cli.main(_train_overrides(
                 out, 4, batch=4,
@@ -878,6 +912,7 @@ def phase_train_bf16_parity(tmp: str) -> None:
                 f"bf16 parity run {name} failed")
         finally:
             fa.flash_bwd = real
+            fa.FORCE_SPLIT_BWD = False
         rows = _metrics_rows(out)
         runs[name] = {"losses": [r["loss"] for r in rows],
                       # The first row (the warm-up step) logs none.
@@ -886,7 +921,7 @@ def phase_train_bf16_parity(tmp: str) -> None:
                       "launches": _read_counts(),
                       "launches_by_design": _read_designs()}
     want = runs["naive"]
-    for name in ("flash", "zeroed_attention_grads"):
+    for name in ("flash", "flash_split", "zeroed_attention_grads"):
         got = runs[name]
         check(len(got["losses"]) == len(want["losses"]) == 4
               and len(got["grad_norms"]) == len(want["grad_norms"]) == 3,
@@ -900,27 +935,37 @@ def phase_train_bf16_parity(tmp: str) -> None:
                          and got["grad_norm_rel_diff"]
                          <= TRAIN_BF16_GRAD_NORM_RTOL)
     check(runs["naive"]["launches"]["flash_fwd"] == 0, "naive took flash")
-    designs = runs["flash"]["launches_by_design"]
-    _check_designs(designs, "wgmma", "bf16 parity")
-    for name in ("flash_fwd", "flash_bwd_fused"):
-        check(designs[name]["wgmma"] == 2 * 4,
-              f"bf16 parity: {name} wgmma launches {designs[name]}")
+    for run, names in (("flash", ("flash_fwd", "flash_bwd_fused")),
+                       ("flash_split", ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv"))):
+        designs = runs[run]["launches_by_design"]
+        _check_designs({n: designs[n] for n in names}, "wgmma",
+                       f"bf16 parity {run}")
+        for name in names:
+            check(designs[name]["wgmma"] == 2 * 4,
+                  f"bf16 parity {run}: {name} wgmma launches "
+                  f"{designs[name]}")
     emit({"phase": "train_bf16_parity", "dtype": "bfloat16", "n_layers": 2,
           "batch": 4, "steps": 4, "warmup_steps": 1,
           "loss_rtol": TRAIN_BF16_PARITY_RTOL,
           "grad_norm_rtol": TRAIN_BF16_GRAD_NORM_RTOL, **runs})
-    check(runs["flash"]["within"],
-          f"bf16 parity: flash vs naive outside the limits: {runs['flash']}")
+    for run in ("flash", "flash_split"):
+        check(runs[run]["within"],
+              f"bf16 parity: {run} vs naive outside the limits: {runs[run]}")
     check(not runs["zeroed_attention_grads"]["within"],
           "bf16 parity: the control with zeroed attention gradients passed")
 
 
-def phase_train_trace() -> None:
+def phase_train_trace(split: bool = False) -> None:
     """Where a training step's time goes: 3 steps at full width under
-    ``torch.profiler``, after 2 unprofiled ones."""
+    ``torch.profiler``, after 2 unprofiled ones, with the fused backward
+    or (``split``) the split pair. ``host_attention_bwd_us`` is the host
+    time of the attention backward's autograd nodes (dispatch and
+    launches; the profiler inflates it alike on both paths)."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_training_tpu_torch.config import load_config
+    from distributed_training_tpu_torch.ops import flash_attention as fa
     from distributed_training_tpu_torch.data import (
         ShardedDataLoader,
         build_dataset,
@@ -939,21 +984,36 @@ def phase_train_trace() -> None:
                         device=rt.device, **cfg.model.kwargs)
     trainer = Trainer(cfg, rt, model, loader)
     batches = iter(loader.epoch(0))
-    for _ in range(2):
-        trainer.train_step(next(batches))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
+    fa.FORCE_SPLIT_BWD = split
+    try:
+        for _ in range(2):
             trainer.train_step(next(batches))
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        _reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                trainer.train_step(next(batches))
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        fa.FORCE_SPLIT_BWD = False
     batches.close()
+    launches = _read_counts()
+    bwd = ("flash_bwd_dq", "flash_bwd_dkv") if split else ("flash_bwd_fused",)
+    check(all(launches[n] == 12 * 3 for n in bwd),
+          f"train_trace split={split}: backward launches {launches}")
     dev = _device_time(prof, wall_us, top_n=12)
-    emit({"phase": "train_trace", "steps": 3, "batch": 8, "seq": 1024,
-          **dev, "device_ms_per_step": dev["device_busy_us"] / 3e3,
-          "attention_share": dev["flash_us"] / dev["device_busy_us"]})
+    host_bwd = sum(e.cpu_time_total for e in prof.events()
+                   if e.name.startswith("autograd::engine::evaluate_function")
+                   and "_FlashAttentionBackward" in e.name)
+    emit({"phase": "train_trace_split" if split else "train_trace",
+          "steps": 3, "batch": 8, "seq": 1024, **dev,
+          "host_ms_per_step": wall_us / 3e3,
+          "device_ms_per_step": dev["device_busy_us"] / 3e3,
+          "attention_share": dev["flash_us"] / dev["device_busy_us"],
+          "host_attention_bwd_us": host_bwd, "launches": launches})
 
 
 def main() -> int:
@@ -982,6 +1042,7 @@ def main() -> int:
         phase_train_parity(tmp)
         phase_train_bf16_parity(tmp)
     phase_train_trace()
+    phase_train_trace(split=True)
     # The sources of the designs the main paths' launches took (checked
     # below from their counts).
     sources = {
@@ -992,10 +1053,10 @@ def main() -> int:
             "distributed_training_tpu_torch/csrc/flash_bwd_sm90.cu",
             "distributed_training_tpu/ops/flash_attention.py:398"),
         "flash_bwd_dq": (
-            "distributed_training_tpu_torch/csrc/flash_bwd.cu",
+            "distributed_training_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
             "distributed_training_tpu/ops/flash_attention.py:296"),
         "flash_bwd_dkv": (
-            "distributed_training_tpu_torch/csrc/flash_bwd.cu",
+            "distributed_training_tpu_torch/csrc/flash_bwd_sm90.cu",
             "distributed_training_tpu/ops/flash_attention.py:346"),
         "paged_decode": (
             "distributed_training_tpu_torch/csrc/paged_decode.cu",

@@ -1,24 +1,27 @@
-// Flash-attention fused backward on Hopper's tensor cores (sm_90a), plain
-// C interface: bf16 q/k/v/dO at head dim 64 or 128.
-//
-// Replaces the Pallas TPU kernel distributed_training_tpu/ops/
-// flash_attention.py::_bwd_fused_kernel (launched by _flash_bwd_fused) on
-// the port's bf16 route; csrc/flash_bwd.cu keeps the SIMT fused kernel for
-// f32 and the other head dims, and the split pair (the routing is
-// ops/flash_attention.py::_design). Same function as flash_bwd.cu's fused
-// kernel: from the forward's lse and delta = rowsum(dO * O) (both f32, (B,
-// H, S)), dq, dk and dv in one sweep; dq is added into a zeroed f32 (B, H,
-// S, D) buffer that the wrapper casts; dk and dv are written per q-head in
-// the gradient type (bf16 or f32) and the wrapper sums each GQA group. The
+// Flash-attention backward on Hopper's tensor cores (sm_90a), plain C
+// interface: bf16 q/k/v/dO at head dim 64 or 128. One kernel, templated on
+// whether it carries dq (DQ), gives two entry points:
+//   - flash_bwd_sm90 (DQ = true) replaces the Pallas TPU kernel
+//     distributed_training_tpu/ops/flash_attention.py::_bwd_fused_kernel
+//     (launched by _flash_bwd_fused): dq, dk and dv in one sweep;
+//   - flash_bwd_dkv_sm90 (DQ = false) replaces _bwd_dkv_kernel (the split
+//     path of _flash_bwd): dk and dv alone, accumulated over the q-tiles.
+// csrc/flash_bwd_dq_sm90.cu is the split path's dq kernel; csrc/
+// flash_bwd.cu keeps the SIMT kernels for f32 and the other head dims (the
+// routing is ops/flash_attention.py::_design). Same function as
+// flash_bwd.cu's kernels: from the forward's lse and delta = rowsum(dO * O)
+// (both f32, (B, H, S)), dk and dv per q-head in the gradient type (bf16 or
+// f32), which the wrapper sums over each GQA group; with DQ, dq is added
+// into a zeroed f32 (B, H, S, D) buffer that the wrapper casts. The
 // rounding points are the TPU kernels' and the plain version's: p is
 // rounded to dO's type before the dv product, ds to q's type before the
 // dk and dq products, every sum in f32.
 //
 // What bounds it: at the training shape (B 8, H 12, S 1024, D 64, causal)
-// the work is 10 D flops per live pair, 32.2 GFLOP, against 89 MB of
+// the fused work is 10 D flops per live pair, 32.2 GFLOP, against 89 MB of
 // inputs and outputs: operations bound, 0.033 ms at the bf16 tensor-core
-// rate. The previous SIMT kernel took 109x that on f32 FMAs, with one
-// scalar atomicAdd per dq element.
+// rate; dk/dv alone are 8 D flops a pair, 0.026 ms. The previous SIMT
+// kernels took 109x (fused) and 93x (dk/dv) that on f32 FMAs.
 //
 // Design (FlashAttention-3's backward in its transposed form, so that
 // every product is a legal wgmma). One warpgroup per (k-tile of 64 keys,
@@ -33,17 +36,20 @@
 //   dS^T = P^T (dP^T - delta) scale
 //   dV  += P^T dO        (A = P^T as bf16 from registers, B = dO MN-major)
 //   dK  += dS^T Q        (A = dS^T as bf16 from registers, B = Q MN-major)
-//   dQ   = dS K          (dS^T written to shared memory as bf16 and read
-//                         back as an MN-major A; B = K MN-major)
+//   dQ   = dS K          (DQ only: dS^T written to shared memory as bf16
+//                         and read back as an MN-major A; B = K MN-major)
 // The exponent is formed as the plain version forms it, s scale - lse in
 // one fma, and only then scaled by log2(e): folding log2(e) into both
 // terms (s scale log2e - lse log2e) subtracts two numbers near 10 and
 // leaves p about 1e-6 off, which flips the bf16 rounding of p and ds ten
 // times as often as the products' summation order does. dK and dV stay in
-// f32 registers for the whole band. Each dQ tile is added
-// to device memory with vector reductions (float4 atomicAdd, red.global
-// .add.v4.f32): neighbouring lanes swap halves so each holds four adjacent
-// columns of one row. Their order still changes from run to run.
+// f32 registers for the whole band and are written once. With DQ, each dQ
+// tile is added to device memory with vector reductions (float4
+// atomicAdd, red.global.add.v4.f32): neighbouring lanes swap halves so
+// each holds four adjacent columns of one row; their order changes from
+// run to run. Without DQ the kernel has no dS^T tile in shared memory
+// (8 KB less a block), no third product and no reductions: it uses no
+// atomics and gives the same bits on every run.
 
 #include <math.h>
 #include <stdint.h>
@@ -65,8 +71,10 @@ struct Smem {
   static constexpr int kKV = kBK * D * 2;        // the K or the V tile, bytes
   static constexpr int kQ = kBQ * D * 2;         // one Q or dO tile
   static constexpr int kStage = 2 * kQ + 1024;   // Q, dO, then lse and delta (64 floats each)
-  static constexpr int kDS = kBK * kBQ * 2;      // dS^T in bf16
-  static constexpr int kBytes = 2 * kKV + 2 * kStage + kDS + 1024;  // + alignment slack
+  static constexpr int kDS = kBK * kBQ * 2;      // dS^T in bf16 (DQ only)
+  static constexpr int bytes(bool dq) {           // + 1024-byte alignment slack
+    return 2 * kKV + 2 * kStage + (dq ? kDS : 0) + 1024;
+  }
 };
 
 struct Args {
@@ -76,7 +84,7 @@ struct Args {
   const void* dout;
   const float* lse;
   const float* delta;
-  float* dq;
+  float* dq;  // null without DQ
   void* dk;
   void* dv;
   int B, H, Hkv, S, Sk, causal, window;
@@ -122,7 +130,7 @@ __device__ __forceinline__ void add_dq(float* dqb, const float (&d)[32], int row
   }
 }
 
-template <int D, typename TG>
+template <int D, typename TG, bool DQ>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -135,7 +143,7 @@ flash_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint8_t* const gbase = smem + (sK - raw);  // generic pointer to sK
   const uint32_t sV = sK + Smem<D>::kKV;
   const uint32_t sStage = sV + Smem<D>::kKV;
-  const uint32_t sDS = sStage + 2 * Smem<D>::kStage;
+  [[maybe_unused]] const uint32_t sDS = sStage + 2 * Smem<D>::kStage;  // DQ only
 
   const int k0 = blockIdx.x * kBK;
   const int h = blockIdx.y;
@@ -146,7 +154,6 @@ flash_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* dob = dout + bh * S * D;
   const float* lb = lse + bh * S;
   const float* deb = delta + bh * S;
-  float* dqb = dq + bh * S * D;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -178,7 +185,7 @@ flash_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t sdO = sQ + Smem<D>::kQ;
     const float* sL = reinterpret_cast<const float*>(gbase + (sQ - sK) + 2 * Smem<D>::kQ);
     const float* sDe = sL + kBQ;
-    __syncthreads();  // every thread is done with the other stage and with dS^T
+    __syncthreads();  // every thread is done with the other stage (and dS^T)
     if (t + 1 < t_hi) {
       load_stage<D>(sStage + (st ^ 1) * Smem<D>::kStage, qb, dob, lb, deb, (t + 1) * kBQ, S);
     }
@@ -241,34 +248,41 @@ flash_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       Wgmma<D>::template rs<1>(dk_acc, dsa[kk], desc_mn(sQ, kBQ, kk));
     }
     wgmma_commit();
-    // dS^T (keys x queries) into shared memory for dQ, under the products.
+    if constexpr (DQ) {
+      // dS^T (keys x queries) into shared memory for dQ, under the products.
 #pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk)
+      for (int kk = 0; kk < kBQ / 16; ++kk)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        st_shared_u32(sDS + swz(kBK, r0 + 8 * (j & 1), 16 * kk + 8 * (j >> 1) + c0), dsa[kk][j]);
-      }
+        for (int j = 0; j < 4; ++j) {
+          st_shared_u32(sDS + swz(kBK, r0 + 8 * (j & 1), 16 * kk + 8 * (j >> 1) + c0),
+                        dsa[kk][j]);
+        }
+    }
     wgmma_wait<0>();
     fence_regs(dv_acc);
     fence_regs(dk_acc);
-    fence_async_smem();
-    __syncthreads();
+    if constexpr (DQ) {
+      fence_async_smem();
+      __syncthreads();
 
-    // dQ = dS K by 64-column blocks of D: A = dS, i.e. dS^T read MN-major.
+      // dQ = dS K by 64-column blocks of D: A = dS, i.e. dS^T read MN-major.
+      float* dqb = dq + bh * S * D;
 #pragma unroll
-    for (int half = 0; half < D / 64; ++half) {
-      float dqa[32];
+      for (int half = 0; half < D / 64; ++half) {
+        float dqa[32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
-      wgmma_fence();
+        for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        Wgmma<64>::ss<1, 1>(dqa, desc_mn(sDS, kBK, kk), desc_mn(sK + half * kBK * 128, kBK, kk));
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          Wgmma<64>::ss<1, 1>(dqa, desc_mn(sDS, kBK, kk),
+                              desc_mn(sK + half * kBK * 128, kBK, kk));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dqa);
+        add_dq(dqb, dqa, q0 + r0, 64 * half + c0, S, D, lane);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dqa);
-      add_dq(dqb, dqa, q0 + r0, 64 * half + c0, S, D, lane);
     }
   }
 
@@ -288,13 +302,14 @@ flash_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, typename TG>
+template <int D, typename TG, bool DQ>
 cudaError_t launch(const Args& a) {
-  auto kern = flash_bwd_sm90_kernel<D, TG>;
-  cudaError_t err = dtt::allow_smem(kern, Smem<D>::kBytes);
+  auto kern = flash_bwd_sm90_kernel<D, TG, DQ>;
+  constexpr int kBytes = Smem<D>::bytes(DQ);
+  cudaError_t err = dtt::allow_smem(kern, kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sk + kBK - 1) / kBK, a.H, a.B);
-  kern<<<grid, kThreads, Smem<D>::kBytes, a.stream>>>(
+  kern<<<grid, kThreads, kBytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta, a.dq,
       static_cast<TG*>(a.dk), static_cast<TG*>(a.dv), a.H, a.Hkv, a.S, a.Sk, a.causal,
@@ -302,11 +317,20 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename TG>
-cudaError_t by_head_dim(const Args& a, int D) {
-  if (D == 64) return launch<64, TG>(a);
-  if (D == 128) return launch<128, TG>(a);
-  return cudaErrorInvalidValue;
+template <bool DQ>
+int dispatch(const Args& a, int D, int grad_dtype) {
+  if (a.B <= 0 || a.H <= 0 || a.Hkv <= 0 || a.H % a.Hkv || a.S <= 0 || a.Sk <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaErrorInvalidValue;
+  if (grad_dtype == dtt::kBF16) {
+    if (D == 64) err = launch<64, bf16, DQ>(a);
+    if (D == 128) err = launch<128, bf16, DQ>(a);
+  } else if (grad_dtype == dtt::kF32) {
+    if (D == 64) err = launch<64, float, DQ>(a);
+    if (D == 128) err = launch<128, float, DQ>(a);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -321,19 +345,21 @@ int flash_bwd_sm90(const void* q, const void* k, const void* v, const void* dout
                    const void* lse, const void* delta, void* dq_acc, void* dk, void* dv, int B,
                    int H, int Hkv, int S, int Sk, int D, int causal, int window, float scale,
                    int grad_dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || S <= 0 || Sk <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<float*>(dq_acc), dk, dv, B, H, Hkv, S, Sk, causal, window, scale,
                static_cast<cudaStream_t>(stream)};
-  cudaError_t err = cudaErrorInvalidValue;
-  if (grad_dtype == dtt::kBF16) {
-    err = by_head_dim<bf16>(a, D);
-  } else if (grad_dtype == dtt::kF32) {
-    err = by_head_dim<float>(a, D);
-  }
-  return static_cast<int>(err);
+  return dispatch<true>(a, D, grad_dtype);
+}
+
+// The split path's dk/dv kernel: the same arguments without dq.
+int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+                       int Hkv, int S, int Sk, int D, int causal, int window, float scale,
+                       int grad_dtype, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+               nullptr, dk, dv, B, H, Hkv, S, Sk, causal, window, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(a, D, grad_dtype);
 }
 
 const char* flash_bwd_sm90_error_string(int code) {

@@ -27,7 +27,7 @@ PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_DIR = os.path.join(PKG, "build")
 KERNELS = ("flash_fwd", "flash_bwd", "paged_decode", "flash_fwd_sm90",
-           "flash_bwd_sm90")
+           "flash_bwd_sm90", "flash_bwd_dq_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,16 +3,18 @@
 - ``flash_fwd`` is the counterpart of the JAX package's ``_flash_fwd``:
   it launches a kernel that replaces the Pallas ``_fwd_kernel``.
 - ``flash_bwd`` is the counterpart of ``_flash_bwd``: by default the
-  fused kernel (dk/dv with an f32 dq added in device memory, replacing
-  ``_bwd_fused_kernel``), or with ``DTT_FLASH_SPLIT_BWD=1`` the split
-  pair of ``csrc/flash_bwd.cu`` (replacing ``_bwd_dq_kernel`` and
+  fused kernel (``flash_bwd_fused``: dk/dv with an f32 dq added in
+  device memory, replacing ``_bwd_fused_kernel``), or with
+  ``DTT_FLASH_SPLIT_BWD=1`` the split pair (``flash_bwd_dq`` and
+  ``flash_bwd_dkv``, replacing ``_bwd_dq_kernel`` and
   ``_bwd_dkv_kernel``). It keeps the JAX hooks ring callers use: a
   precomputed ``delta`` and ``grads_dtype``.
-- ``_design`` picks the forward's and the fused backward's kernel by
-  input dtype and head dim: "wgmma" (``csrc/flash_fwd_sm90.cu``,
-  ``csrc/flash_bwd_sm90.cu``: bf16 tensor-core products) for bf16 at
-  head dim 64 or 128, "simt" (``csrc/flash_fwd.cu``,
-  ``csrc/flash_bwd.cu``: f32 FMAs) for f32 and every other head dim.
+- ``_design`` picks every one of these kernels by input dtype and head
+  dim: "wgmma" (bf16 tensor-core products: ``csrc/flash_fwd_sm90.cu``;
+  ``csrc/flash_bwd_sm90.cu`` for the fused kernel and the split dk/dv;
+  ``csrc/flash_bwd_dq_sm90.cu`` for the split dq) for bf16 at head dim
+  64 or 128, "simt" (f32 FMAs: ``csrc/flash_fwd.cu``,
+  ``csrc/flash_bwd.cu``) for f32 and every other head dim.
 - ``flash_attention`` is a ``torch.autograd.Function`` over the two that
   saves (q, k, v, out, lse), so the backward never re-runs the forward.
 
@@ -110,9 +112,10 @@ def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _design(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel the forward and the fused backward launch for inputs
-    of ``dtype`` at ``head_dim``: "wgmma" or "simt". A declared choice,
-    not a fallback: a tensor-core kernel that fails raises."""
+    """The kernel every flash wrapper (forward, fused backward, split dq
+    and dk/dv) launches for inputs of ``dtype`` at ``head_dim``: "wgmma"
+    or "simt". A declared choice, not a fallback: a tensor-core kernel
+    that fails raises."""
     if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
@@ -302,6 +305,19 @@ def _bwd_sm90_lib() -> ctypes.CDLL:
     lib.flash_bwd_sm90.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.flash_bwd_dkv_sm90.restype = ctypes.c_int
+    lib.flash_bwd_dkv_sm90.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
+def _bwd_dq_sm90_lib() -> ctypes.CDLL:
+    lib = build.load("flash_bwd_dq_sm90")
+    lib.flash_bwd_dq_sm90.restype = ctypes.c_int
+    lib.flash_bwd_dq_sm90.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return lib
 
 
@@ -360,45 +376,67 @@ def _group_sum(g, Hkv: int, gdt):
     return g.to(gdt)
 
 
-def _launch_dkv(ops, dims, dq_acc, dk, dv):
+def _launch_dkv(ops, dims, dq_acc, dk, dv, design):
+    """The dk/dv kernel of ``design``: with an f32 dq accumulator the
+    fused kernel, without one (None) the split path's dk/dv kernel."""
     q = ops[0]
-    lib = _bwd_lib()
-    code = lib.flash_bwd_dkv(
-        *(t.data_ptr() for t in ops),
-        dq_acc.data_ptr() if dq_acc is not None else None,
-        dk.data_ptr(), dv.data_ptr(), *dims, q.shape[3] ** -0.5,
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[dk.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, "flash_bwd", code)
+    ptrs = [t.data_ptr() for t in ops]
+    tail = (*dims, q.shape[3] ** -0.5)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    gcode = _DTYPE_CODE[dk.dtype]
+    if design == "wgmma":
+        lib, name = _bwd_sm90_lib(), "flash_bwd_sm90"
+        if dq_acc is None:
+            code = lib.flash_bwd_dkv_sm90(*ptrs, dk.data_ptr(),
+                                          dv.data_ptr(), *tail, gcode, stream)
+        else:
+            code = lib.flash_bwd_sm90(*ptrs, dq_acc.data_ptr(),
+                                      dk.data_ptr(), dv.data_ptr(), *tail,
+                                      gcode, stream)
+    else:
+        lib, name = _bwd_lib(), "flash_bwd"
+        code = lib.flash_bwd_dkv(
+            *ptrs, dq_acc.data_ptr() if dq_acc is not None else None,
+            dk.data_ptr(), dv.data_ptr(), *tail, _DTYPE_CODE[q.dtype], gcode,
+            stream)
+    build.check(lib, name, code)
 
 
-def _launch_bwd_sm90(ops, dims, dq_acc, dk, dv):
+def _launch_dq(ops, dims, dq, design):
+    """The split path's dq kernel of ``design``."""
     q = ops[0]
-    lib = _bwd_sm90_lib()
-    code = lib.flash_bwd_sm90(
-        *(t.data_ptr() for t in ops), dq_acc.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), *dims, q.shape[3] ** -0.5, _DTYPE_CODE[dk.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, "flash_bwd_sm90", code)
+    ptrs = [t.data_ptr() for t in ops] + [dq.data_ptr()]
+    tail = (*dims, q.shape[3] ** -0.5)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if design == "wgmma":
+        lib, name = _bwd_dq_sm90_lib(), "flash_bwd_dq_sm90"
+        code = lib.flash_bwd_dq_sm90(*ptrs, *tail, _DTYPE_CODE[dq.dtype],
+                                     stream)
+    else:
+        lib, name = _bwd_lib(), "flash_bwd"
+        code = lib.flash_bwd_dq(*ptrs, *tail, _DTYPE_CODE[q.dtype],
+                                _DTYPE_CODE[dq.dtype], stream)
+    build.check(lib, name, code)
 
 
 def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool,
                     window: int = 0, grads_dtype=None):
     """The fused backward kernel (B2's counterpart) that ``_design``
-    picks, on CUDA tensors: (dq, dk, dv), dk/dv group-summed to Hkv
-    heads. dq is added into a zeroed f32 buffer by atomics (vector
-    reductions on the wgmma route), cast to the gradient dtype after.
-    Counts its launches in ``flash_bwd_fused.launches`` and
-    ``flash_bwd_fused.launches_by_design``."""
+    picks: (dq, dk, dv), dk/dv group-summed to Hkv heads. dq is added
+    into a zeroed f32 buffer by atomics (vector reductions on the wgmma
+    route), cast to the gradient dtype after. Counts its launches in
+    ``flash_bwd_fused.launches`` and ``flash_bwd_fused.launches_by_design``.
+    CPU tensors run ``flash_bwd_reference``."""
+    if not q.is_cuda:
+        return flash_bwd_reference(q, k, v, None, lse, do, causal=causal,
+                                   window=window, delta=delta,
+                                   grads_dtype=grads_dtype)
     ops, dims, gdt = _bwd_args(q, k, v, do, lse, delta, causal, window,
                                grads_dtype)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = _dkv_out(q, k, gdt)
     design = _design(q.dtype, q.shape[3])
-    if design == "wgmma":
-        _launch_bwd_sm90(ops, dims, dq, dk, dv)
-    else:
-        _launch_dkv(ops, dims, dq, dk, dv)
+    _launch_dkv(ops, dims, dq, dk, dv, design)
     flash_bwd_fused.launches += 1
     flash_bwd_fused.launches_by_design[design] += 1
     Hkv = k.shape[1]
@@ -407,39 +445,52 @@ def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool,
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
                   window: int = 0, grads_dtype=None):
-    """The split path's dk/dv kernel (B3b's counterpart) on CUDA tensors:
-    (dk, dv) group-summed to Hkv heads; no atomics. Counts its launches
-    in ``flash_bwd_dkv.launches``."""
+    """The split path's dk/dv kernel (B3b's counterpart) that
+    ``_design`` picks: (dk, dv) group-summed to Hkv heads; no atomics,
+    the same bits on every run. Counts its launches in
+    ``flash_bwd_dkv.launches`` and ``flash_bwd_dkv.launches_by_design``.
+    CPU tensors run ``flash_bwd_reference``."""
+    if not q.is_cuda:
+        return flash_bwd_reference(q, k, v, None, lse, do, causal=causal,
+                                   window=window, delta=delta,
+                                   grads_dtype=grads_dtype)[1:]
     ops, dims, gdt = _bwd_args(q, k, v, do, lse, delta, causal, window,
                                grads_dtype)
     dk, dv = _dkv_out(q, k, gdt)
-    _launch_dkv(ops, dims, None, dk, dv)
+    design = _design(q.dtype, q.shape[3])
+    _launch_dkv(ops, dims, None, dk, dv, design)
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.launches_by_design[design] += 1
     Hkv = k.shape[1]
     return _group_sum(dk, Hkv, gdt), _group_sum(dv, Hkv, gdt)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
                  window: int = 0, grads_dtype=None) -> torch.Tensor:
-    """The split path's dq kernel (B3a's counterpart) on CUDA tensors;
-    no atomics. Counts its launches in ``flash_bwd_dq.launches``."""
+    """The split path's dq kernel (B3a's counterpart) that ``_design``
+    picks; no atomics, the same bits on every run. Counts its launches
+    in ``flash_bwd_dq.launches`` and ``flash_bwd_dq.launches_by_design``.
+    CPU tensors run ``flash_bwd_reference``."""
+    if not q.is_cuda:
+        return flash_bwd_reference(q, k, v, None, lse, do, causal=causal,
+                                   window=window, delta=delta,
+                                   grads_dtype=grads_dtype)[0]
     ops, dims, gdt = _bwd_args(q, k, v, do, lse, delta, causal, window,
                                grads_dtype)
     dq = torch.empty(q.shape, dtype=gdt, device=q.device)
-    lib = _bwd_lib()
-    code = lib.flash_bwd_dq(
-        *(t.data_ptr() for t in ops), dq.data_ptr(), *dims,
-        q.shape[3] ** -0.5, _DTYPE_CODE[q.dtype], _DTYPE_CODE[gdt],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, "flash_bwd", code)
+    design = _design(q.dtype, q.shape[3])
+    _launch_dq(ops, dims, dq, design)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches_by_design[design] += 1
     return dq
 
 
 flash_bwd_fused.launches = 0
 flash_bwd_fused.launches_by_design = {"wgmma": 0, "simt": 0}
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_by_design = {"wgmma": 0, "simt": 0}
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_by_design = {"wgmma": 0, "simt": 0}
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,22 +1,29 @@
 """The tensor-core flash kernels' design, held on the CPU.
 
-``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` run only on
-the card. What can go wrong before they get there is checked here:
+``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu`` and
+``csrc/flash_bwd_dq_sm90.cu`` run only on the card. What can go wrong
+before they get there is checked here:
 
 - which kernel a call takes (``_design``: bf16 at head dim 64/128 →
-  "wgmma", everything else → "simt");
+  "wgmma", everything else → "simt"), for the forward, the fused
+  backward and the split pair (dq, dk/dv);
 - a plain-torch emulation of their tile walk: 64 x 64 tiles, the band
   bounds (with the ragged last tile), masks applied only on the tiles
   that need them, exp2 with log2(e) folded into the scale (the backward
   forms s scale - lse first, then scales it), the no-key rule, and the
   backward in its transposed form (S^T = K Q^T,
   dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale) with its rounding
-  points (p before dV, ds before dK and dQ).
+  points (p before dV, ds before dK and dQ), with dq (the fused kernel)
+  or without it (the split dk/dv kernel); and the split dq kernel's
+  q-major walk (S = Q K^T, dP = dO V^T, dQ += dS K over the forward's
+  band).
 
 The emulation is held against the port's plain versions
-(``flash_fwd_reference``, ``flash_bwd_reference``) and against the JAX
-package's ``_naive_attention`` and its ``jax.vjp``, on the same numpy
-inputs from a seed. Tolerances: with f32 inputs and no rounding the
+(``flash_fwd_reference``, ``flash_bwd_reference``), against the JAX
+package's ``_naive_attention`` and its ``jax.vjp``, and (the split
+walks) against the JAX package's split backward kernels
+(``_flash_bwd`` with ``_FORCE_SPLIT_BWD``, in interpret mode), on the
+same numpy inputs from a seed. Tolerances: with f32 inputs and no rounding the
 walk only reorders f32 sums (exp2 of a folded scale in place of exp of
 a scaled logit adds an f32 ulp or two), so 1e-5 abs/rel; with bf16
 inputs and the kernels' rounding points, 2e-2 for the output (one bf16
@@ -43,6 +50,9 @@ from distributed_training_tpu_torch.ops import flash_attention as fa
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from distributed_training_tpu.ops import (  # noqa: E402
+    flash_attention as jax_fa,
+)
 from distributed_training_tpu.ops.attention import (  # noqa: E402
     _naive_attention as jax_naive,
 )
@@ -173,8 +183,11 @@ def emulate_fwd(q, k, v, causal, window, p_dtype=None):
     return out, lse
 
 
-def emulate_bwd(q, k, v, do, lse, delta, causal, window, round_dtype=None):
-    """(dq, dk, dv) in f32, dk/dv summed over each GQA group."""
+def emulate_bwd(q, k, v, do, lse, delta, causal, window, round_dtype=None,
+                with_dq=True):
+    """The transposed walk, one k-tile at a time: (dq, dk, dv) in f32
+    (the fused kernel) or, without dq, (dk, dv) (the split dk/dv
+    kernel); dk/dv summed over each GQA group."""
     B, H, S, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = D ** -0.5
@@ -211,14 +224,59 @@ def emulate_bwd(q, k, v, do, lse, delta, causal, window, round_dtype=None):
                     pb, dsb = rnd(p_t), rnd(ds_t)
                     dvt += pb @ dos
                     dkt += dsb @ qs
-                    n = min(T, S - q0)
-                    dq[b, h, q0:q0 + n] += (dsb.T @ ks)[:n]
+                    if with_dq:
+                        n = min(T, S - q0)
+                        dq[b, h, q0:q0 + n] += (dsb.T @ ks)[:n]
                 n = min(T, Sk - k0)
                 dk[b, h, k0:k0 + n] = dkt[:n]
                 dv[b, h, k0:k0 + n] = dvt[:n]
     group = H // Hkv
-    return (dq, dk.reshape(B, Hkv, group, Sk, D).sum(2),
-            dv.reshape(B, Hkv, group, Sk, D).sum(2))
+    dkv = (dk.reshape(B, Hkv, group, Sk, D).sum(2),
+           dv.reshape(B, Hkv, group, Sk, D).sum(2))
+    return (dq, *dkv) if with_dq else dkv
+
+
+def emulate_bwd_dq(q, k, v, do, lse, delta, causal, window,
+                   round_dtype=None):
+    """The split dq kernel's q-major walk: per q-tile, the forward's band
+    of k-tiles; S = Q K^T and dP = dO V^T, p = exp2((s scale - lse)
+    log2e) masked on the tiles that cross the diagonal, the window's
+    edge or the ragged key end (rows past S are left unmasked: they are
+    never written), ds rounded before dQ += dS K. dq in f32."""
+    B, H, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    scale = D ** -0.5
+
+    def rnd(x):
+        return x.to(round_dtype).float() if round_dtype is not None else x
+
+    dq = torch.zeros(B, H, S, D)
+    for b in range(B):
+        for h in range(H):
+            hk = h // (H // Hkv)
+            for q0 in range(0, S, T):
+                qs = _tile(q[b, h].float(), q0)
+                dos = _tile(do[b, h].float(), q0)
+                ls = _tile(lse[b, h, :, 0], q0)
+                des = _tile(delta[b, h, :, 0], q0)
+                rows = torch.arange(q0, q0 + T)[:, None]
+                acc = torch.zeros(T, D)
+                for t in k_band(q0, Sk, causal, window):
+                    k0 = t * T
+                    ks = _tile(k[b, hk].float(), k0)
+                    s_ = qs @ ks.T                        # queries x keys
+                    dp = dos @ _tile(v[b, hk].float(), k0).T
+                    p = torch.exp2((s_ * scale - ls[:, None]) * LOG2E)
+                    if edge(q0, k0, S + T, Sk, causal, window):
+                        cols = torch.arange(k0, k0 + T)[None, :]
+                        p = torch.where(
+                            _live(rows, cols, S + T, Sk, causal, window),
+                            p, 0.0)
+                    ds = p * (dp - des[:, None]) * scale
+                    acc += rnd(ds) @ ks
+                n = min(T, S - q0)
+                dq[b, h, q0:q0 + n] = acc[:n]
+    return dq
 
 
 # -- inputs and references ----------------------------------------------------
@@ -262,17 +320,119 @@ def test_design_routes_by_dtype_and_head_dim(dtype, head_dim, design):
     assert fa._design(dtype, head_dim) == design
 
 
-def test_cpu_tensors_launch_no_design():
-    """On CPU tensors the wrappers run the plain versions: no design's
-    count moves."""
+WRAPPERS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _counts():
+    return {n: (getattr(fa, n).launches,
+                dict(getattr(fa, n).launches_by_design)) for n in WRAPPERS}
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])
+def test_cpu_tensors_launch_no_design(monkeypatch, split):
+    """On CPU tensors every wrapper runs the plain version: no count
+    moves, and the split pair returns the plain version's gradients."""
+    monkeypatch.setattr(fa, "FORCE_SPLIT_BWD", split)
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
-                   for x in _inputs(0, 1, 2, 2, 64, 64, 64))
-    before = (dict(fa.flash_fwd.launches_by_design),
-              dict(fa.flash_bwd_fused.launches_by_design))
+                   for x in _inputs(0, 1, 4, 2, 64, 64, 64))
+    before = _counts()
     out, lse = fa.flash_fwd(q, k, v, causal=True)
-    fa.flash_bwd(q, k, v, out, lse, do, causal=True)
-    assert (fa.flash_fwd.launches_by_design,
-            fa.flash_bwd_fused.launches_by_design) == before
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    got = fa.flash_bwd(q, k, v, out, lse, do, causal=True)
+    pieces = (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
+              *fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True))
+    fused = fa.flash_bwd_fused(q, k, v, do, lse, delta, causal=True)
+    assert _counts() == before
+    want = fa.flash_bwd_reference(q, k, v, None, lse, do, causal=True,
+                                  delta=delta)
+    for g, p, f, w in zip(got, pieces, fused, want):
+        assert torch.equal(g, w) and torch.equal(p, w) and torch.equal(f, w)
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so that a wrapper
+    takes its kernel branch; the test replaces the launches."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("dtype,head_dim", [
+    (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.float32, 64),
+    (torch.bfloat16, 32), (torch.bfloat16, 96)])
+def test_split_wrappers_route_by_design(monkeypatch, dtype, head_dim):
+    """flash_bwd_dq and flash_bwd_dkv launch the kernel _design picks
+    (the split dk/dv without a dq accumulator), as the fused backward
+    does, and each counts the launch under that design."""
+    design = fa._design(dtype, head_dim)
+    calls = []
+    monkeypatch.setattr(fa, "_bwd_args", lambda q, *a: (
+        [q], [], a[-1] or q.dtype))
+    monkeypatch.setattr(fa, "_launch_dq", lambda ops, dims, dq, d:
+                        calls.append(("dq", d)))
+    monkeypatch.setattr(fa, "_launch_dkv", lambda ops, dims, dq, dk, dv, d:
+                        calls.append(("dkv", d, dq)))
+    q = torch.Tensor._make_subclass(_FakeCuda,
+                                    torch.zeros(1, 2, 64, head_dim, dtype=dtype))
+    k = torch.zeros(1, 2, 64, head_dim, dtype=dtype)
+    before = _counts()
+    fa.flash_bwd_dq(q, k, k, q, None, None, causal=True)
+    fa.flash_bwd_dkv(q, k, k, q, None, None, causal=True)
+    assert calls == [("dq", design), ("dkv", design, None)]
+    after = _counts()
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        n, by = before[name]
+        assert after[name] == (n + 1, dict(by, **{design: by[design] + 1}))
+    for name in ("flash_fwd", "flash_bwd_fused"):
+        assert after[name] == before[name]
+
+
+class _FakeEntry:
+    """A C entry point that checks its call against the argtypes its
+    loader declared."""
+
+    def __init__(self, lib, name):
+        self.lib, self.name, self.argtypes = lib, name, None
+
+    def __call__(self, *args):
+        assert self.argtypes is not None, f"{self.name}: argtypes unset"
+        assert len(args) == len(self.argtypes), (self.name, len(args))
+        self.lib.calls.append((self.lib.name, self.name))
+        return 0
+
+
+class _FakeLib:
+    def __init__(self, name, calls):
+        self.name, self.calls, self.entries = name, calls, {}
+
+    def __getattr__(self, entry):
+        return self.entries.setdefault(entry, _FakeEntry(self, entry))
+
+
+@pytest.mark.parametrize("design", ["wgmma", "simt"])
+def test_launchers_call_the_designs_entry_points(monkeypatch, design):
+    """Each launcher calls the C entry point of its design, with as many
+    arguments as the loader declares: the tensor-core fused kernel
+    (flash_bwd_sm90), the split dk/dv without a dq accumulator
+    (flash_bwd_dkv_sm90) and the split dq (flash_bwd_dq_sm90), or the
+    SIMT ones of csrc/flash_bwd.cu."""
+    calls = []
+    monkeypatch.setattr(fa.build, "load", lambda name: _FakeLib(name, calls))
+    monkeypatch.setattr(fa.torch.cuda, "current_stream",
+                        lambda device: type("S", (), {"cuda_stream": 0}))
+    ops = [torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16)] * 6
+    dims = [1, 2, 2, 64, 64, 64, 1, 0]
+    out = torch.zeros(1, 2, 64, 64)
+    fa._launch_dkv(ops, dims, out, out, out, design)
+    fa._launch_dkv(ops, dims, None, out, out, design)
+    fa._launch_dq(ops, dims, out, design)
+    assert calls == ([("flash_bwd_sm90", "flash_bwd_sm90"),
+                      ("flash_bwd_sm90", "flash_bwd_dkv_sm90"),
+                      ("flash_bwd_dq_sm90", "flash_bwd_dq_sm90")]
+                     if design == "wgmma" else
+                     [("flash_bwd", "flash_bwd_dkv")] * 2
+                     + [("flash_bwd", "flash_bwd_dq")])
 
 
 @pytest.mark.parametrize("S,Sk,causal,window", [
@@ -384,6 +544,108 @@ def test_emulated_backward_bf16_rounding_points(B, H, Hkv, S, Sk, D,
                                   grads_dtype=torch.float32)
     for g, w in zip(got, want):
         _close_rel(g, w, 1e-2)
+
+
+def _split_walks(q, k, v, do, lse, delta, causal, window, round_dtype=None):
+    """(dq, dk, dv) of the split pair's walks: the q-major dq kernel and
+    the transposed dk/dv kernel without dq."""
+    args = (q, k, v, do, lse, delta, causal, window, round_dtype)
+    return (emulate_bwd_dq(*args), *emulate_bwd(*args, with_dq=False))
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,Sk,D,causal,window", CASES, ids=IDS)
+def test_emulated_split_backward_matches_plain_and_jax(B, H, Hkv, S, Sk, D,
+                                                       causal, window):
+    """f32, no rounding: the split dq walk and the dk/dv walk without dq
+    against flash_bwd_reference and jax.vjp of _naive_attention, 1e-5."""
+    q, k, v, do = _inputs(5, B, H, Hkv, S, Sk, D)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = fa.flash_fwd_reference(tq, tk, tv, causal=causal,
+                                      window=window)
+    delta = (tdo * out).sum(-1, keepdim=True)
+    got = _split_walks(tq, tk, tv, tdo, lse, delta, causal, window)
+    want = fa.flash_bwd_reference(tq, tk, tv, None, lse, tdo, causal=causal,
+                                  window=window, delta=delta)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **F32_TOL)
+    jax_grads = _jax_naive(q, k, v, do, causal, window)[1:]
+    for g, w in zip(got, jax_grads):
+        np.testing.assert_allclose(g.numpy(), w, **F32_TOL)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,Sk,D,causal,window", CASES, ids=IDS)
+def test_emulated_split_backward_bf16_rounding_points(B, H, Hkv, S, Sk, D,
+                                                      causal, window):
+    """bf16 inputs, ds rounded to bf16 before dQ and dK and p before dV,
+    where the split kernels round them: within 1e-2 of each gradient's
+    largest magnitude of the plain version (f32 gradients of bf16
+    inputs)."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _inputs(6, B, H, Hkv, S, Sk, D))
+    out, lse = fa.flash_fwd_reference(q, k, v, causal=causal, window=window)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    got = _split_walks(q, k, v, do, lse, delta, causal, window,
+                       round_dtype=torch.bfloat16)
+    want = fa.flash_bwd_reference(q, k, v, None, lse, do, causal=causal,
+                                  window=window, delta=delta,
+                                  grads_dtype=torch.float32)
+    for g, w in zip(got, want):
+        _close_rel(g, w, 1e-2)
+
+
+# Shapes the JAX kernels take (its tiles must divide the sequences):
+# (B, H, Hkv, S, Sk, D, causal, window).
+JAX_SPLIT_CASES = [(1, 2, 2, 128, 128, 64, True, 0),
+                   (1, 4, 2, 192, 192, 64, True, 0),
+                   (1, 4, 1, 128, 128, 64, True, 40),
+                   (1, 2, 1, 128, 128, 128, True, 0),
+                   (1, 2, 2, 64, 128, 64, False, 0)]
+JAX_SPLIT_IDS = ["causal", "gqa-3-tiles", "window-gqa", "d128-gqa",
+                 "noncausal-sq-sk"]
+
+
+def _jax_split_bwd(monkeypatch, q, k, v, do, lse, delta, causal, window,
+                   dtype, grads_dtype=None):
+    """The JAX package's split backward kernels (_bwd_dq_kernel,
+    _bwd_dkv_kernel) in interpret mode, (B, H, S, D) numpy arrays."""
+    monkeypatch.setattr(jax_fa, "_FORCE_SPLIT_BWD", True)
+    got = jax_fa._flash_bwd(
+        *(jnp.asarray(x, dtype) for x in (q, k, v)), None,
+        jnp.asarray(lse), jnp.asarray(do, dtype), causal=causal,
+        block_q=64, block_k=64, window=window, delta=jnp.asarray(delta),
+        grads_dtype=grads_dtype)
+    return [np.array(x, np.float32) for x in got]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,Sk,D,causal,window", JAX_SPLIT_CASES,
+                         ids=JAX_SPLIT_IDS)
+def test_emulated_split_backward_matches_jax_split_kernels(
+        monkeypatch, B, H, Hkv, S, Sk, D, causal, window):
+    """The split walks against the JAX package's own split kernels on the
+    same inputs: f32 at 1e-5; bf16 inputs with the rounding points and
+    f32 gradients at 1e-2 of each gradient's largest magnitude."""
+    q, k, v, do = _inputs(7, B, H, Hkv, S, Sk, D)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = fa.flash_fwd_reference(tq, tk, tv, causal=causal,
+                                      window=window)
+    delta = (tdo * out).sum(-1, keepdim=True)
+    got = _split_walks(tq, tk, tv, tdo, lse, delta, causal, window)
+    want = _jax_split_bwd(monkeypatch, q, k, v, do, lse.numpy(),
+                          delta.numpy(), causal, window, jnp.float32)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **F32_TOL)
+
+    bq, bk, bv, bdo = (x.to(torch.bfloat16) for x in (tq, tk, tv, tdo))
+    out, lse = fa.flash_fwd_reference(bq, bk, bv, causal=causal,
+                                      window=window)
+    delta = (bdo.float() * out.float()).sum(-1, keepdim=True)
+    got = _split_walks(bq, bk, bv, bdo, lse, delta, causal, window,
+                       round_dtype=torch.bfloat16)
+    want = _jax_split_bwd(monkeypatch, q, k, v, do, lse.numpy(),
+                          delta.numpy(), causal, window, jnp.bfloat16,
+                          grads_dtype=jnp.float32)
+    for g, w in zip(got, want):
+        _close_rel(g, torch.from_numpy(w), 1e-2)
 
 
 def _f32_grads_of_bf16_inputs(seed, B=2, H=8, Hkv=2, S=256, D=64):

@@ -10,18 +10,20 @@ ulp is 2**-7 relative, plus summation order), 1e-4 for f32 (summation
 order). The backward kernels' gradients are held with the same
 tolerances relative to each gradient's largest magnitude: dq sums over
 up to S keys, and the fused kernel's atomic dq sums in an order that
-changes from run to run. Each forward and fused-backward case also
-checks that the launch took the design ``_design`` names (bf16 at head
-dim 64/128: the tensor-core kernels; the rest: the SIMT kernels).
+changes from run to run. Each case also checks that the launch took the
+design ``_design`` names (bf16 at head dim 64/128: the tensor-core
+kernels; the rest: the SIMT kernels). The split kernels use no atomics:
+two launches give the same bits.
 
 f32 gradients of bf16 inputs: 1e-4 of the largest gradient on the SIMT
-kernels, which sum the logits in the plain version's order; 1e-3 on the
-tensor-core kernel, which sums them in another: p and ds are rounded to
-bf16 at the same points, but a value on a rounding boundary may round
-the other way, and the plain version against itself with the head-dim
-sum permuted already moves these gradients past 1e-4
-(tests/test_torch_flash_design.py). The plain version's gradients
-rounded to bf16 (half a bf16 ulp, 2e-3 or more of the largest) fail it.
+kernels at head dim 96, which sum the logits in the plain version's
+order there; 1e-3 on the tensor-core kernels (fused and split), which
+sum them in another: p and ds are rounded to bf16 at the same points,
+but a value on a rounding boundary may round the other way, and the
+plain version against itself with the head-dim sum permuted already
+moves these gradients past 1e-4 (tests/test_torch_flash_design.py). The
+plain version's gradients rounded to bf16 (half a bf16 ulp, 2e-3 or more
+of the largest) fail it.
 """
 
 import numpy as np
@@ -189,20 +191,18 @@ def test_flash_bwd_matches_plain(cuda, monkeypatch, split, dtype, H, Hkv,
     monkeypatch.setattr(fa, "FORCE_SPLIT_BWD", split)
     q, k, v, out, lse, do = _bwd_inputs(cuda, 2, H, Hkv, S, D, dtype,
                                         causal, window)
-    counts = (fa.flash_bwd_fused.launches, fa.flash_bwd_dq.launches,
-              fa.flash_bwd_dkv.launches)
+    wrappers = (fa.flash_bwd_fused, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    counts = [f.launches for f in wrappers]
     design = fa._design(dtype, D)
-    by_design = fa.flash_bwd_fused.launches_by_design[design]
+    by_design = [f.launches_by_design[design] for f in wrappers]
     got = fa.flash_bwd(q, k, v, out, lse, do, causal=causal, window=window)
     torch.cuda.synchronize()
     want = fa.flash_bwd_reference(q, k, v, out, lse, do, causal=causal,
                                   window=window)
-    assert (fa.flash_bwd_fused.launches - counts[0],
-            fa.flash_bwd_dq.launches - counts[1],
-            fa.flash_bwd_dkv.launches - counts[2]) == (
-                (0, 1, 1) if split else (1, 0, 0))
-    assert fa.flash_bwd_fused.launches_by_design[design] == (
-        by_design + (0 if split else 1))
+    moved = (0, 1, 1) if split else (1, 0, 0)
+    assert tuple(f.launches - n for f, n in zip(wrappers, counts)) == moved
+    assert tuple(f.launches_by_design[design] - n
+                 for f, n in zip(wrappers, by_design)) == moved
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         _close(g, w, TOL[dtype])
@@ -247,28 +247,78 @@ def test_flash_bwd_fused_wgmma_route(cuda, H, Hkv, Sq, Sk, D, causal,
         assert max(_rel_err(w.to(bf16), w) for w in want) > tol
 
 
+@pytest.mark.parametrize("H,Hkv,Sq,Sk,D,causal,window,grads_dtype", [
+    (4, 4, 200, 200, 64, True, 0, None),
+    (8, 2, 300, 300, 128, True, 90, None),
+    (4, 2, 192, 192, 128, True, 0, torch.float32),
+    (4, 4, 100, 260, 64, False, 0, None),
+    (4, 1, 256, 256, 64, True, 50, torch.float32),
+    (16, 16, 1024, 1024, 128, True, 0, None),
+    (8, 2, 1000, 1000, 128, True, 300, torch.float32)],
+    ids=["ragged", "gqa-window-d128-ragged", "gqa-d128-f32-grads",
+         "noncausal-sq-sk", "gqa-window-f32-grads", "d128-long",
+         "gqa-window-ragged-d128-f32-grads"])
+def test_flash_bwd_split_wgmma_route(cuda, H, Hkv, Sq, Sk, D, causal,
+                                     window, grads_dtype):
+    """The tensor-core split backward on bf16 (B3a dq, B3b dk/dv): GQA,
+    window, lengths that are not a multiple of its 64-row tiles,
+    non-causal Sq != Sk, f32 gradients; each kernel gives the same bits
+    on a second launch."""
+    bf16 = torch.bfloat16
+    q = torch.randn(2, H, Sq, D, generator=cuda, device="cuda").to(bf16)
+    k = torch.randn(2, Hkv, Sk, D, generator=cuda, device="cuda").to(bf16)
+    v = torch.randn(2, Hkv, Sk, D, generator=cuda, device="cuda").to(bf16)
+    do = torch.randn(2, H, Sq, D, generator=cuda, device="cuda").to(bf16)
+    out, lse = fa.flash_fwd_reference(q, k, v, causal=causal, window=window)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, do, lse, delta)
+    kw = dict(causal=causal, window=window, grads_dtype=grads_dtype)
+    before = [dict(f.launches_by_design)
+              for f in (fa.flash_bwd_dq, fa.flash_bwd_dkv)]
+    got = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
+    again = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    for f, b in zip((fa.flash_bwd_dq, fa.flash_bwd_dkv), before):
+        assert f.launches_by_design == dict(b, wgmma=b["wgmma"] + 2)
+    want = fa.flash_bwd_reference(q, k, v, None, lse, do, delta=delta, **kw)
+    tol = TOL[bf16] if grads_dtype is None else WGMMA_GRADS_F32_TOL
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype == (grads_dtype or bf16)
+        assert g.shape == w.shape
+        _close(g, w, tol)
+        assert torch.equal(g, a), "a second launch gave other bits"
+    if grads_dtype is not None:
+        # The control: gradients rounded to bf16 fail the limit.
+        assert max(_rel_err(w.to(bf16), w) for w in want) > tol
+
+
 def test_flash_bwd_hooks_delta_and_grads_dtype(cuda, monkeypatch):
     """The ring callers' hooks: a precomputed delta with out=None, and
-    f32 gradients from bf16 inputs, on every kernel: split (SIMT) and
-    fused on the tensor cores at head dim 64, fused on SIMT at head dim
-    96."""
-    for D, split, design, tol in ((64, True, None, 1e-4),
-                                  (64, False, "wgmma", WGMMA_GRADS_F32_TOL),
-                                  (96, False, "simt", 1e-4)):
+    f32 gradients from bf16 inputs, on every kernel: split and fused on
+    the tensor cores at head dim 64 (1e-3), split and fused on SIMT at
+    head dim 96 (1e-4)."""
+    for D, split, tol in ((64, True, WGMMA_GRADS_F32_TOL),
+                          (64, False, WGMMA_GRADS_F32_TOL),
+                          (96, True, 1e-4), (96, False, 1e-4)):
         q, k, v, out, lse, do = _bwd_inputs(cuda, 2, 8, 2, 256, D,
                                             torch.bfloat16, True, 0)
         delta = (do.float() * out.float()).sum(-1, keepdim=True)
         want = fa.flash_bwd_reference(q, k, v, None, lse, do, causal=True,
                                       delta=delta, grads_dtype=torch.float32)
         monkeypatch.setattr(fa, "FORCE_SPLIT_BWD", split)
-        before = dict(fa.flash_bwd_fused.launches_by_design)
+        wrappers = ((fa.flash_bwd_dq, fa.flash_bwd_dkv) if split
+                    else (fa.flash_bwd_fused,))
+        design = fa._design(torch.bfloat16, D)
+        before = [dict(f.launches_by_design) for f in wrappers]
         got = fa.flash_bwd(q, k, v, None, lse, do, causal=True, delta=delta,
                            grads_dtype=torch.float32)
-        assert fa.flash_bwd_fused.launches_by_design == (
-            before if split else dict(before, **{design: before[design] + 1}))
+        for f, b in zip(wrappers, before):
+            assert f.launches_by_design == dict(b, **{design: b[design] + 1})
         for g, w in zip(got, want):
             assert g.dtype == torch.float32
             _close(g, w, tol)
+        if tol == WGMMA_GRADS_F32_TOL:
+            assert max(_rel_err(w.to(torch.bfloat16), w) for w in want) > tol
 
 
 def test_flash_attention_autograd_on_gpu(cuda):
