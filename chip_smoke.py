@@ -12,7 +12,11 @@ timing both beside a PyTorch library call where one exists. Every flash
 kernel (forward, fused backward, split dq and dk/dv) has two designs
 (``_design``): bf16 at head dim 64/128 takes the tensor-core kernels,
 f32 and other head dims the SIMT ones, and each case reports the design
-its launch took. Then it
+its launch took. Paged decode has one design, ``split_kv`` (the KV walk
+split over blocks, a combine pass): gpt2_125m's serving geometry,
+an f32 GQA case, and transformer_7b's and transformer_1b's attention
+heads over 2048 cached tokens, each also checked for the same bits on a
+second launch. Then it
 drives both main paths at full width of gpt2_125m, random weights from
 a seed:
 
@@ -239,12 +243,15 @@ def _flash_case(timer, B, H, Hkv, S, D, dtype, window=0, out_dtype=None,
     return res
 
 
-def _paged_case(timer, B, H, Hkv, hd, ps, max_len, dtype) -> dict:
-    from distributed_training_tpu_torch.ops import paged_attention as pa
-
+def paged_inputs(B, H, Hkv, hd, ps, max_len, dtype, lengths=None) -> tuple:
+    """Paged-decode operands on the card: shuffled pages, random lengths
+    in [1, max_len] from SEED with the last row 0 (or ``lengths``), page
+    ids past a sequence's pages 0 (the scratch page)."""
     rng = np.random.default_rng(SEED)
-    lengths = rng.integers(1, max_len + 1, size=B).astype(np.int32)
-    lengths[-1] = 0
+    if lengths is None:
+        lengths = rng.integers(1, max_len + 1, size=B).astype(np.int32)
+        lengths[-1] = 0
+    lengths = np.asarray(lengths, np.int32)
     P = max_len // ps
     N = 1 + B * P
     perm = rng.permutation(np.arange(1, N))
@@ -258,25 +265,53 @@ def _paged_case(timer, B, H, Hkv, hd, ps, max_len, dtype) -> dict:
     kp = torch.randn(Hkv, N, ps, hd, generator=g, device="cuda").to(dtype)
     vp = torch.randn(Hkv, N, ps, hd, generator=g, device="cuda").to(dtype)
     q = torch.randn(B, H, hd, generator=g, device="cuda").to(dtype)
-    L = torch.from_numpy(lengths).cuda()
-    T = torch.from_numpy(tables).cuda()
-    out = pa.paged_attention(q, kp, vp, L, T)
+    return (q, kp, vp, torch.from_numpy(lengths).cuda(),
+            torch.from_numpy(tables).cuda()), lengths
+
+
+def paged_bound(args, lengths, dtype) -> tuple[float, str]:
+    """Bytes: the live K/V rows, q and out, lengths and the live table
+    entries; operations: q.k and p.v over the live keys."""
+    q, kp = args[0], args[1]
+    Hkv, _, ps, hd = kp.shape
+    toks = int(lengths.sum())
+    nbytes = (2 * toks * Hkv * hd + 2 * q.numel()) * q.element_size() \
+        + 4 * (len(lengths) + sum(-(-int(n) // ps) for n in lengths))
+    return bound(4.0 * toks * q.shape[1] * hd, nbytes, dtype)
+
+
+def _paged_case(timer, B, H, Hkv, hd, ps, max_len, dtype,
+                lengths=None) -> dict:
+    """Paged decode against its plain version; a second launch must give
+    the same bits (no atomics), and zero-length rows exact zeros."""
+    from distributed_training_tpu_torch.ops import paged_attention as pa
+
+    args, lengths = paged_inputs(B, H, Hkv, hd, ps, max_len, dtype, lengths)
+    before = dict(pa.paged_attention.launches_by_design)
+    out = pa.paged_attention(*args)
     torch.cuda.synchronize()
-    ref = pa.paged_attention(q, kp, vp, L, T, impl="ref")
+    design = _design_taken(pa.paged_attention, before)
+    again = pa.paged_attention(*args)
+    ref = pa.paged_attention(*args, impl="ref")
     err = (out.float() - ref.float()).abs().max().item()
     tol = TOL[dtype]
     check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
-          f"paged_decode max err {err} > {tol}")
-    check(out[-1].abs().max().item() == 0.0, "length-0 row is not zero")
-    toks = int(lengths.sum())
-    nbytes = (2 * toks * Hkv * hd + 2 * q.numel()) * q.element_size() \
-        + 4 * (B + sum(-(-int(n) // ps) for n in lengths))
-    bound_ms, bound_by = bound(4.0 * toks * H * hd, nbytes, dtype)
+          f"paged_decode {B}x{H}/{Hkv} hd {hd} ps {ps} {dtype}: max err "
+          f"{err} > {tol}")
+    check(torch.equal(out, again), "paged_decode: a second launch gave "
+          "other bits")
+    empty = [b for b in range(B) if lengths[b] == 0]
+    check(all(out[b].abs().max().item() == 0.0 for b in empty),
+          "a length-0 row is not zero")
+    splits, pages = pa.split_kv_plan(B, Hkv, max_len // ps, ps)
+    bound_ms, bound_by = paged_bound(args, lengths, dtype)
     return {"shape": [B, H, Hkv, hd, ps], "dtype": str(dtype).split(".")[1],
+            "design": design, "splits": splits, "pages_per_split": pages,
             "lengths": lengths.tolist(), "max_abs_err": err,
-            "ms": timer.ms(lambda: pa.paged_attention(q, kp, vp, L, T)),
+            "bit_identical": True,
+            "ms": timer.ms(lambda: pa.paged_attention(*args)),
             "plain_ms": timer.ms(lambda: pa.paged_attention(
-                q, kp, vp, L, T, impl="ref")),
+                *args, impl="ref")),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
@@ -406,7 +441,14 @@ def phase_kernels() -> dict:
     flash["train"] = _flash_case(timer, 8, 12, 12, 1024, 64, bf16,
                                  library=True)
     paged = {"main": _paged_case(timer, 8, 12, 12, 64, 16, 1024, bf16),
-             "f32_gqa": _paged_case(timer, 8, 12, 4, 64, 16, 1024, f32)}
+             "f32_gqa": _paged_case(timer, 8, 12, 4, 64, 16, 1024, f32),
+             # transformer_7b's attention heads (H 32, Hkv 8, hd 128) over
+             # up to 2048 cached tokens a sequence.
+             "long_gqa": _paged_case(timer, 8, 32, 8, 128, 16, 2048, bf16),
+             # transformer_1b's (H = Hkv 16, hd 128): one sequence of 2048
+             # tokens, which only a split walk spreads over the card.
+             "long_single": _paged_case(timer, 1, 16, 16, 128, 16, 2048,
+                                        bf16, lengths=[2048])}
     emit({"phase": "kernels", "flash_fwd": flash, "paged_decode": paged})
     bwd = {}
     for split in (False, True):
@@ -564,6 +606,8 @@ def phase_serving(prompts: list, new_tokens: int) -> tuple[tuple, dict]:
     check(launches["paged_decode"] >= 12 * decode_launches > 0,
           f"paged decode launches {launches['paged_decode']} < 12 x "
           f"{decode_launches} decode launches")
+    _check_designs({"paged_decode": designs["paged_decode"]}, "split_kv",
+                   "serving")
     generated = sum(len(r["tokens"]) for r in plain) + len(streamed)
     ttfts = [r["ttft_s"] for r in plain] + [final["ttft_s"]]
     info = {"phase": "serving", "model": "gpt2_125m", "dtype": "bfloat16",
@@ -604,6 +648,8 @@ def phase_sequential(prompts: dict, new_tokens: int,
     _check_designs({"flash_fwd": designs["flash_fwd"]}, "wgmma",
                    "sequential (bf16, head dim 64)")
     check(launches["paged_decode"] > 0, "sequential: no decode launch")
+    _check_designs({"paged_decode": designs["paged_decode"]}, "split_kv",
+                   "sequential")
     check(eng.compile_counts() == counts, "kernel builds after warmup")
     same = sum(int(a == b) for i in got
                for a, b in zip(got[i], batched_tokens[i]))
@@ -714,6 +760,9 @@ def _device_time(prof, wall_us: float, top_n: int = 8) -> dict:
             "device_idle_share": 1.0 - busy / wall_us,
             "flash_us": sum(v[0] for k, v in per_name.items()
                             if "flash_" in k),
+            # Paged decode's split kernel and its combine.
+            "paged_decode_us": sum(v[0] for k, v in per_name.items()
+                                   if "paged_" in k),
             "top_kernels": [{"name": k[:80], "us": v[0], "count": v[1],
                              "share": v[0] / busy} for k, v in top]}
 

@@ -11,7 +11,11 @@ Two entry points, as in the JAX package:
 - ``paged_attention`` — single-token decode. On CUDA tensors it launches
   the hand-written kernel ``csrc/paged_decode.cu`` (which replaces the
   TPU Pallas paged-attention kernel) or raises; on CPU tensors it runs
-  ``paged_attention_reference``, the gather-and-mask plain version.
+  ``paged_attention_reference``, the gather-and-mask plain version. The
+  kernel's design, ``split_kv``, cuts each sequence's KV walk into
+  splits of whole pages (``split_kv_plan``, from shapes only), one block
+  per (split, kv head, sequence), and a combine pass merges the splits'
+  partial softmax results (FlashDecoding).
 - ``paged_attention_chunk`` — the multi-query (prefill-chunk) form. It is
   gather code in the JAX package too, with no kernel, and stays plain
   PyTorch here.
@@ -23,6 +27,8 @@ q.dtype, GQA via hkv-major grouping, all-masked rows give zeros.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -117,13 +123,114 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
     return out[:, 0]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("paged_decode")
-    lib.paged_decode.restype = ctypes.c_int
-    lib.paged_decode.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    return lib
+# The split-count rule of the split_kv design. A split is a whole number
+# of pages holding about SPLIT_TOKENS tokens, and there are enough of
+# them that B * Hkv * splits blocks fill the card's SMS streaming
+# multiprocessors (H100 SXM) about BLOCKS_PER_SM times over when every
+# sequence is full; the pages per split are rounded to a power of two,
+# so that splits tile a table of a power of two of pages (every engine
+# configuration's) with no short last split. Only shapes go in: reading
+# ``lengths`` would cost a device-to-host sync on every decode step of
+# every layer.
+SMS = 132
+BLOCKS_PER_SM = 6
+SPLIT_TOKENS = (64, 256)
+
+
+@functools.lru_cache(maxsize=64, typed=True)
+def split_kv_plan(batch: int, n_kv_heads: int, pages_per_seq: int,
+                  page_size: int) -> tuple[int, int]:
+    """(splits, pages per split) of the decode kernel's KV walk.
+
+    Split ``s`` of a sequence walks its logical pages ``[s * pages,
+    (s + 1) * pages)``; ``splits * pages >= pages_per_seq`` and every
+    split starts inside the table. Python ints only: a tensor here
+    would mean a device read on the decode path (the cache is typed, so
+    an int of another type misses it and raises)."""
+    for name, x in (("batch", batch), ("n_kv_heads", n_kv_heads),
+                    ("pages_per_seq", pages_per_seq),
+                    ("page_size", page_size)):
+        if type(x) is not int:
+            raise TypeError(f"split_kv_plan takes Python ints, got {name}="
+                            f"{x!r} ({type(x).__name__})")
+        if x <= 0:
+            raise ValueError(f"split_kv_plan: {name}={x} must be positive")
+    lo = -(-SPLIT_TOKENS[0] // page_size)
+    hi = max(lo, SPLIT_TOKENS[1] // page_size)
+    want = -(-SMS * BLOCKS_PER_SM // (batch * n_kv_heads))
+    pages = -(-pages_per_seq // want)
+    pages = 1 << round(math.log2(pages))
+    pages = min(max(pages, lo), hi)
+    return -(-pages_per_seq // pages), pages
+
+
+def workspace_numel(batch: int, n_heads: int, head_dim: int,
+                    splits: int) -> int:
+    """f32 elements of the combine's workspace: each (sequence, query
+    head, split) keeps an unnormalised accumulator (head_dim) and its
+    running max and sum (2). One split needs none: the kernel writes the
+    output itself."""
+    return batch * n_heads * splits * (head_dim + 2) if splits > 1 else 0
+
+
+def _check_kernel_args(q, k_pages, v_pages, lengths, page_indices, out,
+                       workspace, splits: int) -> None:
+    """Everything the kernel assumes about its operands and cannot
+    check itself, but what the wrapper makes so (q contiguous, out and
+    the workspace fresh allocations); raises ValueError. (Runs on every
+    decode launch, so the common case takes few Python steps.)"""
+    B, H, hd = q.shape
+    if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype:
+        raise ValueError("k_pages and v_pages must match in shape and "
+                         "dtype")
+    if k_pages.shape[3] != hd:
+        raise ValueError(f"pool head_dim {k_pages.shape[3]} != q {hd}")
+    if lengths.shape != (B,) or page_indices.shape[0] != B:
+        raise ValueError("lengths (B,) and page_indices (B, P) must match "
+                         f"q's batch {B}")
+    if not (q.device == v_pages.device == lengths.device
+            == page_indices.device):
+        raise ValueError(f"v_pages, lengths and page_indices must be on "
+                         f"{q.device}")
+    if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
+        raise ValueError(f"lengths and page_indices must be int32, got "
+                         f"{lengths.dtype} and {page_indices.dtype}")
+    # The kernel copies whole pages and reads q in 16-byte vectors.
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("k_pages and v_pages must be contiguous (the pool "
+                         "layer view the engine passes is)")
+    ws_ptr = 0 if workspace is None else workspace.data_ptr()
+    if (q.data_ptr() | k_pages.data_ptr() | v_pages.data_ptr()
+            | out.data_ptr() | ws_ptr) % 16:
+        ops = {"q": q, "k_pages": k_pages, "v_pages": v_pages, "out": out,
+               "workspace": workspace}
+        bad = [n for n, t in ops.items()
+               if t is not None and t.data_ptr() % 16]
+        raise ValueError(f"{', '.join(bad)} must start on a 16-byte "
+                         "boundary")
+    need = workspace_numel(B, H, hd, splits)
+    if need and (workspace is None or workspace.numel() < need
+                 or workspace.dtype != torch.float32):
+        have = 0 if workspace is None else workspace.numel()
+        raise ValueError(f"workspace holds {have} elements, the combine "
+                         f"of {splits} splits needs {need} float32")
+
+
+_ENTRY = None
+
+
+def _entry():
+    """(library, C entry point) of the kernel, loaded (and built) on the
+    first launch, its argument types declared once."""
+    global _ENTRY
+    if _ENTRY is None:
+        lib = build.load("paged_decode")
+        fn = lib.paged_decode
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        _ENTRY = (lib, fn)
+    return _ENTRY
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -137,7 +244,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     slot, zero output); page_indices (B, P) int32. ``impl``: "auto" (the
     kernel for CUDA tensors, the plain version for CPU tensors),
     "kernel" (CUDA only), "ref" (the plain version on any device).
-    ``paged_attention.launches`` counts kernel launches."""
+    ``paged_attention.launches`` counts kernel launches and
+    ``paged_attention.launches_by_design`` the same under the design's
+    name. The kernel reads no device value on the host: the split count
+    comes from shapes (``split_kv_plan``)."""
     if impl not in ("auto", "kernel", "ref"):
         raise ValueError(f"unknown paged-attention impl '{impl}'")
     if impl == "ref" or (impl == "auto" and not q.is_cuda):
@@ -148,40 +258,32 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             f"paged decode kernel cannot take q {tuple(q.shape)} "
             f"{q.dtype} on {q.device} with pools {tuple(k_pages.shape)} "
             f"{k_pages.dtype} on {k_pages.device}")
+    q = q.contiguous()
+    lengths, page_indices = lengths.contiguous(), page_indices.contiguous()
     B, H, hd = q.shape
     Hkv, N, ps, _ = k_pages.shape
     P = page_indices.shape[1]
-    if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype:
-        raise ValueError("k_pages and v_pages must match in shape and "
-                         "dtype")
-    if k_pages.shape[3] != hd:
-        raise ValueError(f"pool head_dim {k_pages.shape[3]} != q {hd}")
-    if lengths.shape != (B,) or page_indices.shape[0] != B:
-        raise ValueError("lengths (B,) and page_indices (B, P) must match "
-                         f"q's batch {B}")
-    for name, t in (("v_pages", v_pages), ("lengths", lengths),
-                    ("page_indices", page_indices)):
-        if t.device != q.device:
-            raise ValueError(f"{name} must be on {q.device}")
-    for name, t in (("lengths", lengths), ("page_indices", page_indices)):
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {t.dtype}")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous (the pool layer "
-                             "view the engine passes is)")
-    q = q.contiguous()
-    lengths, page_indices = lengths.contiguous(), page_indices.contiguous()
+    splits, pages = split_kv_plan(B, Hkv, P, ps)
     out = torch.empty_like(q)
-    lib = _lib()
-    code = lib.paged_decode(
+    workspace = None
+    if splits > 1:
+        workspace = q.new_empty(workspace_numel(B, H, hd, splits),
+                                dtype=torch.float32)
+    _check_kernel_args(q, k_pages, v_pages, lengths, page_indices, out,
+                       workspace, splits)
+    lib, fn = _entry()
+    code = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
-        B, H, Hkv, N, ps, hd, P, hd ** -0.5, _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, "paged_decode", code)
+        None if workspace is None else workspace.data_ptr(),
+        B, H, Hkv, N, ps, hd, P, splits, pages, hd ** -0.5,
+        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if code:
+        build.check(lib, "paged_decode", code)
     paged_attention.launches += 1
+    paged_attention.launches_by_design["split_kv"] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.launches_by_design = {"split_kv": 0}

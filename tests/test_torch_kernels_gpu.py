@@ -12,8 +12,9 @@ tolerances relative to each gradient's largest magnitude: dq sums over
 up to S keys, and the fused kernel's atomic dq sums in an order that
 changes from run to run. Each case also checks that the launch took the
 design ``_design`` names (bf16 at head dim 64/128: the tensor-core
-kernels; the rest: the SIMT kernels). The split kernels use no atomics:
-two launches give the same bits.
+kernels; the rest: the SIMT kernels). The split kernels and paged decode
+(its split_kv walk and combine) use no atomics: two launches give the
+same bits.
 
 f32 gradients of bf16 inputs: 1e-4 of the largest gradient on the SIMT
 kernels at head dim 96, which sum the logits in the plain version's
@@ -134,6 +135,74 @@ def test_paged_decode_matches_plain(cuda, dtype, H, Hkv, hd, ps):
     assert out[2].abs().max().item() == 0.0
 
 
+def _paged_args(cuda, B, H, Hkv, hd, ps, P, lengths, dtype, seed=3):
+    """Shuffled pages for the given lengths (a length past P * ps keeps
+    every page of its row), the table's other entries 0."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths, np.int32)
+    N = 1 + B * P
+    perm = rng.permutation(np.arange(1, N))
+    tables = np.zeros((B, P), np.int32)
+    used = 0
+    for b in range(B):
+        n = min(P, max(0, -(-int(lengths[b]) // ps)))
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    kp = torch.randn(Hkv, N, ps, hd, generator=cuda, device="cuda").to(dtype)
+    vp = torch.randn(Hkv, N, ps, hd, generator=cuda, device="cuda").to(dtype)
+    q = torch.randn(B, H, hd, generator=cuda, device="cuda").to(dtype)
+    return (q, kp, vp, torch.from_numpy(lengths).cuda(),
+            torch.from_numpy(tables).cuda())
+
+
+@pytest.mark.parametrize("B,H,Hkv,hd,ps,P,lengths", [
+    (1, 16, 16, 128, 16, 128, [2048]),
+    (2, 32, 8, 128, 16, 128, [2048, 1037]),
+    (3, 12, 12, 64, 16, 64, [1024, 1500, 0]),
+    (2, 6, 2, 24, 5, 40, [260, 65])],
+    ids=["long_single", "long_gqa", "past-the-table", "ps5-split-edge"])
+def test_paged_decode_split_kv(cuda, B, H, Hkv, hd, ps, P, lengths):
+    """The split walk and its combine at transformer_1b's (long_single)
+    and transformer_7b's (long_gqa) heads, at lengths above P * ps
+    (clamped, as the plain version's mask does) and on a split edge:
+    within TOL of the plain version, the same bits on a second launch,
+    zeros for a length-0 row, one launch of the split_kv design each."""
+    args = _paged_args(cuda, B, H, Hkv, hd, ps, P, lengths, torch.bfloat16)
+    splits, _ = pa.split_kv_plan(B, Hkv, P, ps)
+    assert splits > 1
+    before = dict(pa.paged_attention.launches_by_design)
+    out = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches_by_design == dict(
+        before, split_kv=before["split_kv"] + 2)
+    ref = pa.paged_attention(*args, impl="ref")
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, again), "a second launch gave other bits"
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert out[b].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("which", ["k_pages", "v_pages", "q"])
+def test_paged_decode_misaligned_operand_raises(cuda, which):
+    """A pool layer view or q that does not start on a 16-byte boundary
+    raises ValueError before any launch."""
+    q, kp, vp, L, T = _paged_args(cuda, 2, 4, 2, 64, 16, 4, [40, 9],
+                                  torch.bfloat16)
+    ops = {"q": q, "k_pages": kp, "v_pages": vp}
+    t = ops[which]
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+    shifted = flat[1:].view(t.shape)
+    shifted.copy_(t)
+    ops[which] = shifted
+    n0 = pa.paged_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_attention(ops["q"], ops["k_pages"], ops["v_pages"], L, T)
+    assert pa.paged_attention.launches == n0
+
+
 @pytest.mark.parametrize("mode,chunk", [("batched", 16),
                                         ("sequential", 128)])
 def test_engine_greedy_matches_dense_on_gpu(cuda, mode, chunk):
@@ -149,6 +218,7 @@ def test_engine_greedy_matches_dense_on_gpu(cuda, mode, chunk):
         prefill_chunk=chunk, prefill_mode=mode))
     prompt = np.random.default_rng(2).integers(0, 512, 140).astype(np.int32)
     f0, p0 = fa.flash_fwd.launches, pa.paged_attention.launches
+    d0 = pa.paged_attention.launches_by_design["split_kv"]
     got = eng.generate(prompt, 8)
     ids, want = prompt.tolist(), []
     for _ in range(8):
@@ -157,6 +227,8 @@ def test_engine_greedy_matches_dense_on_gpu(cuda, mode, chunk):
         ids.append(want[-1])
     assert got == want
     assert pa.paged_attention.launches > p0
+    assert (pa.paged_attention.launches_by_design["split_kv"] - d0
+            == pa.paged_attention.launches - p0)
     assert (fa.flash_fwd.launches > f0) is (mode == "sequential")
 
 
