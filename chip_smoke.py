@@ -16,7 +16,8 @@ its launch took. Paged decode has one design, ``split_kv`` (the KV walk
 split over blocks, a combine pass): gpt2_125m's serving geometry,
 an f32 GQA case, and transformer_7b's and transformer_1b's attention
 heads over 2048 cached tokens, each also checked for the same bits on a
-second launch. Then it
+second launch. The cross-entropy's bf16 GEMMs with f32 outputs are held
+against the same products on operands widened to f32. Then it
 drives both main paths at full width of gpt2_125m, random weights from
 a seed:
 
@@ -31,7 +32,16 @@ a seed:
   design) and bfloat16 losses and gradient norms of flash (fused, split;
   tensor cores) against naive attention at reduced depth, with a
   planted fault that must fail the same limits, and profiler traces of
-  training steps with each backward.
+  training steps with each backward;
+- sharded training: transformer_1b at full width (1.41 B params, head
+  dim 128) for 10 steps through the CLI under ``fsdp`` in a NCCL process
+  group of one rank (weights sharded over an fsdp group of one and
+  gathered a layer at a time, the flash kernels at head dim 128 on the
+  tensor cores), with a profiler trace of two steps; and gpt2_125m under
+  ``fsdp`` with a sharded save at step 2, its consolidated artifact, and
+  a resume from it that matches the uninterrupted run bit for bit, as
+  do ``ddp`` with no process group and ``ddp`` with its optimizer state
+  offloaded to pinned host memory.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -42,9 +52,12 @@ repository beside it, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -104,6 +117,8 @@ KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
 # 1024, bf16 compute, f32 params, AdamW, remat "mlp").
 TRAIN_STEPS = 20
 TRAIN_SPLIT_STEPS = 10
+# transformer_1b under fsdp: batch 4 x seq 2048, bf16 compute.
+TRAIN_1B_STEPS = 10
 
 
 def emit(obj: dict) -> None:
@@ -433,8 +448,9 @@ def phase_kernels() -> dict:
         # its 32-key tile.
         "simt_d32_block_k32": _flash_case(timer, 4, 12, 12, 1024, 32, bf16,
                                           block_k=32),
-        # transformer_1b's attention: B 2, H 16, S 2048, D 128.
-        "d128": _flash_case(timer, 2, 16, 16, 2048, 128, bf16, library=True),
+        # transformer_1b's attention as train_1b gives it: B 4, H 16,
+        # S 2048, D 128.
+        "d128": _flash_case(timer, 4, 16, 16, 2048, 128, bf16, library=True),
         "d128_gqa_window": _flash_case(timer, 2, 16, 4, 2048, 128, bf16,
                                        window=512),
     }
@@ -465,8 +481,9 @@ def phase_kernels() -> dict:
                                             split, grads_dtype=f32)
         bwd[f"{tag}_ragged"] = _bwd_case(timer, 4, 12, 12, 1000, 64, bf16,
                                          split)
-        # transformer_1b's attention: B 2, H 16, S 2048, D 128.
-        bwd[f"{tag}_d128"] = _bwd_case(timer, 2, 16, 16, 2048, 128, bf16,
+        # transformer_1b's attention as train_1b gives it: B 4, H 16,
+        # S 2048, D 128.
+        bwd[f"{tag}_d128"] = _bwd_case(timer, 4, 16, 16, 2048, 128, bf16,
                                        split, library=True)
         bwd[f"{tag}_d128_gqa_window_grads_f32"] = _bwd_case(
             timer, 2, 16, 4, 2048, 128, bf16, split, window=512,
@@ -483,6 +500,74 @@ def phase_kernels() -> dict:
             "flash_bwd_fused": bwd["fused_train"]["flash_bwd_fused"],
             "flash_bwd_dq": bwd["split_train"]["flash_bwd_dq"],
             "flash_bwd_dkv": bwd["split_train"]["flash_bwd_dkv"]}
+
+
+def _xent_widened(x, head, t) -> tuple:
+    """The cross-entropy's nll, dx and dhead (for dnll = 1, no masked
+    targets) with every product taken on bf16 operands widened to f32,
+    in one chunk: the arithmetic the op keeps on the CPU."""
+    D = x.shape[-1]
+    xf, hf = x.reshape(-1, D).float(), head.float()
+    logits = xf @ hf
+    lse = torch.logsumexp(logits, dim=-1)
+    tt = t.reshape(-1, 1).long()
+    nll = lse - logits.gather(-1, tt)[:, 0]
+    p = torch.exp(logits - lse[:, None])
+    p.scatter_add_(-1, tt, torch.full(tt.shape, -1.0, device=p.device))
+    dl = p.to(x.dtype).float()
+    return (nll.view(t.shape), (dl @ hf.T).to(x.dtype).view(x.shape),
+            (xf.T @ dl).to(head.dtype), logits)
+
+
+def phase_xent() -> None:
+    """``lm_cross_entropy`` on bf16 inputs on the card, whose products
+    are bf16 GEMMs with f32 outputs (``torch.mm(..., out_dtype=f32)``),
+    against the same products on operands widened to f32, at the
+    limits of tests/test_torch_xent.py's bf16 case: nll within 1e-4;
+    dx and dhead within one bf16 ulp (rtol 2**-7) plus 1e-3, for a
+    dlogit on a rounding boundary. At that case's shape and at
+    gpt2_125m's training shape (B 8, S 1024, D 768, V 50304, the head at
+    its init scale). The control: the nll from logits rounded to bf16,
+    the fault this repaired, must miss the 1e-4."""
+    from distributed_training_tpu_torch.ops.xent import lm_cross_entropy
+
+    res = {}
+    for name, (B, S, D, V, scale) in {
+            "c1_case": (4, 256, 64, 2048, 0.3),
+            "gpt2_train": (8, 1024, 768, 50304, 0.02)}.items():
+        rng = np.random.default_rng(SEED)
+        x = torch.from_numpy(rng.standard_normal((B, S, D), np.float32))
+        head = torch.from_numpy(
+            (scale * rng.standard_normal((D, V))).astype(np.float32))
+        t = torch.from_numpy(rng.integers(0, V, size=(B, S))).cuda()
+        x = x.to("cuda", torch.bfloat16).requires_grad_()
+        head = head.to("cuda", torch.bfloat16).requires_grad_()
+        nll = lm_cross_entropy(x, head, t)
+        dx, dh = torch.autograd.grad(nll.sum(), (x, head))
+        with torch.no_grad():
+            w_nll, w_dx, w_dh, logits = _xent_widened(x, head, t)
+            err = (nll - w_nll).abs().max().item()
+            lb = logits.bfloat16().float()
+            ctrl_nll = (torch.logsumexp(lb, dim=-1)
+                        - lb.gather(-1, t.reshape(-1, 1))[:, 0])
+            ctrl = (ctrl_nll.view(t.shape) - w_nll).abs().max().item()
+        check(err <= 1e-4, f"xent {name}: nll off the widened products by "
+              f"{err}")
+        check(ctrl > 1e-4, f"xent {name}: the bf16-logits control {ctrl} "
+              "within 1e-4")
+        for what, got, want in (("dx", dx, w_dx), ("dhead", dh, w_dh)):
+            check(torch.isclose(got.float(), want.float(), rtol=2 ** -7,
+                                atol=1e-3).all().item(),
+                  f"xent {name}: {what} off the widened products by more "
+                  "than rtol 2**-7 + atol 1e-3")
+        res[name] = {
+            "shape": [B, S, D, V], "nll_max_abs_err": err,
+            "bf16_logits_control_err": ctrl,
+            "dx_max_abs_err": (dx.float() - w_dx.float()).abs().max().item(),
+            "dhead_max_abs_err": (dh.float() - w_dh.float()).abs().max()
+            .item()}
+        del x, head, nll, dx, dh, w_dx, w_dh, logits, lb
+    emit({"phase": "xent", **res})
 
 
 def _gpt2(dtype: str):
@@ -1065,6 +1150,294 @@ def phase_train_trace(split: bool = False) -> None:
           "host_attention_bwd_us": host_bwd, "launches": launches})
 
 
+def _free_memory() -> None:
+    """Drop what the previous phase left (a trainer and its metrics
+    logger hold each other, so only the cycle collector frees them)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _nccl_world_of_one():
+    """torchrun's environment for a NCCL process group of one rank
+    (address 127.0.0.1, a free port): the trainer CLI's runtime starts
+    the group from it and destroys it on exit."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _events(out_dir: str) -> list:
+    path = os.path.join(out_dir, "default", "events.jsonl")
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_nccl_runtime(out_dir: str, what: str) -> dict:
+    rt = [e for e in _events(out_dir) if e["kind"] == "runtime"]
+    check(len(rt) == 1 and rt[0]["backend"] == "nccl"
+          and rt[0]["world"] == 1, f"{what}: runtime events {rt}")
+    return rt[0]
+
+
+def phase_train_1b(tmp: str) -> tuple:
+    """transformer_1b at full width (vocab 50304, d_model 2048, 24
+    layers, 16 heads of 128, RoPE, untied head) through the trainer CLI
+    under fsdp, bf16 compute and f32 params, batch 4 x seq 2048 of
+    synthetic_lm, TRAIN_1B_STEPS steps, in a NCCL group of one rank: the
+    weights are stored sharded over an fsdp group of one and gathered a
+    layer at a time. No checkpoint (the f32 state is 22.6 GB)."""
+    from distributed_training_tpu_torch.models.transformer import (
+        PRESETS,
+        Transformer,
+        TransformerConfig,
+    )
+    from distributed_training_tpu_torch.parallel import fsdp
+    from distributed_training_tpu_torch.train import cli
+
+    out = os.path.join(tmp, "train_1b")
+    steps, batch, seq = TRAIN_1B_STEPS, 4, 2048
+    _free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    fsdp.GATHERS.clear()
+    t0 = time.perf_counter()
+    with _nccl_world_of_one():
+        check(cli.main([
+            "model=transformer_1b", "train=gpt2",
+            "train.parallel_strategy=fsdp", f"train.batch_size={batch}",
+            f"train.dataset_kwargs.seq_len={seq}",
+            f"train.dataset_size={steps * batch}", "train.total_epochs=1",
+            "train.save_every=0", "train.log_every=1",
+            "run.log_level=WARNING", f"run.output_dir={out}"]) == 0,
+            "train_1b failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, designs = _read_counts(), _read_designs()
+    gathers = dict(fsdp.GATHERS)
+    runtime = _check_nccl_runtime(out, "train_1b")
+    rows = _metrics_rows(out)
+    losses = [r["loss"] for r in rows]
+    cfg = TransformerConfig(**PRESETS["transformer_1b"])
+    L = cfg.n_layers
+    check(len(losses) == steps, f"train_1b: {len(losses)} loss rows")
+    check(all(math.isfinite(x) for x in losses), f"non-finite {losses}")
+    # One gather per layer per forward, and one of each sharded
+    # top-level leaf (tok_embed on vocab, lm_head on embed); final_norm
+    # is below min_shard_elems and stays whole. No remat: the backward
+    # gathers nothing.
+    want = {"layer": L * steps, "tok_embed": steps, "lm_head": steps}
+    check(gathers == want, f"train_1b: gathers {gathers}, want {want}")
+    for name in ("flash_fwd", "flash_bwd_fused"):
+        check(designs[name]["wgmma"] == L * steps == launches[name],
+              f"train_1b: {name} launches {designs[name]}, want "
+              f"{L} x {steps} on wgmma")
+    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+          "train_1b took the split kernels")
+    # Each row reads its loss (a device sync): a row's rate is one step.
+    step_s = float(np.median([1.0 / r["steps_per_sec"] for r in rows[3:]]))
+    flops = Transformer(cfg, device="cpu").flops_per_sample() * batch
+    info = {"phase": "train_1b", "model": "transformer_1b",
+            "strategy": "fsdp", "runtime": runtime,
+            "params": Transformer(cfg, device="cpu").num_params(),
+            "batch": batch, "seq": seq, "steps": steps, "wall_s": wall,
+            "median_step_s": step_s, "tokens_per_s": batch * seq / step_s,
+            "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+            "mfu_logged_median": float(np.median(
+                [r.get("mfu", float("nan")) for r in rows[3:]])),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "losses": losses, "gathers": gathers,
+            "launches": launches, "launches_by_design": designs}
+    emit(info)
+    return launches, designs
+
+
+def phase_train_1b_trace() -> None:
+    """Where a transformer_1b fsdp step's time goes: 2 steps under
+    ``torch.profiler`` after 2 unprofiled ones, through the Trainer in
+    a NCCL group of one rank."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_tpu_torch.config import load_config
+    from distributed_training_tpu_torch.data import (
+        ShardedDataLoader,
+        build_dataset,
+    )
+    from distributed_training_tpu_torch.models.registry import build_model
+    from distributed_training_tpu_torch.runtime import (
+        initialize_runtime,
+        shutdown_runtime,
+    )
+    from distributed_training_tpu_torch.train.trainer import Trainer
+
+    _free_memory()
+    with _nccl_world_of_one():
+        cfg = load_config(overrides=[
+            "model=transformer_1b", "train=gpt2",
+            "train.parallel_strategy=fsdp", "train.batch_size=4",
+            "train.dataset_kwargs.seq_len=2048", "train.dataset_size=16"])
+        rt = initialize_runtime(cfg)
+        try:
+            loader = ShardedDataLoader(
+                build_dataset(cfg.train.dataset,
+                              _defaults={"size": 16, "seed": 0},
+                              **cfg.train.dataset_kwargs), rt, batch_size=4)
+            model = build_model(cfg.model.name, dtype=cfg.train.dtype,
+                                device=rt.device, **cfg.model.kwargs)
+            trainer = Trainer(cfg, rt, model, loader)
+            batches = iter(loader.epoch(0))
+            for _ in range(2):
+                trainer.train_step(next(batches))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    trainer.train_step(next(batches))
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            batches.close()
+            del trainer
+        finally:
+            shutdown_runtime(rt)
+    dev = _device_time(prof, wall_us, top_n=12)
+    nccl_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and "nccl" in e.name.lower())
+    emit({"phase": "train_1b_trace", "steps": 2, "batch": 4, "seq": 2048,
+          **dev, "host_ms_per_step": wall_us / 2e3,
+          "device_ms_per_step": dev["device_busy_us"] / 2e3,
+          "attention_share": dev["flash_us"] / dev["device_busy_us"],
+          "nccl_us": nccl_us})
+
+
+def _same_tree(a, b) -> bool:
+    """Nested dicts of tensors (and plain values) equal bit for bit."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    return a == b
+
+
+def phase_train_fsdp_ckpt(tmp: str) -> None:
+    """gpt2_125m, batch 8 (the training shape the kernels phases check),
+    4 steps (2 epochs of 2) with a save at step 2, four runs, all with
+    the split flash backward, whose dq sums in a fixed order (the fused
+    one adds dq tiles by atomics in an order that varies, so two runs
+    with it part after their first update):
+
+    - fsdp in a NCCL group of one rank, a sharded save and the
+      consolidated artifact at step 2;
+    - the same, resumed from a copy of that step-2 checkpoint: steps 3-4
+      equal the uninterrupted run's bit for bit;
+    - ddp with no process group: at fsdp 1 the per-layer gathers and
+      reduce-scatters are copies over the card's NCCL group of one, so
+      the fsdp run's losses and gradient norms equal these bit for bit;
+    - ddp with ``offload_opt_state``: the moments in pinned host memory,
+      copied to the card and back around every update, give the same
+      bits, and so does its step-2 checkpoint (params and moments).
+
+    The artifact loads through ``load_consolidated`` with every key and
+    shape of the model."""
+    import shutil
+
+    from distributed_training_tpu_torch.checkpoint.consolidate import (
+        load_consolidated,
+    )
+    from distributed_training_tpu_torch.models.transformer import (
+        PRESETS,
+        TransformerConfig,
+        param_shapes,
+    )
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.train import cli
+    from distributed_training_tpu_torch.train.optimizer import flatten
+
+    batch = 8
+    fsdp_args = ("train.parallel_strategy=fsdp", "train.gather_on_save=true")
+    _free_memory()
+
+    def run(out, *extra, group=True):
+        """{step: (loss, grad_norm)} of one CLI run."""
+        fa.FORCE_SPLIT_BWD = True
+        try:
+            with (_nccl_world_of_one() if group
+                  else contextlib.nullcontext()):
+                check(cli.main(_train_overrides(out, 2, batch=batch, extra=(
+                    "train.total_epochs=2", "train.save_every=2",
+                    *extra))) == 0, f"train_fsdp_ckpt run {out} failed")
+        finally:
+            fa.FORCE_SPLIT_BWD = False
+        if group:
+            _check_nccl_runtime(out, "train_fsdp_ckpt")
+        return {r["step"]: (r["loss"], r.get("grad_norm"))
+                for r in _metrics_rows(out)}
+
+    def step2(out, name):
+        return torch.load(os.path.join(out, "default", "checkpoints", "2",
+                                       name),
+                          map_location="cpu", weights_only=True)
+
+    a, c, d, e = (os.path.join(tmp, f"fsdp_{x}") for x in "acde")
+    la = run(a, *fsdp_args)
+    ckpt_a = os.path.join(a, "default", "checkpoints")
+    files = sorted(os.listdir(os.path.join(ckpt_a, "2")))
+    check(files == ["layout.json", "meta.json", "state.rank0.pt"],
+          f"train_fsdp_ckpt: step-2 checkpoint holds {files}")
+    shutil.copytree(os.path.join(ckpt_a, "2"),
+                    os.path.join(c, "default", "checkpoints", "2"))
+    lc = run(c, *fsdp_args)
+    resume = [ev for ev in _events(c) if ev["kind"] == "resume"]
+    check(len(resume) == 1 and resume[0]["step"] == 2,
+          f"train_fsdp_ckpt: resume events {resume}")
+    check(sorted(la) == [1, 2, 3, 4] and sorted(lc) == [3, 4],
+          f"train_fsdp_ckpt: steps {sorted(la)} and {sorted(lc)}")
+    # A run's first row is a warm-up row without a gradient norm.
+    check(lc[3][0] == la[3][0] and lc[4] == la[4],
+          f"train_fsdp_ckpt: resumed {lc} != uninterrupted {la}")
+    ld = run(d, group=False)
+    check(la == ld, f"train_fsdp_ckpt: fsdp in a group of one {la} != "
+          f"ddp with no group {ld}")
+    le = run(e, "train.offload_opt_state=true", group=False)
+    check(le == ld, f"train_fsdp_ckpt: ddp with offload_opt_state {le} "
+          f"!= without {ld}")
+    check(_same_tree(step2(e, "state.pt"), step2(d, "state.pt")),
+          "train_fsdp_ckpt: the offloaded run's step-2 checkpoint differs")
+    state, meta = load_consolidated(
+        os.path.join(ckpt_a, "consolidated_step2.pt"))
+    want = flatten(param_shapes(TransformerConfig(**PRESETS["gpt2_125m"])))
+    got = {k: tuple(v.shape) for k, v in flatten(state["params"]).items()}
+    check(got == want, f"train_fsdp_ckpt: artifact shapes {got}")
+    shard = step2(a, "state.rank0.pt")
+    check(_same_tree(flatten(state["params"]), flatten(shard["params"]))
+          and meta["step"] == 2,
+          "train_fsdp_ckpt: the artifact is not the step-2 params")
+    emit({"phase": "train_fsdp_ckpt", "model": "gpt2_125m",
+          "strategy": "fsdp", "batch": batch, "seq": 1024,
+          "losses_uninterrupted": [la[k][0] for k in sorted(la)],
+          "losses_resumed": [lc[k][0] for k in sorted(lc)],
+          "grad_norms": [la[k][1] for k in sorted(la)],
+          "bitwise": True, "backward": "split",
+          "fsdp_equals_ddp_no_group": True,
+          "offload_equals_ddp": True, "offload_ckpt_equal": True,
+          "artifact_bytes": os.path.getsize(
+              os.path.join(ckpt_a, "consolidated_step2.pt"))})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1075,6 +1448,7 @@ def main() -> int:
     device = phase_device()
     phase_build()
     measured = phase_kernels()
+    phase_xent()
     rng = np.random.default_rng(SEED)
     lens = rng.integers(64, 513, size=8)
     prompts = [rng.integers(0, 50257, size=int(n)).astype(np.int32)
@@ -1090,8 +1464,11 @@ def main() -> int:
         split_launches = phase_train_split(tmp)
         phase_train_parity(tmp)
         phase_train_bf16_parity(tmp)
+        train_1b_launches = phase_train_1b(tmp)
+        phase_train_fsdp_ckpt(tmp)
     phase_train_trace()
     phase_train_trace(split=True)
+    phase_train_1b_trace()
     # The sources of the designs the main paths' launches took (checked
     # below from their counts).
     sources = {
@@ -1111,8 +1488,10 @@ def main() -> int:
             "distributed_training_tpu_torch/csrc/paged_decode.cu",
             "distributed_training_tpu/ops/paged_attention.py:152")}
     # Launches: the sum over the paths driven above, each counted from 0
-    # (serving, sequential prefill, training, split-backward training).
-    paths = (serve_launches, seq_launches, train_launches, split_launches)
+    # (serving, sequential prefill, training, split-backward training,
+    # transformer_1b under fsdp).
+    paths = (serve_launches, seq_launches, train_launches, split_launches,
+             train_1b_launches)
     kernels = []
     for name in KERNELS:
         src, replaces = sources[name]

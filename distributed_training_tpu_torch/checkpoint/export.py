@@ -1,0 +1,143 @@
+"""CLI: consolidate a checkpoint into one file (port of
+``checkpoint/export.py``).
+
+Offline counterpart of ``train.gather_on_save``: point it at a
+checkpoint directory the trainer wrote and get the single portable
+artifact (``checkpoint/consolidate.py`` format) without a process group
+or the model. One process: it loads every process's shard file and
+joins them by the layout manifest on the host, so it is meant for a
+machine with enough memory for the whole state.
+
+    python -m distributed_training_tpu_torch.checkpoint.export \\
+        --ckpt outputs/default/checkpoints --out model.pt
+
+Weight-only int8 export waits for ROADMAP.md queue A item 8, and the
+sharding-plan provenance stamp for item 17.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+
+import numpy as np
+import torch
+
+from distributed_training_tpu_torch.checkpoint.manager import (
+    LAYOUT_FILE,
+    WHOLE_FILE,
+    placements_of,
+    rank_file,
+)
+from distributed_training_tpu_torch.runtime import MESH_AXES
+from distributed_training_tpu_torch.train.optimizer import flatten, unflatten
+
+
+def _join(local: list, pls: dict, coords: list, sizes: dict) -> dict:
+    """Whole leaves from every process's flat dict of local shards."""
+    out = {}
+    for k, pl in pls.items():
+        if pl is None:
+            out[k] = local[0][k]
+            continue
+        n = math.prod(sizes[a] for a in pl.axes)
+        pieces: dict = {}
+        for r, c in enumerate(coords):
+            idx = int(np.ravel_multi_index([c[a] for a in pl.axes],
+                                           [sizes[a] for a in pl.axes]))
+            pieces.setdefault(idx, local[r][k])
+        out[k] = torch.cat([pieces[i] for i in range(n)], dim=pl.dim)
+    return out
+
+
+def restore_step_local(ckpt_dir: str, step: int | None = None
+                       ) -> tuple[dict, int]:
+    """One checkpoint step's whole state on the host, whatever mesh
+    wrote it. Returns (state, step); ``step=None`` → newest."""
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    if step is None:
+        steps = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
+        if not steps:
+            raise FileNotFoundError(
+                f"no checkpoint steps found under {ckpt_dir}")
+        step = steps[-1]
+    step_dir = os.path.join(ckpt_dir, str(step))
+    if not os.path.isdir(step_dir):
+        raise FileNotFoundError(
+            f"checkpoint step {step} not found in {ckpt_dir}")
+    whole = os.path.join(step_dir, WHOLE_FILE)
+    if os.path.exists(whole):
+        return torch.load(whole, map_location="cpu", weights_only=True), step
+    with open(os.path.join(step_dir, LAYOUT_FILE)) as f:
+        manifest = json.load(f)
+    sizes = manifest["mesh"]
+    shape = [sizes[a] for a in MESH_AXES]
+    coords = [dict(zip(MESH_AXES, np.unravel_index(r, shape)))
+              for r in range(manifest["world"])]
+    local = [torch.load(os.path.join(step_dir, rank_file(r)),
+                        map_location="cpu", weights_only=True)
+             for r in range(manifest["world"])]
+    state = dict(local[0])
+    state["params"] = unflatten(_join(
+        [flatten(s["params"]) for s in local],
+        placements_of(manifest, "params"), coords, sizes))
+    opt = dict(state["opt_state"])
+    for name in ("mu", "nu"):
+        if name in opt:
+            opt[name] = _join([s["opt_state"][name] for s in local],
+                              placements_of(manifest, "opt"), coords, sizes)
+    state["opt_state"] = opt
+    return state, step
+
+
+def export(ckpt_dir: str, out_path: str, step: int | None = None,
+           plan: str | None = None, quantize: str | None = None) -> dict:
+    if quantize is not None:
+        raise NotImplementedError(
+            f"--quantize {quantize}: weight-only int8 export waits for "
+            "ROADMAP.md queue A item 8")
+    if plan not in (None, "none"):
+        raise NotImplementedError(
+            f"--plan {plan}: sharding-plan provenance waits for ROADMAP.md "
+            "queue A item 17")
+    from distributed_training_tpu_torch.checkpoint.consolidate import (
+        write_artifact,
+    )
+
+    state, step = restore_step_local(ckpt_dir, step)
+    meta: dict = {}
+    meta_file = os.path.join(os.path.abspath(ckpt_dir), str(step),
+                             "meta.json")
+    if os.path.exists(meta_file):
+        with open(meta_file) as f:
+            meta = json.load(f) or {}
+    meta.setdefault("step", int(step))
+    n = write_artifact(out_path, state, meta)
+    return {"out": out_path, "step": int(step), "bytes": n,
+            "quantization": "none"}
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--ckpt", required=True,
+                   help="checkpoint directory (train.snapshot_path)")
+    p.add_argument("--out", required=True, help="output .pt path")
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step (default: latest)")
+    p.add_argument("--plan", default=None,
+                   help="sharding-plan provenance stamp (waits for "
+                        "ROADMAP.md item 17; 'none' to skip)")
+    p.add_argument("--quantize", default=None, choices=("int8",),
+                   help="weight-only quantization (waits for ROADMAP.md "
+                        "item 8)")
+    args = p.parse_args(argv)
+    print(json.dumps(export(args.ckpt, args.out, args.step,
+                            plan=args.plan, quantize=args.quantize)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,14 +1,25 @@
-"""Synchronous single-process checkpoints (port of
+"""Synchronous checkpoints, whole or sharded (port of
 ``checkpoint/manager.py``).
 
-The JAX ``Checkpointer``'s interface over ``torch.save``: each save
-writes ``<directory>/<step>/state.pt`` (params, optimizer state, step)
-and ``meta.json`` (epoch, the loader's cursor, the architecture) into a
-temporary directory that is renamed into place, so a reader never sees a
-half-written step. ``restore_latest`` loads the newest step;
-``max_to_keep`` prunes the oldest. Saves are synchronous, so ``wait`` has
-nothing to drain. The sha256 manifest and the quarantine fallback
-(``resilience/integrity.py``) wait for ROADMAP.md queue A item 14.
+The JAX ``Checkpointer``'s interface over ``torch.save``. Each save
+writes a temporary directory that is renamed into place, so a reader
+never sees a half-written step:
+
+- without a process group (a world of 1): ``<directory>/<step>/state.pt``
+  (params, optimizer state, step) and ``meta.json`` (epoch, the loader's
+  cursor, the architecture);
+- with one (any world under torch.distributed): every process writes its
+  local shards to ``state.rank<r>.pt``, and process 0 writes
+  ``meta.json`` and ``layout.json`` (the mesh and each leaf's placement)
+  and renames the directory once every process has written (barriers
+  before and after). Resume restores the shards onto the same mesh and
+  layout, and refuses another (``checkpoint/export.py`` consolidates a
+  sharded step into one file).
+
+``restore_latest`` loads the newest step; ``max_to_keep`` prunes the
+oldest. Saves are synchronous, so ``wait`` has nothing to drain. The
+sha256 manifest and the quarantine fallback (``resilience/integrity.py``)
+wait for ROADMAP.md queue A item 14.
 """
 
 from __future__ import annotations
@@ -21,9 +32,17 @@ from typing import Any
 
 import torch
 
+from distributed_training_tpu_torch.parallel.strategy import Placement
 from distributed_training_tpu_torch.telemetry import events as telemetry
 
 logger = logging.getLogger(__name__)
+
+WHOLE_FILE = "state.pt"
+LAYOUT_FILE = "layout.json"
+
+
+def rank_file(rank: int) -> str:
+    return f"state.rank{rank}.pt"
 
 
 def _detached(state: Any) -> Any:
@@ -34,12 +53,33 @@ def _detached(state: Any) -> Any:
     return state
 
 
-class Checkpointer:
-    """Step-numbered checkpoints in one directory."""
+def layout_manifest(layout: dict, runtime) -> dict:
+    """The JSON record of a sharded save's layout: the mesh, and each
+    leaf's placement (``[dim, [axes…]]`` or null)."""
+    def enc(pls):
+        return {k: None if pl is None else [pl.dim, list(pl.axes)]
+                for k, pl in pls.items()}
+    return {"world": runtime.process_count,
+            "mesh": runtime.spec.as_dict(),
+            "params": enc(layout["params"]), "opt": enc(layout["opt"])}
 
-    def __init__(self, directory: str, max_to_keep: int = 3) -> None:
+
+def placements_of(manifest: dict, kind: str) -> dict:
+    """A manifest's placements back as ``Placement`` (or None)."""
+    return {k: None if v is None else Placement(v[0], tuple(v[1]))
+            for k, v in manifest[kind].items()}
+
+
+class Checkpointer:
+    """Step-numbered checkpoints in one directory. ``runtime``: the
+    process's ``Runtime``; sharded saves when it has a process group."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 runtime=None) -> None:
         self.directory = directory
         self.max_to_keep = max_to_keep
+        self.rt = runtime
+        self.sharded = runtime is not None and runtime.mesh is not None
         os.makedirs(directory, exist_ok=True)
 
     def __enter__(self) -> "Checkpointer":
@@ -62,41 +102,85 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: dict, meta: dict | None = None,
-             force: bool = False) -> bool:
-        """Write step ``step``. A step already on disk is kept unless
+             force: bool = False, layout: dict | None = None) -> bool:
+        """Write step ``step`` (collective under a process group: every
+        process calls it). A step already on disk is kept unless
         ``force``. Returns whether a checkpoint was written."""
         final = os.path.join(self.directory, str(step))
         if os.path.exists(final) and not force:
             return False
-        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
+        if self.sharded:
+            tmp = os.path.join(self.directory, f".tmp-{step}")
+            coordinator = self.rt.is_coordinator
+        else:
+            tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
+            coordinator = True
         with telemetry.span("ckpt_save", step=step):
-            torch.save(_detached(state), os.path.join(tmp, "state.pt"))
-            with open(os.path.join(tmp, "meta.json"), "w") as f:
-                json.dump(meta or {}, f)
-            if os.path.exists(final):
-                shutil.rmtree(final)
-            os.replace(tmp, final)
+            if coordinator:
+                shutil.rmtree(tmp, ignore_errors=True)
+                os.makedirs(tmp)
+            if self.sharded:
+                self.rt.barrier()
+                torch.save(_detached(state),
+                           os.path.join(tmp, rank_file(self.rt.process_index)))
+                self.rt.barrier()
+            else:
+                torch.save(_detached(state), os.path.join(tmp, WHOLE_FILE))
+            if coordinator:
+                with open(os.path.join(tmp, "meta.json"), "w") as f:
+                    json.dump(meta or {}, f)
+                if self.sharded:
+                    with open(os.path.join(tmp, LAYOUT_FILE), "w") as f:
+                        json.dump(layout_manifest(layout, self.rt), f)
+                if os.path.exists(final):
+                    shutil.rmtree(final)
+                os.replace(tmp, final)
+                for old in self.steps()[:-self.max_to_keep]:
+                    shutil.rmtree(os.path.join(self.directory, str(old)))
+            if self.sharded:
+                self.rt.barrier()
         logger.info("checkpoint saved at step %d -> %s", step,
                     self.directory)
-        for old in self.steps()[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self.directory, str(old)))
         return True
 
-    def restore_latest(self, device=None) -> tuple[dict, dict] | None:
+    def restore_latest(self, device=None, layout: dict | None = None
+                       ) -> tuple[dict, dict] | None:
         """(state, meta) of the newest step with its tensors on
-        ``device``, or None when the directory holds no checkpoint (a
-        fresh start)."""
+        ``device`` (this process's shards under a process group), or
+        None when the directory holds no checkpoint (a fresh start)."""
         step = self.latest_step()
         if step is None:
             return None
         step_dir = os.path.join(self.directory, str(step))
         with telemetry.span("ckpt_restore", step=step):
-            state = torch.load(os.path.join(step_dir, "state.pt"),
-                               map_location=device, weights_only=True)
             with open(os.path.join(step_dir, "meta.json")) as f:
                 meta = json.load(f)
+            whole = os.path.exists(os.path.join(step_dir, WHOLE_FILE))
+            if whole == self.sharded:
+                raise ValueError(
+                    f"checkpoint step {step} in {self.directory} is "
+                    f"{'whole' if whole else 'sharded'}, and this run "
+                    f"{'has' if self.sharded else 'has no'} process group; "
+                    "resume it as it was written, or consolidate it "
+                    "(python -m distributed_training_tpu_torch.checkpoint."
+                    "export)")
+            if whole:
+                state = torch.load(os.path.join(step_dir, WHOLE_FILE),
+                                   map_location=device, weights_only=True)
+            else:
+                with open(os.path.join(step_dir, LAYOUT_FILE)) as f:
+                    saved = json.load(f)
+                want = layout_manifest(layout, self.rt)
+                if saved != want:
+                    raise ValueError(
+                        f"checkpoint step {step} was sharded over mesh "
+                        f"{saved['mesh']} (world {saved['world']}) with "
+                        "another layout than this run's "
+                        f"{want['mesh']} (world {want['world']}); resume "
+                        "on the same mesh and strategy")
+                state = torch.load(
+                    os.path.join(step_dir, rank_file(self.rt.process_index)),
+                    map_location=device, weights_only=True)
         logger.info("restored checkpoint step %d from %s", step,
                     self.directory)
         return state, meta

@@ -9,9 +9,11 @@ for the prefetch worker. Batches are dicts of torch tensors on the
 runtime's device: gathered on the host, pinned, and copied with
 ``non_blocking=True`` so the copy overlaps the running step.
 
-One process drives one card in this slice, so there is one data shard;
-multi-process data parallelism waits for ROADMAP.md queue A item 4. The
-only dataset is in memory, so the JAX loader's retry of transient IO
+Each process assembles only its own data shard's rows: shard ``s``
+(dp-major over (dp, fsdp), ``runtime.data_shard_index``) takes rows
+``[s*b, (s+1)*b)`` of the global batch of ``b * num_shards`` rows, the
+JAX loader's layout, and the index stream is the JAX one. The only
+dataset is in memory, so the JAX loader's retry of transient IO
 errors (``train.data_retries``) waits for the file-backed datasets
 (item 2).
 """
@@ -34,7 +36,8 @@ PREFETCH_DEPTH = 2
 
 class ShardedDataLoader:
     """Epoch-based loader yielding dicts of tensors on the runtime's
-    device. ``batch_size`` is per data shard; the global batch is
+    device: this process's data shard of each global batch.
+    ``batch_size`` is per data shard; the global batch is
     ``batch_size * runtime.data_shard_count``."""
 
     def __init__(self, dataset, runtime, batch_size: int,
@@ -47,6 +50,7 @@ class ShardedDataLoader:
         self.device = runtime.device
         self.batch_size = batch_size
         self.num_shards = runtime.data_shard_count
+        self.shard_index = runtime.data_shard_index
         self.global_batch = batch_size * self.num_shards
         self.sampler = DistributedShardSampler(
             len(dataset), self.num_shards, shuffle=shuffle, seed=seed,
@@ -140,7 +144,7 @@ class ShardedDataLoader:
         return per_shard
 
     def _assemble(self, rows_by_shard: np.ndarray) -> dict:
-        """The global batch (shard-major rows) as device tensors."""
+        """The given shards' rows (shard-major) as device tensors."""
         host = self.dataset.batch(rows_by_shard.reshape(-1))
         out = {}
         for name, col in host.items():
@@ -166,7 +170,8 @@ class ShardedDataLoader:
                 sl = slice(step * self.batch_size,
                            (step + 1) * self.batch_size)
                 with telemetry.span("data_assemble", step_in_epoch=step):
-                    batch = self._assemble(orders[:, sl])
+                    batch = self._assemble(
+                        orders[self.shard_index:self.shard_index + 1, sl])
                 yield batch
 
         it = _prefetch(produce(), PREFETCH_DEPTH)

@@ -21,6 +21,12 @@ Function, so its forward launches once per layer per step:
 - ``selective`` and ``full``: recompute everything in the block but
   attention (in the JAX package ``full`` re-runs attention too).
 
+Under FSDP the trainer stores the weights sharded and binds a gather
+(``bind_gather_for_compute``, ``parallel/fsdp.py``): the forward casts
+each layer's shards to the compute dtype and all-gathers them one layer
+at a time, so activations never pay collective traffic.
+``logical_axes`` names each leaf's dims for the sharding rules.
+
 Dropout, MoE, pipeline and sequence parallelism wait for later slices
 (ROADMAP.md queue A) and raise ``NotImplementedError`` when asked for.
 """
@@ -191,6 +197,14 @@ def layer_slice(params: dict, i: int) -> dict:
     return {k: {n: w[i] for n, w in params[k].items()} for k in _STACKED}
 
 
+def _cast_layer(layer: dict, dt: torch.dtype) -> dict:
+    """A layer's matmul weights and biases in the compute dtype (the
+    norms stay in the param dtype)."""
+    return {k: ({n: w.to(dt) for n, w in ws.items()}
+                if k in ("attn", "mlp") else ws)
+            for k, ws in layer.items()}
+
+
 def _layers(params: dict, n_layers: int) -> list[dict]:
     """Every layer's weights, each stacked leaf unbound once (one
     backward ``stack`` per leaf instead of a full-size scatter per
@@ -244,6 +258,8 @@ class Transformer:
     ``device="cpu"`` to run on the CPU."""
 
     batch_keys: tuple[str, ...] = ("tokens",)
+    # Top-level keys of the stacked (L, …) per-layer leaves.
+    stacked_keys: tuple[str, ...] = _STACKED
 
     def __init__(self, cfg: TransformerConfig, device=None):
         if cfg.moe_num_experts > 0:
@@ -252,6 +268,51 @@ class Transformer:
                 "parallelism and models'")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._gather = None
+
+    def param_shapes(self) -> dict:
+        return param_shapes(self.cfg)
+
+    def logical_axes(self) -> dict:
+        """Per-leaf logical axis names, the JAX ``logical_axes`` leaf for
+        leaf: the stacked ``(L, …)`` leaves carry ``None`` on the layer
+        axis."""
+        c = self.cfg
+        axes = {
+            "tok_embed": ("vocab", "embed"),
+            "ln1": {"scale": (None, "embed"), "bias": (None, "embed")},
+            "ln2": {"scale": (None, "embed"), "bias": (None, "embed")},
+            "attn": {
+                "wq": (None, "embed", "heads", None),
+                "wk": (None, "embed", "kv", None),
+                "wv": (None, "embed", "kv", None),
+                "wo": (None, "heads", None, "embed"),
+            },
+            "final_norm": {"scale": ("embed",), "bias": ("embed",)},
+            "mlp": {
+                "wi": (None, "embed", "mlp"),
+                "bi": (None, "mlp"),
+                "wo": (None, "mlp", "embed"),
+                "bo": (None, "embed"),
+            },
+        }
+        if c.pos_encoding == "learned":
+            axes["pos_embed"] = (None, "embed")
+        if not c.tie_embeddings:
+            axes["lm_head"] = ("embed", "vocab")
+        return axes
+
+    def bind_gather_for_compute(self, gather) -> None:
+        """Train on sharded weights: ``gather.layer(layer)`` returns a
+        layer's weights (matmul weights already in the compute dtype)
+        whole, and ``gather.leaf(name, w)`` a top-level leaf. ``None``
+        unbinds."""
+        self._gather = gather
+
+    def _leaf(self, params: dict, name: str, dt=None) -> torch.Tensor:
+        """A top-level leaf, cast to ``dt`` and gathered when bound."""
+        w = params[name] if dt is None else params[name].to(dt)
+        return w if self._gather is None else self._gather.leaf(name, w)
 
     def init(self, rng) -> dict:
         """Random weights from a seed (int) or a ``torch.Generator`` on
@@ -360,20 +421,26 @@ class Transformer:
         dt = torch_dtype(c.dtype)
         S = tokens.shape[1]
         tokens = tokens.to(device=self.device, dtype=torch.long)
-        x = params["tok_embed"].to(dt)[tokens]
+        x = self._leaf(params, "tok_embed", dt)[tokens]
         positions = torch.arange(S, device=self.device)
         if c.pos_encoding == "learned":
-            x = x + params["pos_embed"].to(dt)[:S]
+            x = x + self._leaf(params, "pos_embed", dt)[:S]
         for layer in _layers(params, c.n_layers):
+            if self._gather is not None:
+                layer = self._gather.layer(_cast_layer(layer, dt))
             x = self._block(x, layer, positions, remat)
-        x = _layer_norm(x, params["final_norm"]["scale"],
-                        params["final_norm"]["bias"])
+        norm = params["final_norm"]
+        if self._gather is not None:
+            norm = {n: self._gather.leaf(f"final_norm/{n}", w)
+                    for n, w in norm.items()}
+        x = _layer_norm(x, norm["scale"], norm["bias"])
         return x, torch.zeros((), dtype=torch.float32, device=self.device)
 
-    def _head(self, params: dict) -> torch.Tensor:
-        """Unembedding matrix (D, V) in param dtype."""
-        return (params["tok_embed"].T if self.cfg.tie_embeddings
-                else params["lm_head"])
+    def _head(self, params: dict, dt=None) -> torch.Tensor:
+        """Unembedding matrix (D, V), cast to ``dt`` when given."""
+        if self.cfg.tie_embeddings:
+            return self._leaf(params, "tok_embed", dt).T
+        return self._leaf(params, "lm_head", dt)
 
     @torch.no_grad()
     def apply(self, params: dict, tokens, rng=None,
@@ -388,8 +455,7 @@ class Transformer:
                 "'Training main path' (the RoPE/GQA half)")
         tokens = torch.as_tensor(tokens)
         x, aux = self._trunk(params, tokens)
-        logits = torch.einsum("bsd,dv->bsv", x,
-                              self._head(params).to(x.dtype))
+        logits = torch.einsum("bsd,dv->bsv", x, self._head(params, x.dtype))
         return logits.float(), aux
 
     # -- training ------------------------------------------------------------
@@ -416,7 +482,7 @@ class Transformer:
         remat = (c.remat_policy if c.remat and torch.is_grad_enabled()
                  else None)
         x, _ = self._trunk(params, inputs, remat)
-        head = self._head(params).to(x.dtype)
+        head = self._head(params, x.dtype)
         if c.loss_impl == "fused":
             nll = lm_cross_entropy(x, head, targets,
                                    chunk_rows=c.xent_chunk_rows)

@@ -7,16 +7,20 @@ logits in the backward instead of saving them:
 - forward residuals: ``x``, ``head``, ``targets`` and the per-token
   ``lse`` (f32, B x S); no (B, S, V) buffer survives the forward;
 - backward, per chunk: ``dlogits = (softmax - onehot) * dnll``, rounded
-  to ``x.dtype``, feeds the two head products; ``dhead`` accumulates in
-  f32 across chunks and is cast to the head's dtype at the end;
+  to ``x.dtype``, feeds the two head products; ``dx`` is an f32 product
+  cast to ``x.dtype``, and ``dhead`` accumulates in f32 across chunks and
+  is cast to the head's dtype at the end;
 - chunks cut the sequence axis and keep the batch axis whole (the JAX
   op's sharding contract);
 - negative target ids are masked: zero nll and zero gradient.
 
 The JAX package computes these products in XLA, outside any Pallas
-kernel, so plain ``torch.matmul`` is their counterpart here. One
-difference on the card: a bf16 product returns bf16 logits, which are
-then widened to f32 (the JAX op keeps the MXU's f32 accumulator).
+kernel, so plain PyTorch products are their counterpart here. Every
+product has f32 outputs, as the JAX op's ``preferred_element_type=f32``:
+on the card a bf16 GEMM that writes its f32 accumulator
+(``torch.mm(..., out_dtype=torch.float32)``); on the CPU, which has no
+such overload, the bf16 operands are widened to f32 first, which gives
+the same exact products summed in f32.
 """
 
 from __future__ import annotations
@@ -32,8 +36,18 @@ def _seq_chunk(batch: int, seq: int, chunk_rows: int) -> int:
     return max(1, min(seq, chunk_rows // max(batch, 1)))
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D) with an f32 output from f32 accumulators."""
+    if a.dtype == b.dtype == torch.float32:
+        return torch.mm(a, b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
 def _chunk_logits(xb: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(xb, head).float()        # (B, sc, V) f32
+    B, sc, D = xb.shape
+    return _mm_f32(xb.reshape(B * sc, D), head).view(B, sc, -1)  # f32
 
 
 class _LMXent(torch.autograd.Function):
@@ -74,11 +88,11 @@ class _LMXent(torch.autograd.Function):
                            torch.full(p.shape[:-1] + (1,), -1.0,
                                       device=p.device))
             g = torch.where(valid, dnll[:, s0:s0 + sc], 0.0)
-            dlogits = (p * g[..., None]).to(x.dtype)
-            dx[:, s0:s0 + sc] = torch.matmul(dlogits, head.T)
-            dhead += torch.matmul(xb.reshape(-1, xb.shape[-1]).T,
-                                  dlogits.reshape(-1, dlogits.shape[-1])
-                                  ).float()
+            dlogits = (p * g[..., None]).to(x.dtype).reshape(
+                -1, p.shape[-1])
+            dx[:, s0:s0 + sc] = _mm_f32(dlogits, head.T).view(
+                xb.shape).to(x.dtype)
+            dhead += _mm_f32(xb.reshape(-1, xb.shape[-1]).T, dlogits)
         return dx, dhead.to(head.dtype), None, None
 
 

@@ -1,38 +1,261 @@
-"""Parallelism strategies (port of ``parallel/strategy.py``).
+"""Sharding strategies (port of ``parallel/strategy.py``).
 
-This slice runs data parallelism on a world of one process and one card,
-so ``get_strategy("ddp")`` is the only strategy: its gradient all-reduce
-over a world of 1 is the identity. The sharded strategies (``zero1``,
-``fsdp``, ``hybrid``, ``tp``, ``tp_fsdp``) wait for ROADMAP.md queue A
-item 4.
+The spec producers are copies of the JAX package's: a strategy maps each
+param leaf (its shape and the model's logical axis names) to a
+PartitionSpec, here a plain tuple with one entry per dimension (``None``
+= replicated, a mesh axis name, or a tuple of names), trailing ``None``
+entries dropped as ``jax.sharding.PartitionSpec`` prints them.
+
+- ``ddp``: params and moments replicated; gradients all-reduced over the
+  data axes (dp, fsdp).
+- ``zero1``: params replicated, Adam moments sharded over (dp, fsdp)
+  jointly on their largest divisible dim (``opt_spec``).
+- ``fsdp``: every large param sharded over ``fsdp`` on the dim its
+  logical axes route there (``rules``), else its largest divisible dim.
+- ``hybrid``: the fsdp specs over a mesh with dp > 1 (sharded within
+  the fsdp groups, replicated across dp).
+
+Where XLA compiles the collectives from these specs in the JAX package,
+the port runs them itself: ``placement`` turns a spec into the dim and
+the mesh axes it is split over, and ``parallel/fsdp.py`` gathers,
+reduce-scatters and all-reduces accordingly. Tensor parallelism
+(``tp``, ``tp_fsdp``) waits for ROADMAP.md queue A item 4b.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import logging
+import math
+import warnings
+from typing import NamedTuple
 
-SHARDED = ("zero1", "fsdp", "hybrid", "tp", "tp_fsdp")
+from distributed_training_tpu_torch.runtime import BATCH_AXES
+
+logger = logging.getLogger(__name__)
+
+AXIS_FSDP = "fsdp"
+Rules = dict[str, "str | tuple[str, ...] | None"]
+Spec = tuple
 
 
-@dataclass
+def logical_to_spec(logical: tuple, rules: Rules) -> Spec:
+    """Map per-dimension logical axis names → mesh axes via ``rules``.
+
+    Unknown / None logical names replicate. A mesh axis may appear at most
+    once in the result (the first use keeps it)."""
+    assigned: list = []
+    used: set[str] = set()
+    for name in logical:
+        axis = rules.get(name) if name is not None else None
+        if axis is None:
+            assigned.append(None)
+            continue
+        flat = (axis,) if isinstance(axis, str) else tuple(axis)
+        if any(a in used for a in flat):
+            assigned.append(None)
+            continue
+        used.update(flat)
+        assigned.append(axis)
+    while assigned and assigned[-1] is None:
+        assigned.pop()
+    return tuple(assigned)
+
+
+def prune_spec(shape: tuple, spec: Spec, axis_sizes: dict[str, int],
+               min_elems: int = 0) -> Spec:
+    """Drop sharding assignments a given array can't honor: dims not
+    divisible by the assigned mesh-axis size, and fsdp assignments on
+    arrays too small to be worth a collective."""
+    if len(spec) > len(shape):
+        raise ValueError(
+            f"logical axis annotation {tuple(spec)} has more dims than "
+            f"the array of shape {shape} — fix the model's logical_axes")
+    padded = list(spec) + [None] * (len(shape) - len(spec))
+    small = math.prod(shape) < min_elems if shape else True
+    out: list = []
+    for d, a in enumerate(padded):
+        if a is None:
+            out.append(None)
+            continue
+        flat = (a,) if isinstance(a, str) else tuple(a)
+        if any(x not in axis_sizes for x in flat):
+            out.append(a)
+            continue
+        prod = math.prod(axis_sizes[x] for x in flat)
+        if shape[d] % prod != 0:
+            if prod > 1:
+                logger.warning(
+                    "dropping sharding %s on dim %d of %s: %d not "
+                    "divisible by mesh axes product %d — param will be "
+                    "replicated on %s", a, d, shape, shape[d], prod, flat)
+            out.append(None)
+        elif small and all(x == AXIS_FSDP for x in flat):
+            out.append(None)
+        else:
+            out.append(a)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _largest_divisible_dim(shape: tuple, size: int,
+                           min_elems: int) -> int | None:
+    """The dimension FSDP shards: the largest one divisible by the axis
+    size, for arrays big enough to be worth sharding."""
+    if size <= 1 or math.prod(shape) < min_elems or len(shape) == 0:
+        return None
+    candidates = [(d, shape[d]) for d in range(len(shape))
+                  if shape[d] % size == 0 and shape[d] >= size]
+    if not candidates:
+        return None
+    return max(candidates, key=lambda t: (t[1], -t[0]))[0]
+
+
+def _heuristic_spec(shape: tuple, size: int, axis,
+                    min_elems: int) -> Spec:
+    """``axis`` on the largest divisible dim, replicated otherwise."""
+    dim = _largest_divisible_dim(shape, size, min_elems)
+    if dim is None:
+        return ()
+    spec: list = [None] * len(shape)
+    spec[dim] = axis
+    return tuple(spec)
+
+
+class Placement(NamedTuple):
+    """Where a leaf's local shard sits: its dimension ``dim`` is split
+    evenly over the processes of mesh ``axes``, in the order of their
+    coordinates on those axes (dp-major)."""
+
+    dim: int
+    axes: tuple[str, ...]
+
+
+def placement(spec: Spec) -> Placement | None:
+    """The port's placement of a spec: None when replicated, else the
+    one sharded dim and the mesh axes it is split over. A spec that
+    shards two dims (tensor parallelism composed with FSDP) raises."""
+    sharded = [(d, a) for d, a in enumerate(spec) if a is not None]
+    if not sharded:
+        return None
+    if len(sharded) > 1:
+        raise NotImplementedError(
+            f"spec {spec} shards more than one dim; tensor parallelism "
+            "waits for ROADMAP.md queue A item 4b")
+    d, a = sharded[0]
+    return Placement(d, (a,) if isinstance(a, str) else tuple(a))
+
+
+@dataclasses.dataclass
 class DataParallel:
-    """Replicated params, batch split over the data shards."""
+    """DDP: params replicated on every process; batch split on
+    (dp, fsdp); gradients all-reduced over both."""
 
-    name: str = "ddp"
+    min_shard_elems: int = 2 ** 12
     gather_on_save: bool = False
+    name: str = dataclasses.field(default="ddp", init=False)
+
+    def param_spec(self, shape: tuple, logical: tuple | None) -> Spec:
+        del shape, logical
+        return ()
+
+    def opt_spec(self, shape: tuple, logical: tuple | None) -> Spec:
+        """Spec of a param-shaped optimizer leaf (Adam moments)."""
+        return self.param_spec(shape, logical)
 
 
-def get_strategy(name: str, gather_on_save: bool = False) -> DataParallel:
-    """Strategy registry, as the JAX ``get_strategy``."""
+@dataclasses.dataclass
+class ZeRO1(DataParallel):
+    """ZeRO stage 1: params replicated (DDP compute and communication),
+    optimizer moments sharded over the data axes; each process updates
+    its slice of every sharded leaf and the params are all-gathered."""
+
+    data_size: int = 1
+
+    def __post_init__(self) -> None:
+        self.name = "zero1"
+
+    def opt_spec(self, shape: tuple, logical: tuple | None) -> Spec:
+        del logical
+        return _heuristic_spec(shape, self.data_size, BATCH_AXES,
+                               self.min_shard_elems)
+
+
+@dataclasses.dataclass
+class FullyShardedDataParallel(DataParallel):
+    """ZeRO-3: every large param sharded over the ``fsdp`` axis. With
+    logical axes present the storage shard dim follows ``rules``;
+    otherwise the largest divisible dim."""
+
+    fsdp_size: int = 1
+    rules: Rules = dataclasses.field(default_factory=lambda: {
+        "embed": AXIS_FSDP,
+        "vocab": AXIS_FSDP,
+        "mlp": None,
+        "heads": None,
+        "kv": None,
+        "expert": AXIS_FSDP,
+    })
+
+    def __post_init__(self) -> None:
+        self.name = "fsdp"
+
+    def param_spec(self, shape: tuple, logical: tuple | None) -> Spec:
+        sizes = {AXIS_FSDP: self.fsdp_size}
+        if logical is not None:
+            spec = prune_spec(shape, logical_to_spec(logical, self.rules),
+                              sizes, self.min_shard_elems)
+            if spec != ():
+                return spec
+        return _heuristic_spec(shape, self.fsdp_size, AXIS_FSDP,
+                               self.min_shard_elems)
+
+
+def check_strategy(name: str) -> None:
+    """Raise for a strategy name the port does not run."""
     name = name.lower()
-    if name in SHARDED:
+    if name in ("tp", "tp_fsdp"):
         raise NotImplementedError(
-            f"parallel_strategy '{name}' waits for ROADMAP.md queue A "
-            "item 4 (sharded training)")
-    if name != "ddp":
-        raise ValueError(f"unknown parallel strategy '{name}'")
-    if gather_on_save:
-        raise NotImplementedError(
-            "gather_on_save (the consolidated export) waits for "
-            "ROADMAP.md queue A item 4 (checkpoint/consolidate.py)")
-    return DataParallel()
+            f"parallel_strategy '{name}': tensor parallelism waits for "
+            "ROADMAP.md queue A item 4b (column/row-parallel block, "
+            "per-rank heads, vocab-parallel cross-entropy)")
+    if name not in ("ddp", "zero1", "fsdp", "hybrid"):
+        raise ValueError(
+            f"unknown parallel_strategy '{name}'; known: ddp, zero1, "
+            "fsdp, hybrid, tp")
+
+
+def get_strategy(name: str, mesh_spec=None, **kwargs) -> DataParallel:
+    """Strategy registry, as the JAX ``get_strategy``. ``hybrid`` is
+    FSDP specs over a mesh with dp > 1."""
+    check_strategy(name)
+    sizes = {}
+    if mesh_spec is not None:
+        sizes = dict(fsdp_size=mesh_spec.fsdp,
+                     data_size=mesh_spec.dp * mesh_spec.fsdp)
+    name = name.lower()
+    if name == "ddp":
+        return DataParallel(**kwargs)
+    if name == "zero1":
+        data_size = sizes.get("data_size", 1)
+        if data_size <= 1:
+            # A silent no-op hides misconfiguration: loud, not fatal.
+            warnings.warn(
+                "parallel_strategy='zero1' with data_size<=1: optimizer"
+                " moments will be fully replicated (plain DDP). Pass a"
+                " mesh with dp*fsdp > 1 for ZeRO-1 to shard anything.",
+                stacklevel=2)
+        return ZeRO1(data_size=data_size, **kwargs)
+    return FullyShardedDataParallel(
+        fsdp_size=sizes.get("fsdp_size", 1), **kwargs)
+
+
+def layout(strategy: DataParallel, shapes: dict, logical: dict) -> dict:
+    """``{"params": {path: Placement | None}, "opt": {...}}`` for the
+    flat (``a/b``-keyed) leaf shapes ``shapes`` and logical axes
+    ``logical`` of a model."""
+    return {"params": {k: placement(strategy.param_spec(s, logical.get(k)))
+                       for k, s in shapes.items()},
+            "opt": {k: placement(strategy.opt_spec(s, logical.get(k)))
+                    for k, s in shapes.items()}}

@@ -2,13 +2,19 @@
 
     python -m distributed_training_tpu_torch.train [key=value ...]
     python -m distributed_training_tpu_torch.train model=gpt2_125m train=gpt2
+    torchrun --nproc_per_node 2 -m distributed_training_tpu_torch.train \
+        train.device=cpu train.parallel_strategy=fsdp mesh.fsdp=2 ...
 
 The same ``conf/`` tree and override grammar as the JAX CLI. It runs on
-the CUDA card unless ``train.device=cpu`` is given. One process, one
-card: the run directory gets ``resolved_config.yaml``, ``metrics.jsonl``,
-``events.jsonl`` and the log file; checkpoints go to
-``train.snapshot_path``, and a rerun with the same settings resumes from
-the newest one.
+the CUDA card (``cuda:LOCAL_RANK`` under torchrun, over NCCL) unless
+``train.device=cpu`` is given (gloo). Under torchrun every process runs
+this; only process 0 writes ``resolved_config.yaml``, ``metrics.jsonl``
+and ``events.jsonl``, and every process logs to its own file
+(``<log_file>.p<rank>`` beside process 0's). Checkpoints go to
+``train.snapshot_path`` (sharded under a process group), and a rerun
+with the same settings resumes from the newest one. SIGTERM stops the
+run at a step every process agrees on, after a final save. The process
+group this CLI started is destroyed on every exit.
 """
 
 from __future__ import annotations
@@ -17,6 +23,31 @@ import argparse
 import logging
 import os
 import sys
+
+from distributed_training_tpu_torch.checkpoint import Checkpointer
+from distributed_training_tpu_torch.config import (
+    load_config,
+    save_resolved,
+)
+from distributed_training_tpu_torch.data import (
+    ShardedDataLoader,
+    build_dataset,
+)
+from distributed_training_tpu_torch.models.registry import build_model
+from distributed_training_tpu_torch.parallel import check_strategy
+from distributed_training_tpu_torch.runtime import (
+    initialize_runtime,
+    shutdown_runtime,
+)
+from distributed_training_tpu_torch.telemetry import events
+from distributed_training_tpu_torch.train.trainer import (
+    Trainer,
+    refuse_unported,
+)
+from distributed_training_tpu_torch.utils.logging import setup_logging
+from distributed_training_tpu_torch.utils.preemption import (
+    PreemptionGuard,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -36,29 +67,21 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     args = build_argparser().parse_args(argv)
 
-    from distributed_training_tpu_torch.checkpoint import Checkpointer
-    from distributed_training_tpu_torch.config import (
-        load_config,
-        save_resolved,
-    )
-    from distributed_training_tpu_torch.data import (
-        ShardedDataLoader,
-        build_dataset,
-    )
-    from distributed_training_tpu_torch.models.registry import build_model
-    from distributed_training_tpu_torch.runtime import initialize_runtime
-    from distributed_training_tpu_torch.telemetry import events
-    from distributed_training_tpu_torch.train.trainer import (
-        Trainer,
-        refuse_unported,
-    )
-    from distributed_training_tpu_torch.utils.logging import setup_logging
-
     cfg = load_config(args.config_dir, args.config_name, args.overrides)
     refuse_unported(cfg.train)
+    check_strategy(cfg.train.parallel_strategy)
     run_dir = os.path.join(cfg.run.output_dir, cfg.run.experiment_name)
     os.makedirs(run_dir, exist_ok=True)
     rt = initialize_runtime(cfg)
+    guard = PreemptionGuard.install()
+    try:
+        return _run(cfg, rt, guard, run_dir)
+    finally:
+        guard.uninstall()
+        shutdown_runtime(rt)
+
+
+def _run(cfg, rt, guard, run_dir: str) -> int:
     setup_logging(cfg.run.log_level, os.path.join(run_dir, cfg.run.log_file),
                   rt.process_index, force=True)
     if cfg.train.global_batch_size:
@@ -73,7 +96,8 @@ def main(argv: list[str] | None = None) -> int:
     if not cfg.train.events_jsonl:
         cfg.train.events_jsonl = os.path.join(run_dir, "events.jsonl")
     logger.info("config loaded; %s", rt.describe())
-    save_resolved(cfg, os.path.join(run_dir, "resolved_config.yaml"))
+    if rt.is_coordinator:
+        save_resolved(cfg, os.path.join(run_dir, "resolved_config.yaml"))
 
     dataset = build_dataset(
         cfg.train.dataset,
@@ -90,12 +114,23 @@ def main(argv: list[str] | None = None) -> int:
     model = build_model(cfg.model.name, loss=cfg.train.loss,
                         dtype=model_dtype, device=rt.device, **model_kwargs)
 
-    with Checkpointer(cfg.train.snapshot_path) as checkpointer:
+    with Checkpointer(cfg.train.snapshot_path, runtime=rt) as checkpointer:
         resumed = checkpointer.latest_step() is not None
         tel = events.install(events.Telemetry(
-            events_jsonl=cfg.train.events_jsonl, fresh=not resumed))
+            events_jsonl=(cfg.train.events_jsonl if rt.is_coordinator
+                          else None), fresh=not resumed))
         try:
-            trainer = Trainer(cfg, rt, model, loader, checkpointer)
+            tel.event("runtime", backend=rt.backend,
+                      world=rt.process_count, rank=rt.process_index,
+                      mesh=rt.spec.as_dict(), device=str(rt.device),
+                      device_kind=rt.device_kind,
+                      strategy=cfg.train.parallel_strategy)
+            if cfg.train.anomaly_detect:
+                tel.event("anomaly_detect", running=False,
+                          reason="the anomaly detector waits for "
+                                 "ROADMAP.md queue A item 15")
+            trainer = Trainer(cfg, rt, model, loader, checkpointer,
+                              preemption_guard=guard)
             if trainer.global_step > 0:
                 data_state = loader.state_dict()
                 tel.event("resume", step=trainer.global_step,
@@ -106,7 +141,9 @@ def main(argv: list[str] | None = None) -> int:
         finally:
             events.uninstall()
             tel.close()
-    logger.info("training done: %s", summary)
+    if rt.is_coordinator:
+        logger.info("training done: %s%s", summary,
+                    " (stopped by preemption)" if guard.should_stop else "")
     return 0
 
 

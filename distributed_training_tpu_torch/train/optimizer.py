@@ -12,7 +12,9 @@ queue A item 2.
 
 The state is a dict: ``count`` (updates applied so far, a Python int,
 so the schedule needs no device sync) plus ``mu``/``nu`` keyed like the
-params; the checkpoint saves it as it is.
+params (under a sharded strategy each moment is this process's shard,
+laid out by the strategy's ``opt_spec``); the checkpoint saves it as it
+is.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # optax.adamw's default epsilon (outside the square root).
 _EPS = 1e-8
@@ -97,9 +100,24 @@ def _matrices_mask(params: dict) -> dict:
             not in _NO_DECAY_KEYS for path, p in params.items()}
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32."""
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+def global_norm(tensors, sharded=(), group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32.
+
+    One sum of squares per leaf, added in the order of ``tensors``.
+    ``sharded`` flags, leaf for leaf, the tensors that are this
+    process's shard of a leaf split over ``group`` (the rest are whole,
+    or replicated on every process, and count once): their sums are
+    summed over the group first, in one all-reduce, so the norm equals
+    the unsharded one on every process, and over a group of one equals
+    it bit for bit."""
+    sums = [torch.sum(t.float() ** 2) for t in tensors]
+    idx = [i for i, s in enumerate(sharded) if s]
+    if idx:
+        part = torch.stack([sums[i] for i in idx])
+        dist.all_reduce(part, group=group)
+        for j, i in enumerate(idx):
+            sums[i] = part[j]
+    return torch.sqrt(torch.as_tensor(sum(sums), dtype=torch.float32))
 
 
 @dataclass
@@ -123,11 +141,13 @@ class Optimizer:
             state["nu"] = {k: torch.zeros_like(p) for k, p in params.items()}
         return state
 
-    def update(self, grads: dict, state: dict,
-               params: dict) -> tuple[dict, dict]:
+    def update(self, grads: dict, state: dict, params: dict,
+               gnorm: torch.Tensor | None = None) -> tuple[dict, dict]:
+        """``gnorm``: the global norm of the whole gradient tree, for the
+        clip; needed when ``grads`` are shards or slices of it."""
         count = state["count"]
         if self.clip_norm > 0:
-            gn = global_norm(grads.values())
+            gn = global_norm(grads.values()) if gnorm is None else gnorm
             clip = torch.tensor(self.clip_norm, dtype=torch.float32,
                                 device=gn.device)
             keep = gn < clip

@@ -2,30 +2,46 @@
 ``train/trainer.py``).
 
 ``make_train_step`` is the JAX step in eager PyTorch: the model's loss,
-``torch.autograd.grad`` over every param leaf, the global norm of the
-unclipped gradients (the ``grad_norm`` metric), the optimizer chain, and
-an in-place update. ``Trainer`` keeps the JAX orchestration: resume from
-the newest checkpoint (params, optimizer state, step and the loader's
+``torch.autograd.grad`` over every param leaf (summed over
+``grad_accum_steps`` strided microbatches and averaged), the gradients
+averaged over the data processes, the global norm of the unclipped
+gradients (the ``grad_norm`` metric), the optimizer chain, and an
+in-place update. ``Trainer`` keeps the JAX orchestration: resume from the
+newest checkpoint (params, optimizer state, step and the loader's
 cursor), the epoch loop with ``data_wait``/``step`` telemetry spans, a
 metrics row every ``log_every`` steps, a checkpoint every ``save_every``
-epochs, ``total_steps``/``max_steps_per_epoch``, and ``nan_guard``.
+epochs (and the consolidated artifact with ``gather_on_save``), a stop
+on preemption agreed by every process with a mid-epoch save,
+``total_steps``/``max_steps_per_epoch``, ``nan_guard``,
+``offload_opt_state`` and ``divergence_check_every``.
 
-One process drives one card (``ddp`` on a world of 1). The JAX trainer's
-other hooks are not ported yet and asking for one raises, naming its
-ROADMAP.md queue A item.
+The strategy (``ddp``, ``zero1``, ``fsdp``, ``hybrid``) lays the state
+out over the runtime's mesh (``parallel/strategy.py``): FSDP stores the
+weights sharded and gathers them one layer at a time for compute
+(``parallel/fsdp.py``); ZeRO-1 keeps each process's slice of the Adam
+moments, updates its slice of the params and all-gathers them. The JAX
+trainer's other hooks are not ported yet and asking for one raises,
+naming its ROADMAP.md queue A item.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distributed_training_tpu_torch.models.base import count_params
-from distributed_training_tpu_torch.parallel import get_strategy
+from distributed_training_tpu_torch.parallel import fsdp
+from distributed_training_tpu_torch.parallel.strategy import (
+    get_strategy,
+    layout as strategy_layout,
+)
+from distributed_training_tpu_torch.runtime import BATCH_AXES
 from distributed_training_tpu_torch.telemetry import events as telemetry
 from distributed_training_tpu_torch.train import state as state_lib
 from distributed_training_tpu_torch.train.optimizer import (
@@ -33,6 +49,7 @@ from distributed_training_tpu_torch.train.optimizer import (
     flatten,
     global_norm,
 )
+from distributed_training_tpu_torch.utils import diagnostics
 from distributed_training_tpu_torch.utils.metrics import MetricsLogger
 
 logger = logging.getLogger(__name__)
@@ -40,9 +57,6 @@ logger = logging.getLogger(__name__)
 # TrainConfig fields whose feature is not ported yet: field → (the value
 # that leaves it off, what it is, its ROADMAP.md queue A item).
 _UNPORTED = {
-    "grad_accum_steps": (1, "gradient accumulation", 4),
-    "offload_opt_state": (False, "optimizer-state offload", 4),
-    "divergence_check_every": (0, "the replica-drift check", 4),
     "sharding_plan": ("", "sharding plans", 17),
     "eval_fraction": (0.0, "held-out evaluation", 5),
     "data_sources": ({}, "the streaming data pipeline", 14),
@@ -56,7 +70,7 @@ _UNPORTED = {
 
 
 def refuse_unported(tcfg) -> None:
-    """Raise for a TrainConfig that asks for a feature this slice does
+    """Raise for a TrainConfig that asks for a feature this port does
     not run."""
     for name, (off, what, item) in _UNPORTED.items():
         if getattr(tcfg, name) not in (off, None):
@@ -65,59 +79,137 @@ def refuse_unported(tcfg) -> None:
                 f"ROADMAP.md queue A item {item}")
 
 
-def make_train_step(model, optimizer, nan_guard: bool = False):
+def microbatches(batch: Mapping, a: int) -> list:
+    """The strided split of the JAX step: microbatch ``i`` holds rows
+    ``i, i+a, i+2a, …`` of the batch."""
+    if a <= 1:
+        return [batch]
+    return [{k: v[i::a] for k, v in batch.items()} for i in range(a)]
+
+
+def make_train_step(model, optimizer, nan_guard: bool = False,
+                    grad_accum_steps: int = 1, layout: dict | None = None,
+                    runtime=None):
     """The train step ``(state, batch) -> metrics``, updating ``state``
     in place. With ``nan_guard``, a step whose loss or gradient norm is
     not finite leaves params and optimizer state as they were (one host
-    sync per step to decide)."""
+    sync per step to decide). ``layout``/``runtime``: the placements of
+    the state's leaves over the runtime's mesh (None: one process,
+    whole leaves)."""
+    pls = (layout or {}).get("params", {})
+    opt_pls = (layout or {}).get("opt", {})
+    sharded = runtime is not None and runtime.mesh is not None
+    # ZeRO-1's leaves: whole params, moments on a slice of them.
+    sliced = {k: pl for k, pl in opt_pls.items()
+              if pl is not None and pls.get(k) is None}
+    norm_group = runtime.group(("fsdp",)) if sharded else None
 
     def train_step(state: dict, batch: Mapping[str, torch.Tensor]) -> dict:
         params = state["params"]
         flat = flatten(params)
-        loss, metrics = model.loss(params, batch, train=True)
-        grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
-        metrics = dict(metrics)
-        metrics["grad_norm"] = global_norm(grads.values())
+        leaves = list(flat.values())
+        grads, metrics = None, {}
+        micro = microbatches(batch, grad_accum_steps)
+        for mb in micro:
+            loss, m = model.loss(params, mb, train=True)
+            g = torch.autograd.grad(loss, leaves)
+            grads = list(g) if grads is None else [
+                a + b for a, b in zip(grads, g)]
+            for k, v in m.items():
+                metrics[k] = v if k not in metrics else metrics[k] + v
+        grads = dict(zip(flat, grads))
+        if len(micro) > 1:
+            grads = {k: g / len(micro) for k, g in grads.items()}
+            metrics = {k: v / len(micro) for k, v in metrics.items()}
+        if sharded:
+            fsdp.average_grads(grads, pls, runtime)
+            metrics = fsdp.mean_over_data(metrics, runtime)
+        # Nonlinear derived metrics don't average: recompute from the
+        # mean loss, as the JAX step does.
+        if "perplexity" in metrics:
+            metrics["perplexity"] = torch.exp(metrics["loss"])
+        gnorm = global_norm(grads.values(),
+                            [pls.get(k) is not None for k in grads],
+                            norm_group)
+        metrics["grad_norm"] = gnorm
         ok = True
         if nan_guard:
-            ok = bool(torch.isfinite(loss) & torch.isfinite(metrics["grad_norm"]))
+            ok = bool(torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm))
             metrics["skipped_nonfinite"] = torch.tensor(float(not ok))
         if ok:
-            updates, state["opt_state"] = optimizer.update(
-                grads, state["opt_state"], flat)
             with torch.no_grad():
-                for k, p in flat.items():
-                    p.add_(updates[k])
+                views = {k: fsdp.local_view(p, sliced.get(k), runtime)
+                         for k, p in flat.items()}
+                gviews = {k: fsdp.local_view(g, sliced.get(k), runtime)
+                          for k, g in grads.items()}
+                updates, state["opt_state"] = optimizer.update(
+                    gviews, state["opt_state"], views, gnorm=gnorm)
+                for k, v in views.items():
+                    v.add_(updates[k])
+                if sliced:
+                    whole = fsdp.gather_full(
+                        {k: views[k] for k in sliced}, sliced, runtime)
+                    for k in sliced:
+                        flat[k].copy_(whole[k])
         state["step"] += 1
         return metrics
 
     return train_step
 
 
-class Trainer:
-    """Config-driven training orchestrator on one device."""
+def _pinned_like(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``, page-locked when ``t`` is on the card."""
+    if t.device.type == "cuda":
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+    return t.detach().clone()
 
-    def __init__(self, cfg, runtime, model, loader, checkpointer=None):
+
+class Trainer:
+    """Config-driven training orchestrator over the runtime's mesh."""
+
+    def __init__(self, cfg, runtime, model, loader, checkpointer=None,
+                 preemption_guard=None, params: dict | None = None):
+        """``params``: whole weights to start from instead of the
+        seed's init (ignored when a checkpoint resumes)."""
         self.cfg = cfg
         self.rt = runtime
         self.model = model
         self.loader = loader
         self.checkpointer = checkpointer
+        # Cooperative stop flag (SIGTERM → save + clean exit); see
+        # utils/preemption.py. None → never stops early.
+        self.preemption_guard = preemption_guard
+        self._stop_agreed = False
         self.telemetry = telemetry.current()
         self._steps_dispatched = 0
         tcfg = cfg.train
         refuse_unported(tcfg)
-        self.strategy = get_strategy(tcfg.parallel_strategy,
+        if runtime.process_count > 1 and runtime.mesh is None:
+            raise RuntimeError(
+                f"a world of {runtime.process_count} processes without a "
+                "process group and mesh: build the runtime with "
+                "initialize_runtime under torch.distributed")
+        if tcfg.grad_accum_steps < 1 or (
+                loader.batch_size % tcfg.grad_accum_steps):
+            raise ValueError(
+                f"grad_accum_steps={tcfg.grad_accum_steps} must divide "
+                f"the per-shard batch_size={loader.batch_size}")
+        self.strategy = get_strategy(tcfg.parallel_strategy, runtime.spec,
+                                     min_shard_elems=tcfg.min_shard_elems,
                                      gather_on_save=tcfg.gather_on_save)
+        self.layout = self._layout()
+        self._bind_gather()
         self._check_dataset()
         total_steps = tcfg.total_steps or (
             loader.steps_per_epoch * tcfg.total_epochs)
         self.optimizer = build_optimizer(tcfg, total_steps)
-        self._step_fn = make_train_step(model, self.optimizer,
-                                        nan_guard=tcfg.nan_guard)
+        self._step_fn = make_train_step(
+            model, self.optimizer, nan_guard=tcfg.nan_guard,
+            grad_accum_steps=tcfg.grad_accum_steps,
+            layout=self.layout, runtime=runtime)
 
         self.epochs_run = 0
-        restored = (checkpointer.restore_latest(model.device)
+        restored = (checkpointer.restore_latest(model.device, self.layout)
                     if checkpointer is not None else None)
         if restored is not None:
             self.state, meta = restored
@@ -127,9 +219,15 @@ class Trainer:
                         self.epochs_run, self.state["step"])
         else:
             self.state = state_lib.init_state(model, self.optimizer,
-                                              tcfg.seed)
-            logger.info("initialized fresh state: %d params",
-                        count_params(self.state["params"]))
+                                              tcfg.seed, self.layout,
+                                              runtime, params=params)
+            logger.info("initialized fresh state: %d params on this "
+                        "process", count_params(self.state["params"]))
+        # Optimizer-state offload: the moments live in (pinned) host
+        # memory between steps and visit the device for the update.
+        self._offload = tcfg.offload_opt_state
+        if self._offload:
+            self.offload_opt_state()
         self.global_step = self.state["step"]
         flops_per_sample = (model.flops_per_sample()
                             if hasattr(model, "flops_per_sample") else 0)
@@ -145,6 +243,55 @@ class Trainer:
             start_step=self.global_step,
             on_entry=lambda entry: self.telemetry.event("train_metrics",
                                                         **entry))
+
+    # -- layout ------------------------------------------------------------
+
+    def _layout(self) -> dict | None:
+        """Each leaf's placement over the mesh (None without a process
+        group: every leaf whole)."""
+        if self.rt.mesh is None:
+            return None
+        return strategy_layout(self.strategy,
+                               flatten(self.model.param_shapes()),
+                               flatten(self.model.logical_axes()))
+
+    def _bind_gather(self) -> None:
+        """Bind the per-layer gather when any weight is stored sharded
+        (the JAX trainer's gather-for-compute binding)."""
+        pls = (self.layout or {}).get("params", {})
+        gather = None
+        if any(pl is not None for pl in pls.values()):
+            if not self.cfg.train.fsdp_gather_for_compute:
+                raise ValueError(
+                    "train.fsdp_gather_for_compute=false: the port gathers "
+                    "sharded weights for compute; it has no partitioner to "
+                    "choose another layout")
+            gather = fsdp.GatherForCompute(pls, self.rt,
+                                           self.model.stacked_keys)
+        self.model.bind_gather_for_compute(gather)
+
+    def offload_opt_state(self) -> None:
+        """Move the optimizer moments to host memory (pinned when the
+        device is a card)."""
+        opt = self.state["opt_state"]
+        self.state["opt_state"] = {
+            k: ({n: _pinned_like(t) for n, t in v.items()}
+                if isinstance(v, dict) else v) for k, v in opt.items()}
+
+    def _opt_to(self, opt: dict, host: dict | None = None) -> dict:
+        """The moments copied to the device, or (``host``) back into
+        ``host``'s buffers; both copies are asynchronous on the card."""
+        out = {}
+        for k, v in opt.items():
+            if not isinstance(v, dict):
+                out[k] = v
+            elif host is None:
+                out[k] = {n: t.to(self.model.device, non_blocking=True)
+                          for n, t in v.items()}
+            else:
+                out[k] = {n: host[k][n].copy_(t, non_blocking=True)
+                          for n, t in v.items()}
+        return out
 
     def _check_dataset(self) -> None:
         """The model/dataset contract, checked before the first step:
@@ -185,6 +332,43 @@ class Trainer:
             self.epochs_run = max(0, self.epochs_run - 1)
         self.loader.seek_epoch(self.epochs_run)
 
+    # -- cooperative stop / health ----------------------------------------
+
+    def _agreed_stop(self) -> bool:
+        """Whether to break the step loop, agreed by every process: a
+        process that breaks while the others run the next step would
+        leave their collectives waiting forever. Every
+        ``stop_poll_every`` steps (a function of the step, the same on
+        every process) each contributes its flag to an all-reduce MAX."""
+        if self.preemption_guard is None:
+            return False
+        local = self.preemption_guard.should_stop
+        if self.rt.process_count == 1:
+            self._stop_agreed = local
+            return local
+        poll = max(1, self.cfg.train.stop_poll_every)
+        if self.global_step % poll == 0:
+            flag = torch.tensor([int(local)], device=self.model.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            self._stop_agreed = bool(flag.item())
+        return self._stop_agreed
+
+    def _check_divergence(self) -> dict | None:
+        """Replica drift over the data axes every param is replicated on
+        (DDP: (dp, fsdp); FSDP: dp; shards fingerprinted in place). None
+        when the layout has no replicas."""
+        if self.rt.mesh is None:
+            return None
+        sizes = self.rt.spec.as_dict()
+        used = {a for pl in self.layout["params"].values() if pl
+                for a in pl.axes}
+        axes = tuple(a for a in BATCH_AXES
+                     if a not in used and sizes[a] > 1)
+        if not axes:
+            return None
+        return diagnostics.replica_divergence(
+            flatten(self.state["params"]), self.rt.group(axes))
+
     # -- loops -------------------------------------------------------------
 
     def train_step(self, batch) -> dict:
@@ -193,13 +377,21 @@ class Trainer:
         # a span is host time up to the enqueue of the step's last launch.
         name = "compile" if self._steps_dispatched == 0 else "step"
         with self.telemetry.span(name, step=self.global_step + 1):
+            host = None
+            if self._offload:
+                host = self.state["opt_state"]
+                self.state["opt_state"] = self._opt_to(host)
             metrics = self._step_fn(self.state, batch)
+            if self._offload:
+                self.state["opt_state"] = self._opt_to(
+                    self.state["opt_state"], host)
         self._steps_dispatched += 1
         self.global_step += 1
         return metrics
 
     def _run_epoch(self, epoch: int) -> dict:
         losses = []
+        div_every = self.cfg.train.divergence_check_every
         it = iter(self.loader.epoch(epoch))
         try:
             while True:
@@ -209,8 +401,15 @@ class Trainer:
                 if batch is None:
                     break
                 metrics = self.train_step(batch)
+                if div_every and self.global_step % div_every == 0:
+                    report = self._check_divergence()
+                    if report is not None:
+                        metrics = {**metrics, "replica_divergence":
+                                   report["max_divergence"]}
                 self.metrics.record(self.global_step, metrics, epoch=epoch)
                 losses.append(metrics["loss"])
+                if self._agreed_stop():
+                    break
         finally:
             # Close the iterator on every exit: the prefetch worker is
             # stopped and joined, and the loader's position stays at the
@@ -232,18 +431,35 @@ class Trainer:
             if self.rt.is_coordinator:
                 logger.info("epoch %d | mean_loss %.6f", epoch,
                             summary["mean_loss"])
+            preempted = self._stop_agreed
             save_every = self.cfg.train.save_every
-            if (self.checkpointer is not None and save_every > 0
-                    and epoch % save_every == 0):
-                meta = {"epoch": epoch, **self._arch_meta(),
-                        "data": self.loader.state_dict()}
-                self.checkpointer.save(self.global_step, self.state,
-                                       meta=meta)
+            if self.checkpointer is not None and (
+                    preempted or (save_every > 0
+                                  and epoch % save_every == 0)):
+                # Collective save: every process takes part. On
+                # preemption, mid-epoch included: the loader's cursor
+                # rides the meta, so the resume continues the epoch.
+                self._save(epoch, force=preempted)
+            if preempted:
+                logger.warning("stopping at epoch %d due to preemption",
+                               epoch)
+                break
             self.epochs_run = epoch + 1
         if self.checkpointer is not None:
             self.checkpointer.wait()
         summary["wall_time_s"] = time.perf_counter() - t0
         return summary
+
+    def _save(self, epoch: int, force: bool = False) -> None:
+        if self._offload and self.model.device.type == "cuda":
+            # The moments' copies back to the host are asynchronous.
+            torch.cuda.synchronize(self.model.device)
+        meta = {"epoch": epoch, **self._arch_meta(),
+                "data": self.loader.state_dict()}
+        self.checkpointer.save(self.global_step, self.state, meta=meta,
+                               force=force, layout=self.layout)
+        if self.strategy.gather_on_save:
+            self.export_consolidated(epoch=epoch)
 
     def _arch_meta(self) -> dict:
         """Architecture identity stamped into every checkpoint meta."""
@@ -252,3 +468,18 @@ class Trainer:
                 "model_dtype": self.cfg.model.kwargs.get(
                     "dtype", self.cfg.train.dtype),
                 "loss": self.cfg.train.loss}
+
+    # -- consolidated export -----------------------------------------------
+
+    def export_consolidated(self, epoch: int | None = None) -> str:
+        """Gather the whole train state and write ONE portable artifact
+        (collective: every process enters; process 0 writes) at
+        <snapshot_path>/consolidated_step<N>.pt."""
+        from distributed_training_tpu_torch.checkpoint import consolidate
+        path = os.path.join(self.cfg.train.snapshot_path,
+                            f"consolidated_step{self.global_step}.pt")
+        meta = {"step": self.global_step, **self._arch_meta()}
+        if epoch is not None:
+            meta["epoch"] = epoch
+        return consolidate.export_consolidated(
+            path, self.state, self.layout, self.rt, meta=meta)

@@ -63,6 +63,8 @@ class MetricsLogger:
     resumed run appends after a ``run_start`` line). The first row is
     flagged ``"warmup": true`` and carries no throughput: the window
     opens there, so build and first-step time never fold into a rate.
+    ``num_devices`` is the world's card count: rates and MFU are per
+    card. A ``replica_divergence`` metric rides its row.
     Reading a row's loss waits for the device (one sync per row)."""
 
     log_every: int = 10
@@ -114,6 +116,9 @@ class MetricsLogger:
         if self._last_time is None:
             entry = {"epoch": epoch, "step": step, "loss": loss,
                      "warmup": True}
+            if "replica_divergence" in metrics:
+                entry["replica_divergence"] = int(
+                    metrics["replica_divergence"])
             self._append(entry)
             logger.info("step %d | epoch %d | loss %.6f | (warmup row: "
                         "throughput window starts here)", step, epoch, loss)
@@ -133,6 +138,8 @@ class MetricsLogger:
         }
         if "grad_norm" in metrics:
             entry["grad_norm"] = float(metrics["grad_norm"])
+        if "replica_divergence" in metrics:
+            entry["replica_divergence"] = int(metrics["replica_divergence"])
         mfu = compute_mfu(
             samples_per_sec * self.flops_per_sample / self.num_devices,
             self.device_kind)

@@ -15,7 +15,11 @@ import torch
 from distributed_training_tpu_torch import config as port_config
 from distributed_training_tpu_torch.data import datasets as port_ds
 from distributed_training_tpu_torch.data import loader as port_loader
-from distributed_training_tpu_torch.runtime import Runtime, initialize_runtime
+from distributed_training_tpu_torch.runtime import (
+    MeshSpecError,
+    Runtime,
+    initialize_runtime,
+)
 
 jax = pytest.importorskip("jax")
 
@@ -89,11 +93,18 @@ def test_loader_index_stream_matches_jax():
 
 
 def test_runtime_resolves_one_device_and_refuses_a_mesh():
+    """A world of 1 without a process group: one device, no mesh; a mesh
+    that needs more processes than the world is the MeshSpec error, and
+    tensor parallelism names its ROADMAP item."""
     cfg = port_config.load_config(overrides=["train.device=cpu"])
     rt = initialize_runtime(cfg)
     assert (rt.device.type, rt.num_devices, rt.data_shard_count,
             rt.process_count, rt.is_coordinator) == ("cpu", 1, 1, 1, True)
+    assert rt.mesh is None and rt.backend is None
     assert "platform=cpu" in rt.describe()
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(MeshSpecError, match="device count 1"):
         initialize_runtime(port_config.load_config(
             overrides=["train.device=cpu", "mesh.fsdp=2"]))
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        initialize_runtime(port_config.load_config(
+            overrides=["train.device=cpu", "mesh.tp=2"]))

@@ -143,10 +143,53 @@ def test_cli_save_stop_resume_matches_uninterrupted(tmp_path):
 
 
 def test_cli_refuses_unported_features(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        cli.main(["train.device=cpu", "train.grad_accum_steps=2",
-                  f"run.output_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        cli.main(["train.device=cpu", "train.parallel_strategy=fsdp",
+    """Tensor parallelism (as a strategy or a mesh axis) names ROADMAP
+    item 4b; a field still unported names its item."""
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        cli.main(["train.device=cpu", "train.parallel_strategy=tp",
                   "model=gpt2_125m", "train=gpt2",
                   f"run.output_dir={tmp_path}"])
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        cli.main(["train.device=cpu", "mesh.tp=2",
+                  f"run.output_dir={tmp_path}"])
+    with pytest.raises(NotImplementedError, match="item 5"):
+        cli.main(["train.device=cpu", "train.eval_fraction=0.1",
+                  f"run.output_dir={tmp_path}"])
+
+
+def test_sigterm_mid_run_saves_a_checkpoint_that_resumes(tmp_path,
+                                                         monkeypatch):
+    """SIGTERM after step 4 of 6 (2 epochs of 3): the CLI's PreemptionGuard stops the
+    run after that step with a mid-epoch save; rerunning resumes there
+    and ends identical to an uninterrupted run. The event stream says
+    which runtime ran and that the anomaly detector does not."""
+    import signal
+
+    step = Trainer.train_step
+
+    def sigterm_after_4(self, batch):
+        metrics = step(self, batch)
+        if self.global_step == 4:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return metrics
+
+    monkeypatch.setattr(Trainer, "train_step", sigterm_after_4)
+    assert _cli(tmp_path / "a", 2) == 0
+    monkeypatch.undo()
+    assert signal.getsignal(signal.SIGTERM) == signal.SIG_DFL
+    assert _final_params(tmp_path / "a")[0] == 4
+    run = tmp_path / "a" / "default"
+    meta = json.load(open(run / "checkpoints" / "4" / "meta.json"))
+    assert meta["data"]["mid_epoch"] and meta["data"]["step_in_epoch"] == 1
+    events = [json.loads(line) for line in open(run / "events.jsonl")]
+    kinds = {e["kind"]: e for e in events}
+    assert kinds["runtime"]["backend"] is None
+    assert kinds["runtime"]["world"] == 1
+    assert kinds["anomaly_detect"]["running"] is False
+    assert _cli(tmp_path / "a", 2) == 0
+    assert _cli(tmp_path / "b", 2) == 0
+    step_a, a = _final_params(tmp_path / "a")
+    step_b, b = _final_params(tmp_path / "b")
+    assert step_a == step_b == 6
+    for k in b:
+        assert torch.equal(a[k], b[k]), k

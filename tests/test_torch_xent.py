@@ -74,3 +74,36 @@ def test_forward_keeps_no_logits_buffer():
         nll = port_xent.lm_cross_entropy(x, head, t, chunk_rows=16)
     assert nll.shape == (B, S)
     assert all(s[-1] != V or s == (D, V) for s in saved), saved
+
+
+def test_bf16_logits_keep_f32_accumulators():
+    """bf16 hidden states and head at a training-like shape: the chunk
+    logits are f32 products as in the JAX op, so the per-token nll
+    agrees to 1e-4 (rounding the logits to bf16 first moved it by
+    2.8e-2 on these inputs)."""
+    B, S, D, V = 4, 256, 64, 2048
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    head = (0.3 * rng.standard_normal((D, V))).astype(np.float32)
+    t = rng.integers(0, V, size=(B, S)).astype(np.int32)
+    xb, hb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(head, jnp.bfloat16)
+    want, vjp = jax.vjp(
+        lambda x, h: jax_xent.lm_cross_entropy(x, h, jnp.asarray(t),
+                                               chunk_rows=256), xb, hb)
+    _, want_dh = vjp(jnp.ones((B, S), jnp.float32))
+
+    xs = torch.from_numpy(x).bfloat16().requires_grad_()
+    hs = torch.from_numpy(head).bfloat16().requires_grad_()
+    got = port_xent.lm_cross_entropy(xs, hs, torch.from_numpy(t),
+                                     chunk_rows=256)
+    (dh,) = torch.autograd.grad(got.sum(), (hs,))
+    assert got.dtype == torch.float32 and dh.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-4)
+    # dhead: f32 sums of products of bf16 dlogits, rounded to bf16: one
+    # bf16 ulp, plus a dlogit on a rounding boundary that rounds the
+    # other way (its softmax differs in the last f32 bits), which moves
+    # an entry by one ulp of that dlogit times x (about 1e-4 here).
+    np.testing.assert_allclose(dh.float().numpy(),
+                               np.asarray(want_dh, np.float32),
+                               rtol=2 ** -7, atol=1e-3)
