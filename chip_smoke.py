@@ -23,8 +23,13 @@ a seed:
 
 - serving: ``Engine`` + ``ServingServer`` over HTTP (batched prefill,
   paged decode), the sequential prefill whose first chunk takes the
-  flash forward, float32 greedy tokens against the dense forward, and a
-  ``torch.profiler`` trace of one burst;
+  flash forward, speculative decode over HTTP (spec_k 4: each launch
+  verifies a chain of drafted tokens through paged decode at 32 rows),
+  device-resident decode (resident_k 8, each burst one replay of a CUDA
+  graph captured at warmup, its first burst held against the eager body
+  bit for bit), float32 greedy tokens of every decode form against the
+  dense forward, and ``torch.profiler`` traces of one burst with
+  one-token and with resident decode;
 - training: the trainer CLI (``python -m distributed_training_tpu_torch.
   train model=gpt2_125m train=gpt2``) for 20 steps with the fused flash
   backward and 10 with the split one (every bf16 flash launch on the
@@ -330,6 +335,58 @@ def _paged_case(timer, B, H, Hkv, hd, ps, max_len, dtype,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _chain_case(timer, S, C, H, hd, ps, max_len, dtype, starts) -> dict:
+    """Paged decode at the decode chain's geometry (speculative and
+    resident decode): S slots of C queries at positions start + c, one
+    launch over S * C rows with lengths start + c + 1 and each slot's
+    page row repeated (``paged_decode_chain``), against the paged chunk
+    form (its plain version); a dead slot (start < 0) and its zeros; the
+    same bits on a second launch. The bound moves each slot's live K/V
+    rows once (its C rows share them)."""
+    from distributed_training_tpu_torch.ops import paged_attention as pa
+
+    live = [s + C if s >= 0 else 0 for s in starts]
+    (_, kp, vp, _, rows), _ = paged_inputs(S, H, H, hd, ps, max_len, dtype,
+                                           lengths=live)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    q = torch.randn(S, C, H, hd, generator=g, device="cuda").to(dtype)
+    start = torch.tensor(starts, device="cuda")
+    q_pos = torch.where(start[:, None] >= 0,
+                        start[:, None] + torch.arange(C, device="cuda"), -1)
+    lengths = (q_pos + 1).reshape(-1).int()
+    rows_flat = rows.repeat_interleave(C, dim=0)
+    qf = q.reshape(S * C, H, hd)
+    before = dict(pa.paged_attention.launches_by_design)
+    out = pa.paged_decode_chain(q, kp, vp, rows, q_pos)
+    torch.cuda.synchronize()
+    design = _design_taken(pa.paged_attention, before)
+    again = pa.paged_decode_chain(q, kp, vp, rows, q_pos)
+    ref = pa.paged_attention_chunk(q, kp, vp, rows, q_pos)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = TOL[dtype]
+    check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+          f"paged_decode chain {S}x{C}: max err {err} > {tol}")
+    check(torch.equal(out, again), "paged_decode chain: a second launch "
+          "gave other bits")
+    dead = [i for i, s in enumerate(starts) if s < 0]
+    check(all(out[i].abs().max().item() == 0.0 for i in dead),
+          "a dead slot's chain is not zero")
+    toks = int(lengths.sum())
+    nbytes = (2 * sum(live) * H * hd + 2 * q.numel()) * q.element_size() \
+        + 4 * (S * C + sum(-(-n // ps) for n in live))
+    bound_ms, bound_by = bound(4.0 * toks * H * hd, nbytes, dtype)
+    splits, pages = pa.split_kv_plan(S * C, H, max_len // ps, ps)
+    return {"slots": S, "chain": C, "rows": S * C,
+            "shape": [S * C, H, H, hd, ps], "dtype": str(dtype).split(".")[1],
+            "design": design, "splits": splits, "pages_per_split": pages,
+            "starts": list(starts), "max_abs_err": err, "bit_identical": True,
+            "ms": timer.ms(lambda: pa.paged_attention(qf, kp, vp, lengths,
+                                                      rows_flat)),
+            "plain_ms": timer.ms(lambda: pa.paged_attention_chunk(
+                q, kp, vp, rows, q_pos)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """Max abs error relative to the largest magnitude of ``want`` (at
     least 1), the measure the gradients are held to."""
@@ -464,7 +521,12 @@ def phase_kernels() -> dict:
              # transformer_1b's (H = Hkv 16, hd 128): one sequence of 2048
              # tokens, which only a split walk spreads over the card.
              "long_single": _paged_case(timer, 1, 16, 16, 128, 16, 2048,
-                                        bf16, lengths=[2048])}
+                                        bf16, lengths=[2048]),
+             # The decode chain of serving_spec and serving_resident: 8
+             # slots x spec_k 4 = 32 rows, the main case's lengths as
+             # each chain's first position, one dead slot.
+             "chain": _chain_case(timer, 8, 4, 12, 64, 16, 1024, bf16,
+                                  [871, 652, 523, 276, 315, 41, 77, -1])}
     emit({"phase": "kernels", "flash_fwd": flash, "paged_decode": paged})
     bwd = {}
     for split in (False, True):
@@ -497,6 +559,7 @@ def phase_kernels() -> dict:
         timer, 2, 8, 2, 256, 96, bf16, True, grads_dtype=f32)
     emit({"phase": "kernels_bwd", **bwd})
     return {"flash_fwd": flash["train"], "paged_decode": paged["main"],
+            "paged_decode_chain": paged["chain"],
             "flash_bwd_fused": bwd["fused_train"]["flash_bwd_fused"],
             "flash_bwd_dq": bwd["split_train"]["flash_bwd_dq"],
             "flash_bwd_dkv": bwd["split_train"]["flash_bwd_dkv"]}
@@ -641,18 +704,18 @@ def _post(port: int, body: dict):
     return json.loads(data)
 
 
-def phase_serving(prompts: list, new_tokens: int) -> tuple[tuple, dict]:
+def _http_burst(eng, prompts: list, new_tokens: int, what: str) -> dict:
+    """The prompts as concurrent HTTP requests through ``ServingServer``,
+    plus one streamed repeat of prompt 0 (its tokens are held against
+    the plain request's), with the launch counts and the engine's decode
+    launches and host syncs counted from 0 around the burst. Paged
+    decode must run at least once per layer per decode launch, all on
+    ``split_kv``."""
     from distributed_training_tpu_torch.serving.server import ServingServer
 
-    torch.cuda.reset_peak_memory_stats()
-    model, params = _gpt2("bfloat16")
-    eng = _engine(model, params)
-    counts = eng.warmup()
     srv = ServingServer(eng, port=0).start()
     check(srv is not None, "server did not start")
     results: dict = {}
-    # The streamed request repeats prompt 0, so its tokens are held
-    # against a plain request for the same prompt.
     bodies = [{"prompt_ids": p.tolist(), "max_new_tokens": new_tokens}
               for p in prompts]
     bodies.append(dict(bodies[0], stream=True))
@@ -661,7 +724,7 @@ def phase_serving(prompts: list, new_tokens: int) -> tuple[tuple, dict]:
         results[i] = _post(srv.port, bodies[i])
 
     try:
-        decode0 = eng.decode_launches
+        decode0, syncs0 = eng.decode_launches, eng.host_syncs
         _reset_counts()
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(i,))
@@ -674,41 +737,244 @@ def phase_serving(prompts: list, new_tokens: int) -> tuple[tuple, dict]:
         wall = time.perf_counter() - t0
         launches, designs = _read_counts(), _read_designs()
         decode_launches = eng.decode_launches - decode0
+        syncs = eng.host_syncs - syncs0
     finally:
         srv.stop()
-    check(len(results) == len(bodies), "not every request completed")
+    check(len(results) == len(bodies), f"{what}: not every request "
+          "completed")
     lines = results[len(bodies) - 1]
     streamed = [x["token"] for x in lines if "token" in x]
     final = lines[-1]
     check(final.get("done") and final["tokens"] == streamed,
-          "stream's token lines differ from its final line")
+          f"{what}: stream's token lines differ from its final line")
     check(streamed == results[0]["tokens"],
-          "streamed tokens differ from the plain request's")
+          f"{what}: streamed tokens differ from the plain request's")
     plain = [results[i] for i in range(len(prompts))]
     check(all(len(r["tokens"]) == new_tokens for r in plain),
-          "a request returned the wrong number of tokens")
-    check(eng.compile_counts() == counts, "kernel builds after warmup")
+          f"{what}: a request returned the wrong number of tokens")
     check(launches["paged_decode"] >= 12 * decode_launches > 0,
-          f"paged decode launches {launches['paged_decode']} < 12 x "
-          f"{decode_launches} decode launches")
+          f"{what}: paged decode launches {launches['paged_decode']} < 12 "
+          f"x {decode_launches} decode launches")
     _check_designs({"paged_decode": designs["paged_decode"]}, "split_kv",
-                   "serving")
+                   what)
     generated = sum(len(r["tokens"]) for r in plain) + len(streamed)
     ttfts = [r["ttft_s"] for r in plain] + [final["ttft_s"]]
-    info = {"phase": "serving", "model": "gpt2_125m", "dtype": "bfloat16",
-            "requests": len(bodies), "prompt_lens": [len(p) for p in prompts],
-            "new_tokens": new_tokens, "wall_s": wall,
-            "tokens_per_s": generated / wall,
+    return {"wall_s": wall, "tokens_per_s": generated / wall,
             "mean_ttft_s": float(np.mean(ttfts)),
+            "decode_launches": decode_launches, "host_syncs": syncs,
+            "launches": launches, "launches_by_design": designs,
+            "leaked_threads": srv.leaked_threads,
+            "tokens": {i: r["tokens"] for i, r in enumerate(plain)}}
+
+
+def _matching(got: dict, want: dict) -> int:
+    """Tokens at the same place in the same request's stream."""
+    return sum(int(a == b) for i in got for a, b in zip(got[i], want[i]))
+
+
+def phase_serving(prompts: list, new_tokens: int) -> tuple[tuple, dict]:
+    torch.cuda.reset_peak_memory_stats()
+    model, params = _gpt2("bfloat16")
+    eng = _engine(model, params)
+    counts = eng.warmup()
+    res = _http_burst(eng, prompts, new_tokens, "serving")
+    check(eng.compile_counts() == counts, "kernel builds after warmup")
+    info = {"phase": "serving", "model": "gpt2_125m", "dtype": "bfloat16",
+            "requests": len(prompts) + 1,
+            "prompt_lens": [len(p) for p in prompts],
+            "new_tokens": new_tokens, "wall_s": res["wall_s"],
+            "tokens_per_s": res["tokens_per_s"],
+            "mean_ttft_s": res["mean_ttft_s"],
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-            "decode_launches": decode_launches,
+            "decode_launches": res["decode_launches"],
             "prefill_launches": eng.prefill_launches,
-            "host_syncs": eng.host_syncs, "launches": launches,
-            "launches_by_design": designs, "compile_counts": counts,
-            "leaked_threads": srv.leaked_threads}
+            "host_syncs": res["host_syncs"], "launches": res["launches"],
+            "launches_by_design": res["launches_by_design"],
+            "compile_counts": counts,
+            "leaked_threads": res["leaked_threads"]}
     emit(info)
-    return (launches, designs), {i: r["tokens"]
-                                 for i, r in enumerate(plain)}
+    return (res["launches"], res["launches_by_design"]), res["tokens"]
+
+
+def phase_serving_spec(prompts: list, new_tokens: int,
+                       batched_tokens: dict) -> tuple:
+    """phase_serving's requests with speculative decode (spec_k 4): each
+    decode launch verifies every slot's last token and three drafted
+    ones in one chain through paged decode (32 rows), eager, and may
+    emit several tokens a slot, streamed as they come."""
+    model, params = _gpt2("bfloat16")
+    eng = _engine(model, params, spec_k=4)
+    counts = eng.warmup()
+    res = _http_burst(eng, prompts, new_tokens, "serving_spec")
+    check(eng.compile_counts() == counts, "serving_spec: kernel builds "
+          "after warmup")
+    st = eng.spec_stats
+    emit({"phase": "serving_spec", "dtype": "bfloat16", "spec_k": 4,
+          "requests": len(prompts) + 1, "new_tokens": new_tokens,
+          **{k: res[k] for k in ("wall_s", "tokens_per_s", "mean_ttft_s",
+                                 "decode_launches", "host_syncs",
+                                 "launches", "launches_by_design",
+                                 "leaked_threads")},
+          "spec_stats": st,
+          "spec_accepted_mean": st["emitted"] / max(1, st["launches"]),
+          "compile_counts": counts,
+          "tokens_matching_serving": _matching(res["tokens"],
+                                               batched_tokens),
+          "tokens_total": sum(len(t) for t in res["tokens"].values())})
+    return res["launches"], res["launches_by_design"]
+
+
+def _check_replay_equals_eager(eng) -> dict:
+    """Wrap the engine's resident graph so that its first burst is also
+    run through the eager body (``_resident_program`` on the same static
+    inputs) on clones of the pools taken before the replay: ``out``,
+    ``n_emitted`` and ``steps`` must be identical, the pools bitwise
+    equal over pages >= 1 (dead lanes all write the scratch page 0
+    through one scatter with duplicate indices, so its bytes are not
+    deterministic). The eager run's launches are not counted."""
+    from distributed_training_tpu_torch.ops import paged_attention as pa
+
+    g, report = eng._resident, {}
+    replay = g.run
+
+    def run_checked(*arrays):
+        if report:
+            return replay(*arrays)
+        kp, vp = eng.cache.k_pages.clone(), eng.cache.v_pages.clone()
+        got = [t.clone() for t in replay(*arrays)]
+        n0, d0 = pa.paged_attention.launches, dict(
+            pa.paged_attention.launches_by_design)
+        want = g.eager(kp, vp)
+        torch.cuda.synchronize()
+        pa.paged_attention.launches = n0
+        pa.paged_attention.launches_by_design.update(d0)
+        live = (slice(None),) * 3 + (slice(1, None),)
+        report.update(
+            out=torch.equal(got[0], want[0]),
+            n_emitted=torch.equal(got[1], want[1]),
+            steps=torch.equal(got[2], want[2]),
+            k_pages=torch.equal(eng.cache.k_pages[live], kp[live]),
+            v_pages=torch.equal(eng.cache.v_pages[live], vp[live]),
+            emitted=int(got[1].sum()))
+        return got
+
+    g.run = run_checked
+    return report
+
+
+def _time_bursts(eng) -> list:
+    """Wrap the engine's resident graph so that each burst's device time
+    (its input copies and the replay) is taken by CUDA events; read the
+    returned (start, end) pairs after a synchronize."""
+    g, events = eng._resident, []
+    run = g.run
+
+    def timed(*arrays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(*arrays)
+        end.record()
+        events.append((start, end))
+        return out
+
+    g.run = timed
+    return events
+
+
+def phase_serving_resident(prompts: list, new_tokens: int,
+                           batched_tokens: dict) -> tuple:
+    """phase_serving's prompts through the engine (no HTTP) with
+    device-resident decode, resident_k 8, at spec_k 1 and 4: each burst
+    is one replay of the CUDA graph captured at warmup (8 chain
+    iterations, every layer's attention through paged decode), one host
+    sync a burst. The first burst of the first engine is also run
+    through the eager body and must match the replay exactly."""
+    from distributed_training_tpu_torch.serving.engine import Request
+
+    model, params = _gpt2("bfloat16")
+    K = 8
+    runs, launches_all, designs_all = {}, None, None
+    for sk in (1, 4):
+        what = f"serving_resident spec_k={sk}"
+        eng = _engine(model, params, resident_k=K, spec_k=sk)
+        counts = eng.warmup()
+        check(counts["decode_graph"] == 1, f"{what}: {counts['decode_graph']} "
+              "graph captures at warmup")
+        events = _time_bursts(eng)
+        replay_check = _check_replay_equals_eager(eng) if sk == 1 else None
+        _reset_counts()
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(id=str(i), prompt=p, max_new_tokens=new_tokens))
+        recs = []
+        while not eng.idle:
+            recs.append(eng.step())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, designs = _read_counts(), _read_designs()
+        st = eng.resident_stats
+        bursts = [r for r in recs if r["op"] == "decode" and r["tokens"]]
+        check(len(bursts) == st["launches"] > 0
+              and all(r["host_syncs"] == 1 for r in bursts),
+              f"{what}: decode steps' host syncs "
+              f"{[r['host_syncs'] for r in bursts]}, {st['launches']} bursts")
+        check(launches["paged_decode"] == 12 * K * st["launches"],
+              f"{what}: paged decode launches {launches['paged_decode']} "
+              f"!= 12 x {K} x {st['launches']} replays")
+        _check_designs({"paged_decode": designs["paged_decode"]}, "split_kv",
+                       what)
+        check(eng.compile_counts() == counts, f"{what}: a build or a capture "
+              "after warmup")
+        got = {int(r["id"]): r["tokens"] for r in eng.completed}
+        check(len(got) == len(prompts) and all(
+            len(t) == new_tokens for t in got.values()),
+            f"{what}: not every request completed in full")
+        if replay_check is not None:
+            check(replay_check and all(
+                replay_check[k] for k in ("out", "n_emitted", "steps",
+                                          "k_pages", "v_pages")),
+                f"{what}: graph replay differs from the eager body: "
+                f"{replay_check}")
+        burst_ms = [a.elapsed_time(b) for a, b in events]
+        wall_by_op = {op: sum(r["dur_s"] for r in recs if r["op"] == op)
+                      for op in ("prefill", "decode")}
+        runs[f"spec_k_{sk}"] = {
+            "wall_s": wall,
+            # The first burst also ran the replay check's clones.
+            "burst_device_ms": burst_ms,
+            "iteration_device_ms": float(np.median(burst_ms[1:] or burst_ms))
+            / K,
+            "prefill_wall_s": wall_by_op["prefill"],
+            "decode_wall_s": wall_by_op["decode"],
+            "prefill_share_of_steps": wall_by_op["prefill"]
+            / sum(wall_by_op.values()),
+            "tokens_per_s": sum(len(t) for t in got.values()) / wall,
+            "mean_ttft_s": float(np.mean([r["ttft_s"]
+                                          for r in eng.completed])),
+            "resident_stats": dict(st),
+            "resident_steps_per_launch": st["steps"] / st["launches"],
+            "bursts": st["launches"], "host_syncs": eng.host_syncs,
+            "prefill_launches": eng.prefill_launches,
+            "launches": launches, "launches_by_design": designs,
+            "compile_counts": counts,
+            "tokens_matching_serving": _matching(got, batched_tokens),
+            "tokens_total": sum(len(t) for t in got.values()),
+            **({"replay_equals_eager": replay_check} if replay_check
+               else {})}
+        if launches_all is None:
+            launches_all, designs_all = launches, designs
+        else:
+            launches_all = {k: launches_all[k] + launches[k]
+                            for k in launches}
+            designs_all = {n: {d: designs_all[n][d] + c
+                               for d, c in ds.items()}
+                           for n, ds in designs.items()}
+        del eng
+        _free_memory()
+    emit({"phase": "serving_resident", "dtype": "bfloat16", "resident_k": K,
+          "requests": len(prompts), "new_tokens": new_tokens, **runs})
+    return launches_all, designs_all
 
 
 def phase_sequential(prompts: dict, new_tokens: int,
@@ -748,7 +1014,11 @@ def phase_sequential(prompts: dict, new_tokens: int,
 
 def phase_parity(prompts: list, n: int) -> None:
     """float32 engine greedy vs the dense full-context greedy of
-    Transformer.apply, in both prefill modes."""
+    Transformer.apply, in both prefill modes, and with speculative
+    (spec_k 4) and resident (resident_k 8) decode. A token may differ
+    only where the dense top-2 margin is below 1e-3 (a near tie that
+    another summation order may flip); the stream is compared up to
+    there."""
     from distributed_training_tpu_torch.serving.engine import Request
 
     model, params = _gpt2("float32")
@@ -763,9 +1033,13 @@ def phase_parity(prompts: list, n: int) -> None:
             ids.append(toks[-1])
         dense.append((toks, margins))
     report = {}
-    for mode, chunk in (("batched", 16), ("sequential", 128)):
-        eng = _engine(model, params, prefill_mode=mode,
-                      prefill_chunk=chunk)
+    engines = (("batched", dict(prefill_mode="batched", prefill_chunk=16)),
+               ("sequential", dict(prefill_mode="sequential",
+                                   prefill_chunk=128)),
+               ("spec_k_4", dict(spec_k=4)),
+               ("resident_k_8", dict(resident_k=8)))
+    for mode, over in engines:
+        eng = _engine(model, params, **over)
         _reset_counts()
         for i, p in enumerate(prompts):
             eng.submit(Request(id=str(i), prompt=p, max_new_tokens=n))
@@ -786,6 +1060,9 @@ def phase_parity(prompts: list, n: int) -> None:
                         "near_ties": near_ties, "launches": _read_counts()}
     check(report["sequential"]["launches"]["flash_fwd"] > 0,
           "parity: flash kernel not on the compared path")
+    for mode in ("spec_k_4", "resident_k_8"):
+        check(report[mode]["launches"]["paged_decode"] > 0,
+              f"parity {mode}: paged decode not on the compared path")
     emit({"phase": "parity", "dtype": "float32",
           "prompt_lens": [len(p) for p in prompts], "tokens": n,
           **report})
@@ -816,6 +1093,36 @@ def phase_trace(prompts: list, new_tokens: int) -> None:
           **_device_time(prof, wall_us),
           "decode_launches": eng.decode_launches,
           "prefill_launches": eng.prefill_launches})
+
+
+def phase_trace_resident(prompts: list, new_tokens: int) -> None:
+    """phase_trace for the resident engine (resident_k 8, spec_k 1): the
+    same requests under ``torch.profiler``, the decode bursts as graph
+    replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_tpu_torch.serving.engine import Request
+
+    model, params = _gpt2("bfloat16")
+    eng = _engine(model, params, resident_k=8)
+    eng.warmup()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(id=str(i), prompt=p, max_new_tokens=new_tokens))
+    recs = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while not eng.idle:
+            recs.append(eng.step())
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    emit({"phase": "trace_resident", "dtype": "bfloat16", "resident_k": 8,
+          "requests": len(prompts), **_device_time(prof, wall_us),
+          **{f"{op}_wall_s": sum(r["dur_s"] for r in recs if r["op"] == op)
+             for op in ("prefill", "decode")},
+          "decode_launches": eng.decode_launches,
+          "prefill_launches": eng.prefill_launches,
+          "resident_stats": eng.resident_stats})
 
 
 def _device_time(prof, wall_us: float, top_n: int = 8) -> dict:
@@ -1457,8 +1764,11 @@ def main() -> int:
     long = {i: p for i, p in enumerate(prompts) if len(p) >= 128}
     check(len(long) >= 2, "fewer than two prompts of >= 128 tokens")
     seq_launches = phase_sequential(long, 64, batched)
+    spec_launches = phase_serving_spec(prompts, 64, batched)
+    resident_launches = phase_serving_resident(prompts, 64, batched)
     phase_parity([p for p in prompts if len(p) >= 128][:2], 16)
     phase_trace(prompts, 64)
+    phase_trace_resident(prompts, 64)
     with tempfile.TemporaryDirectory(prefix="dtt_chip_smoke_") as tmp:
         train_launches = phase_train(tmp)
         split_launches = phase_train_split(tmp)
@@ -1488,10 +1798,10 @@ def main() -> int:
             "distributed_training_tpu_torch/csrc/paged_decode.cu",
             "distributed_training_tpu/ops/paged_attention.py:152")}
     # Launches: the sum over the paths driven above, each counted from 0
-    # (serving, sequential prefill, training, split-backward training,
-    # transformer_1b under fsdp).
-    paths = (serve_launches, seq_launches, train_launches, split_launches,
-             train_1b_launches)
+    # (serving, sequential prefill, speculative serving, resident serving,
+    # training, split-backward training, transformer_1b under fsdp).
+    paths = (serve_launches, seq_launches, spec_launches, resident_launches,
+             train_launches, split_launches, train_1b_launches)
     kernels = []
     for name in KERNELS:
         src, replaces = sources[name]
@@ -1512,6 +1822,13 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+        if name == "paged_decode":
+            # The same kernel at the decode chain's geometry (32 rows),
+            # the case speculative and resident decode launch.
+            kernels[-1]["chain_case"] = {
+                k: measured["paged_decode_chain"][k]
+                for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                          "bound_ms", "bound_by", "library_ms")}
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the path was never launched")
     emit({"kernels": kernels})

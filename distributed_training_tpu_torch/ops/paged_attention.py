@@ -19,6 +19,12 @@ Two entry points, as in the JAX package:
 - ``paged_attention_chunk`` — the multi-query (prefill-chunk) form. It is
   gather code in the JAX package too, with no kernel, and stays plain
   PyTorch here.
+- ``paged_decode_chain`` — the chunk form's contract for a decode chain
+  (speculative verification, resident decode iterations): C queries a
+  sequence at consecutive positions whose own KV is already written.
+  Query c attends exactly the positions up to its own, which is
+  single-token decode with ``length = position + 1``, so the chain
+  flattens to S·C rows of ``paged_attention`` (the kernel on the card).
 
 Numerics contract of ops/attention.py: f32 logits and softmax, output in
 q.dtype, GQA via hkv-major grouping, all-masked rows give zeros.
@@ -121,6 +127,27 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
         q[:, None], k_pages, v_pages, page_indices,
         (lengths.long() - 1)[:, None])
     return out[:, 0]
+
+
+def paged_decode_chain(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_indices: torch.Tensor,
+                       q_positions: torch.Tensor,
+                       impl: str = "auto") -> torch.Tensor:
+    """A decode chain through single-token decode.
+
+    The arguments of ``paged_attention_chunk`` (its plain version): q
+    (S, C, H, hd); page_indices (S, P) int32; q_positions (S, C) — each
+    query's absolute position, negative for padding or dead positions.
+    Every query becomes one row of ``paged_attention`` with its
+    sequence's page row and ``length = q_position + 1`` (0 for padding:
+    the kernel's zero-output rule), so the walk stops at the query's own
+    position. No device value is read on the host."""
+    S, C, H, hd = q.shape
+    lengths = (q_positions + 1).clamp(min=0).reshape(S * C).int()
+    rows = page_indices.repeat_interleave(C, dim=0)
+    out = paged_attention(q.reshape(S * C, H, hd), k_pages, v_pages,
+                          lengths, rows, impl=impl)
+    return out.reshape(S, C, H, hd)
 
 
 # The split-count rule of the split_kv design. A split is a whole number

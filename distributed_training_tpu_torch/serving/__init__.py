@@ -2,7 +2,8 @@
 
 - ``kv_cache.py`` — the paged KV pool and its host-side allocator;
 - ``engine.py``   — the continuous-batching engine (prefill + decode
-  programs, prefix sharing, sessions);
+  programs, speculative and device-resident decode, prefix sharing,
+  sessions);
 - ``server.py``   — the stdlib HTTP generate endpoint.
 """
 

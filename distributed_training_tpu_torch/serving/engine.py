@@ -15,8 +15,21 @@ step against fixed-shape programs:
   the flash-attention kernel on the card when the chunk is tile-sized),
   later chunks the paged chunk form, and the completing chunk returns
   its logits for a host-side sample.
-- **decode** — one token for every decodable slot in one launch; each
+- **decode**, in one of three forms:
+  one token for every decodable slot in one launch (default); each
   layer's attention is the paged-decode kernel on the card.
+  ``spec_k > 1`` — speculative: each slot carries its last token and
+  ``spec_k - 1`` tokens drafted by prompt lookup over its own history
+  (``NgramIndex``), one launch verifies the whole chain (the argmax
+  after every position) and the host accepts the longest prefix whose
+  drafts match. ``resident_k > 1`` — device-resident: one burst runs
+  ``resident_k`` such chain iterations, drafting, verifying, stopping
+  and advancing every slot on the device, and the host syncs once per
+  burst. On the card the burst is one CUDA graph, captured at warmup
+  and replayed (``_ResidentGraph``). The chain's attention is the
+  paged-decode kernel at S·C rows (``paged_decode_chain``); greedy
+  tokens equal one-token decode's, speculation moves only the number
+  of launches.
 
 Pools are written in place (the JAX programs donate them instead).
 PyTorch runs eagerly and has no jit cache: ``compile_counts()`` reports,
@@ -35,14 +48,14 @@ sessions (a finished turn's pages retained under its session key for a
 zero-prefill resume) are on by default, as in the JAX engine.
 
 What waits for later slices raises ``NotImplementedError`` naming its
-ROADMAP.md item: speculative and device-resident decode, a mesh or dp
-groups, int8 weight leaves, weight hot-swap, drain, preempt/adopt/
-export, fault hooks.
+ROADMAP.md item: a mesh or dp groups, int8 weight leaves, weight
+hot-swap, drain, preempt/adopt/export, fault hooks.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import logging
 import time
 from dataclasses import dataclass, field
@@ -61,6 +74,7 @@ from distributed_training_tpu_torch.ops.attention import dot_product_attention
 from distributed_training_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_chunk,
+    paged_decode_chain,
 )
 from distributed_training_tpu_torch.runtime import resolve_device
 from distributed_training_tpu_torch.serving.kv_cache import (
@@ -72,7 +86,6 @@ from distributed_training_tpu_torch.telemetry import event
 logger = logging.getLogger(__name__)
 
 # ROADMAP.md queue A items the deferred features name.
-SPEC_ITEM = "ROADMAP.md queue A 'Serving: speculative and resident decode'"
 DP_ITEM = "ROADMAP.md queue A 'Serving: dp groups and a mesh'"
 INT8_ITEM = "ROADMAP.md queue A 'Serving: int8 weight-only leaves'"
 LIFECYCLE_ITEM = ("ROADMAP.md queue A 'Serving: hot-swap, drain, "
@@ -95,9 +108,11 @@ class EngineConfig:
     JAX engine's fields and validations.
 
     ``prefill_slots`` is the lane count of the batched prefill program
-    (0 = same as ``max_batch``). ``spec_k``/``resident_k`` > 1,
-    ``kv_axis``/``dp_axis`` sharding and ``swap_staleness_tokens``
-    belong to features later slices port."""
+    (0 = same as ``max_batch``). ``spec_k`` is the tokens per decode
+    launch of speculative decode, ``resident_k`` the chain iterations of
+    one device-resident burst (each ``spec_k`` wide). ``kv_axis``/
+    ``dp_axis`` sharding and ``swap_staleness_tokens`` belong to
+    features later slices port."""
 
     max_batch: int = 8            # decode slots
     page_size: int = 16
@@ -186,6 +201,7 @@ class _Seq:
     token_times: list = field(default_factory=list)
     eos: bool = False             # emitted the configured stop token
     queue_wait_s: float | None = None  # arrival -> admission
+    ngram: NgramIndex | None = None  # lazy prompt-lookup index
 
     @property
     def prompt_len(self) -> int:
@@ -208,6 +224,96 @@ class _Seq:
     def done(self) -> bool:
         return self.eos or \
             len(self.generated) >= self.req.max_new_tokens
+
+
+def draft_tokens(history: np.ndarray, m: int,
+                 ngram_max: int = 3) -> np.ndarray:
+    """Prompt-lookup drafting: ``m`` speculative tokens from the
+    sequence's own history (prompt + generated), no second model.
+
+    Finds the most recent earlier occurrence of the history's trailing
+    n-gram (longest n <= ngram_max first) and drafts the tokens that
+    followed it; short continuations pad with the last token, and a
+    history with no repeated n-gram drafts the last token repeated.
+    Draft quality moves only the acceptance length, never the output:
+    verification emits the argmax chain whatever the drafts."""
+    hist = np.array(history, np.int32)
+    L = hist.shape[0]
+    if m <= 0 or L == 0:
+        return np.zeros((max(0, m),), np.int32)
+    fill = int(hist[-1])
+    for n in range(min(ngram_max, L - 1), 0, -1):
+        pat = hist[L - n:]
+        # Windows starting strictly before the trailing n-gram itself
+        # (an occurrence needs at least one continuation token).
+        win = np.lib.stride_tricks.sliding_window_view(hist, n)[:L - n]
+        matches = np.nonzero((win == pat).all(axis=1))[0]
+        if matches.size:
+            p = int(matches[-1])
+            cont = hist[p + n:p + n + m]
+            if cont.shape[0] < m:
+                cont = np.concatenate([
+                    cont, np.full((m - cont.shape[0],), fill, np.int32)])
+            return cont.astype(np.int32)
+    return np.full((m,), fill, np.int32)
+
+
+class NgramIndex:
+    """Incremental trailing-n-gram index behind ``Engine._draft``.
+
+    ``draft_tokens`` rescans the whole history per launch. This keeps,
+    per n <= ngram_max, a dict from n-gram to its most recent start and
+    a link from each start to the previous start of the same gram,
+    updated in O(ngram) per appended token, so a draft is a dict probe.
+    Its drafts equal ``draft_tokens``' (held by a randomized test)."""
+
+    def __init__(self, ngram_max: int = 3):
+        self.ngram_max = ngram_max
+        self.hist: list[int] = []
+        # maps[n-1]: gram tuple -> most recent start index;
+        # prev[n-1]: start index -> previous start of the same gram.
+        self._maps: list[dict] = [{} for _ in range(ngram_max)]
+        self._prev: list[dict] = [{} for _ in range(ngram_max)]
+
+    def __len__(self) -> int:
+        return len(self.hist)
+
+    def extend(self, tokens) -> None:
+        for t in tokens:
+            self.append(int(t))
+
+    def append(self, t: int) -> None:
+        self.hist.append(int(t))
+        L = len(self.hist)
+        for n in range(1, self.ngram_max + 1):
+            if L < n:
+                break
+            start = L - n
+            gram = tuple(self.hist[start:])
+            m = self._maps[n - 1]
+            if gram in m:
+                self._prev[n - 1][start] = m[gram]
+            m[gram] = start
+
+    def draft(self, m: int) -> np.ndarray:
+        """``m`` drafted tokens, equal to ``draft_tokens(hist, m,
+        ngram_max)``."""
+        L = len(self.hist)
+        if m <= 0 or L == 0:
+            return np.zeros((max(0, m),), np.int32)
+        fill = self.hist[-1]
+        for n in range(min(self.ngram_max, L - 1), 0, -1):
+            p = self._maps[n - 1].get(tuple(self.hist[L - n:]))
+            if p == L - n:
+                # The trailing gram itself needs a continuation token:
+                # step to the previous start (draft_tokens' windows stop
+                # at L - n).
+                p = self._prev[n - 1].get(p)
+            if p is None:
+                continue
+            cont = self.hist[p + n:p + n + m]
+            return np.array(cont + [fill] * (m - len(cont)), np.int32)
+        return np.full((m,), fill, np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -372,19 +478,22 @@ def _prefill_program(params, k_pages, v_pages, page_row, live,
     return (x_last @ _head(params, cfg)).float()
 
 
-@torch.no_grad()
-def _chunk_program(params, k_pages, v_pages, page_rows, tokens,
-                   start_pos, n_valid, active, gen, *, cfg, temperature,
-                   top_k) -> torch.Tensor:
-    """Multi-token chunks for a whole lane table (the batched prefill).
+def _chunk_hidden(params, k_pages, v_pages, page_rows, tokens, start_pos,
+                  n_valid, active, *, cfg, chain, paged_impl="auto"):
+    """The multi-lane chunk forward shared by batched prefill, spec
+    verification and every resident iteration, so none of them can
+    drift from the others.
 
     page_rows (S, P) int32; tokens (S, C) (positions >= n_valid[s] are
     padding); start_pos (S,) — each lane's first absolute position;
     n_valid (S,); active (S,) bool — dead lanes write into the scratch
     page and their queries mask out. Every lane's valid tokens' KV goes
     through one batched scatter per layer, then each query attends its
-    own pages at positions <= its own. Returns the token sampled after
-    each lane's last valid position, (S,); inactive lanes give 0."""
+    own pages at positions <= its own: through the paged chunk form
+    (``chain=False``, batched prefill), or through single-token decode
+    at S·C rows (``chain=True``, ``paged_decode_chain``: the kernel on
+    the card). Returns ``(x (S, C, D) final hidden states, valid (S,
+    C))``."""
     S, C = tokens.shape
     ps, P = k_pages.shape[4], page_rows.shape[1]
     idx = torch.arange(C, device=tokens.device)
@@ -416,15 +525,261 @@ def _chunk_program(params, k_pages, v_pages, page_rows, tokens,
         _write_kv(kp, vp, k.reshape(S * C, Hkv, hd),
                   v.reshape(S * C, Hkv, hd), page_ids.reshape(-1).long(),
                   offsets.reshape(-1))
-        attn = paged_attention_chunk(q, kp, vp, page_rows, q_pos)
+        if chain:
+            attn = paged_decode_chain(q, kp, vp, page_rows, q_pos,
+                                      impl=paged_impl)
+        else:
+            attn = paged_attention_chunk(q, kp, vp, page_rows, q_pos)
         x = x + torch.einsum("schk,hkd->scd", attn, a["wo"])
         x = _mlp(x, layer)
+    return x, valid
+
+
+def _argmax_chain(params, x, valid, cfg) -> torch.Tensor:
+    """The verification chain over chunk hidden states: the argmax after
+    every position (position c's argmax is the verified next token given
+    tokens[:c+1]), greedy only by the spec/resident config contract.
+    Invalid positions give 0."""
+    xs = _layer_norm(x, params["final_norm"]["scale"],
+                     params["final_norm"]["bias"])
+    logits = (xs @ _head(params, cfg)).float()
+    return torch.where(valid, torch.argmax(logits, dim=-1), 0)
+
+
+@torch.no_grad()
+def _chunk_program(params, k_pages, v_pages, page_rows, tokens,
+                   start_pos, n_valid, active, gen, *, cfg, temperature,
+                   top_k, emit="last", paged_impl="auto") -> torch.Tensor:
+    """Multi-token chunks for a whole lane table: batched prefill
+    (``emit="last"``, S = prefill lanes, C = prefill_chunk) and
+    speculative decode (``emit="all"``, S = decode slots, C = spec_k).
+    Arguments as ``_chunk_hidden``'s.
+
+    - ``emit="last"``: the token sampled after each lane's last valid
+      position, (S,); the paged chunk form attends.
+    - ``emit="all"``: the argmax after every position, (S, C)
+      (``_argmax_chain``); the chain attends through single-token
+      decode. The host accepts the longest prefix whose drafts match.
+
+    Inactive lanes give 0."""
+    S = tokens.shape[0]
+    x, valid = _chunk_hidden(params, k_pages, v_pages, page_rows, tokens,
+                             start_pos, n_valid, active, cfg=cfg,
+                             chain=emit == "all", paged_impl=paged_impl)
+    if emit == "all":
+        return _argmax_chain(params, x, valid, cfg)
     last = torch.clamp(n_valid - 1, min=0)
     x_last = x[torch.arange(S, device=x.device), last]   # (S, D)
     x_last = _layer_norm(x_last, params["final_norm"]["scale"],
                          params["final_norm"]["bias"])
     logits = (x_last @ _head(params, cfg)).float()
     return torch.where(active, _sample(logits, temperature, top_k, gen), 0)
+
+
+def _draft_cols(hist, hlen, last, C: int, ngram: int) -> torch.Tensor:
+    """Prompt-lookup drafts (B, C-1) on the device: for each slot the
+    longest trailing n-gram (n <= ngram) with an earlier occurrence in
+    ``hist[:hlen]`` proposes its continuation; slots with no match
+    repeat ``last``. Vectorised over every window at once (ascending n,
+    so the longest match overwrites)."""
+    B, Lmax = hist.shape
+    dev = hist.device
+    pos = torch.arange(Lmax, device=dev)
+    draft = last[:, None].expand(B, C - 1)
+    for n in range(1, ngram + 1):
+        off = torch.arange(n, device=dev)
+        pat = hist.gather(1, torch.clamp(hlen[:, None] - n + off[None, :],
+                                         0, Lmax - 1))           # (B, n)
+        win = hist[:, torch.clamp(pos[:, None] + off[None, :],
+                                  max=Lmax - 1)]                 # (B, Lmax, n)
+        match = (win == pat[:, None, :]).all(-1)
+        # Earlier occurrences only: the window's continuation must land
+        # inside the history, which also excludes the trailing gram.
+        ok = match & ((pos[None, :] + n) < hlen[:, None])
+        has = ok.any(dim=1) & (hlen > n)
+        p = torch.where(ok, pos[None, :], -1).amax(dim=1)
+        cont_idx = (p[:, None] + n
+                    + torch.arange(C - 1, device=dev)[None, :])
+        cont = hist.gather(1, torch.clamp(cont_idx, 0, Lmax - 1))
+        cont = torch.where(cont_idx < hlen[:, None], cont, last[:, None])
+        draft = torch.where(has[:, None], cont, draft)
+    return draft
+
+
+@torch.no_grad()
+def _resident_program(params, k_pages, v_pages, page_rows, history, kv_len,
+                      budget, active, *, cfg, K, C, ngram, eos_id,
+                      paged_impl="auto") -> tuple:
+    """Device-resident K-step decode for the slot table (JAX
+    ``_resident_program``), a function of static-shape tensors.
+
+    Each of the ``K`` iterations is one ``C``-wide speculative chain
+    through ``_chunk_hidden`` + ``_argmax_chain``, the same forward as
+    the host-driven spec path: every running slot drafts from its own
+    history, verifies the chain, truncates at EOS, appends the accepted
+    tokens to its history row and advances its KV cursor, all on the
+    device. JAX's ``while_loop`` exits once every slot has stopped; this
+    body unrolls all ``K`` iterations (a CUDA graph has no early exit):
+    a stopped slot is a dead lane that writes only the scratch page and
+    masks its queries, and ``steps`` counts on the device the iterations
+    in which any slot was running, which is JAX's loop count. No value
+    is read on the host, so the body can be captured.
+
+    page_rows (B, P) int32; history (B, Lmax) — prompt + generated so
+    far, ``history[kv_len]`` the last generated token (its KV not yet
+    written); kv_len (B,) — committed KV length; budget (B,) — the most
+    tokens this burst may emit per slot (sized by the host against page
+    capacity: ``kvl + bud`` is invariant, so no write lands past
+    ``kv_len + budget - 1``); active (B,) bool. Returns ``(out (B, K*C)
+    emitted tokens, n_emitted (B,), steps ())``."""
+    B, Lmax = history.shape
+    T = K * C
+    dev = history.device
+    pos = torch.arange(Lmax, device=dev)
+    cl = torch.arange(C, device=dev)
+    tl = torch.arange(T, device=dev)
+    out = torch.zeros((B, T), dtype=torch.long, device=dev)
+    n_em = torch.zeros((B,), dtype=torch.long, device=dev)
+    steps = torch.zeros((), dtype=torch.long, device=dev)
+    # Out-of-place updates only: the arguments are a graph's static
+    # inputs and must hold the burst's inputs through a replay.
+    hist, kvl, bud = history.long(), kv_len.long(), budget.long()
+    running = active & (bud > 0)
+    for _ in range(K):
+        steps = steps + running.any()
+        n = torch.where(running, torch.clamp(bud, max=C), 0)
+        # A stopped slot's cursor may sit at Lmax; its lane is dead.
+        last = hist.gather(1, torch.clamp(kvl, max=Lmax - 1)[:, None])[:, 0]
+        if C > 1:
+            tokens = torch.cat(
+                [last[:, None], _draft_cols(hist, kvl + 1, last, C, ngram)],
+                dim=1)
+        else:
+            tokens = last[:, None]
+        x, valid = _chunk_hidden(params, k_pages, v_pages, page_rows,
+                                 tokens, kvl, n, running, cfg=cfg,
+                                 chain=True, paged_impl=paged_impl)
+        nxt = _argmax_chain(params, x, valid, cfg)       # (B, C)
+        if C > 1:
+            match = ((tokens[:, 1:] == nxt[:, :-1])
+                     & (cl[None, :-1] < (n - 1)[:, None]))
+            e = 1 + torch.cumprod(match.long(), dim=1).sum(dim=1)
+        else:
+            e = torch.ones_like(n)
+        e = torch.where(n > 0, e, 0)
+        if eos_id >= 0:
+            is_eos = (nxt == eos_id) & (cl[None, :] < e[:, None])
+            any_eos = is_eos.any(dim=1)
+            e = torch.where(any_eos, torch.argmax(is_eos.long(), dim=1) + 1,
+                            e)
+        else:
+            any_eos = torch.zeros_like(running)
+        # This iteration's accepted tokens go into the output block at
+        # each slot's emission cursor, and into the history row right
+        # after its current last token.
+        rel = tl[None, :] - n_em[:, None]
+        sel = (rel >= 0) & (rel < e[:, None])
+        out = torch.where(sel, nxt.gather(1, torch.clamp(rel, 0, C - 1)),
+                          out)
+        hrel = pos[None, :] - (kvl + 1)[:, None]
+        hsel = (hrel >= 0) & (hrel < e[:, None])
+        hist = torch.where(hsel, nxt.gather(1, torch.clamp(hrel, 0, C - 1)),
+                           hist)
+        n_em = n_em + e
+        kvl = kvl + e
+        bud = bud - e
+        running = running & (bud > 0) & ~any_eos
+    return out, n_em, steps
+
+
+class _ResidentGraph:
+    """The resident burst as one CUDA graph, the port's counterpart of
+    the JAX engine's single jitted program.
+
+    Owns the burst's static inputs (``page_rows`` (B, P) int32,
+    ``history`` (B, Lmax), ``kv_len``, ``budget``, ``active``) and, once
+    captured, its static outputs (``out`` (B, K*C), ``n_emitted``,
+    ``steps``). ``warmup()`` runs the body once eagerly on a side stream
+    (the paged-decode entry's one-time ``cudaFuncSetAttribute`` and the
+    allocator's first blocks happen there, outside the capture), then
+    captures it once with ``torch.cuda.graph``; the pools and the
+    compute-dtype weights keep their addresses for the engine's life.
+    ``run()`` copies a burst's host arrays into the static inputs and
+    replays. On the CPU, where the caller asked for it, the same body
+    runs eagerly. On the card nothing falls back: a capture or a replay
+    that fails raises."""
+
+    def __init__(self, body, k_pages, v_pages, B: int, P: int, Lmax: int,
+                 device: torch.device):
+        self._body = body
+        self._pools = (k_pages, v_pages)
+        self.device = device
+
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.inputs = (z((B, P), torch.int32), z((B, Lmax), torch.long),
+                       z((B,), torch.long), z((B,), torch.long),
+                       z((B,), torch.bool))
+        self.graph = None
+        self.outputs = None
+        self.captures = 0
+        self._launches = (0, {})
+
+    def eager(self, k_pages, v_pages) -> tuple:
+        """The body on the current static inputs, not captured (the CPU
+        path, the warmup, and the replay check's reference)."""
+        return self._body(k_pages, v_pages, *self.inputs)
+
+    def warmup(self) -> None:
+        if self.device.type != "cuda":
+            self.eager(*self._pools)
+            return
+        if self.graph is not None:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self.eager(*self._pools)
+        stream.wait_stream(side)
+        # Python launch counters tick only while the capture records
+        # the launches, never on replay: keep the capture's deltas and
+        # add them on every replay (every replay runs all K iterations,
+        # so the count is exact).
+        n0 = paged_attention.launches
+        d0 = dict(paged_attention.launches_by_design)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.outputs = self.eager(*self._pools)
+        self._launches = (
+            paged_attention.launches - n0,
+            {d: n - d0[d]
+             for d, n in paged_attention.launches_by_design.items()})
+        paged_attention.launches = n0
+        paged_attention.launches_by_design.update(d0)
+        self.graph = graph
+        self.captures += 1
+
+    def run(self, *arrays: np.ndarray) -> tuple:
+        """One burst: ``(page_rows, history, kv_len, budget, active)``
+        host arrays in, ``(out, n_emitted, steps)`` device tensors out
+        (on the card, the graph's static outputs: read them before the
+        next burst)."""
+        if self.device.type == "cuda":
+            # Captures on first use if warmup() was not called, while
+            # the static inputs still hold an all-dead burst.
+            self.warmup()
+        for buf, a in zip(self.inputs, arrays):
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        if self.device.type != "cuda":
+            return self.eager(*self._pools)
+        self.graph.replay()
+        n, by_design = self._launches
+        paged_attention.launches += n
+        for d, k in by_design.items():
+            paged_attention.launches_by_design[d] += k
+        return self.outputs
 
 
 @torch.no_grad()
@@ -467,10 +822,6 @@ class Engine:
                  weights_version: str = "v0", device=None):
         if mesh is not None or cfg.dp_axis != "dp" or cfg.kv_axis != "tp":
             raise NotImplementedError(f"a mesh waits for {DP_ITEM}")
-        if cfg.spec_k > 1 or cfg.resident_k > 1:
-            raise NotImplementedError(
-                f"spec_k={cfg.spec_k}, resident_k={cfg.resident_k}: "
-                f"multi-token decode waits for {SPEC_ITEM}")
         if getattr(model.cfg, "moe_num_experts", 0) > 0:
             raise ValueError("serving engine has no MoE decode path")
         if cfg.max_seq_len > model.cfg.max_seq_len:
@@ -522,6 +873,23 @@ class Engine:
         self._host_gen.manual_seed(cfg.seed + 1_000_000)
         self._token_listeners: dict[str, object] = {}
         self.launch_count = 0
+        # Speculative-decode accounting: per slot-launch totals, and the
+        # last step's (slot launches, emitted) for the step record.
+        self.spec_stats = {"launches": 0, "emitted": 0}
+        self._step_spec: tuple[int, int] | None = None
+        # Device-resident accounting: bursts, chain iterations run on
+        # the device, tokens emitted; the last burst's mean iterations.
+        self.resident_stats = {"launches": 0, "steps": 0, "emitted": 0}
+        self._step_resident: float | None = None
+        self._resident = None
+        if cfg.resident_k > 1:
+            self._resident = _ResidentGraph(
+                functools.partial(
+                    _resident_program, self._cparams, cfg=model.cfg,
+                    K=cfg.resident_k, C=cfg.spec_k, ngram=cfg.spec_ngram,
+                    eos_id=cfg.eos_id, paged_impl=cfg.paged_impl),
+                self.cache.k_pages, self.cache.v_pages, cfg.max_batch,
+                self.cache.cfg.pages_per_seq, cfg.max_seq_len, self.device)
 
     # -- deferred features ---------------------------------------------------
 
@@ -570,15 +938,18 @@ class Engine:
             cfg=self.model.cfg, temperature=c.temperature, top_k=c.top_k,
             paged_impl=c.paged_impl)
 
-    def _prefill_batch(self, rows, tokens, start_pos, n_valid,
-                       active) -> torch.Tensor:
+    def _chunk(self, rows, tokens, start_pos, n_valid, active,
+               emit: str) -> torch.Tensor:
+        """Batched prefill (``emit="last"``) or spec verification
+        (``emit="all"``)."""
         c = self.cfg
         return _chunk_program(
             self._cparams, self.cache.k_pages, self.cache.v_pages,
             self._t(rows), self._t(tokens).long(),
             self._t(start_pos).long(), self._t(n_valid).long(),
             self._t(active), self._gen, cfg=self.model.cfg,
-            temperature=c.temperature, top_k=c.top_k)
+            temperature=c.temperature, top_k=c.top_k, emit=emit,
+            paged_impl=c.paged_impl)
 
     def _prefill_one(self, row, live: bool, chunk, start: int,
                      n_valid: int) -> torch.Tensor:
@@ -593,32 +964,46 @@ class Engine:
 
     def compile_counts(self) -> dict:
         """Per program, the builds of the CUDA kernels it launches that
-        this process ran. ``warmup()`` builds what the programs need;
-        join/evict must never move these counts afterwards."""
+        this process ran; with ``resident_k > 1``, ``decode_graph`` counts
+        the captures of the resident burst's CUDA graph (one, at warmup,
+        on the card; none on the CPU). ``warmup()`` builds and captures
+        what the programs need; join/evict must never move these counts
+        afterwards."""
         names = ["decode"]
         names += (["prefill_batch"] if self.cfg.prefill_mode == "batched"
                   else ["prefill_first", "prefill_cont"])
         if self._sharing:
             names.append("cow")
-        return {n: sum(build.build_count(k) for k in _PROGRAM_KERNELS[n])
-                for n in names}
+        counts = {n: sum(build.build_count(k) for k in _PROGRAM_KERNELS[n])
+                  for n in names}
+        if self._resident is not None:
+            counts["decode_graph"] = self._resident.captures
+        return counts
 
     def warmup(self) -> dict:
         """Run every program once against scratch-only page rows and
         all-dead lanes (zero allocator side effects: every write lands
-        in the scratch page), which builds the kernels they launch.
-        Returns compile_counts()."""
+        in the scratch page), which builds the kernels they launch, and
+        capture the resident burst's graph. Returns compile_counts()."""
         B, Sp = self.batch_local, self.prefill_local
         P = self.cache.cfg.pages_per_seq
         C = self.cfg.prefill_chunk
-        self._decode(np.zeros((B,), np.int32), np.zeros((B,), np.int32),
-                     np.zeros((B, P), np.int32), np.zeros((B,), bool))
+        if self._resident is not None:
+            self._resident.warmup()
+        elif self.cfg.spec_k > 1:
+            K = self.cfg.spec_k
+            self._chunk(np.zeros((B, P), np.int32),
+                        np.zeros((B, K), np.int32), np.zeros((B,), np.int32),
+                        np.zeros((B,), np.int32), np.zeros((B,), bool),
+                        emit="all")
+        else:
+            self._decode(np.zeros((B,), np.int32), np.zeros((B,), np.int32),
+                         np.zeros((B, P), np.int32), np.zeros((B,), bool))
         if self.cfg.prefill_mode == "batched":
-            self._prefill_batch(np.zeros((Sp, P), np.int32),
-                                np.zeros((Sp, C), np.int32),
-                                np.zeros((Sp,), np.int32),
-                                np.zeros((Sp,), np.int32),
-                                np.zeros((Sp,), bool))
+            self._chunk(np.zeros((Sp, P), np.int32),
+                        np.zeros((Sp, C), np.int32), np.zeros((Sp,), np.int32),
+                        np.zeros((Sp,), np.int32), np.zeros((Sp,), bool),
+                        emit="last")
         else:
             for start in (0, C):
                 self._prefill_one(np.zeros((P,), np.int32), False,
@@ -884,6 +1269,8 @@ class Engine:
             kind = "decode" if decodable else (
                 "prefill" if want_prefill else "idle")
         tokens_out = 0
+        self._step_spec = None
+        self._step_resident = None
         self._step_prefix = [0, 0]
         syncs0 = self.host_syncs
         if kind == "prefill":
@@ -916,6 +1303,13 @@ class Engine:
                "in_flight": self.in_flight,
                "queue_depth": len(self.queue),
                **self.cache.occupancy()}
+        if self._step_spec is not None:
+            launches, emitted = self._step_spec
+            rec["spec_k"] = self.cfg.spec_k
+            rec["spec_accepted_mean"] = round(emitted / launches, 4)
+        if self._step_resident is not None:
+            rec["resident_k"] = self.cfg.resident_k
+            rec["resident_steps_per_launch"] = self._step_resident
         if self._sharing:
             rec["prefix_hit_tokens"] = self._step_prefix[0]
             rec["prefill_tokens_saved"] = self._step_prefix[1]
@@ -1024,7 +1418,8 @@ class Engine:
             n_valid[i] = n
             active[i] = True
         rows = self.cache.page_rows([s.req.id for s in chosen], width=Sp)
-        nxt = self._prefill_batch(rows, tokens, start_pos, n_valid, active)
+        nxt = self._chunk(rows, tokens, start_pos, n_valid, active,
+                          emit="last")
         self.prefill_launches += 1
         total = 0
         fetched = None
@@ -1053,7 +1448,183 @@ class Engine:
         self.prefill_tokens_computed += total
         return total
 
+    def _draft(self, seq: _Seq, m: int) -> np.ndarray:
+        """``m`` drafted tokens for ``seq`` by prompt lookup over its own
+        history: ``draft_tokens`` served from the sequence's incremental
+        ``NgramIndex`` (built on the first draft, then extended by the
+        tokens emitted since the last one)."""
+        if m <= 0:
+            return np.zeros((0,), np.int32)
+        idx = seq.ngram
+        if idx is None:
+            idx = seq.ngram = NgramIndex(self.cfg.spec_ngram)
+            idx.extend(seq.req.prompt.tolist())
+            idx.extend(seq.generated)
+        else:
+            idx.extend(seq.generated[len(idx) - seq.prompt_len:])
+        return idx.draft(m)
+
+    def _emit_tokens(self, seq: _Seq, toks, now: float) -> None:
+        """Append a decode launch's emitted tokens to ``seq``, stream
+        them, and retire the sequence if it is done."""
+        for tok in toks:
+            seq.generated.append(tok)
+            if self.cfg.eos_id >= 0 and tok == self.cfg.eos_id:
+                seq.eos = True
+            if seq.first_token_t is None:
+                seq.first_token_t = now
+            seq.token_times.append(now)
+            self._emit_token(seq, tok)
+        self._register(seq)
+        self._maybe_finish(seq)
+
+    def _run_decode_spec(self, decodable: list[_Seq]) -> int:
+        """One launch of the speculative decode program: every decodable
+        slot carries [last sampled token, spec_k - 1 drafted tokens], the
+        program verifies every position in one forward (the argmax
+        chain), and the host emits the accepted prefix. Each emitted
+        token is the argmax given the true prefix, so greedy output
+        equals one-token decode's. The cache advances only by the
+        accepted length; rejected positions' KV sits past ``length``
+        (masked) and the next launch overwrites it. Eager on the card
+        too, as the JAX host loop is."""
+        B, K = self.batch_local, self.cfg.spec_k
+        tokens = np.zeros((B, K), np.int32)
+        start_pos = np.zeros((B,), np.int32)
+        n_valid = np.zeros((B,), np.int32)
+        active = np.zeros((B,), bool)
+        seq_ids: list = [None] * B
+        stepped: list[tuple[_Seq, int, np.ndarray]] = []
+        cow: list = []
+        for s in decodable:
+            length = self.cache.length(s.req.id)
+            remaining = s.req.max_new_tokens - len(s.generated)
+            # Clamp the chain to what the sequence can still hold:
+            # positions past max_seq_len or the budget ride as masked
+            # padding, never as writes.
+            n = min(K, remaining, self.cfg.max_seq_len - length)
+            if not self.cache.ensure(s.req.id, length + n):
+                # Pages for the whole chain are short: a one-token
+                # launch in the same program before stalling outright.
+                if n == 1 or not self.cache.ensure(s.req.id, length + 1):
+                    continue
+                n = 1
+            if self._sharing:
+                pairs = self._cow_guard(s.req.id)
+                if pairs is None:
+                    continue  # fork stalled on pages; retry next step
+                cow += pairs
+            draft = self._draft(s, n - 1)
+            i = s.slot
+            tokens[i, 0] = s.last_token
+            tokens[i, 1:n] = draft
+            start_pos[i] = length
+            n_valid[i] = n
+            active[i] = True
+            seq_ids[i] = s.req.id
+            stepped.append((s, n, draft))
+        if not stepped:
+            return 0
+        if cow:
+            self._apply_cow(cow)
+        rows = self.cache.page_rows(seq_ids)
+        out = self._chunk(rows, tokens, start_pos, n_valid, active,
+                          emit="all")
+        self.decode_launches += 1
+        (out,) = self._fetch_host(out)
+        now = time.monotonic()
+        total = 0
+        for s, n, draft in stepped:
+            i = s.slot
+            # out[i, j] is the verified argmax after position j. Draft j
+            # is accepted while it equals the chain's previous token, so
+            # every accepted argmax is conditioned on true tokens only.
+            emit = [int(out[i, 0])]
+            j = 1
+            while j < n and int(draft[j - 1]) == emit[-1]:
+                emit.append(int(out[i, j]))
+                j += 1
+            if self.cfg.eos_id >= 0 and self.cfg.eos_id in emit:
+                # Later positions are conditioned on an ended sequence.
+                emit = emit[:emit.index(self.cfg.eos_id) + 1]
+            self.cache.advance(s.req.id, len(emit))
+            self.spec_stats["launches"] += 1
+            self.spec_stats["emitted"] += len(emit)
+            total += len(emit)
+            self._emit_tokens(s, emit, now)
+        self._step_spec = (len(stepped), total)
+        return total
+
+    def _run_decode_resident(self, decodable: list[_Seq]) -> int:
+        """One burst of device-resident decode: every decodable slot
+        ships its history row and a token budget, the burst runs
+        ``resident_k`` chain iterations on the device (one CUDA graph on
+        the card), and the host syncs once for the whole burst: ``(out,
+        n_emitted, steps)`` in one ``_fetch_host``. Each iteration emits
+        exactly the argmax chain the spec path would (the same
+        ``_chunk_hidden``), so K moves only the sync cadence. The cache
+        advances only after the fetch."""
+        B = self.batch_local
+        T = self.cfg.resident_k * self.cfg.spec_k
+        history = np.zeros((B, self.cfg.max_seq_len), np.int32)
+        kv_len = np.zeros((B,), np.int32)
+        budget = np.zeros((B,), np.int32)
+        active = np.zeros((B,), bool)
+        seq_ids: list = [None] * B
+        stepped: list[_Seq] = []
+        cow: list = []
+        for s in decodable:
+            length = self.cache.length(s.req.id)
+            remaining = s.req.max_new_tokens - len(s.generated)
+            # The budget is clamped to the pages the slot could claim
+            # now (its own plus the free list): a tight pool shrinks the
+            # burst toward one token instead of stalling the slot.
+            want = min(remaining, T,
+                       self.cache.token_capacity(s.req.id) - length)
+            if want < 1:
+                continue  # no headroom: wait for frees
+            if not self.cache.ensure(s.req.id, length + want):
+                continue
+            if self._sharing:
+                pairs = self._cow_guard(s.req.id)
+                if pairs is None:
+                    continue  # fork stalled on pages; retry next step
+                cow += pairs
+            hist = np.concatenate([np.array(s.req.prompt, np.int32),
+                                   np.array(s.generated, np.int32)])
+            i = s.slot
+            history[i, :hist.shape[0]] = hist
+            kv_len[i] = length
+            budget[i] = want
+            active[i] = True
+            seq_ids[i] = s.req.id
+            stepped.append(s)
+        if not stepped:
+            return 0
+        if cow:
+            self._apply_cow(cow)
+        rows = self.cache.page_rows(seq_ids)
+        out, n_emitted, steps = self._fetch_host(*self._resident.run(
+            rows, history, kv_len, budget, active))
+        self.decode_launches += 1
+        now = time.monotonic()
+        total = 0
+        for s in stepped:
+            e = int(n_emitted[s.slot])
+            self.cache.advance(s.req.id, e)
+            total += e
+            self._emit_tokens(s, [int(t) for t in out[s.slot, :e]], now)
+        self.resident_stats["launches"] += 1
+        self.resident_stats["steps"] += int(steps)
+        self.resident_stats["emitted"] += total
+        self._step_resident = float(steps)
+        return total
+
     def _run_decode(self, decodable: list[_Seq]) -> int:
+        if self._resident is not None:
+            return self._run_decode_resident(decodable)
+        if self.cfg.spec_k > 1:
+            return self._run_decode_spec(decodable)
         B = self.batch_local
         tokens = np.zeros((B,), np.int32)
         positions = np.zeros((B,), np.int32)
@@ -1089,16 +1660,7 @@ class Engine:
         now = time.monotonic()
         for s in stepped:
             self.cache.advance(s.req.id, 1)
-            tok = int(nxt[s.slot])
-            s.generated.append(tok)
-            if self.cfg.eos_id >= 0 and tok == self.cfg.eos_id:
-                s.eos = True
-            if s.first_token_t is None:
-                s.first_token_t = now
-            s.token_times.append(now)
-            self._emit_token(s, tok)
-            self._register(s)
-            self._maybe_finish(s)
+            self._emit_tokens(s, [int(nxt[s.slot])], now)
         return len(stepped)
 
     def _maybe_finish(self, seq: _Seq) -> None:

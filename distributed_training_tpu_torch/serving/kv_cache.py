@@ -310,6 +310,15 @@ class PagedKVCache:
         """Pages held by more than one table."""
         return sum(1 for n in self._refs.values() if n > 1)
 
+    def token_capacity(self, seq_id) -> int:
+        """Max total positions this sequence could hold right now: its
+        allocated pages plus the whole free list, capped by
+        max_seq_len. The resident decode path sizes burst budgets
+        against this, so a burst never writes past what ``ensure`` can
+        cover."""
+        pages = len(self._tables[seq_id]) + len(self._free)
+        return min(pages * self.cfg.page_size, self.cfg.max_seq_len)
+
     def occupancy(self) -> dict:
         return {"pages_used": self.pages_used,
                 "pages_total": self.cfg.usable_pages,

@@ -11,7 +11,18 @@ float32, S=128, D=16; tolerance 1e-5 abs/rel (the frameworks sum in
 different orders). bf16 inputs with f32 gradients: 1e-2 of each
 gradient's largest magnitude (bf16 rounding of p and ds, then sums of
 up to S terms in another order).
+
+The interpret-mode comparison once failed inside a full parallel test
+run (about 500 of 16384 dq elements off by up to 1e-4, where a fresh
+process agrees to 1.7e-6) and passed alone. So its JAX reference runs
+in a fresh interpreter of its own, on one XLA thread, and twice there,
+bit for bit: nothing an earlier test left in the worker reaches it, and
+each side's determinism is checked apart from their agreement.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -45,24 +56,60 @@ def _jax_fwd(q, k, v, causal, window, dtype=jnp.float32):
                              window=window)
 
 
+# The JAX side of test_flash_bwd_plain_matches_jax_interpret, run as
+# ``python -c _REFERENCE <inputs.npz> <split> <causal> <window> <out.npz>``.
+_REFERENCE = """
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+jax.config.update("jax_platforms", "cpu")
+from distributed_training_tpu.ops import flash_attention as jax_fa
+src, split, causal, window, dst = sys.argv[1:]
+x = np.load(src)
+jax_fa._FORCE_SPLIT_BWD = split == "1"
+kw = dict(causal=causal == "1", block_q=64, block_k=32, window=int(window))
+runs = []
+for _ in range(2):
+    q, k, v, do = (jnp.asarray(x[n]) for n in ("q", "k", "v", "do"))
+    out, lse = jax_fa._flash_fwd(q, k, v, **kw)
+    runs.append([np.asarray(a) for a in
+                 (out, lse) + tuple(jax_fa._flash_bwd(q, k, v, out, lse, do,
+                                                      **kw))])
+for a, b in zip(*runs):
+    assert np.array_equal(a, b), "the JAX reference differs between runs"
+np.savez(dst, **dict(zip(("out", "lse", "dq", "dk", "dv"), runs[0])))
+"""
+
+
+def _jax_reference(tmp_path, q, k, v, do, split, causal, window) -> dict:
+    src, dst = tmp_path / "inputs.npz", tmp_path / "reference.npz"
+    np.savez(src, q=q, k=k, v=v, do=do)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_cpu_multi_thread_eigen=false",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    subprocess.run([sys.executable, "-c", _REFERENCE, str(src),
+                    str(int(split)), str(int(causal)), str(window), str(dst)],
+                   env=env, check=True, timeout=300)
+    return dict(np.load(dst))
+
+
 @pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])
 @pytest.mark.parametrize("H,Hkv,causal,window", CASES, ids=IDS)
-def test_flash_bwd_plain_matches_jax_interpret(monkeypatch, split, H, Hkv,
+def test_flash_bwd_plain_matches_jax_interpret(tmp_path, split, H, Hkv,
                                                causal, window):
     q, k, v, do = _inputs(1, H, Hkv)
-    monkeypatch.setattr(jax_fa, "_FORCE_SPLIT_BWD", split)
-    out, lse = _jax_fwd(q, k, v, causal, window)
-    want = jax_fa._flash_bwd(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), out, lse,
-        jnp.asarray(do), causal=causal, block_q=64, block_k=32,
-        window=window)
+    ref = _jax_reference(tmp_path, q, k, v, do, split, causal, window)
     t = torch.from_numpy
-    got = port_fa.flash_bwd(t(q), t(k), t(v), t(np.array(out)),
-                            t(np.array(lse)), t(do), causal=causal,
-                            window=window)
-    for g, w in zip(got, want):
+    args = (t(q), t(k), t(v), t(ref["out"]), t(ref["lse"]), t(do))
+    got = port_fa.flash_bwd(*args, causal=causal, window=window)
+    again = port_fa.flash_bwd(*args, causal=causal, window=window)
+    for g, a, name in zip(got, again, ("dq", "dk", "dv")):
         assert g.dtype == torch.float32
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+        assert torch.equal(g, a), f"the port's {name} differs between runs"
+        np.testing.assert_allclose(g.numpy(), ref[name], **TOL)
 
 
 @pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])

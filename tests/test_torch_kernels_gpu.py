@@ -185,6 +185,60 @@ def test_paged_decode_split_kv(cuda, B, H, Hkv, hd, ps, P, lengths):
             assert out[b].abs().max().item() == 0.0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_chain_matches_chunk_form(cuda, dtype):
+    """The decode chain of speculative and resident decode at the serving
+    geometry (8 slots x spec_k 4 = 32 rows, 64 pages of 16): query c of a
+    slot at position start + c attends up to its own position through
+    one paged-decode launch, within TOL of the paged chunk form (its
+    plain version); padding and a dead slot give zeros."""
+    S, C, H, hd, ps, P = 8, 4, 12, 64, 16, 64
+    starts = [871, 652, 523, 276, 315, 41, 77, 0]
+    q, kp, vp, _, rows = _paged_args(cuda, S, H, H, hd, ps, P,
+                                     [s + C for s in starts], dtype)
+    q = torch.randn(S, C, H, hd, generator=cuda, device="cuda").to(dtype)
+    q_pos = (torch.tensor(starts)[:, None] + torch.arange(C)).cuda()
+    q_pos[5, 2:] = -1
+    q_pos[7] = -1
+    before = dict(pa.paged_attention.launches_by_design)
+    out = pa.paged_decode_chain(q, kp, vp, rows, q_pos)
+    assert pa.paged_attention.launches_by_design == dict(
+        before, split_kv=before["split_kv"] + 1)
+    ref = pa.paged_attention_chunk(q, kp, vp, rows, q_pos)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert out[7].abs().max().item() == 0.0
+    assert out[5, 2:].abs().max().item() == 0.0
+
+
+def test_paged_decode_graph_replay_equals_eager(cuda):
+    """A paged-decode call captured in a CUDA graph (the ctypes launch of
+    the split kernel and the combine's programmatic dependent launch)
+    replays to the eager call's bits, and follows new values copied into
+    its static inputs."""
+    B, H, hd, ps, P = 8, 12, 64, 16, 64
+    q, kp, vp, lengths, rows = _paged_args(
+        cuda, B, H, H, hd, ps, P, [872, 653, 524, 277, 316, 42, 78, 0],
+        torch.bfloat16)
+    assert pa.split_kv_plan(B, H, P, ps)[0] > 1  # the combine runs
+    pa.paged_attention(q, kp, vp, lengths, rows)  # set-up outside capture
+    torch.cuda.synchronize()
+    n0 = pa.paged_attention.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = pa.paged_attention(q, kp, vp, lengths, rows)
+    assert pa.paged_attention.launches == n0 + 1  # counted at capture only
+    for step in range(2):
+        if step:
+            q.copy_(torch.randn(q.shape, generator=cuda, device="cuda"))
+            lengths.copy_(torch.tensor([5, 900, 1, 1024, 17, 300, 64, 0]))
+        graph.replay()
+        eager = pa.paged_attention(q, kp, vp, lengths, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, eager)
+    assert pa.paged_attention.launches == n0 + 3
+
+
 @pytest.mark.parametrize("which", ["k_pages", "v_pages", "q"])
 def test_paged_decode_misaligned_operand_raises(cuda, which):
     """A pool layer view or q that does not start on a 16-byte boundary
@@ -230,6 +284,37 @@ def test_engine_greedy_matches_dense_on_gpu(cuda, mode, chunk):
     assert (pa.paged_attention.launches_by_design["split_kv"] - d0
             == pa.paged_attention.launches - p0)
     assert (fa.flash_fwd.launches > f0) is (mode == "sequential")
+
+
+@pytest.mark.parametrize("over", [dict(spec_k=4), dict(resident_k=4),
+                                  dict(resident_k=4, spec_k=3)],
+                         ids=["spec4", "res4", "res4-spec3"])
+def test_spec_resident_engine_greedy_matches_dense_on_gpu(cuda, over):
+    """float32 speculative and resident decode on the card: the chain
+    through paged decode (inside the burst's CUDA graph, captured once
+    at warmup), tokens equal to the dense full-context greedy."""
+    model = Transformer(TransformerConfig(
+        vocab_size=512, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+        max_seq_len=512, pos_encoding="rope", tie_embeddings=False,
+        dtype="float32"))
+    params = model.init(cuda)
+    eng = Engine(model, params, EngineConfig(
+        max_batch=4, page_size=16, num_pages=64, max_seq_len=256,
+        prefill_chunk=16, **over))
+    counts = eng.warmup()
+    assert counts.get("decode_graph", 1) == 1
+    prompt = np.random.default_rng(2).integers(0, 512, 140).astype(np.int32)
+    p0 = pa.paged_attention.launches
+    got = eng.generate(prompt, 12)
+    ids, want = prompt.tolist(), []
+    for _ in range(12):
+        logits, _ = model.apply(params, torch.tensor([ids]))
+        want.append(int(torch.argmax(logits[0, -1])))
+        ids.append(want[-1])
+    assert got == want
+    assert eng.compile_counts() == counts
+    per = 2 * over.get("resident_k", 1)  # layers x chain iterations
+    assert pa.paged_attention.launches - p0 == per * eng.decode_launches > 0
 
 
 def _bwd_inputs(cuda, B, H, Hkv, S, D, dtype, causal, window):

@@ -292,17 +292,13 @@ def test_server_round_trip_streamed_equals_plain(models):
     assert srv.leaked_threads == 0
 
 
-@pytest.mark.parametrize("over,call", [
-    (dict(spec_k=2), None), (dict(resident_k=2), None),
-    (dict(), "swap_weights"), (dict(), "drain"), (dict(), "preempt"),
-    (dict(), "adopt_batch"), (dict(), "export_in_flight"),
-    (dict(), "faults")],
-    ids=["spec_k", "resident_k", "swap_weights", "drain", "preempt",
-         "adopt_batch", "export_in_flight", "faults"])
-def test_deferred_engine_features_raise(models, over, call):
+@pytest.mark.parametrize("call", [
+    "swap_weights", "drain", "preempt", "adopt_batch", "export_in_flight",
+    "faults"])
+def test_deferred_engine_features_raise(models, call):
     _, _, pm, pp = models
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng = _port(pm, pp, **over)
+        eng = _port(pm, pp)
         if call == "faults":
             eng.faults = object()
         elif call == "adopt_batch":

@@ -174,9 +174,13 @@ def test_sigterm_mid_run_saves_a_checkpoint_that_resumes(tmp_path,
         return metrics
 
     monkeypatch.setattr(Trainer, "train_step", sigterm_after_4)
+    # The guard must put back the handler it found: SIG_DFL in a fresh
+    # process, but an earlier test in the same worker may have left its
+    # own.
+    before = signal.getsignal(signal.SIGTERM)
     assert _cli(tmp_path / "a", 2) == 0
     monkeypatch.undo()
-    assert signal.getsignal(signal.SIGTERM) == signal.SIG_DFL
+    assert signal.getsignal(signal.SIGTERM) == before
     assert _final_params(tmp_path / "a")[0] == 4
     run = tmp_path / "a" / "default"
     meta = json.load(open(run / "checkpoints" / "4" / "meta.json"))
