@@ -46,7 +46,16 @@ a seed:
   ``fsdp`` with a sharded save at step 2, its consolidated artifact, and
   a resume from it that matches the uninterrupted run bit for bit, as
   do ``ddp`` with no process group and ``ddp`` with its optimizer state
-  offloaded to pinned host memory.
+  offloaded to pinned host memory;
+- tensor parallelism: transformer_1b at full width under ``tp_fsdp``
+  (tp 1, fsdp 1) through the CLI in a NCCL group of one rank, every
+  tensor-parallel collective over a group of one, its losses held
+  against ``train_1b``'s; and gpt2_125m at full width under ``tp`` at
+  tp 2 on the one card (``train_tp2``): two processes on ``cuda:0`` in a
+  gloo group, each on 6 of the 12 heads and half the vocab, the Trainer
+  driven directly, its losses and gradient norms held against one
+  process under ``ddp``, with a planted fault (layer 0's attention
+  all-reduce dropped) that must fail the same limits.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -124,6 +133,22 @@ TRAIN_STEPS = 20
 TRAIN_SPLIT_STEPS = 10
 # transformer_1b under fsdp: batch 4 x seq 2048, bf16 compute.
 TRAIN_1B_STEPS = 10
+# Tensor parallelism against a run without it: the losses and the
+# unclipped gradient norms, relative. train_tp_1b repeats train_1b under
+# tp_fsdp at tp 1, the same operations: its first two losses (the first
+# update moves no weight, lr 0) are train_1b's bits, and later steps part
+# by the fused backward's atomic dq order. train_tp2: gpt2_125m,
+# conf/train/gpt2.yaml, tp 2 in two processes sharing the card over
+# gloo, against one process under ddp, TRAIN_TP2_STEPS steps; the
+# row-parallel products also sum two bf16-rounded halves where ddp rounds
+# once. Readings on the H100 (PERF.md, PR 8, three calls): train_tp_1b
+# within 2.8e-5 (losses) and 8.1e-4 (norms), train_tp2 within 1.2e-5 and
+# 6.6e-4, and train_tp2's planted fault (layer 0's attention all-reduce
+# dropped) 2.1e-4 to 2.2e-4 and 1.04e-2 to 1.06e-2. Each limit lies above
+# every sound reading and below the fault's.
+TRAIN_TP2_STEPS = 5
+TP_LOSS_RTOL = 1e-4
+TP_GRAD_NORM_RTOL = 3e-3
 
 
 def emit(obj: dict) -> None:
@@ -513,6 +538,8 @@ def phase_kernels() -> dict:
     }
     flash["train"] = _flash_case(timer, 8, 12, 12, 1024, 64, bf16,
                                  library=True)
+    # gpt2_125m's attention under tp 2 (train_tp2): each rank's 6 heads.
+    flash["tp2"] = _flash_case(timer, 8, 6, 6, 1024, 64, bf16, library=True)
     paged = {"main": _paged_case(timer, 8, 12, 12, 64, 16, 1024, bf16),
              "f32_gqa": _paged_case(timer, 8, 12, 4, 64, 16, 1024, f32),
              # transformer_7b's attention heads (H 32, Hkv 8, hd 128) over
@@ -550,6 +577,10 @@ def phase_kernels() -> dict:
         bwd[f"{tag}_d128_gqa_window_grads_f32"] = _bwd_case(
             timer, 2, 16, 4, 2048, 128, bf16, split, window=512,
             grads_dtype=f32)
+    # gpt2_125m under tp 2 (train_tp2, the fused backward): each rank's 6
+    # heads.
+    bwd["fused_tp2"] = _bwd_case(timer, 8, 6, 6, 1024, 64, bf16, False,
+                                 library=True)
     # The SIMT kernels on bf16 inputs with f32 gradients: fused at head
     # dim 32 (GRADS_F32_OF_BF16_TOL), the split pair at head dim 96 (TOL,
     # 1e-4).
@@ -560,6 +591,8 @@ def phase_kernels() -> dict:
     emit({"phase": "kernels_bwd", **bwd})
     return {"flash_fwd": flash["train"], "paged_decode": paged["main"],
             "paged_decode_chain": paged["chain"],
+            "flash_fwd_tp2": flash["tp2"],
+            "flash_bwd_fused_tp2": bwd["fused_tp2"]["flash_bwd_fused"],
             "flash_bwd_fused": bwd["fused_train"]["flash_bwd_fused"],
             "flash_bwd_dq": bwd["split_train"]["flash_bwd_dq"],
             "flash_bwd_dkv": bwd["split_train"]["flash_bwd_dkv"]}
@@ -1464,14 +1497,18 @@ def _free_memory() -> None:
     torch.cuda.empty_cache()
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 @contextlib.contextmanager
 def _nccl_world_of_one():
     """torchrun's environment for a NCCL process group of one rank
     (address 127.0.0.1, a free port): the trainer CLI's runtime starts
     the group from it and destroys it on exit."""
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = _free_port()
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
     saved = {k: os.environ.get(k) for k in env}
@@ -1568,6 +1605,331 @@ def phase_train_1b(tmp: str) -> tuple:
             "losses": losses, "gathers": gathers,
             "launches": launches, "launches_by_design": designs}
     emit(info)
+    return (launches, designs), rows
+
+
+def phase_train_tp_1b(tmp: str, rows_1b: list) -> tuple:
+    """transformer_1b at full width through the trainer CLI under
+    ``tp_fsdp`` at tp 1 and fsdp 1, in a NCCL group of one rank: the
+    tensor-parallel block, the vocab-parallel lookup and cross-entropy
+    and the per-layer gathers, every collective over a group of one.
+    The same data, seed and steps as ``train_1b``: the first two losses
+    equal its bit for bit, the rest within the TP limits."""
+    from distributed_training_tpu_torch.models.transformer import (
+        PRESETS,
+        Transformer,
+        TransformerConfig,
+    )
+    from distributed_training_tpu_torch.parallel import fsdp
+    from distributed_training_tpu_torch.parallel import tensor as tp_lib
+    from distributed_training_tpu_torch.train import cli
+
+    out = os.path.join(tmp, "train_tp_1b")
+    steps, batch, seq = TRAIN_1B_STEPS, 4, 2048
+    _free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    fsdp.GATHERS.clear()
+    tp_lib.ALL_REDUCES.clear()
+    t0 = time.perf_counter()
+    with _nccl_world_of_one():
+        check(cli.main([
+            "model=transformer_1b", "train=gpt2",
+            "train.parallel_strategy=tp_fsdp", "mesh.dp=1", "mesh.fsdp=1",
+            "mesh.tp=1", f"train.batch_size={batch}",
+            f"train.dataset_kwargs.seq_len={seq}",
+            f"train.dataset_size={steps * batch}", "train.total_epochs=1",
+            "train.save_every=0", "train.log_every=1",
+            "run.log_level=WARNING", f"run.output_dir={out}"]) == 0,
+            "train_tp_1b failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, designs = _read_counts(), _read_designs()
+    gathers, reduces = dict(fsdp.GATHERS), dict(tp_lib.ALL_REDUCES)
+    runtime = _check_nccl_runtime(out, "train_tp_1b")
+    rows = _metrics_rows(out)
+    cfg = TransformerConfig(**PRESETS["transformer_1b"])
+    L = cfg.n_layers
+    losses = [r["loss"] for r in rows]
+    norms = [r["grad_norm"] for r in rows if "grad_norm" in r]
+    want_losses = [r["loss"] for r in rows_1b]
+    want_norms = [r["grad_norm"] for r in rows_1b if "grad_norm" in r]
+    check(len(losses) == len(want_losses) == steps
+          and len(norms) == len(want_norms) == steps - 1,
+          f"train_tp_1b: {len(losses)} loss rows")
+    check(all(math.isfinite(x) for x in losses), f"non-finite {losses}")
+    step_s = float(np.median([1.0 / r["steps_per_sec"] for r in rows[3:]]))
+    flops = Transformer(cfg, device="cpu").flops_per_sample() * batch
+    # Per step: two reduce_from_tp a layer and the lookup's; two
+    # copy_to_tp a layer and the head input's; two all-reduces per
+    # cross-entropy chunk (4 x 2048 rows in chunks of 2048).
+    chunks = batch * seq // 2048
+    want_reduces = {"reduce_from_tp": (2 * L + 1) * steps,
+                    "copy_to_tp": (2 * L + 1) * steps,
+                    "xent": 2 * chunks * steps}
+    info = {"phase": "train_tp_1b", "model": "transformer_1b",
+            "strategy": "tp_fsdp", "mesh": {"tp": 1, "fsdp": 1},
+            "runtime": runtime, "batch": batch, "seq": seq, "steps": steps,
+            "wall_s": wall, "median_step_s": step_s,
+            "median_step_s_train_1b": float(np.median(
+                [1.0 / r["steps_per_sec"] for r in rows_1b[3:]])),
+            "tokens_per_s": batch * seq / step_s,
+            "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "losses": losses, "losses_train_1b": want_losses,
+            "grad_norms": norms, "grad_norms_train_1b": want_norms,
+            "first_losses_bitwise": losses[:2] == want_losses[:2],
+            "loss_rel_diff": _rel_diffs(losses, want_losses),
+            "grad_norm_rel_diff": _rel_diffs(norms, want_norms),
+            "gathers": gathers, "all_reduces": reduces,
+            "all_reduces_predicted": want_reduces,
+            "launches": launches, "launches_by_design": designs}
+    emit(info)
+    check(info["first_losses_bitwise"],
+          f"train_tp_1b: losses {losses[:2]} != train_1b's "
+          f"{want_losses[:2]}")
+    check(info["loss_rel_diff"] <= TP_LOSS_RTOL
+          and info["grad_norm_rel_diff"] <= TP_GRAD_NORM_RTOL,
+          f"train_tp_1b against train_1b outside the limits: {info}")
+    want_gathers = {"layer": L * steps, "tok_embed": steps, "lm_head": steps}
+    check(gathers == want_gathers,
+          f"train_tp_1b: gathers {gathers}, want {want_gathers}")
+    check(reduces == want_reduces,
+          f"train_tp_1b: all-reduces {reduces}, want {want_reduces}")
+    for name in ("flash_fwd", "flash_bwd_fused"):
+        check(designs[name]["wgmma"] == L * steps == launches[name],
+              f"train_tp_1b: {name} launches {designs[name]}")
+    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+          "train_tp_1b took the split kernels")
+    return launches, designs
+
+
+def _tp2_trainer(rt, strategy: str, fault: bool = False):
+    """A Trainer on gpt2_125m / conf/train/gpt2.yaml for TRAIN_TP2_STEPS
+    steps of batch 8 under ``strategy`` over ``rt``, and its loader.
+    ``fault``: the tp group's first ``reduce`` of each forward (layer 0's
+    attention output) skips its all-reduce."""
+    from distributed_training_tpu_torch.config import load_config
+    from distributed_training_tpu_torch.data import (
+        ShardedDataLoader,
+        build_dataset,
+    )
+    from distributed_training_tpu_torch.models.registry import build_model
+    from distributed_training_tpu_torch.parallel.tensor import TPGroup
+    from distributed_training_tpu_torch.train.trainer import Trainer
+
+    batch = 8
+    cfg = load_config(overrides=[
+        "model=gpt2_125m", "train=gpt2",
+        f"train.parallel_strategy={strategy}", f"train.batch_size={batch}",
+        f"train.dataset_size={TRAIN_TP2_STEPS * batch}",
+        "train.total_epochs=1", "train.log_every=0"])
+    kwargs = dict(cfg.model.kwargs)
+    dtype = kwargs.pop("dtype", cfg.train.dtype)
+    model = build_model(cfg.model.name, loss=cfg.train.loss, dtype=dtype,
+                        device=rt.device, **kwargs)
+    loader = ShardedDataLoader(
+        build_dataset(cfg.train.dataset,
+                      _defaults={"size": cfg.train.dataset_size,
+                                 "seed": cfg.train.seed},
+                      **cfg.train.dataset_kwargs),
+        rt, batch_size=batch, shuffle=cfg.train.shuffle,
+        seed=cfg.train.seed)
+    trainer = Trainer(cfg, rt, model, loader)
+    if fault:
+        layers = model.cfg.n_layers
+
+        class DropLayer0AttentionReduce(TPGroup):
+            calls = 0
+
+            def reduce(self, x):
+                self.calls += 1
+                if self.calls % (2 * layers) == 1:
+                    return x
+                return super().reduce(x)
+
+        model.bind_tensor_parallel(
+            DropLayer0AttentionReduce(rt.group(("tp",))))
+    return trainer, loader
+
+
+def _tp2_steps(trainer, loader) -> dict:
+    """Every step of the loader's epoch 0, each synchronised: losses,
+    gradient norms and step wall times."""
+    out = {"losses": [], "grad_norms": [], "step_s": []}
+    for batch in loader.epoch(0):
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+    return out
+
+
+def train_tp2_rank(rank: int, port: int, out_path: str) -> int:
+    """One of phase train_tp2's two processes: on ``cuda:0``, in a gloo
+    group of 2 over ``127.0.0.1:port``, a runtime over the mesh tp 2
+    built here (the CLI's runtime would ask for NCCL on a card), the
+    sound run then the planted fault's; writes its readings to
+    ``out_path``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from distributed_training_tpu_torch.parallel import tensor as tp_lib
+    from distributed_training_tpu_torch.runtime import (
+        MESH_AXES,
+        MeshSpec,
+        Runtime,
+        sub_mesh_groups,
+    )
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        spec = MeshSpec(tp=2)
+        mesh = init_device_mesh("cpu", tuple(spec.as_dict()[a]
+                                             for a in MESH_AXES),
+                                mesh_dim_names=MESH_AXES)
+        rt = Runtime(device=torch.device("cuda", 0), process_index=rank,
+                     process_count=2, spec=spec, mesh=mesh, backend="gloo",
+                     groups=sub_mesh_groups(spec, rank))
+        result = {"rank": rank, "describe": rt.describe()}
+        for run in ("sound", "fault"):
+            trainer, loader = _tp2_trainer(rt, "tp", fault=run == "fault")
+            _free_memory()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            tp_lib.ALL_REDUCES.clear()
+            result[run] = {**_tp2_steps(trainer, loader),
+                           "all_reduces": dict(tp_lib.ALL_REDUCES),
+                           "launches": _read_counts(),
+                           "launches_by_design": _read_designs(),
+                           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            del trainer, loader
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_train_tp2(tmp: str) -> tuple:
+    """gpt2_125m at full width under ``tp`` at tp 2 on the one card: two
+    processes on ``cuda:0`` in a gloo group (every collective of pure tp
+    at dp = fsdp = 1 is an all-reduce, or a gather over a group of one),
+    each running 6 of the 12 heads (B1/B2 on the tensor cores) and half
+    the vocab, TRAIN_TP2_STEPS steps of conf/train/gpt2.yaml, against the
+    same steps in this process under ``ddp``. The kernels are built (by
+    phase_build) before the processes start. Step times are gloo's,
+    every all-reduce staged through the host: a correctness reading."""
+    from distributed_training_tpu_torch.models.transformer import PRESETS
+    from distributed_training_tpu_torch.runtime import Runtime
+
+    _free_memory()
+    trainer, loader = _tp2_trainer(Runtime(device=torch.device("cuda", 0)),
+                                   "ddp")
+    want = _tp2_steps(trainer, loader)
+    del trainer, loader
+    _free_memory()
+    port = _free_port()
+    outs = [os.path.join(tmp, f"train_tp2.rank{r}.json") for r in range(2)]
+    logs = [open(os.path.join(tmp, f"train_tp2.rank{r}.log"), "w")
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-tp2-rank",
+         str(r), str(port), outs[r]], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    if codes != [0, 0]:
+        for r in range(2):
+            with open(logs[r].name) as f:
+                print(f"train_tp2 rank {r}:\n{f.read()[-4000:]}",
+                      file=sys.stderr)
+    check(codes == [0, 0], f"train_tp2: ranks exited {codes}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    L = PRESETS["gpt2_125m"]["n_layers"]
+    steps = TRAIN_TP2_STEPS
+    # Per step: 2L + 1 reduce_from_tp and copy_to_tp, two per
+    # cross-entropy chunk (8 x 1024 rows in chunks of 2048).
+    want_reduces = {"reduce_from_tp": (2 * L + 1) * steps,
+                    "copy_to_tp": (2 * L + 1) * steps,
+                    "xent": 2 * (8 * 1024 // 2048) * steps}
+    readings = {}
+    for run in ("sound", "fault"):
+        got = ranks[0][run]
+        check(len(got["losses"]) == len(want["losses"]) == steps,
+              f"train_tp2 {run}: {got['losses']} vs {want['losses']}")
+        readings[run] = {
+            "loss_rel_diff": _rel_diffs(got["losses"], want["losses"]),
+            "grad_norm_rel_diff": _rel_diffs(got["grad_norms"],
+                                             want["grad_norms"])}
+        readings[run]["within"] = (
+            readings[run]["loss_rel_diff"] <= TP_LOSS_RTOL
+            and readings[run]["grad_norm_rel_diff"] <= TP_GRAD_NORM_RTOL)
+    per_rank = [{
+        "rank": r["rank"], "describe": r["describe"],
+        "losses": r["sound"]["losses"],
+        "grad_norms": r["sound"]["grad_norms"],
+        "median_step_s": float(np.median(r["sound"]["step_s"][1:])),
+        "step_s": r["sound"]["step_s"],
+        "peak_mem_bytes": r["sound"]["peak_mem_bytes"],
+        "all_reduces": r["sound"]["all_reduces"],
+        "all_reduces_per_step": {k: v / steps for k, v in
+                                 r["sound"]["all_reduces"].items()},
+        "launches": r["sound"]["launches"],
+        "launches_by_design": r["sound"]["launches_by_design"],
+        "fault_losses": r["fault"]["losses"]} for r in ranks]
+    emit({"phase": "train_tp2", "model": "gpt2_125m", "strategy": "tp",
+          "mesh": {"tp": 2}, "backend": "gloo", "processes_on_card": 2,
+          "batch": 8, "seq": 1024, "steps": steps, "wall_s": wall,
+          "ddp_losses": want["losses"],
+          "ddp_grad_norms": want["grad_norms"],
+          "ddp_median_step_s": float(np.median(want["step_s"][1:])),
+          "loss_rtol": TP_LOSS_RTOL, "grad_norm_rtol": TP_GRAD_NORM_RTOL,
+          "fault": "layer 0's attention all-reduce dropped",
+          "readings": readings, "all_reduces_predicted": want_reduces,
+          "ranks": per_rank})
+    for r in per_rank:
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"train_tp2: non-finite {r['losses']}")
+        check(r["losses"] == per_rank[0]["losses"]
+              and r["grad_norms"] == per_rank[0]["grad_norms"],
+              "train_tp2: the two ranks report different metrics")
+        check(r["all_reduces"] == want_reduces,
+              f"train_tp2: rank {r['rank']} all-reduces "
+              f"{r['all_reduces']}, want {want_reduces}")
+        designs = r["launches_by_design"]
+        for name in ("flash_fwd", "flash_bwd_fused"):
+            check(designs[name]["wgmma"] == L * steps
+                  == r["launches"][name],
+                  f"train_tp2: rank {r['rank']} {name} launches "
+                  f"{designs[name]}")
+    check(readings["sound"]["within"],
+          f"train_tp2: tp 2 against ddp outside the limits: {readings}")
+    check(not readings["fault"]["within"],
+          f"train_tp2: the planted fault passed the limits: {readings}")
+    # Both ranks' launches are the card's.
+    launches = {k: sum(r["launches"][k] for r in per_rank)
+                for k in per_rank[0]["launches"]}
+    designs = {k: {d: sum(r["launches_by_design"][k][d] for r in per_rank)
+                   for d in per_rank[0]["launches_by_design"][k]}
+               for k in per_rank[0]["launches_by_design"]}
     return launches, designs
 
 
@@ -1746,6 +2108,9 @@ def phase_train_fsdp_ckpt(tmp: str) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--train-tp2-rank"]:
+        return train_tp2_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -1774,7 +2139,9 @@ def main() -> int:
         split_launches = phase_train_split(tmp)
         phase_train_parity(tmp)
         phase_train_bf16_parity(tmp)
-        train_1b_launches = phase_train_1b(tmp)
+        train_1b_launches, rows_1b = phase_train_1b(tmp)
+        tp_1b_launches = phase_train_tp_1b(tmp, rows_1b)
+        tp2_launches = phase_train_tp2(tmp)
         phase_train_fsdp_ckpt(tmp)
     phase_train_trace()
     phase_train_trace(split=True)
@@ -1799,9 +2166,11 @@ def main() -> int:
             "distributed_training_tpu/ops/paged_attention.py:152")}
     # Launches: the sum over the paths driven above, each counted from 0
     # (serving, sequential prefill, speculative serving, resident serving,
-    # training, split-backward training, transformer_1b under fsdp).
+    # training, split-backward training, transformer_1b under fsdp and
+    # under tp_fsdp, gpt2_125m under tp at tp 2: both processes).
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
-             train_launches, split_launches, train_1b_launches)
+             train_launches, split_launches, train_1b_launches,
+             tp_1b_launches, tp2_launches)
     kernels = []
     for name in KERNELS:
         src, replaces = sources[name]
@@ -1822,6 +2191,12 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+        if name in ("flash_fwd", "flash_bwd_fused"):
+            # The same kernel at train_tp2's geometry (6 heads a rank).
+            kernels[-1]["tp2_case"] = {
+                k: measured[f"{name}_tp2"][k]
+                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms")}
         if name == "paged_decode":
             # The same kernel at the decode chain's geometry (32 rows),
             # the case speculative and resident decode launch.

@@ -37,19 +37,26 @@ from distributed_training_tpu_torch.train.optimizer import flatten, unflatten
 
 
 def _join(local: list, pls: dict, coords: list, sizes: dict) -> dict:
-    """Whole leaves from every process's flat dict of local shards."""
+    """Whole leaves from every process's flat dict of local blocks: a
+    leaf split on two dims is joined along its last split first, then
+    along the first."""
     out = {}
     for k, pl in pls.items():
-        if pl is None:
-            out[k] = local[0][k]
-            continue
-        n = math.prod(sizes[a] for a in pl.axes)
-        pieces: dict = {}
-        for r, c in enumerate(coords):
-            idx = int(np.ravel_multi_index([c[a] for a in pl.axes],
-                                           [sizes[a] for a in pl.axes]))
-            pieces.setdefault(idx, local[r][k])
-        out[k] = torch.cat([pieces[i] for i in range(n)], dim=pl.dim)
+        blocks = {(): local[0][k]}
+        if pl is not None:
+            blocks = {}
+            for r, c in enumerate(coords):
+                at = tuple(int(np.ravel_multi_index(
+                    [c[a] for a in axes], [sizes[a] for a in axes]))
+                    for _, axes in pl.splits)
+                blocks.setdefault(at, local[r][k])
+            for j in reversed(range(len(pl.splits))):
+                dim, axes = pl.splits[j]
+                n = math.prod(sizes[a] for a in axes)
+                blocks = {at: torch.cat([blocks[at + (i,)]
+                                         for i in range(n)], dim=dim)
+                          for at in {at[:j] for at in blocks}}
+        out[k] = blocks[()]
     return out
 
 

@@ -55,10 +55,14 @@ def _detached(state: Any) -> Any:
 
 def layout_manifest(layout: dict, runtime) -> dict:
     """The JSON record of a sharded save's layout: the mesh, and each
-    leaf's placement (``[dim, [axes…]]`` or null)."""
+    leaf's placement: ``[dim, [axes…]]`` for one split dim,
+    ``[[dim, [axes…]], [dim, [axes…]]]`` for two, or null."""
     def enc(pls):
-        return {k: None if pl is None else [pl.dim, list(pl.axes)]
-                for k, pl in pls.items()}
+        out = {}
+        for k, pl in pls.items():
+            splits = [[d, list(axes)] for d, axes in (pl.splits if pl else ())]
+            out[k] = (splits[0] if len(splits) == 1 else splits) or None
+        return out
     return {"world": runtime.process_count,
             "mesh": runtime.spec.as_dict(),
             "params": enc(layout["params"]), "opt": enc(layout["opt"])}
@@ -66,7 +70,10 @@ def layout_manifest(layout: dict, runtime) -> dict:
 
 def placements_of(manifest: dict, kind: str) -> dict:
     """A manifest's placements back as ``Placement`` (or None)."""
-    return {k: None if v is None else Placement(v[0], tuple(v[1]))
+    def dec(v):
+        splits = [v] if isinstance(v[0], int) else v
+        return Placement(tuple((d, tuple(axes)) for d, axes in splits))
+    return {k: None if v is None else dec(v)
             for k, v in manifest[kind].items()}
 
 

@@ -27,6 +27,21 @@ each layer's shards to the compute dtype and all-gathers them one layer
 at a time, so activations never pay collective traffic.
 ``logical_axes`` names each leaf's dims for the sharding rules.
 
+Under tensor parallelism (``tp``/``tp_fsdp``) the trainer also binds the
+tp group (``bind_tensor_parallel``, ``parallel/tensor.py``), and each
+rank computes on its own block of every weight the strategy splits over
+tp, Megatron-style: the embedding lookup over its vocab rows; q, k, v on
+its H/tp heads (column-parallel, input through ``copy_to_tp``); the
+attention kernels on those heads; the attention's ``wo`` and the MLP's
+``wo`` row-parallel, each ending in ``reduce_from_tp``, the MLP's ``wi``
+and ``bi`` column-parallel; the replicated ``bo`` added once, after the
+reduce; the head over its vocab columns (``ops/xent.py``'s
+vocab-parallel loss). When tp does not divide the kv heads (GQA), the
+strategy keeps ``wk``/``wv`` whole and each rank slices out the kv heads
+its query heads read before the product, so the flash kernels still run
+(the JAX model falls back to naive attention there). No collective runs
+inside a function that remat recomputes.
+
 Dropout, MoE, pipeline and sequence parallelism wait for later slices
 (ROADMAP.md queue A) and raise ``NotImplementedError`` when asked for.
 """
@@ -42,6 +57,10 @@ import torch.utils.checkpoint
 from distributed_training_tpu_torch.ops.attention import dot_product_attention
 from distributed_training_tpu_torch.ops.xent import lm_cross_entropy
 from distributed_training_tpu_torch.runtime import make_generator, resolve_device
+
+
+def _same(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 @dataclass
@@ -242,6 +261,21 @@ def _rope(q: torch.Tensor, k: torch.Tensor,
     return rot(q), rot(k)
 
 
+def kv_heads_of_rank(n_heads: int, n_kv_heads: int, tp: int,
+                     rank: int) -> list:
+    """The kv heads that tp rank ``rank``'s query heads read, when tp
+    does not divide the kv heads: one per kv head when the rank's query
+    heads read each of them alike (whole GQA groups, or a part of one),
+    else one per query head (plain multi-head over repeated kv)."""
+    per, group = n_heads // tp, n_heads // n_kv_heads
+    idx = [h // group for h in range(rank * per, (rank + 1) * per)]
+    uniq = sorted(set(idx))
+    if per % len(uniq) == 0 and all(
+            idx.count(u) == per // len(uniq) for u in uniq):
+        return uniq
+    return idx
+
+
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
     """Layer norm in f32 with eps 1e-5, cast back to x's dtype."""
@@ -269,6 +303,8 @@ class Transformer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._gather = None
+        self._tp = None
+        self._kv_index = None
 
     def param_shapes(self) -> dict:
         return param_shapes(self.cfg)
@@ -308,6 +344,27 @@ class Transformer:
         whole, and ``gather.leaf(name, w)`` a top-level leaf. ``None``
         unbinds."""
         self._gather = gather
+
+    def bind_tensor_parallel(self, tp) -> None:
+        """Train with the weights split over a tp group (``tp``: a
+        ``parallel.tensor.TPGroup``; the strategy's ``tp`` layout): each
+        rank computes on its own block of every tp-split weight and sums
+        the partial results over the group. ``None`` unbinds. Raises
+        when tp does not divide the heads, the MLP width or the vocab."""
+        self._tp, self._kv_index = tp, None
+        if tp is None:
+            return
+        c = self.cfg
+        for what, n in (("n_heads", c.n_heads), ("d_ff", c.d_ff),
+                        ("vocab_size", c.vocab_size)):
+            if n % tp.size:
+                raise ValueError(
+                    f"tensor parallelism: {what}={n} does not split over "
+                    f"tp={tp.size}")
+        if c.n_kv_heads % tp.size:
+            self._kv_index = torch.tensor(
+                kv_heads_of_rank(c.n_heads, c.n_kv_heads, tp.size, tp.rank),
+                device=self.device)
 
     def _leaf(self, params: dict, name: str, dt=None) -> torch.Tensor:
         """A top-level leaf, cast to ``dt`` and gathered when bound."""
@@ -376,42 +433,62 @@ class Transformer:
                ) -> torch.Tensor:
         """One decoder block. x: (B, S, D) in compute dtype. ``remat``:
         the remat policy to apply (None: save everything autograd
-        needs)."""
+        needs). Under a tp binding the weights are this rank's blocks
+        and the two ``reduce_from_tp`` stay outside every recomputed
+        function."""
         c = self.cfg
         dt = x.dtype
         a, m = layer["attn"], layer["mlp"]
+        tp = self._tp
+        copy, reduce = (tp.copy, tp.reduce) if tp else (_same, _same)
+
+        def kv_weight(w):
+            w = w.to(dt)
+            return w if self._kv_index is None else w.index_select(
+                1, self._kv_index)
 
         def qkv(x):
-            h = _layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
+            h = copy(_layer_norm(x, layer["ln1"]["scale"],
+                                 layer["ln1"]["bias"]))
             q = torch.einsum("bsd,dhk->bshk", h, a["wq"].to(dt))
-            k = torch.einsum("bsd,dhk->bshk", h, a["wk"].to(dt))
-            v = torch.einsum("bsd,dhk->bshk", h, a["wv"].to(dt))
+            k = torch.einsum("bsd,dhk->bshk", h, kv_weight(a["wk"]))
+            v = torch.einsum("bsd,dhk->bshk", h, kv_weight(a["wv"]))
             if c.pos_encoding == "rope":
                 q, k = _rope(q, k, positions)
             return q, k, v
+
+        def mlp_in(x):
+            return copy(_layer_norm(x, layer["ln2"]["scale"],
+                                    layer["ln2"]["bias"]))
 
         def mlp_pre(h):
             return (torch.einsum("bsd,df->bsf", h, m["wi"].to(dt))
                     + m["bi"].to(dt))
 
         def mlp_post(u):
-            return (torch.einsum("bsf,fd->bsd",
-                                 F.gelu(u, approximate="tanh"),
-                                 m["wo"].to(dt)) + m["bo"].to(dt))
+            """This rank's part of the MLP's output, before ``bo``."""
+            return torch.einsum("bsf,fd->bsd",
+                                F.gelu(u, approximate="tanh"),
+                                m["wo"].to(dt))
 
-        def out(x, attn):
-            x = x + torch.einsum("bshk,hkd->bsd", attn, a["wo"].to(dt))
-            h = _layer_norm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
-            if remat == "mlp":
-                return x + _checkpoint(lambda h: mlp_post(mlp_pre(h)), h)
-            if remat == "mlp_pre":
-                return x + _checkpoint(mlp_post, mlp_pre(h))
-            return x + mlp_post(mlp_pre(h))
+        def attn_out(attn):
+            return reduce(torch.einsum("bshk,hkd->bsd", attn,
+                                       a["wo"].to(dt)))
 
         if remat in ("full", "selective"):
             q, k, v = _checkpoint(qkv, x)
-            return _checkpoint(out, x, self._attention(q, k, v))
-        return out(x, self._attention(*qkv(x)))
+            x = x + attn_out(self._attention(q, k, v))
+            part = _checkpoint(lambda x: mlp_post(mlp_pre(mlp_in(x))), x)
+        else:
+            x = x + attn_out(self._attention(*qkv(x)))
+            h = mlp_in(x)
+            if remat == "mlp":
+                part = _checkpoint(lambda h: mlp_post(mlp_pre(h)), h)
+            elif remat == "mlp_pre":
+                part = _checkpoint(mlp_post, mlp_pre(h))
+            else:
+                part = mlp_post(mlp_pre(h))
+        return x + (reduce(part) + m["bo"].to(dt))
 
     def _trunk(self, params: dict, tokens: torch.Tensor,
                remat: str | None = None) -> tuple:
@@ -421,7 +498,9 @@ class Transformer:
         dt = torch_dtype(c.dtype)
         S = tokens.shape[1]
         tokens = tokens.to(device=self.device, dtype=torch.long)
-        x = self._leaf(params, "tok_embed", dt)[tokens]
+        table = self._leaf(params, "tok_embed", dt)
+        x = table[tokens] if self._tp is None else self._tp.embed(table,
+                                                                 tokens)
         positions = torch.arange(S, device=self.device)
         if c.pos_encoding == "learned":
             x = x + self._leaf(params, "pos_embed", dt)[:S]
@@ -437,7 +516,8 @@ class Transformer:
         return x, torch.zeros((), dtype=torch.float32, device=self.device)
 
     def _head(self, params: dict, dt=None) -> torch.Tensor:
-        """Unembedding matrix (D, V), cast to ``dt`` when given."""
+        """Unembedding matrix (D, V), cast to ``dt`` when given; under a
+        tp binding this rank's columns (D, V/tp)."""
         if self.cfg.tie_embeddings:
             return self._leaf(params, "tok_embed", dt).T
         return self._leaf(params, "lm_head", dt)
@@ -453,6 +533,10 @@ class Transformer:
             raise NotImplementedError(
                 "training-mode dropout waits for ROADMAP.md queue A item 3 "
                 "'Training main path' (the RoPE/GQA half)")
+        if self._tp is not None:
+            raise NotImplementedError(
+                "apply under a tp binding (logits split over the vocab): "
+                "tensor-parallel serving is ROADMAP.md queue A item 7")
         tokens = torch.as_tensor(tokens)
         x, aux = self._trunk(params, tokens)
         logits = torch.einsum("bsd,dv->bsv", x, self._head(params, x.dtype))
@@ -476,6 +560,11 @@ class Transformer:
             raise NotImplementedError(
                 "training-mode dropout waits for ROADMAP.md queue A item 3 "
                 "'Training main path' (the RoPE/GQA half)")
+        tp = self._tp
+        if c.loss_impl == "dense" and tp is not None:
+            raise ValueError(
+                "loss_impl='dense' needs the whole vocab's logits; under "
+                "tensor parallelism use loss_impl='fused' (vocab-parallel)")
         tokens = torch.as_tensor(batch["tokens"]).to(
             device=self.device, dtype=torch.long)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
@@ -484,8 +573,12 @@ class Transformer:
         x, _ = self._trunk(params, inputs, remat)
         head = self._head(params, x.dtype)
         if c.loss_impl == "fused":
-            nll = lm_cross_entropy(x, head, targets,
-                                   chunk_rows=c.xent_chunk_rows)
+            if tp is not None:
+                x = tp.copy(x)
+            nll = lm_cross_entropy(
+                x, head, targets, chunk_rows=c.xent_chunk_rows,
+                group=tp.group if tp else None,
+                vocab_start=tp.rank * head.shape[1] if tp else 0)
         else:
             logits = torch.einsum("bsd,dv->bsv", x, head).float()
             logp = torch.log_softmax(logits, dim=-1)

@@ -9,8 +9,8 @@
 
 Both carry gradients: naive through autograd over its torch ops, flash
 through the backward kernels.
-- ``ring``/``ulysses``: sequence-parallel attention waits for the
-  sharded slices (ROADMAP.md queue A).
+- ``ring``/``ulysses``: sequence-parallel attention waits for ROADMAP.md
+  queue A item 16.
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention_impl='{impl}' is sequence-parallel attention, "
-            "which waits for ROADMAP.md queue A 'Sharded training'")
+            "which waits for ROADMAP.md queue A item 16")
     if impl in ("auto", "flash"):
         from distributed_training_tpu_torch.ops import flash_attention as fa
         if fa.supported(q, k, v, block_q=block_q or 0,

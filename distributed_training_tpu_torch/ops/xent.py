@@ -14,6 +14,17 @@ logits in the backward instead of saving them:
   op's sharding contract);
 - negative target ids are masked: zero nll and zero gradient.
 
+Vocab-parallel (``group``, tensor parallelism): ``head`` is this rank's
+columns ``[v0, v0 + V/tp)`` of the unembedding. Per chunk, the local
+row maxima are all-reduced with MAX over the group, then the local sums
+of exponentials and the target logits (from the rank that owns the id,
+0 elsewhere) together with SUM; ``lse = log(sum) + max`` on every rank.
+The backward's ``dlogits`` are local, ``dhead`` stays local, and ``dx``
+is this rank's part: the caller sums it over the group (``copy_to_tp``
+on ``x``). Without a group the same code runs without the collectives;
+over a group of one they change no bit. ``parallel/tensor.py``'s
+``ALL_REDUCES["xent"]`` counts them, two per chunk.
+
 The JAX package computes these products in XLA, outside any Pallas
 kernel, so plain PyTorch products are their counterpart here. Every
 product has f32 outputs, as the JAX op's ``preferred_element_type=f32``:
@@ -26,6 +37,9 @@ the same exact products summed in f32.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from distributed_training_tpu_torch.parallel.tensor import ALL_REDUCES
 
 DEFAULT_CHUNK_ROWS = 2048
 
@@ -50,25 +64,45 @@ def _chunk_logits(xb: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return _mm_f32(xb.reshape(B * sc, D), head).view(B, sc, -1)  # f32
 
 
+def _own_targets(t: torch.Tensor, v0: int, width: int) -> tuple:
+    """The ids of ``t`` in this rank's columns ``[v0, v0 + width)``:
+    (their local column, clamped into range; whether this rank owns
+    them). Masked (negative) ids are owned by no rank."""
+    local = t - v0
+    own = (t >= 0) & (local >= 0) & (local < width)
+    return local.clamp(0, width - 1), own
+
+
 class _LMXent(torch.autograd.Function):
-    """x (B, S_p, D), head (D, V), t (B, S_p) with S_p a multiple of
-    ``sc`` → nll (B, S_p) f32."""
+    """x (B, S_p, D), head (D, V_local), t (B, S_p) with S_p a multiple
+    of ``sc``, this rank's first column ``v0`` and the vocab's ``group``
+    (None: the head is the whole vocab) → nll (B, S_p) f32."""
 
     @staticmethod
-    def forward(ctx, x, head, t, sc):
+    def forward(ctx, x, head, t, sc, v0, group):
         S = x.shape[1]
         nll = torch.empty(t.shape, dtype=torch.float32, device=x.device)
         lse = torch.empty(t.shape, dtype=torch.float32, device=x.device)
         for s0 in range(0, S, sc):
             logits = _chunk_logits(x[:, s0:s0 + sc], head)
             tb = t[:, s0:s0 + sc]
-            lse_b = torch.logsumexp(logits, dim=-1)
-            tgt = torch.gather(logits, -1,
-                               tb.clamp(min=0)[..., None])[..., 0]
-            nll[:, s0:s0 + sc] = torch.where(tb >= 0, lse_b - tgt, 0.0)
+            m = logits.amax(dim=-1)
+            if group is not None:
+                ALL_REDUCES["xent"] += 1
+                dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+            col, own = _own_targets(tb, v0, logits.shape[-1])
+            sums = torch.stack([
+                torch.exp(logits - m[..., None]).sum(dim=-1),
+                torch.where(own, torch.gather(logits, -1,
+                                              col[..., None])[..., 0], 0.0)])
+            if group is not None:
+                ALL_REDUCES["xent"] += 1
+                dist.all_reduce(sums, group=group)
+            lse_b = torch.log(sums[0]) + m
+            nll[:, s0:s0 + sc] = torch.where(tb >= 0, lse_b - sums[1], 0.0)
             lse[:, s0:s0 + sc] = lse_b
         ctx.save_for_backward(x, head, t, lse)
-        ctx.sc = sc
+        ctx.sc, ctx.v0 = sc, v0
         return nll
 
     @staticmethod
@@ -83,28 +117,29 @@ class _LMXent(torch.autograd.Function):
             xb, tb = x[:, s0:s0 + sc], t[:, s0:s0 + sc]
             p = torch.exp(_chunk_logits(xb, head)
                           - lse[:, s0:s0 + sc, None])
-            valid = tb >= 0
-            p.scatter_add_(-1, tb.clamp(min=0)[..., None],
-                           torch.full(p.shape[:-1] + (1,), -1.0,
-                                      device=p.device))
-            g = torch.where(valid, dnll[:, s0:s0 + sc], 0.0)
+            col, own = _own_targets(tb, ctx.v0, p.shape[-1])
+            p.scatter_add_(-1, col[..., None], -own[..., None].float())
+            g = torch.where(tb >= 0, dnll[:, s0:s0 + sc], 0.0)
             dlogits = (p * g[..., None]).to(x.dtype).reshape(
                 -1, p.shape[-1])
             dx[:, s0:s0 + sc] = _mm_f32(dlogits, head.T).view(
                 xb.shape).to(x.dtype)
             dhead += _mm_f32(xb.reshape(-1, xb.shape[-1]).T, dlogits)
-        return dx, dhead.to(head.dtype), None, None
+        return dx, dhead.to(head.dtype), None, None, None, None
 
 
 def lm_cross_entropy(x: torch.Tensor, head: torch.Tensor,
                      targets: torch.Tensor,
-                     chunk_rows: int = DEFAULT_CHUNK_ROWS) -> torch.Tensor:
+                     chunk_rows: int = DEFAULT_CHUNK_ROWS,
+                     group=None, vocab_start: int = 0) -> torch.Tensor:
     """Per-token LM loss without an (N, V) residual.
 
     x: final hidden states (B, S, D); head: unembedding (D, V) in x's
     dtype; targets: int ids (B, S), negative ids masked (zero nll and
     zero gradient). ``chunk_rows``: rows per chunk, ``B * sc``. Returns
-    the per-token nll (B, S) f32."""
+    the per-token nll (B, S) f32. Vocab-parallel: ``head`` is this
+    rank's columns from ``vocab_start`` of the vocab split over
+    ``group`` (module docstring); every rank returns the whole nll."""
     B, S, D = x.shape
     sc = _seq_chunk(B, S, chunk_rows)
     targets = targets.long()
@@ -113,4 +148,4 @@ def lm_cross_entropy(x: torch.Tensor, head: torch.Tensor,
         x = torch.cat([x, x.new_zeros((B, pad, D))], dim=1)
         targets = torch.cat([targets, targets.new_full((B, pad), -1)],
                             dim=1)
-    return _LMXent.apply(x, head, targets, sc)[:, :S]
+    return _LMXent.apply(x, head, targets, sc, vocab_start, group)[:, :S]

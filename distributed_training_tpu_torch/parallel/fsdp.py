@@ -11,18 +11,36 @@ are explicit ``torch.distributed`` calls over the mesh's groups:
   cast to the compute dtype, are all-gathered over the ``fsdp`` group in
   the forward (one collective per dtype), and the backward
   reduce-scatters their gradients (summed over the group) back to the
-  shards. ``GATHERS`` counts the gathers: ``"layer"`` one per layer per
-  forward, and one per top-level leaf name.
+  shards. A leaf split on two dims (``tp_fsdp``) is gathered on its fsdp
+  dim only: its tp block stays local, for the tensor-parallel block.
+  ``GATHERS`` counts the gathers: ``"layer"`` one per layer per forward,
+  and one per top-level leaf name.
 - ``average_grads`` sums every gradient over the data processes and
   divides by their count: an all-reduce over (dp, fsdp) for replicated
   leaves, over the axes a sharded leaf is replicated on (dp) for the
   shards the reduce-scatter left.
-- ``all_gather_dims`` / ``gather_full`` rebuild whole leaves (ZeRO-1's
-  param slices, the consolidated export).
+- ``local_view``/``shard``/``all_gather_dims``/``gather_full`` cut and
+  rebuild whole leaves (the init, ZeRO-1's param slices, the
+  consolidated export), one split after another.
 
-A leaf's shard ``r`` along its dim is the ``r``-th equal slice, ``r``
-the process's rank in the group (its coordinate on the placement's mesh
-axes, dp-major).
+Gradients under tensor parallelism (tp ranks take the same batch):
+
+- a leaf split over tp: each rank's gradient is its own block's whole
+  gradient; nothing is summed over tp;
+- a leaf replicated over tp and used whole by every rank (layer-norm
+  scales and biases, the MLP's ``bo``, ``pos_embed``): every tp rank
+  computes the same gradient, because every activation gradient that
+  reaches it is whole: ``copy_to_tp`` all-reduces the gradient of each
+  column-parallel product's input (``parallel/tensor.py``). Nothing is
+  summed over tp, and the replicas stay alike;
+- a leaf replicated over tp of which each rank uses only a part (kv
+  heads that tp does not divide, under GQA: a rank projects only the kv
+  heads its query heads read; the layout's ``tp_partial``): each rank's
+  gradient is partial, and ``average_grads`` sums it over tp.
+
+A leaf's shard ``r`` along a split dim is the ``r``-th equal slice,
+``r`` the process's rank in the split's group (its coordinate on the
+split's mesh axes, dp-major).
 """
 
 from __future__ import annotations
@@ -115,29 +133,33 @@ class GatherForCompute:
     ``placements``: flat param path → ``Placement`` or None (the
     trainer's layout); ``layer_keys``: the top-level keys of the stacked
     ``(L, …)`` per-layer leaves, whose shard dim in a layer slice is one
-    less than in storage. Every sharded leaf must be split over
-    ``fsdp`` alone, and never on the layer axis."""
+    less than in storage. A leaf's data split must be over ``fsdp``
+    alone, and never on the layer axis; a split over ``tp`` stays
+    local."""
 
     def __init__(self, placements: dict, runtime, layer_keys: tuple):
         self.group = runtime.group(("fsdp",))
         self.layer_dims: dict = {}
         self.leaf_dims: dict = {}
         for path, pl in placements.items():
-            if pl is None:
+            data = [(d, axes) for d, axes in (pl.splits if pl else ())
+                    if axes != ("tp",)]
+            if not data:
                 continue
-            if pl.axes != ("fsdp",):
+            (dim, axes), = data
+            if axes != ("fsdp",):
                 raise ValueError(
                     f"{path}: gather-for-compute needs shards over fsdp "
-                    f"alone, not {pl.axes}")
+                    f"alone, not {axes}")
             top, _, name = path.partition("/")
             if top in layer_keys:
-                if pl.dim == 0:
+                if dim == 0:
                     raise ValueError(
                         f"{path}: the layer axis is sharded; the gather "
                         "runs one layer at a time")
-                self.layer_dims[(top, name)] = pl.dim - 1
+                self.layer_dims[(top, name)] = dim - 1
             else:
-                self.leaf_dims[path] = pl.dim
+                self.leaf_dims[path] = dim
 
     def layer(self, layer: dict) -> dict:
         """A layer's weights (a nested dict of slices) whole."""
@@ -163,14 +185,13 @@ class GatherForCompute:
 
 
 def local_view(t: torch.Tensor, pl, runtime) -> torch.Tensor:
-    """This process's slice of the whole tensor ``t`` under placement
+    """This process's block of the whole tensor ``t`` under placement
     ``pl``, as a view (``t`` itself when replicated)."""
-    if pl is None:
-        return t
-    group = runtime.group(pl.axes)
-    n = dist.get_world_size(group)
-    a = t.shape[pl.dim] // n
-    return t.narrow(pl.dim, dist.get_rank(group) * a, a)
+    for dim, axes in (pl.splits if pl else ()):
+        group = runtime.group(axes)
+        a = t.shape[dim] // dist.get_world_size(group)
+        t = t.narrow(dim, dist.get_rank(group) * a, a)
+    return t
 
 
 def shard(t: torch.Tensor, pl, runtime) -> torch.Tensor:
@@ -182,18 +203,22 @@ def shard(t: torch.Tensor, pl, runtime) -> torch.Tensor:
 
 
 def gather_full(flat: dict, placements: dict, runtime) -> dict:
-    """Every leaf of ``flat`` whole (collective on every process)."""
+    """Every leaf of ``flat`` whole (collective on every process): each
+    leaf's last split gathered first, one all-gather per split's axes
+    (and dtype) in each round."""
     out = dict(flat)
-    by_axes: dict = {}
-    for k, t in flat.items():
-        pl = placements.get(k)
-        if pl is not None:
-            by_axes.setdefault(pl.axes, []).append(k)
-    for axes, keys in by_axes.items():
-        fulls = all_gather_dims([flat[k].detach() for k in keys],
-                                [placements[k].dim for k in keys],
-                                runtime.group(axes))
-        out.update(zip(keys, fulls))
+    pending = {k: list(placements[k].splits) for k in flat
+               if placements.get(k) is not None}
+    while pending:
+        by_axes: dict = {}
+        for k, splits in pending.items():
+            by_axes.setdefault(splits[-1][1], []).append(k)
+        for axes, keys in by_axes.items():
+            fulls = all_gather_dims([out[k].detach() for k in keys],
+                                    [pending[k].pop()[0] for k in keys],
+                                    runtime.group(axes))
+            out.update(zip(keys, fulls))
+        pending = {k: s for k, s in pending.items() if s}
     return out
 
 
@@ -216,10 +241,12 @@ def replica_axes(pl) -> tuple:
     return tuple(a for a in BATCH_AXES if a not in used)
 
 
-def average_grads(grads: dict, placements: dict, runtime) -> dict:
+def average_grads(grads: dict, placements: dict, runtime,
+                  tp_partial=()) -> dict:
     """Gradients of each process's mean loss → gradients of the mean
     over all data processes, in place. Sharded leaves arrive already
-    summed over their shard group (the gather's reduce-scatter).
+    summed over their shard group (the gather's reduce-scatter); the
+    leaves of ``tp_partial`` are also summed over tp (module docstring).
 
     Every process's loss is a mean over the same number of tokens (the
     loader's batches have one shape and ``synthetic_lm`` masks no
@@ -228,6 +255,8 @@ def average_grads(grads: dict, placements: dict, runtime) -> dict:
     by_axes: dict = {}
     for k, g in grads.items():
         axes = replica_axes(placements.get(k))
+        if k in tp_partial:
+            axes += ("tp",)
         if any(sizes[a] > 1 for a in axes):
             by_axes.setdefault(axes, []).append(g)
     for axes, gs in by_axes.items():

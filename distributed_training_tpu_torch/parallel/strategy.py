@@ -14,12 +14,16 @@ entries dropped as ``jax.sharding.PartitionSpec`` prints them.
   logical axes route there (``rules``), else its largest divisible dim.
 - ``hybrid``: the fsdp specs over a mesh with dp > 1 (sharded within
   the fsdp groups, replicated across dp).
+- ``tp`` and ``tp_fsdp``: Megatron-style tensor parallelism composed
+  with FSDP (``TensorParallel``): the ``vocab``, ``mlp``, ``heads`` and
+  ``kv`` dims split over ``tp``, ``embed`` over ``fsdp``, so a leaf may
+  be split on two dims.
 
 Where XLA compiles the collectives from these specs in the JAX package,
-the port runs them itself: ``placement`` turns a spec into the dim and
-the mesh axes it is split over, and ``parallel/fsdp.py`` gathers,
-reduce-scatters and all-reduces accordingly. Tensor parallelism
-(``tp``, ``tp_fsdp``) waits for ROADMAP.md queue A item 4b.
+the port runs them itself: ``placement`` turns a spec into the dims and
+the mesh axes each is split over, ``parallel/fsdp.py`` gathers,
+reduce-scatters and all-reduces accordingly, and ``parallel/tensor.py``
+holds the collectives of the tensor-parallel block.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from distributed_training_tpu_torch.runtime import BATCH_AXES
 logger = logging.getLogger(__name__)
 
 AXIS_FSDP = "fsdp"
+AXIS_TP = "tp"
 Rules = dict[str, "str | tuple[str, ...] | None"]
 Spec = tuple
 
@@ -124,27 +129,37 @@ def _heuristic_spec(shape: tuple, size: int, axis,
 
 
 class Placement(NamedTuple):
-    """Where a leaf's local shard sits: its dimension ``dim`` is split
-    evenly over the processes of mesh ``axes``, in the order of their
-    coordinates on those axes (dp-major)."""
+    """Where a leaf's local block sits: for each ``(dim, axes)`` of
+    ``splits`` (in dim order), dimension ``dim`` is split evenly over the
+    processes of mesh ``axes``, in the order of their coordinates on
+    those axes (dp-major). At most two splits: one over the data axes
+    (``fsdp``, or ZeRO-1's (dp, fsdp)) and one over ``tp``."""
 
-    dim: int
-    axes: tuple[str, ...]
+    splits: tuple[tuple[int, tuple[str, ...]], ...]
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        """Every mesh axis the leaf is split over."""
+        return tuple(a for _, axes in self.splits for a in axes)
 
 
 def placement(spec: Spec) -> Placement | None:
-    """The port's placement of a spec: None when replicated, else the
-    one sharded dim and the mesh axes it is split over. A spec that
-    shards two dims (tensor parallelism composed with FSDP) raises."""
-    sharded = [(d, a) for d, a in enumerate(spec) if a is not None]
-    if not sharded:
+    """The port's placement of a spec: None when replicated, else each
+    sharded dim and the mesh axes it is split over. Raises for a spec
+    the port cannot place: more than two sharded dims, two that are not
+    one over ``tp`` and one over data axes, or ``tp`` joined with another
+    axis on one dim."""
+    splits = tuple((d, (a,) if isinstance(a, str) else tuple(a))
+                   for d, a in enumerate(spec) if a is not None)
+    if not splits:
         return None
-    if len(sharded) > 1:
-        raise NotImplementedError(
-            f"spec {spec} shards more than one dim; tensor parallelism "
-            "waits for ROADMAP.md queue A item 4b")
-    d, a = sharded[0]
-    return Placement(d, (a,) if isinstance(a, str) else tuple(a))
+    over_tp = [axes for _, axes in splits if AXIS_TP in axes]
+    if (len(splits) > 2 or any(axes != (AXIS_TP,) for axes in over_tp)
+            or len(splits) - len(over_tp) > 1):
+        raise ValueError(
+            f"spec {spec}: the port places at most one dim over tp alone "
+            "and one over data axes")
+    return Placement(splits)
 
 
 @dataclasses.dataclass
@@ -212,15 +227,41 @@ class FullyShardedDataParallel(DataParallel):
                                self.min_shard_elems)
 
 
+@dataclasses.dataclass
+class TensorParallel(DataParallel):
+    """Megatron-style tensor parallelism composed with FSDP (the JAX
+    ``TensorParallel``): column-parallel weights split their output dim
+    over ``tp``, row-parallel ones their input dim, attention its heads,
+    the embedding and head their vocab; ``embed`` dims split over
+    ``fsdp``. Unannotated leaves fall back to the FSDP heuristic."""
+
+    fsdp_size: int = 1
+    tp_size: int = 1
+    rules: Rules = dataclasses.field(default_factory=lambda: {
+        "embed": AXIS_FSDP,
+        "vocab": AXIS_TP,
+        "mlp": AXIS_TP,
+        "heads": AXIS_TP,
+        "kv": AXIS_TP,
+        "expert": AXIS_FSDP,
+    })
+
+    def __post_init__(self) -> None:
+        self.name = "tp"
+
+    def param_spec(self, shape: tuple, logical: tuple | None) -> Spec:
+        sizes = {AXIS_FSDP: self.fsdp_size, AXIS_TP: self.tp_size}
+        if logical is not None:
+            return prune_spec(shape, logical_to_spec(logical, self.rules),
+                              sizes, self.min_shard_elems)
+        return _heuristic_spec(shape, self.fsdp_size, AXIS_FSDP,
+                               self.min_shard_elems)
+
+
 def check_strategy(name: str) -> None:
     """Raise for a strategy name the port does not run."""
-    name = name.lower()
-    if name in ("tp", "tp_fsdp"):
-        raise NotImplementedError(
-            f"parallel_strategy '{name}': tensor parallelism waits for "
-            "ROADMAP.md queue A item 4b (column/row-parallel block, "
-            "per-rank heads, vocab-parallel cross-entropy)")
-    if name not in ("ddp", "zero1", "fsdp", "hybrid"):
+    if name.lower() not in ("ddp", "zero1", "fsdp", "hybrid", "tp",
+                            "tp_fsdp"):
         raise ValueError(
             f"unknown parallel_strategy '{name}'; known: ddp, zero1, "
             "fsdp, hybrid, tp")
@@ -228,11 +269,12 @@ def check_strategy(name: str) -> None:
 
 def get_strategy(name: str, mesh_spec=None, **kwargs) -> DataParallel:
     """Strategy registry, as the JAX ``get_strategy``. ``hybrid`` is
-    FSDP specs over a mesh with dp > 1."""
+    FSDP specs over a mesh with dp > 1; ``tp`` and ``tp_fsdp`` are one
+    strategy, its sizes from the mesh."""
     check_strategy(name)
     sizes = {}
     if mesh_spec is not None:
-        sizes = dict(fsdp_size=mesh_spec.fsdp,
+        sizes = dict(fsdp_size=mesh_spec.fsdp, tp_size=mesh_spec.tp,
                      data_size=mesh_spec.dp * mesh_spec.fsdp)
     name = name.lower()
     if name == "ddp":
@@ -247,15 +289,32 @@ def get_strategy(name: str, mesh_spec=None, **kwargs) -> DataParallel:
                 " mesh with dp*fsdp > 1 for ZeRO-1 to shard anything.",
                 stacklevel=2)
         return ZeRO1(data_size=data_size, **kwargs)
+    if name in ("tp", "tp_fsdp"):
+        return TensorParallel(fsdp_size=sizes.get("fsdp_size", 1),
+                              tp_size=sizes.get("tp_size", 1), **kwargs)
     return FullyShardedDataParallel(
         fsdp_size=sizes.get("fsdp_size", 1), **kwargs)
 
 
 def layout(strategy: DataParallel, shapes: dict, logical: dict) -> dict:
-    """``{"params": {path: Placement | None}, "opt": {...}}`` for the
-    flat (``a/b``-keyed) leaf shapes ``shapes`` and logical axes
-    ``logical`` of a model."""
-    return {"params": {k: placement(strategy.param_spec(s, logical.get(k)))
-                       for k, s in shapes.items()},
-            "opt": {k: placement(strategy.opt_spec(s, logical.get(k)))
-                    for k, s in shapes.items()}}
+    """``{"params": {path: Placement | None}, "opt": {...},
+    "tp_partial": (path, …)}`` for the flat (``a/b``-keyed) leaf shapes
+    ``shapes`` and logical axes ``logical`` of a model.
+
+    ``tp_partial``: under tp > 1, the leaves with a dim the rules route
+    to ``tp`` that the spec left whole (kv heads that tp does not
+    divide). The tensor-parallel block uses only this rank's part of
+    such a leaf, so each tp rank's gradient of it is partial and
+    ``fsdp.average_grads`` sums them over tp."""
+    out = {"params": {k: placement(strategy.param_spec(s, logical.get(k)))
+                      for k, s in shapes.items()},
+           "opt": {k: placement(strategy.opt_spec(s, logical.get(k)))
+                   for k, s in shapes.items()},
+           "tp_partial": ()}
+    if getattr(strategy, "tp_size", 1) > 1:
+        to_tp = {n for n, a in strategy.rules.items() if a == AXIS_TP}
+        out["tp_partial"] = tuple(
+            k for k, pl in out["params"].items()
+            if to_tp & set(logical.get(k) or ())
+            and (pl is None or AXIS_TP not in pl.axes))
+    return out

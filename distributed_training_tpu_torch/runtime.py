@@ -10,15 +10,21 @@ or starts one from torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``cuda:LOCAL_RANK``, or gloo under ``train.device=cpu``. Over the group
 it builds a ``DeviceMesh`` with all five axes (``pp, dp, fsdp, sp,
 tp``), size-1 ones included, so every axis has a group to name, even in a
-world of one. A world of 1 with neither a group nor torchrun's
-environment runs without a process group, as before.
+world of one, and a group over every set of two or more axes that are
+larger than 1 and do not span the world (``Runtime.group``): the batch
+axes (dp, fsdp) under a mesh with tp > 1, (fsdp, tp) for a leaf split on
+both. Every process creates every one of them at initialization, in the
+same order, as ``torch.distributed.new_group`` requires. A world of 1
+with neither a group nor torchrun's environment runs without a process
+group, as before.
 
-Tensor parallelism (``tp``) waits for ROADMAP.md queue A item 4b;
-sequence and pipeline parallelism (``sp``, ``pp``) for item 16.
+Sequence and pipeline parallelism (``sp``, ``pp``) wait for ROADMAP.md
+queue A item 16.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import math
 import os
@@ -34,8 +40,7 @@ MESH_AXES = ("pp", "dp", "fsdp", "sp", "tp")
 # dp-major (the JAX package's BATCH_AXES).
 BATCH_AXES = ("dp", "fsdp")
 # Mesh axes this port does not shard over yet → their ROADMAP.md item.
-_UNPORTED_AXES = {"tp": "4b (tensor parallelism)",
-                  "sp": "16 (sequence parallelism)",
+_UNPORTED_AXES = {"sp": "16 (sequence parallelism)",
                   "pp": "16 (pipeline parallelism)"}
 
 
@@ -135,6 +140,10 @@ class Runtime:
     # Whether initialize_runtime started the group (and its owner should
     # destroy it) rather than adopting the caller's.
     owns_group: bool = False
+    # Groups over two or more mesh axes (each larger than 1, together not
+    # the world), keyed by the axes in MESH_AXES order: this process's
+    # slice of each (sub_mesh_groups).
+    groups: dict = field(default_factory=dict)
 
     @property
     def platform(self) -> str:
@@ -164,18 +173,20 @@ class Runtime:
 
     def group(self, axes: tuple[str, ...]):
         """The process group over mesh ``axes`` (this process's slice):
-        the world when they span it, else the mesh's group of one axis."""
+        the world when they span it; else, over the axes larger than 1,
+        the mesh's group of the one axis or the sub-mesh group of several
+        (axes of size 1 add nothing to a group); a group of one when no
+        axis is larger than 1."""
         if self.mesh is None:
             raise RuntimeError("no process group: this runtime has a "
                                "world of 1 without torch.distributed")
         sizes = self.spec.as_dict()
         if math.prod(sizes[a] for a in axes) == self.process_count:
             return dist.group.WORLD
-        if len(axes) == 1:
-            return self.mesh.get_group(axes[0])
-        raise NotImplementedError(
-            f"a group over mesh axes {axes} that is not the world; the "
-            "mesh has no other multi-axis group yet")
+        live = tuple(a for a in MESH_AXES if a in axes and sizes[a] > 1)
+        if len(live) <= 1:
+            return self.mesh.get_group(live[0] if live else axes[0])
+        return self.groups[live]
 
     def barrier(self) -> None:
         if self.mesh is not None:
@@ -204,6 +215,30 @@ def _refuse_unported_axes(sizes: dict) -> None:
                 f"for ROADMAP.md queue A item {item}")
 
 
+def sub_mesh_groups(spec: MeshSpec, rank: int) -> dict:
+    """This process's group over every set of two or more mesh axes
+    larger than 1 that does not span the world, keyed by the axes (in
+    MESH_AXES order). Collective: every process creates every slice's
+    group, in one order; a group's ranks ascend with the slice's
+    coordinates (row-major, so dp-major over (dp, fsdp))."""
+    sizes = spec.as_dict()
+    world = math.prod(sizes.values())
+    ranks = torch.arange(world).view([sizes[a] for a in MESH_AXES])
+    live = [a for a in MESH_AXES if sizes[a] > 1]
+    out = {}
+    for n in range(2, len(live)):
+        for axes in itertools.combinations(live, n):
+            keep = [MESH_AXES.index(a) for a in axes]
+            rest = [i for i in range(len(MESH_AXES)) if i not in keep]
+            size = math.prod(sizes[a] for a in axes)
+            for members in ranks.permute(rest + keep).reshape(
+                    -1, size).tolist():
+                group = dist.new_group(members)
+                if rank in members:
+                    out[axes] = group
+    return out
+
+
 def initialize_runtime(cfg) -> Runtime:
     """The runtime for ``cfg`` (a ``config.Config``).
 
@@ -214,7 +249,7 @@ def initialize_runtime(cfg) -> Runtime:
     from torchrun's environment when ``RANK`` and ``WORLD_SIZE`` are
     set; otherwise the world is this one process. The mesh
     (``MeshSpec.resolve``, at most one ``-1`` axis) must cover the world
-    exactly; ``tp``, ``sp`` or ``pp`` above 1 raises."""
+    exactly; ``sp`` or ``pp`` above 1 raises."""
     pref = cfg.train.device
     if pref not in ("auto", "", "cuda", "gpu", "cpu"):
         raise ValueError(f"train.device '{pref}' is not a device of the "
@@ -248,18 +283,20 @@ def initialize_runtime(cfg) -> Runtime:
     try:
         spec = MeshSpec.resolve(cfg.mesh, world)
         _refuse_unported_axes(spec.as_dict())
-        mesh = None
+        mesh, groups = None, {}
         if backend:
             from torch.distributed.device_mesh import init_device_mesh
             mesh = init_device_mesh(
                 device.type, tuple(spec.as_dict()[a] for a in MESH_AXES),
                 mesh_dim_names=MESH_AXES)
+            groups = sub_mesh_groups(spec, rank)
     except BaseException:
         if owns:
             dist.destroy_process_group()
         raise
     rt = Runtime(device=device, process_index=rank, process_count=world,
-                 spec=spec, mesh=mesh, backend=backend, owns_group=owns)
+                 spec=spec, mesh=mesh, backend=backend, owns_group=owns,
+                 groups=groups)
     logger.info("runtime initialized: %s", rt.describe())
     return rt
 

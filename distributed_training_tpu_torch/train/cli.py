@@ -4,6 +4,8 @@
     python -m distributed_training_tpu_torch.train model=gpt2_125m train=gpt2
     torchrun --nproc_per_node 2 -m distributed_training_tpu_torch.train \
         train.device=cpu train.parallel_strategy=fsdp mesh.fsdp=2 ...
+    torchrun --nproc_per_node 2 -m distributed_training_tpu_torch.train \
+        train.device=cpu train.parallel_strategy=tp mesh.tp=2 ...
 
 The same ``conf/`` tree and override grammar as the JAX CLI. It runs on
 the CUDA card (``cuda:LOCAL_RANK`` under torchrun, over NCCL) unless

@@ -100,19 +100,23 @@ def _matrices_mask(params: dict) -> dict:
             not in _NO_DECAY_KEYS for path, p in params.items()}
 
 
-def global_norm(tensors, sharded=(), group=None) -> torch.Tensor:
+def global_norm(tensors, groups=()) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32.
 
     One sum of squares per leaf, added in the order of ``tensors``.
-    ``sharded`` flags, leaf for leaf, the tensors that are this
-    process's shard of a leaf split over ``group`` (the rest are whole,
-    or replicated on every process, and count once): their sums are
-    summed over the group first, in one all-reduce, so the norm equals
-    the unsharded one on every process, and over a group of one equals
-    it bit for bit."""
+    ``groups`` gives, leaf for leaf, the process group a tensor's leaf
+    is split over (this process holds its block), or None for a leaf
+    that is whole, or replicated on every process, and counts once. The
+    sums of the leaves split over one group are summed over it first, in
+    one all-reduce per group (in the order the groups first appear), so
+    the norm equals the unsharded one on every process, and over groups
+    of one equals it bit for bit."""
     sums = [torch.sum(t.float() ** 2) for t in tensors]
-    idx = [i for i, s in enumerate(sharded) if s]
-    if idx:
+    by_group: dict = {}
+    for i, g in enumerate(groups):
+        if g is not None:
+            by_group.setdefault(id(g), (g, []))[1].append(i)
+    for group, idx in by_group.values():
         part = torch.stack([sums[i] for i in idx])
         dist.all_reduce(part, group=group)
         for j, i in enumerate(idx):

@@ -15,11 +15,15 @@ on preemption agreed by every process with a mid-epoch save,
 ``total_steps``/``max_steps_per_epoch``, ``nan_guard``,
 ``offload_opt_state`` and ``divergence_check_every``.
 
-The strategy (``ddp``, ``zero1``, ``fsdp``, ``hybrid``) lays the state
-out over the runtime's mesh (``parallel/strategy.py``): FSDP stores the
-weights sharded and gathers them one layer at a time for compute
-(``parallel/fsdp.py``); ZeRO-1 keeps each process's slice of the Adam
-moments, updates its slice of the params and all-gathers them. The JAX
+The strategy (``ddp``, ``zero1``, ``fsdp``, ``hybrid``, ``tp``,
+``tp_fsdp``) lays the state out over the runtime's mesh
+(``parallel/strategy.py``): FSDP stores the weights sharded and gathers
+them one layer at a time for compute (``parallel/fsdp.py``); ZeRO-1
+keeps each process's slice of the Adam moments, updates its slice of the
+params and all-gathers them; tensor parallelism binds the tp group to
+the model (``parallel/tensor.py``), whose block then computes on this
+rank's blocks of the weights. tp ranks take the same batch: the data
+axes are (dp, fsdp), and MFU counts every card. The JAX
 trainer's other hooks are not ported yet and asking for one raises,
 naming its ROADMAP.md queue A item.
 """
@@ -41,7 +45,8 @@ from distributed_training_tpu_torch.parallel.strategy import (
     get_strategy,
     layout as strategy_layout,
 )
-from distributed_training_tpu_torch.runtime import BATCH_AXES
+from distributed_training_tpu_torch.parallel.tensor import TPGroup
+from distributed_training_tpu_torch.runtime import MESH_AXES
 from distributed_training_tpu_torch.telemetry import events as telemetry
 from distributed_training_tpu_torch.train import state as state_lib
 from distributed_training_tpu_torch.train.optimizer import (
@@ -98,11 +103,16 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
     whole leaves)."""
     pls = (layout or {}).get("params", {})
     opt_pls = (layout or {}).get("opt", {})
+    tp_partial = (layout or {}).get("tp_partial", ())
     sharded = runtime is not None and runtime.mesh is not None
     # ZeRO-1's leaves: whole params, moments on a slice of them.
     sliced = {k: pl for k, pl in opt_pls.items()
               if pl is not None and pls.get(k) is None}
-    norm_group = runtime.group(("fsdp",)) if sharded else None
+    # The group each split leaf's sum of squares is summed over.
+    split_over = {pl.axes: runtime.group(pl.axes)
+                  for pl in pls.values() if pl is not None}
+    norm_groups = {k: split_over[pl.axes] for k, pl in pls.items()
+                   if pl is not None}
 
     def train_step(state: dict, batch: Mapping[str, torch.Tensor]) -> dict:
         params = state["params"]
@@ -122,15 +132,14 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
             grads = {k: g / len(micro) for k, g in grads.items()}
             metrics = {k: v / len(micro) for k, v in metrics.items()}
         if sharded:
-            fsdp.average_grads(grads, pls, runtime)
+            fsdp.average_grads(grads, pls, runtime, tp_partial)
             metrics = fsdp.mean_over_data(metrics, runtime)
         # Nonlinear derived metrics don't average: recompute from the
         # mean loss, as the JAX step does.
         if "perplexity" in metrics:
             metrics["perplexity"] = torch.exp(metrics["loss"])
         gnorm = global_norm(grads.values(),
-                            [pls.get(k) is not None for k in grads],
-                            norm_group)
+                            [norm_groups.get(k) for k in grads])
         metrics["grad_norm"] = gnorm
         ok = True
         if nan_guard:
@@ -199,6 +208,7 @@ class Trainer:
                                      gather_on_save=tcfg.gather_on_save)
         self.layout = self._layout()
         self._bind_gather()
+        self._bind_tensor_parallel()
         self._check_dataset()
         total_steps = tcfg.total_steps or (
             loader.steps_per_epoch * tcfg.total_epochs)
@@ -269,6 +279,15 @@ class Trainer:
             gather = fsdp.GatherForCompute(pls, self.rt,
                                            self.model.stacked_keys)
         self.model.bind_gather_for_compute(gather)
+
+    def _bind_tensor_parallel(self) -> None:
+        """Under ``tp``/``tp_fsdp`` with a process group, bind the tp
+        group to the model (a group of one at tp 1: the same code and
+        collectives as at tp > 1, which change no bit there)."""
+        tp = None
+        if self.layout is not None and self.strategy.name == "tp":
+            tp = TPGroup(self.rt.group(("tp",)))
+        self.model.bind_tensor_parallel(tp)
 
     def offload_opt_state(self) -> None:
         """Move the optimizer moments to host memory (pinned when the
@@ -354,20 +373,26 @@ class Trainer:
         return self._stop_agreed
 
     def _check_divergence(self) -> dict | None:
-        """Replica drift over the data axes every param is replicated on
-        (DDP: (dp, fsdp); FSDP: dp; shards fingerprinted in place). None
-        when the layout has no replicas."""
+        """Replica drift of each param over the mesh axes it is
+        replicated on (DDP: (dp, fsdp); an FSDP shard: dp; a layer norm
+        under tp: tp too; shards fingerprinted in place). None when no
+        leaf has replicas."""
         if self.rt.mesh is None:
             return None
         sizes = self.rt.spec.as_dict()
-        used = {a for pl in self.layout["params"].values() if pl
-                for a in pl.axes}
-        axes = tuple(a for a in BATCH_AXES
-                     if a not in used and sizes[a] > 1)
-        if not axes:
+        by_axes: dict = {}
+        groups = {}
+        for k, pl in self.layout["params"].items():
+            axes = tuple(a for a in MESH_AXES if sizes[a] > 1
+                         and a not in (pl.axes if pl else ()))
+            if axes:
+                if axes not in by_axes:
+                    by_axes[axes] = self.rt.group(axes)
+                groups[k] = by_axes[axes]
+        if not groups:
             return None
         return diagnostics.replica_divergence(
-            flatten(self.state["params"]), self.rt.group(axes))
+            flatten(self.state["params"]), groups)
 
     # -- loops -------------------------------------------------------------
 

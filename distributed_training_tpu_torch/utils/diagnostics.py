@@ -1,9 +1,10 @@
 """Replica-drift diagnostics (port of ``utils/diagnostics.py``).
 
-``replica_divergence``: are the data-parallel replicas of every param
-bitwise in sync? Each process fingerprints its copy of each leaf (a
-shard is fingerprinted in place), the int32 fingerprints are
-all-gathered over the group of replicas, and a leaf's divergence is the
+``replica_divergence``: are the replicas of every param bitwise in sync?
+Each process fingerprints its copy of each leaf (a shard is fingerprinted
+in place), the int32 fingerprints are all-gathered over the leaf's group
+of replicas (the mesh axes it is replicated on: the data axes, and tp for
+a leaf tensor parallelism leaves whole), and a leaf's divergence is the
 spread (max - min) of its fingerprints: 0 on every leaf ⇔ the replicas
 are identical.
 """
@@ -31,20 +32,27 @@ def fingerprint(x: torch.Tensor) -> int:
     return s - (1 << 32) if s >= 1 << 31 else s
 
 
-def replica_divergence(params: dict, group) -> dict:
+def replica_divergence(params: dict, groups: dict) -> dict:
     """Per leaf of the flat dict ``params``: the spread of its
-    fingerprints over the processes of ``group`` (collective on every
-    one of them). ``{"max_divergence": int, "leaves": {path: int}}``."""
-    keys = list(params)
-    device = next(iter(params.values())).device if keys else "cpu"
-    local = torch.tensor([fingerprint(params[k]) for k in keys],
-                         dtype=torch.int64, device=device)
-    n = dist.get_world_size(group)
-    every = local.new_empty(n * len(keys))
-    dist.all_gather_into_tensor(every, local, group=group)
-    every = every.view(n, len(keys))
-    spread = (every.max(0).values - every.min(0).values).tolist()
-    leaves = dict(zip(keys, (int(v) for v in spread)))
+    fingerprints over the processes of its group of replicas,
+    ``groups[path]`` (a leaf without one has none: spread 0). One
+    all-gather per group, in the order the groups first appear:
+    collective on every process, each passing its own slices' groups
+    for the same axes. ``{"max_divergence": int, "leaves": {path:
+    int}}``."""
+    leaves = dict.fromkeys(params, 0)
+    by_group: dict = {}
+    for k, g in groups.items():
+        by_group.setdefault(id(g), (g, []))[1].append(k)
+    for group, keys in by_group.values():
+        local = torch.tensor([fingerprint(params[k]) for k in keys],
+                             dtype=torch.int64, device=params[keys[0]].device)
+        n = dist.get_world_size(group)
+        every = local.new_empty(n * len(keys))
+        dist.all_gather_into_tensor(every, local, group=group)
+        every = every.view(n, len(keys))
+        spread = (every.max(0).values - every.min(0).values).tolist()
+        leaves.update(zip(keys, (int(v) for v in spread)))
     worst = max(leaves.values(), default=0)
     if worst > 0:
         logger.warning("replica divergence detected: %s",

@@ -94,8 +94,9 @@ def test_loader_index_stream_matches_jax():
 
 def test_runtime_resolves_one_device_and_refuses_a_mesh():
     """A world of 1 without a process group: one device, no mesh; a mesh
-    that needs more processes than the world is the MeshSpec error, and
-    tensor parallelism names its ROADMAP item."""
+    that needs more processes than the world is the MeshSpec error, for
+    tp as for fsdp, and sequence or pipeline parallelism names its
+    ROADMAP item."""
     cfg = port_config.load_config(overrides=["train.device=cpu"])
     rt = initialize_runtime(cfg)
     assert (rt.device.type, rt.num_devices, rt.data_shard_count,
@@ -105,6 +106,10 @@ def test_runtime_resolves_one_device_and_refuses_a_mesh():
     with pytest.raises(MeshSpecError, match="device count 1"):
         initialize_runtime(port_config.load_config(
             overrides=["train.device=cpu", "mesh.fsdp=2"]))
-    with pytest.raises(NotImplementedError, match="item 4b"):
+    with pytest.raises(MeshSpecError, match="device count 1"):
         initialize_runtime(port_config.load_config(
             overrides=["train.device=cpu", "mesh.tp=2"]))
+    for axis in ("sp", "pp"):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            initialize_runtime(port_config.load_config(
+                overrides=["train.device=cpu", f"mesh.{axis}=2"]))

@@ -4,12 +4,19 @@ Each kernel's plain PyTorch version — what the wrappers run on CPU
 tensors — against the JAX function it replaces, on the same numpy
 inputs in float32. Tolerance 1e-5 abs/rel: the two frameworks sum in
 different orders. The JAX flash forward runs in interpret mode, as the
-JAX package itself runs it off a TPU.
+JAX package itself runs it off a TPU, in a fresh interpreter of its own
+on one XLA thread, twice there and bit for bit, as
+``tests/test_torch_flash_bwd.py`` runs the backward: inside a full
+parallel test run it once disagreed with the port by up to 5.7e-5 on 53
+of 8192 elements, and agreed alone.
 
 The kernels themselves only run on the card: tests/test_torch_kernels_gpu.py
 holds them against these plain versions there.
 """
 
+import os
+import subprocess
+import sys
 from types import SimpleNamespace
 
 import numpy as np
@@ -24,7 +31,6 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from distributed_training_tpu.ops import attention as jax_attn  # noqa: E402
-from distributed_training_tpu.ops import flash_attention as jax_fa  # noqa: E402
 from distributed_training_tpu.ops import paged_attention as jax_pa  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -37,21 +43,62 @@ def _qkv(rng, B, H, Hkv, S, D, Sk=None):
             rng.standard_normal((B, Hkv, Sk, D)).astype(np.float32))
 
 
-@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
-                                           (False, 0)],
-                         ids=["causal", "window", "noncausal"])
-def test_flash_plain_matches_jax_flash_fwd_interpret(causal, window):
+FWD_CASES = {"causal": (True, 0), "window": (True, 40),
+             "noncausal": (False, 0)}
+# The JAX side of test_flash_plain_matches_jax_flash_fwd_interpret, every
+# case, run as ``python -c _FWD_REFERENCE <inputs.npz> <out.npz>``.
+_FWD_REFERENCE = """
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+jax.config.update("jax_platforms", "cpu")
+from distributed_training_tpu.ops import flash_attention as jax_fa
+src, dst = sys.argv[1:]
+x = np.load(src)
+out = {}
+for name, causal, window in zip(x["names"], x["causal"], x["window"]):
+    runs = [[np.asarray(a) for a in jax_fa._flash_fwd(
+        *(jnp.asarray(x[n]) for n in ("q", "k", "v")), causal=bool(causal),
+        block_q=64, block_k=32, window=int(window))] for _ in range(2)]
+    for a, b in zip(*runs):
+        assert np.array_equal(a, b), "the JAX reference differs between runs"
+    out[f"{name}_o"], out[f"{name}_lse"] = runs[0]
+np.savez(dst, **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def flash_fwd_reference(tmp_path_factory):
+    """(q, k, v) and the JAX forward's (O, lse) by case name."""
+    q, k, v = _qkv(np.random.default_rng(1), 1, 4, 2, 128, 16)
+    tmp = tmp_path_factory.mktemp("flash_fwd")
+    src, dst = tmp / "inputs.npz", tmp / "reference.npz"
+    np.savez(src, q=q, k=k, v=v, names=list(FWD_CASES),
+             causal=[c for c, _ in FWD_CASES.values()],
+             window=[w for _, w in FWD_CASES.values()])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_cpu_multi_thread_eigen=false",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    subprocess.run([sys.executable, "-c", _FWD_REFERENCE, str(src),
+                    str(dst)], env=env, check=True, timeout=300)
+    return (q, k, v), dict(np.load(dst))
+
+
+@pytest.mark.parametrize("case", list(FWD_CASES))
+def test_flash_plain_matches_jax_flash_fwd_interpret(case,
+                                                     flash_fwd_reference):
     """B1's plain version (O and lse) against the JAX ``_flash_fwd``
     Pallas kernel in interpret mode."""
-    q, k, v = _qkv(np.random.default_rng(1), 1, 4, 2, 128, 16)
-    jo, jl = jax_fa._flash_fwd(jnp.asarray(q), jnp.asarray(k),
-                               jnp.asarray(v), causal=causal, block_q=64,
-                               block_k=32, window=window)
+    causal, window = FWD_CASES[case]
+    (q, k, v), ref = flash_fwd_reference
     po, pl = port_fa.flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
                                torch.from_numpy(v), causal=causal,
                                window=window)
-    np.testing.assert_allclose(po.numpy(), np.asarray(jo), **TOL)
-    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(po.numpy(), ref[f"{case}_o"], **TOL)
+    np.testing.assert_allclose(pl.numpy(), ref[f"{case}_lse"], **TOL)
 
 
 @pytest.mark.parametrize("H,Hkv,Sq,Sk,causal,window", [

@@ -8,22 +8,32 @@ fingerprint is the JAX one.
 Trajectories: a tiny decoder (2 layers, d 64, 4 heads, vocab 512, seq
 128, float32) trains 5 AdamW steps (warmup, cosine, clipping, weight
 decay) under ``ddp`` (dp 2), ``zero1`` (dp 2), ``fsdp`` (fsdp 2),
-``hybrid`` (dp 2 x fsdp 2) and ``fsdp`` with ``grad_accum_steps=2``,
-from the JAX init, through the JAX trainer on fake CPU devices of the
-same mesh shape and through the port's trainer in spawned gloo worlds
-(``tests/test_torch_sharded_world.py``, two worlds in all, rendezvous
-through a file). Per-step losses and gradient norms agree within 1e-5
-relative and final params within 1e-4, against the JAX trainer and
-against the port's own one-process ``ddp`` run over the same global
-batches. In the same world: a save on preemption at step 2 that one
-process alone asked for resumes to the uninterrupted trajectory, its
-consolidated artifact holds the whole params, the replica-drift check
-reads 0 until one process perturbs its replica, and optimizer-state
-offload leaves the trajectory as it was. In the test process, bfloat16:
-``fsdp`` in a gloo group of one gives ``ddp``'s losses and gradient
-norms bit for bit.
+``hybrid`` (dp 2 x fsdp 2), ``fsdp`` with ``grad_accum_steps=2``,
+``tp`` (tp 2), ``tp`` over dp 2 x tp 2 and ``tp_fsdp`` (fsdp 2 x tp
+2), and a GQA/RoPE/untied variant (2 kv heads) under ``tp`` at tp 2
+(kv heads split) and tp 4 (kv heads replicated, their gradients summed
+over tp), from the JAX init, through the JAX trainer on fake CPU devices
+of the same mesh shape and through the port's trainer in spawned gloo
+worlds (``tests/test_torch_sharded_world.py``, one world of 2 and one of
+4 processes, rendezvous through a file). Per-step losses and gradient
+norms agree within 1e-5 relative and final params within 1e-4, against
+the JAX trainer and against the port's own one-process ``ddp`` run over
+the same global batches. In the same worlds: a save on preemption at
+step 2 that one process alone asked for resumes to the uninterrupted
+trajectory under ``fsdp`` and under ``tp_fsdp``, its consolidated
+artifact (and the offline export) holds the whole params, the
+replica-drift check reads 0 until one process perturbs its replica (a
+``ddp`` weight, and a layer norm replicated over tp), and
+optimizer-state offload leaves the trajectory as it was. In the test
+process, bfloat16: ``fsdp`` in a gloo group of one gives ``ddp``'s
+losses and gradient norms bit for bit.
+
+The worlds are spawned once per test process and shared with
+``tests/test_torch_tp.py`` (``spawned``), whose ``tp_ops`` runs they
+also hold.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -68,6 +78,9 @@ WORKER = os.path.join(os.path.dirname(__file__), "test_torch_sharded_world.py")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = dict(vocab_size=512, d_model=64, n_layers=2, n_heads=4,
              max_seq_len=128, dtype="float32")
+# Model variants beside MODEL: GQA (2 kv heads), RoPE, an untied head.
+VARIANTS = {"gqa": dict(n_kv_heads=2, pos_encoding="rope",
+                        tie_embeddings=False)}
 TRAIN = dict(optimizer="adamw", learning_rate=3e-3, weight_decay=0.1,
              warmup_steps=2, lr_schedule="cosine", grad_clip_norm=0.5,
              batch_size=2, total_epochs=1, log_every=1, dtype="float32",
@@ -82,7 +95,26 @@ CASES = {
     "fsdp_accum": ({"dp": 1, "fsdp": 2},
                    {"parallel_strategy": "fsdp", "grad_accum_steps": 2,
                     "batch_size": 4}),
+    "tp": ({"dp": 1, "tp": 2}, {"parallel_strategy": "tp"}),
+    "tp_dp": ({"dp": 2, "tp": 2}, {"parallel_strategy": "tp"}),
+    "tp_fsdp": ({"dp": 1, "fsdp": 2, "tp": 2},
+                {"parallel_strategy": "tp_fsdp"}),
+    "tp_gqa": ({"dp": 1, "tp": 2}, {"parallel_strategy": "tp"}),
+    "tp4_gqa": ({"dp": 1, "tp": 4}, {"parallel_strategy": "tp"}),
 }
+# The cases on a variant of MODEL.
+CASE_VARIANT = {"tp_gqa": "gqa", "tp4_gqa": "gqa"}
+# Port-only train settings of a case (the JAX run does without them):
+# the replica check each step, which compares the leaves tp leaves whole
+# (layer norms; the kv heads tp 4 does not divide) across tp.
+PORT_ONLY = {"tp4_gqa": {"divergence_check_every": 1}}
+
+
+def _dataset_kw(batch: int, world: int) -> dict:
+    return dict(size=STEPS * batch * world, seq_len=128, vocab_size=512,
+                seed=TRAIN["seed"])
+
+
 # Runs of the 2-process world beside the JAX cases.
 EXTRA_RUNS = [
     {"name": "fsdp_resume", "kind": "resume", "mesh": {"dp": 1, "fsdp": 2},
@@ -92,6 +124,19 @@ EXTRA_RUNS = [
      "train": {"parallel_strategy": "ddp", "divergence_check_every": 1}},
     {"name": "fsdp_offload", "mesh": {"dp": 1, "fsdp": 2},
      "train": {"parallel_strategy": "fsdp", "offload_opt_state": True}},
+    {"name": "tp_drift", "kind": "drift", "mesh": {"dp": 1, "tp": 2},
+     "leaf": "ln1/scale", "dataset": _dataset_kw(TRAIN["batch_size"], 1),
+     "train": {"parallel_strategy": "tp", "divergence_check_every": 1}},
+    # Checked by tests/test_torch_tp.py.
+    {"name": "tp_ops", "kind": "tp_ops", "mesh": {"dp": 1, "tp": 2}},
+]
+# Runs of the 4-process world beside the JAX cases.
+EXTRA_RUNS_4 = [
+    {"name": "tp_fsdp_resume", "kind": "resume",
+     "mesh": {"dp": 1, "fsdp": 2, "tp": 2},
+     "dataset": _dataset_kw(TRAIN["batch_size"], 2),
+     "train": {"parallel_strategy": "tp_fsdp", "gather_on_save": True,
+               "stop_poll_every": 1}},
 ]
 
 
@@ -99,13 +144,13 @@ def _world(mesh: dict) -> int:
     return int(np.prod(list(mesh.values())))
 
 
+def _shards(mesh: dict) -> int:
+    """The data shards of a mesh: tp ranks share their batch."""
+    return _world(mesh) // mesh.get("tp", 1)
+
+
 def _batch(name: str) -> int:
     return CASES[name][1].get("batch_size", TRAIN["batch_size"])
-
-
-def _dataset_kw(batch: int, world: int) -> dict:
-    return dict(size=STEPS * batch * world, seq_len=128, vocab_size=512,
-                seed=TRAIN["seed"])
 
 
 def _rows(history: list) -> tuple:
@@ -114,16 +159,21 @@ def _rows(history: list) -> tuple:
     return losses, norms
 
 
-@pytest.fixture(scope="module")
-def init_params():
-    """The JAX trainer's init (seed 7), the start of every run."""
+def _model(variant: str = "") -> dict:
+    return {**MODEL, **VARIANTS.get(variant, {})}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_init(variant: str = "") -> dict:
+    """The JAX trainer's init (seed 7) of a model variant, the start of
+    every run on it."""
     cfg = jax_config.Config()
     for k, v in TRAIN.items():
         setattr(cfg.train, k, v)
     rt = jax_runtime.fake_cpu_runtime(1)
     jt = JaxTrainer(cfg, rt, jax_tf.Transformer(jax_tf.TransformerConfig(
-        **MODEL)), JaxLoader(JaxLM(**_dataset_kw(2, 1)), rt, batch_size=2,
-                             seed=TRAIN["seed"]))
+        **_model(variant))), JaxLoader(JaxLM(**_dataset_kw(2, 1)), rt,
+                                       batch_size=2, seed=TRAIN["seed"]))
     return jax.tree.map(np.asarray, jt.state["params"])
 
 
@@ -134,10 +184,10 @@ def _jax_run(name: str, init: dict) -> tuple:
     for k, v in {**TRAIN, **over}.items():
         setattr(cfg.train, k, v)
     rt = jax_runtime.fake_cpu_runtime(world, **mesh)
-    loader = JaxLoader(JaxLM(**_dataset_kw(_batch(name), world)), rt,
+    loader = JaxLoader(JaxLM(**_dataset_kw(_batch(name), _shards(mesh))), rt,
                        batch_size=_batch(name), seed=TRAIN["seed"])
     jt = JaxTrainer(cfg, rt, jax_tf.Transformer(jax_tf.TransformerConfig(
-        **MODEL)), loader)
+        **_model(CASE_VARIANT.get(name, "")))), loader)
     jt.state["params"] = jax.device_put(
         init, jt.state_shardings["params"])
     # The JAX rows carry no grad_norm: read it from each step's metrics.
@@ -154,15 +204,15 @@ def _jax_run(name: str, init: dict) -> tuple:
             flatten(jax.tree.map(np.asarray, jt.state["params"])))
 
 
-def _port_one_process(batch: int, init: dict) -> tuple:
+def _port_one_process(batch: int, init: dict, variant: str = "") -> tuple:
     """The port's ddp trainer in this process (no process group) over
     the same global batches as a world of ``world`` x ``batch``."""
     cfg = port_config.Config()
     for k, v in {**TRAIN, "batch_size": batch}.items():
         setattr(cfg.train, k, v)
     rt = Runtime(device=torch.device("cpu"))
-    model = port_tf.Transformer(port_tf.TransformerConfig(**MODEL),
-                                device="cpu")
+    model = port_tf.Transformer(port_tf.TransformerConfig(
+        **_model(variant)), device="cpu")
     loader = ShardedDataLoader(SyntheticLMDataset(**_dataset_kw(batch, 1)),
                                rt, batch_size=batch, seed=TRAIN["seed"])
     t = Trainer(cfg, rt, model, loader,
@@ -171,15 +221,17 @@ def _port_one_process(batch: int, init: dict) -> tuple:
     return *_rows(t.metrics.history), flatten(t.state["params"])
 
 
-def _spawn(tmp, world: int, runs: list, init: dict) -> dict:
+def _spawn(tmp, world: int, runs: list) -> dict:
     """Run ``runs`` in a spawned gloo world of ``world`` processes;
     process 0's results by run name."""
     out = str(tmp)
-    init_path = os.path.join(out, "init.pt")
-    torch.save({k: torch.from_numpy(np.array(v)) for k, v in
-                flatten(init).items()}, init_path)
+    inits = {}
+    for variant in ("", *VARIANTS):
+        inits[variant] = os.path.join(out, f"init{variant}.pt")
+        torch.save({k: torch.from_numpy(np.array(v)) for k, v in
+                    flatten(jax_init(variant)).items()}, inits[variant])
     job = {"world": world, "rdzv": os.path.join(out, "rdzv"), "out": out,
-           "init": init_path, "model": MODEL,
+           "init": inits, "model": MODEL, "variants": VARIANTS,
            "dataset": _dataset_kw(TRAIN["batch_size"], world),
            "train": {**TRAIN, "device": "cpu"}, "runs": runs}
     with open(os.path.join(out, "job.json"), "w") as f:
@@ -209,23 +261,35 @@ def _runs(names: list) -> list:
     for name in names:
         mesh, over = CASES[name]
         # STEPS steps at the case's batch.
-        runs.append({"name": name, "mesh": mesh, "train": over,
-                     "dataset": _dataset_kw(_batch(name), _world(mesh))})
+        runs.append({"name": name, "mesh": mesh,
+                     "train": {**over, **PORT_ONLY.get(name, {})},
+                     "variant": CASE_VARIANT.get(name, ""),
+                     "dataset": _dataset_kw(_batch(name), _shards(mesh))})
     return runs
 
 
-@pytest.fixture(scope="module")
-def world2(tmp_path_factory, init_params):
-    """Every 2-process run, in one spawned world."""
-    names = [n for n, (mesh, _) in CASES.items() if _world(mesh) == 2]
-    return _spawn(tmp_path_factory.mktemp("world2"), 2,
-                  _runs(names) + EXTRA_RUNS, init_params)
+_WORLDS: dict = {}
+
+
+def spawned(world: int, tmp_path_factory) -> dict:
+    """Every run of a world of ``world`` processes (the JAX cases of that
+    size, then the extra runs), spawned once per test process."""
+    if world not in _WORLDS:
+        names = [n for n, (mesh, _) in CASES.items() if _world(mesh) == world]
+        extra = {2: EXTRA_RUNS, 4: EXTRA_RUNS_4}[world]
+        _WORLDS[world] = _spawn(tmp_path_factory.mktemp(f"world{world}"),
+                                world, _runs(names) + extra)
+    return _WORLDS[world]
 
 
 @pytest.fixture(scope="module")
-def world4(tmp_path_factory, init_params):
-    return _spawn(tmp_path_factory.mktemp("world4"), 4, _runs(["hybrid"]),
-                  init_params)
+def world2(tmp_path_factory):
+    return spawned(2, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory):
+    return spawned(4, tmp_path_factory)
 
 
 def _check(got: tuple, want: tuple, what: str) -> None:
@@ -239,25 +303,24 @@ def _check(got: tuple, want: tuple, what: str) -> None:
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_strategy_matches_jax_trainer(name, request, init_params):
+def test_strategy_matches_jax_trainer(name, request):
     mesh = CASES[name][0]
     world = _world(mesh)
+    variant = CASE_VARIANT.get(name, "")
+    init = jax_init(variant)
     res = request.getfixturevalue(f"world{world}")[name]
     got = (*_rows(res["rows"]), {k: v.numpy()
                                  for k, v in res["params"].items()})
-    _check(got, _jax_run(name, init_params), f"{name} vs JAX")
+    _check(got, _jax_run(name, init), f"{name} vs JAX")
     if name != "fsdp_accum":
-        one = _port_one_process(TRAIN["batch_size"] * world, init_params)
+        one = _port_one_process(TRAIN["batch_size"] * _shards(mesh), init,
+                                variant)
         _check(got, (*one[:2], {k: v.detach().numpy()
                                 for k, v in one[2].items()}),
                f"{name} vs one process")
 
 
-def test_fsdp_save_on_preemption_resumes_to_the_same_trajectory(world2):
-    """Process 0 alone asked to stop after step 2; both processes agreed,
-    saved (sharded) and left; the resume reruns steps 3-5 as the
-    uninterrupted run did, bit for bit on gloo."""
-    res, ref = world2["fsdp_resume"], world2["fsdp"]
+def _check_resume(res: dict, ref: dict, world: int) -> None:
     assert [r["step"] for r in res["rows_first"]] == [1, 2]
     assert res["resumed_at"] == 2
     assert [r["step"] for r in res["rows"]] == [3, 4, 5]
@@ -268,15 +331,46 @@ def test_fsdp_save_on_preemption_resumes_to_the_same_trajectory(world2):
     steps = sorted(int(d) for d in os.listdir(res["ckpt"]) if d.isdigit())
     assert steps == [2, 5]
     files = sorted(os.listdir(os.path.join(res["ckpt"], "2")))
-    assert files == ["layout.json", "meta.json", "state.rank0.pt",
-                     "state.rank1.pt"]
+    assert files == ["layout.json", "meta.json"] + [
+        f"state.rank{r}.pt" for r in range(world)]
+
+
+def test_fsdp_save_on_preemption_resumes_to_the_same_trajectory(world2):
+    """Process 0 alone asked to stop after step 2; both processes agreed,
+    saved (sharded) and left; the resume reruns steps 3-5 as the
+    uninterrupted run did, bit for bit on gloo."""
+    _check_resume(world2["fsdp_resume"], world2["fsdp"], 2)
+
+
+def test_tp_fsdp_save_on_preemption_resumes_to_the_same_trajectory(world4):
+    """As under fsdp, with every large weight stored in (fsdp, tp) blocks
+    over fsdp 2 x tp 2: the layout records both splits of a two-dim
+    leaf, and the resume matches the uninterrupted run bit for bit."""
+    res = world4["tp_fsdp_resume"]
+    _check_resume(res, world4["tp_fsdp"], 4)
+    with open(os.path.join(res["ckpt"], "2", "layout.json")) as f:
+        layout = json.load(f)
+    assert layout["mesh"]["tp"] == 2 and layout["mesh"]["fsdp"] == 2
+    assert layout["params"]["attn/wq"] == [[1, ["fsdp"]], [2, ["tp"]]]
+    assert layout["params"]["tok_embed"] == [[0, ["tp"]], [1, ["fsdp"]]]
+    assert layout["params"]["ln1/scale"] is None
 
 
 def test_gather_on_save_artifact_holds_the_whole_params(world2, tmp_path):
     """The consolidated artifact of the step-2 save equals the sharded
     params gathered whole, with every key and shape of the model; the
     offline export of the sharded checkpoint writes the same params."""
-    res = world2["fsdp_resume"]
+    _check_artifact(world2["fsdp_resume"], tmp_path)
+
+
+def test_tp_fsdp_gather_on_save_artifact_holds_the_whole_params(world4,
+                                                                tmp_path):
+    """As under fsdp, from (fsdp, tp) blocks: the collective gather and
+    the offline export each rebuild a leaf split on two dims."""
+    _check_artifact(world4["tp_fsdp_resume"], tmp_path)
+
+
+def _check_artifact(res: dict, tmp_path) -> None:
     art = res["artifact"]
     shapes = flatten(port_tf.param_shapes(port_tf.TransformerConfig(
         **MODEL)))
@@ -300,9 +394,42 @@ def test_gather_on_save_artifact_holds_the_whole_params(world2, tmp_path):
 def test_divergence_check_reads_zero_then_the_planted_drift(world2):
     """ddp replicas fingerprint alike until process 1 perturbs one weight
     of its replica after step 3."""
-    rows = world2["ddp_drift"]["rows"]
+    _check_drift(world2["ddp_drift"]["rows"])
+
+
+def test_tp_divergence_check_reads_zero_then_the_planted_drift(world2):
+    """As under ddp, across tp: a layer norm that ``tp`` leaves whole,
+    perturbed on process 1 after step 3."""
+    _check_drift(world2["tp_drift"]["rows"])
+
+
+def _check_drift(rows: list) -> None:
     drift = [r["replica_divergence"] for r in rows]
     assert drift[:2] == [0, 0] and all(d > 0 for d in drift[2:]), drift
+
+
+def test_tp_replicas_stay_alike(world4):
+    """At tp 4 the layer norms, ``bo`` and the kv weights (2 kv heads,
+    which tp 4 does not divide: each rank projects only the kv head its
+    query head reads, and the partial gradients are summed over tp) are
+    replicated over tp; their replicas stay bitwise alike every step."""
+    rows = world4["tp4_gqa"]["rows"]
+    assert [r["replica_divergence"] for r in rows] == [0] * STEPS
+
+
+@pytest.mark.parametrize("name", ["tp", "tp_fsdp"])
+def test_tp_all_reduces_per_step(name, request):
+    """The tensor-parallel collectives a step launches, against the
+    design's count: per layer two ``reduce_from_tp`` in the forward (the
+    attention's and the MLP's row-parallel products) and two
+    ``copy_to_tp`` in the backward (the q/k/v and the MLP inputs'
+    gradients), one more of each for the embedding lookup and the head's
+    input, and two in the cross-entropy per chunk (one chunk here)."""
+    world = _world(CASES[name][0])
+    got = request.getfixturevalue(f"world{world}")[name]["all_reduces"]
+    L = MODEL["n_layers"]
+    assert got == {"reduce_from_tp": (2 * L + 1) * STEPS,
+                   "copy_to_tp": (2 * L + 1) * STEPS, "xent": 2 * STEPS}
 
 
 def test_offload_opt_state_keeps_the_trajectory(world2):
@@ -362,22 +489,51 @@ def test_logical_axes_match_jax(preset):
 @pytest.mark.parametrize("preset", PRESETS)
 def test_specs_match_jax(preset, fsdp, strategy):
     dp = 2 if strategy in ("hybrid", "zero1") else 1
+    _check_specs(preset, strategy, dict(dp=dp, fsdp=fsdp))
+
+
+@pytest.mark.parametrize("strategy", ["tp", "tp_fsdp"])
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("fsdp", [1, 2])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_tp_specs_match_jax(preset, fsdp, tp, strategy):
+    """Every leaf's spec under tensor parallelism, two-dim ones included
+    (the placement takes them), and the leaves the tp block would use
+    only in part: those with a dim the rules route to tp that the JAX
+    spec leaves whole (the kv weights where tp does not divide the kv
+    heads; the model refuses a split of the query heads, the MLP or the
+    vocab that tp does not divide)."""
+    layout = _check_specs(preset, strategy, dict(fsdp=fsdp, tp=tp))
+    model = port_tf.Transformer(port_tf.TransformerConfig(
+        **port_tf.PRESETS[preset]), device="cpu")
+    spec_of = jax_strategy.get_strategy(
+        strategy, jax_runtime.MeshSpec(fsdp=fsdp, tp=tp)).param_spec
+    logical = flatten(model.logical_axes())
+    want = tuple(k for k, s in flatten(model.param_shapes()).items()
+                 if {"heads", "kv", "mlp", "vocab"} & set(logical[k])
+                 and "tp" not in str(spec_of(s, logical[k])))
+    assert layout["tp_partial"] == want
+    if preset == "transformer_7b":  # 8 kv heads: split at tp 2, 4, 8
+        assert want == ()
+
+
+def _check_specs(preset: str, strategy: str, mesh: dict) -> dict:
     cfg = port_tf.TransformerConfig(**port_tf.PRESETS[preset])
     model = port_tf.Transformer(cfg, device="cpu")
     shapes = flatten(model.param_shapes())
     logical = flatten(model.logical_axes())
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        want = jax_strategy.get_strategy(
-            strategy, jax_runtime.MeshSpec(dp=dp, fsdp=fsdp))
-        got = port_strategy.get_strategy(
-            strategy, PortMeshSpec(dp=dp, fsdp=fsdp))
+        want = jax_strategy.get_strategy(strategy,
+                                         jax_runtime.MeshSpec(**mesh))
+        got = port_strategy.get_strategy(strategy, PortMeshSpec(**mesh))
     layout = port_strategy.layout(got, shapes, logical)
     for k, s in shapes.items():
         for kind, fn in (("params", "param_spec"), ("opt", "opt_spec")):
             spec = getattr(got, fn)(s, logical[k])
             assert spec == tuple(getattr(want, fn)(s, logical[k])), (k, fn)
             assert layout[kind][k] == port_strategy.placement(spec)
+    return layout
 
 
 @pytest.mark.parametrize("mesh,n", [
@@ -398,15 +554,27 @@ def test_mesh_spec_resolve_matches_jax(mesh, n):
 
 
 def test_placement_and_refusals():
+    """One split per sharded dim: a data split, a tp split, or both (one
+    of each, as ``tp_fsdp`` lays weights out); ``tp`` and ``tp_fsdp``
+    build the tensor-parallel strategy with the mesh's sizes."""
     P = port_strategy.Placement
     assert port_strategy.placement(()) is None
-    assert port_strategy.placement((None, "fsdp")) == P(1, ("fsdp",))
-    assert port_strategy.placement((("dp", "fsdp"),)) == P(0, ("dp", "fsdp"))
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        port_strategy.placement(("fsdp", "tp"))
+    assert port_strategy.placement((None, "fsdp")) == P(((1, ("fsdp",)),))
+    assert port_strategy.placement((("dp", "fsdp"),)) == P(
+        ((0, ("dp", "fsdp")),))
+    two = port_strategy.placement((None, "fsdp", "tp"))
+    assert two == P(((1, ("fsdp",)), (2, ("tp",))))
+    assert two.axes == ("fsdp", "tp")
+    assert port_strategy.placement(("tp", "fsdp")) == P(
+        ((0, ("tp",)), (1, ("fsdp",))))
+    for spec in (("fsdp", "tp", "dp"), (("fsdp", "tp"),), ("fsdp", "dp")):
+        with pytest.raises(ValueError, match="at most one dim over tp"):
+            port_strategy.placement(spec)
     for name in ("tp", "tp_fsdp"):
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            port_strategy.get_strategy(name)
+        got = port_strategy.get_strategy(name, PortMeshSpec(fsdp=2, tp=4))
+        assert isinstance(got, port_strategy.TensorParallel)
+        assert (got.name, got.fsdp_size, got.tp_size) == ("tp", 2, 4)
+        assert got.rules["heads"] == got.rules["vocab"] == "tp"
     with pytest.raises(ValueError, match="unknown parallel_strategy"):
         port_strategy.get_strategy("pipeline")
     with pytest.warns(UserWarning, match="data_size<=1"):

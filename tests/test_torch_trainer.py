@@ -25,7 +25,7 @@ from distributed_training_tpu_torch.data import ShardedDataLoader
 from distributed_training_tpu_torch.data.datasets import SyntheticLMDataset
 from distributed_training_tpu_torch.models import transformer as port_tf
 from distributed_training_tpu_torch.models.convert import from_jax_params
-from distributed_training_tpu_torch.runtime import Runtime
+from distributed_training_tpu_torch.runtime import MeshSpecError, Runtime
 from distributed_training_tpu_torch.train import cli
 from distributed_training_tpu_torch.train import state as port_state
 from distributed_training_tpu_torch.train.optimizer import flatten
@@ -143,14 +143,26 @@ def test_cli_save_stop_resume_matches_uninterrupted(tmp_path):
 
 
 def test_cli_refuses_unported_features(tmp_path):
-    """Tensor parallelism (as a strategy or a mesh axis) names ROADMAP
-    item 4b; a field still unported names its item."""
-    with pytest.raises(NotImplementedError, match="item 4b"):
+    """Tensor parallelism runs: ``mesh.tp=2`` in a world of one is the
+    mesh error, as any axis that needs more processes; sequence and
+    pipeline parallelism name ROADMAP item 16, and a field still
+    unported names its item."""
+    with pytest.raises(MeshSpecError, match="needs 2 devices"):
         cli.main(["train.device=cpu", "train.parallel_strategy=tp",
-                  "model=gpt2_125m", "train=gpt2",
+                  "mesh.dp=1", "mesh.tp=2", "model=gpt2_125m", "train=gpt2",
                   f"run.output_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        cli.main(["train.device=cpu", "mesh.tp=2",
+    for axis in ("sp", "pp"):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            cli.main(["train.device=cpu", f"mesh.{axis}=2",
+                      f"run.output_dir={tmp_path}"])
+    with pytest.raises(NotImplementedError, match="item 16"):
+        cli.main(["train.device=cpu", "+model.attention_impl=ring",
+                  "train.dataset_size=4", "train.batch_size=2",
+                  "+model.n_layers=1", "+model.d_model=32",
+                  "+model.n_heads=2", "+model.vocab_size=64",
+                  "+model.max_seq_len=16", "train.dataset_kwargs.seq_len=16",
+                  "train.dataset_kwargs.vocab_size=64",
+                  "model=gpt2_125m", "train=gpt2",
                   f"run.output_dir={tmp_path}"])
     with pytest.raises(NotImplementedError, match="item 5"):
         cli.main(["train.device=cpu", "train.eval_fraction=0.1",
