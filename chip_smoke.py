@@ -16,8 +16,10 @@ its launch took. Paged decode has one design, ``split_kv`` (the KV walk
 split over blocks, a combine pass): gpt2_125m's serving geometry,
 an f32 GQA case, and transformer_7b's and transformer_1b's attention
 heads over 2048 cached tokens, each also checked for the same bits on a
-second launch. The cross-entropy's bf16 GEMMs with f32 outputs are held
-against the same products on operands widened to f32. Then it
+second launch, and at the geometries of one serving mesh rank (8 rows
+at 6 kv heads, 4 rows at 12). The cross-entropy's bf16 GEMMs with f32
+outputs are held against the same products on operands widened to f32.
+Then it
 drives both main paths at full width of gpt2_125m, random weights from
 a seed:
 
@@ -47,6 +49,14 @@ a seed:
   a resume from it that matches the uninterrupted run bit for bit, as
   do ``ddp`` with no process group and ``ddp`` with its optimizer state
   offloaded to pinned host memory;
+- serving on a mesh (``serving_dp2``, ``serving_tp2``): two processes
+  on ``cuda:0`` in a gloo group, each one rank of the mesh dp 2 (a dp
+  group of 4 slots with its own pool) or tp 2 (6 of the 12 heads, half
+  the MLP and the vocab), through ``Engine(..., mesh=runtime)``: the
+  float32 logits of every request's first decoded position held against
+  one process, with a planted fault that must fail the same limit; then
+  bf16, the serving prompts batched and the long ones sequential, token
+  agreement reported, collectives and launches held to the design;
 - tensor parallelism: transformer_1b at full width under ``tp_fsdp``
   (tp 1, fsdp 1) through the CLI in a NCCL group of one rank, every
   tensor-parallel collective over a group of one, its losses held
@@ -149,6 +159,18 @@ TRAIN_1B_STEPS = 10
 TRAIN_TP2_STEPS = 5
 TP_LOSS_RTOL = 1e-4
 TP_GRAD_NORM_RTOL = 3e-3
+# Serving on a mesh (serving_dp2, serving_tp2): two processes on cuda:0
+# over gloo, each one mesh rank. At float32 the logits of the first
+# decoded position of every request, mesh engine against one process,
+# max abs difference; the sound engine differs from the one-process one
+# only in summation order (tp's split sums, paged decode's split plan at
+# B_local rows or Hkv/tp heads). The planted faults (dp2: rank 1 launches
+# group 0's rows; tp2: layer 0's attention all-reduce dropped) must fall
+# outside the limit. Readings on the H100 (PERF.md, PR 9): sound 2.1e-6
+# for both meshes, faults 2.96 (dp2) and 1.97 (tp2), the largest logit
+# 2.93; the limit lies between.
+MESH_LOGITS_TOL = 1e-4
+SERVING_MESHES = {"dp2": {"dp": 2}, "tp2": {"tp": 2}}
 
 
 def emit(obj: dict) -> None:
@@ -553,7 +575,12 @@ def phase_kernels() -> dict:
              # slots x spec_k 4 = 32 rows, the main case's lengths as
              # each chain's first position, one dead slot.
              "chain": _chain_case(timer, 8, 4, 12, 64, 16, 1024, bf16,
-                                  [871, 652, 523, 276, 315, 41, 77, -1])}
+                                  [871, 652, 523, 276, 315, 41, 77, -1]),
+             # One mesh rank's decode (serving_tp2, serving_dp2): the 8
+             # slots at tp 2's 6 kv heads, and a dp group's 4 slots at
+             # all 12.
+             "tp2_rank": _paged_case(timer, 8, 6, 6, 64, 16, 1024, bf16),
+             "dp2_rank": _paged_case(timer, 4, 12, 12, 64, 16, 1024, bf16)}
     emit({"phase": "kernels", "flash_fwd": flash, "paged_decode": paged})
     bwd = {}
     for split in (False, True):
@@ -591,6 +618,8 @@ def phase_kernels() -> dict:
     emit({"phase": "kernels_bwd", **bwd})
     return {"flash_fwd": flash["train"], "paged_decode": paged["main"],
             "paged_decode_chain": paged["chain"],
+            "paged_decode_tp2": paged["tp2_rank"],
+            "paged_decode_dp2": paged["dp2_rank"],
             "flash_fwd_tp2": flash["tp2"],
             "flash_bwd_fused_tp2": bwd["fused_tp2"]["flash_bwd_fused"],
             "flash_bwd_fused": bwd["fused_train"]["flash_bwd_fused"],
@@ -678,7 +707,7 @@ def _gpt2(dtype: str):
     return model, model.init(SEED)
 
 
-def _engine(model, params, **over):
+def _engine(model, params, mesh=None, **over):
     from distributed_training_tpu_torch.serving.engine import (
         Engine,
         EngineConfig,
@@ -688,7 +717,15 @@ def _engine(model, params, **over):
               prefill_chunk=16, prefix_sharing=True, prefill_mode="batched",
               policy="prefill", temperature=0.0)
     kw.update(over)
-    return Engine(model, params, EngineConfig(**kw))
+    return Engine(model, params, EngineConfig(**kw), mesh=mesh)
+
+
+def _smoke_prompts() -> list:
+    """The serving phases' 8 prompts of 64–512 tokens, from SEED."""
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(64, 513, size=8)
+    return [rng.integers(0, 50257, size=int(n)).astype(np.int32)
+            for n in lens]
 
 
 def _wrappers() -> dict:
@@ -1207,6 +1244,348 @@ def _metrics_rows(out_dir: str) -> list:
     path = os.path.join(out_dir, "default", "metrics.jsonl")
     with open(path) as f:
         return [r for r in map(json.loads, f) if "loss" in r]
+
+
+def _capture_first_decode(eng) -> tuple:
+    """Wrap ``eng`` so that its first one-token decode launch keeps the
+    float32 logits it samples from (this process's rows: its dp group's
+    slots, the whole vocab) and the request in each row. Returns the box
+    they land in and the function that undoes the wrapping."""
+    from distributed_training_tpu_torch.serving import engine as em
+
+    box: dict = {}
+    logits_fn, decode = em._logits, eng._decode
+
+    def logits(*args, **kw):
+        out = logits_fn(*args, **kw)
+        if box.pop("armed", False):
+            box["logits"] = out.float().cpu()
+        return out
+
+    def first_decode(tokens, positions, rows, active):
+        if "logits" not in box:
+            # The slots of this process's dp group: the rows its fetch
+            # returns for them, whichever rows it launched.
+            B, g = eng.batch_local, eng.cache.local_group or 0
+            box["armed"] = True
+            box["ids"] = [s.req.id if s is not None and a else None
+                          for s, a in zip(eng.slots[g * B:(g + 1) * B],
+                                          active)]
+        return decode(tokens, positions, rows, active)
+
+    em._logits = logits
+    eng._decode = first_decode
+
+    def undo():
+        em._logits = logits_fn
+        eng._decode = decode
+    return box, undo
+
+
+def _first_decode_logits(eng, prompts: list) -> dict:
+    """Every request's float32 logits at its first decoded position:
+    the prompts submitted, the engine stepped until its first decode
+    launch (every prompt prefilled first, policy "prefill")."""
+    from distributed_training_tpu_torch.serving.engine import Request
+
+    box, undo = _capture_first_decode(eng)
+    try:
+        for i, p in enumerate(prompts):
+            eng.submit(Request(id=str(i), prompt=p, max_new_tokens=4))
+        while "logits" not in box:
+            eng.step()
+    finally:
+        undo()
+    return {rid: box["logits"][i] for i, rid in enumerate(box["ids"])
+            if rid is not None}
+
+
+def _mesh_serve(eng, prompts: list, new_tokens: int) -> dict:
+    """The prompts through the engine (no HTTP) to the end, timed, with
+    the kernel launches, the tensor-parallel collectives and the
+    engine's own gathers counted from 0."""
+    from distributed_training_tpu_torch.parallel import tensor as tp_lib
+    from distributed_training_tpu_torch.serving.engine import Request
+
+    counts = eng.warmup()
+    _reset_counts()
+    tp_lib.ALL_REDUCES.clear()
+    tp_lib.ALL_GATHERS.clear()
+    eng.gathers.clear()
+    syncs0, slots_active = eng.host_syncs, []
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(id=str(i), prompt=p, max_new_tokens=new_tokens))
+    while not eng.idle:
+        slots_active.append(eng.step().get("group_slots_active"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {int(r["id"]): r["tokens"] for r in eng.completed}
+    return {"wall_s": wall,
+            "tokens_per_s": sum(len(t) for t in got.values()) / wall,
+            "tokens": got, "groups": {int(r["id"]): r["group"]
+                                      for r in eng.completed},
+            "steps": len(slots_active),
+            "group_slots_active": [a for a in slots_active if a],
+            "prefill_launches": eng.prefill_launches,
+            "decode_launches": eng.decode_launches,
+            "host_syncs": eng.host_syncs - syncs0,
+            "gathers": dict(eng.gathers),
+            "all_reduces": dict(tp_lib.ALL_REDUCES),
+            "all_gathers": dict(tp_lib.ALL_GATHERS),
+            "launches": _read_counts(), "launches_by_design": _read_designs(),
+            "compile_counts_stable": eng.compile_counts() == counts,
+            "pages_left": [eng.cache.pages_used_in(g)
+                           for g in range(eng.dp_groups)]}
+
+
+def serving_mesh_rank(rank: int, port: int, out_path: str,
+                      name: str) -> int:
+    """One of phase serving_<name>'s two processes: on ``cuda:0``, in a
+    gloo group of 2 over ``127.0.0.1:port``, a runtime over the mesh
+    SERVING_MESHES[name] built here, gpt2_125m at full width through
+    ``Engine(..., mesh=runtime)``: the float32 logits of the first
+    decoded position, sound and with the planted fault; then bf16, the
+    smoke's prompts batched and the long ones sequential, to the end.
+    Writes its readings to ``out_path``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from distributed_training_tpu_torch.parallel.tensor import TPGroup
+    from distributed_training_tpu_torch.runtime import (
+        MESH_AXES,
+        MeshSpec,
+        Runtime,
+        sub_mesh_groups,
+    )
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        spec = MeshSpec(**SERVING_MESHES[name])
+        mesh = init_device_mesh("cpu", tuple(spec.as_dict()[a]
+                                             for a in MESH_AXES),
+                                mesh_dim_names=MESH_AXES)
+        rt = Runtime(device=torch.device("cuda", 0), process_index=rank,
+                     process_count=2, spec=spec, mesh=mesh, backend="gloo",
+                     groups=sub_mesh_groups(spec, rank))
+        prompts = _smoke_prompts()
+        result = {"rank": rank, "describe": rt.describe()}
+        model, params = _gpt2("float32")
+        for run in ("sound", "fault"):
+            eng = _engine(model, params, mesh=rt)
+            if run == "fault" and name == "tp2":
+                layers = model.cfg.n_layers
+
+                class DropLayer0AttentionReduce(TPGroup):
+                    calls = 0
+
+                    def reduce(self, x):
+                        self.calls += 1
+                        if self.calls % (2 * layers) == 1:
+                            return x
+                        return super().reduce(x)
+                eng._tp = DropLayer0AttentionReduce(rt.group(("tp",)))
+            elif run == "fault" and rank == 1:
+                eng._g = 0   # rank 1 launches group 0's rows
+            result[f"f32_{run}"] = _first_decode_logits(eng, prompts)
+            del eng
+        if name == "tp2":
+            # The resident burst is a CUDA graph, which cannot capture
+            # gloo's all-reduces: the engine must refuse it.
+            try:
+                _engine(model, params, mesh=rt, resident_k=8)
+                result["resident_refusal"] = None
+            except NotImplementedError as e:
+                result["resident_refusal"] = str(e)
+        del model, params
+        _free_memory()
+        model, params = _gpt2("bfloat16")
+        eng = _engine(model, params, mesh=rt)
+        torch.cuda.reset_peak_memory_stats()
+        result["bf16"] = _mesh_serve(eng, prompts, 64)
+        result["bf16"]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        result["pool_bytes"] = eng.cache.pool_bytes
+        result["pool_shape"] = list(eng.cache.k_pages.shape)
+        result["weight_bytes"] = eng.weight_bytes
+        del eng
+        _free_memory()
+        long = [p for p in prompts if len(p) >= 128]
+        eng = _engine(model, params, mesh=rt, prefill_mode="sequential",
+                      prefill_chunk=128)
+        result["bf16_sequential"] = _mesh_serve(eng, long, 64)
+        result["long_ids"] = [i for i, p in enumerate(prompts)
+                              if len(p) >= 128]
+        del eng
+        torch.save(result, out_path)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _logit_diffs(got: dict, want: dict) -> float:
+    return max(float((got[k] - want[k]).abs().max()) for k in got)
+
+
+def phase_serving_mesh(name: str, prompts: list, batched_tokens: dict,
+                       tmp: str) -> tuple:
+    """Serving gpt2_125m at full width on a mesh of two processes sharing
+    ``cuda:0`` over gloo (SERVING_MESHES[name]: dp 2, each process one
+    dp group of 4 slots and its own pool; or tp 2, each process 6 of the
+    12 heads, half the MLP and half the vocab), against one process: the
+    float32 logits of every request's first decoded position within
+    MESH_LOGITS_TOL and the planted fault outside it; at bf16 the
+    smoke's 8 prompts batched (64 new tokens) and its long ones
+    sequential (B1 at the rank's heads), token agreement with the
+    one-process engine reported, the collectives and launches held to
+    the design. The kernels are built (by phase_build) before the
+    processes start."""
+    from distributed_training_tpu_torch.models.transformer import PRESETS
+
+    mesh = SERVING_MESHES[name]
+    G = mesh.get("dp", 1)
+    _free_memory()
+    model, params = _gpt2("float32")
+    want = _first_decode_logits(
+        _engine(model, params, num_pages=G * 512 + 1), prompts)
+    del model, params
+    _free_memory()
+    port = _free_port()
+    outs = [os.path.join(tmp, f"serving_{name}.rank{r}.pt") for r in range(2)]
+    logs = [open(os.path.join(tmp, f"serving_{name}.rank{r}.log"), "w")
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serving-mesh-rank",
+         str(r), str(port), outs[r], name], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    if codes != [0, 0]:
+        for r in range(2):
+            with open(logs[r].name) as f:
+                print(f"serving_{name} rank {r}:\n{f.read()[-4000:]}",
+                      file=sys.stderr)
+    check(codes == [0, 0], f"serving_{name}: ranks exited {codes}")
+    ranks = [torch.load(path, weights_only=False) for path in outs]
+    L = PRESETS["gpt2_125m"]["n_layers"]
+    tp = mesh.get("tp", 1)
+    sound = max(_logit_diffs(r["f32_sound"], want) for r in ranks)
+    fault = max(_logit_diffs(r["f32_fault"], want) for r in ranks)
+    scale = max(float(v.abs().max()) for v in want.values())
+    per_rank = []
+    for r in ranks:
+        rank = r["rank"]
+        runs = {}
+        for run in ("bf16", "bf16_sequential"):
+            got = r[run]
+            what = f"serving_{name} rank {rank} {run}"
+            forwards = got["prefill_launches"] + got["decode_launches"]
+            # Per forward under tp: the lookup's and each layer's two
+            # row-parallel all-reduces, and one all-gather of the
+            # logits; per fetch one all-gather over dp; per step one
+            # lock-step gather over the mesh.
+            design = {
+                "all_reduces": ({"reduce_from_tp": (2 * L + 1) * forwards}
+                                if tp > 1 else {}),
+                "all_gathers": ({"gather_from_tp": forwards}
+                                if tp > 1 else {}),
+                "gathers": {"lockstep": got["steps"],
+                            **({"dp_fetch": got["host_syncs"]}
+                               if G > 1 else {})}}
+            for k, v in design.items():
+                check(got[k] == v, f"{what}: {k} {got[k]}, design {v}")
+            check(got["launches"]["paged_decode"]
+                  == L * got["decode_launches"] > 0,
+                  f"{what}: paged decode launches "
+                  f"{got['launches']['paged_decode']} != {L} x "
+                  f"{got['decode_launches']} decode launches")
+            _check_designs({"paged_decode":
+                            got["launches_by_design"]["paged_decode"]},
+                           "split_kv", what)
+            check(got["pages_left"] == [0] * G, f"{what}: pages left "
+                  f"{got['pages_left']}")
+            check(got["compile_counts_stable"], f"{what}: kernel builds "
+                  "after warmup")
+            n = len(got["tokens"])
+            check(all(len(t) == 64 for t in got["tokens"].values()),
+                  f"{what}: a request returned the wrong number of tokens")
+            if run == "bf16_sequential":
+                # Every process launches every first chunk (its own
+                # group's live, the others' all-scratch).
+                check(got["launches"]["flash_fwd"] == L * n,
+                      f"{what}: flash launches {got['launches']['flash_fwd']}"
+                      f" != {L} x {n} first chunks")
+                _check_designs({"flash_fwd":
+                                got["launches_by_design"]["flash_fwd"]},
+                               "wgmma", what)
+            if G > 1:
+                check(sorted(set(got["groups"].values())) == list(range(G)),
+                      f"{what}: completed groups {got['groups']}")
+            runs[run] = {
+                k: got[k] for k in (
+                    "wall_s", "tokens_per_s", "steps", "prefill_launches",
+                    "decode_launches", "host_syncs", "gathers",
+                    "all_reduces", "all_gathers", "launches",
+                    "launches_by_design")}
+            runs[run].update(
+                forwards=forwards, design=design,
+                per_step={k: {c: v / got["steps"] for c, v in got[k].items()}
+                          for k in ("gathers", "all_reduces",
+                                    "all_gathers")},
+                group_slots_active_max=(
+                    [max(a[g] for a in got["group_slots_active"])
+                     for g in range(G)] if G > 1 else None),
+                tokens_matching_one_process=_matching(
+                    got["tokens"], batched_tokens),
+                tokens_total=sum(len(t) for t in got["tokens"].values()))
+        check(r["bf16"]["tokens"] == ranks[0]["bf16"]["tokens"],
+              f"serving_{name}: the two ranks read different tokens")
+        per_rank.append({"rank": rank, "describe": r["describe"],
+                         "pool_shape": r["pool_shape"],
+                         "pool_bytes": r["pool_bytes"],
+                         "weight_bytes": r["weight_bytes"],
+                         "peak_mem_bytes": r["bf16"]["peak_mem_bytes"],
+                         **runs})
+    emit({"phase": f"serving_{name}", "model": "gpt2_125m", "mesh": mesh,
+          "backend": "gloo", "processes_on_card": 2,
+          "requests": len(prompts), "new_tokens": 64, "wall_s": wall,
+          "f32_first_decode_logits": {
+              "max_abs_diff": sound, "fault_max_abs_diff": fault,
+              "limit": MESH_LOGITS_TOL, "max_abs_logit": scale,
+              "fault": ("layer 0's attention all-reduce dropped"
+                        if tp > 1 else "rank 1 launches group 0's rows")},
+          "resident_refusal": ranks[0].get("resident_refusal"),
+          "ranks": per_rank})
+    if tp > 1:
+        check(all("item 7" in (r["resident_refusal"] or "") for r in ranks),
+              f"serving_{name}: the resident burst under tp over gloo was "
+              f"not refused: {[r['resident_refusal'] for r in ranks]}")
+    check(sound <= MESH_LOGITS_TOL, f"serving_{name}: f32 logits off the "
+          f"one-process engine's by {sound} > {MESH_LOGITS_TOL}")
+    check(fault > MESH_LOGITS_TOL, f"serving_{name}: the planted fault "
+          f"{fault} within {MESH_LOGITS_TOL}")
+    # Both ranks' launches are the card's.
+    launches, designs = {}, {}
+    for r in ranks:
+        for run in ("bf16", "bf16_sequential"):
+            for k, v in r[run]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            for k, ds in r[run]["launches_by_design"].items():
+                for d, v in ds.items():
+                    designs.setdefault(k, {}).setdefault(d, 0)
+                    designs[k][d] += v
+    return launches, designs
 
 
 def phase_train(tmp: str) -> tuple:
@@ -2111,6 +2490,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--train-tp2-rank"]:
         return train_tp2_rank(int(sys.argv[2]), int(sys.argv[3]),
                               sys.argv[4])
+    if sys.argv[1:2] == ["--serving-mesh-rank"]:
+        return serving_mesh_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                 sys.argv[4], sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2121,10 +2503,7 @@ def main() -> int:
     phase_build()
     measured = phase_kernels()
     phase_xent()
-    rng = np.random.default_rng(SEED)
-    lens = rng.integers(64, 513, size=8)
-    prompts = [rng.integers(0, 50257, size=int(n)).astype(np.int32)
-               for n in lens]
+    prompts = _smoke_prompts()
     serve_launches, batched = phase_serving(prompts, 64)
     long = {i: p for i, p in enumerate(prompts) if len(p) >= 128}
     check(len(long) >= 2, "fewer than two prompts of >= 128 tokens")
@@ -2135,6 +2514,8 @@ def main() -> int:
     phase_trace(prompts, 64)
     phase_trace_resident(prompts, 64)
     with tempfile.TemporaryDirectory(prefix="dtt_chip_smoke_") as tmp:
+        mesh_launches = {name: phase_serving_mesh(name, prompts, batched, tmp)
+                         for name in SERVING_MESHES}
         train_launches = phase_train(tmp)
         split_launches = phase_train_split(tmp)
         phase_train_parity(tmp)
@@ -2167,10 +2548,11 @@ def main() -> int:
     # Launches: the sum over the paths driven above, each counted from 0
     # (serving, sequential prefill, speculative serving, resident serving,
     # training, split-backward training, transformer_1b under fsdp and
-    # under tp_fsdp, gpt2_125m under tp at tp 2: both processes).
+    # under tp_fsdp, gpt2_125m under tp at tp 2, serving on the meshes dp
+    # 2 and tp 2: both processes).
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
-             train_launches, split_launches, train_1b_launches,
-             tp_1b_launches, tp2_launches)
+             *mesh_launches.values(), train_launches, split_launches,
+             train_1b_launches, tp_1b_launches, tp2_launches)
     kernels = []
     for name in KERNELS:
         src, replaces = sources[name]
@@ -2204,6 +2586,15 @@ def main() -> int:
                 k: measured["paged_decode_chain"][k]
                 for k in ("shape", "max_abs_err", "ms", "plain_ms",
                           "bound_ms", "bound_by", "library_ms")}
+            # And at the geometries of one mesh rank (serving_tp2: 8
+            # rows, 6 kv heads; serving_dp2: 4 rows, 12), with their
+            # launches there (both processes).
+            for mesh in SERVING_MESHES:
+                kernels[-1][f"{mesh}_rank_case"] = {
+                    **{k: measured[f"paged_decode_{mesh}"][k]
+                       for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")},
+                    "launches": mesh_launches[mesh][0][name]}
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the path was never launched")
     emit({"kernels": kernels})

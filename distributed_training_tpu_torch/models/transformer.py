@@ -276,6 +276,17 @@ def kv_heads_of_rank(n_heads: int, n_kv_heads: int, tp: int,
     return idx
 
 
+def check_tp_split(cfg: TransformerConfig, tp: int) -> None:
+    """Raise when tp does not divide the query heads, the MLP width or
+    the vocab (the dims tensor parallelism splits)."""
+    for what, n in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(
+                f"tensor parallelism: {what}={n} does not split over "
+                f"tp={tp}")
+
+
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
     """Layer norm in f32 with eps 1e-5, cast back to x's dtype."""
@@ -355,12 +366,7 @@ class Transformer:
         if tp is None:
             return
         c = self.cfg
-        for what, n in (("n_heads", c.n_heads), ("d_ff", c.d_ff),
-                        ("vocab_size", c.vocab_size)):
-            if n % tp.size:
-                raise ValueError(
-                    f"tensor parallelism: {what}={n} does not split over "
-                    f"tp={tp.size}")
+        check_tp_split(c, tp.size)
         if c.n_kv_heads % tp.size:
             self._kv_index = torch.tensor(
                 kv_heads_of_rank(c.n_heads, c.n_kv_heads, tp.size, tp.rank),

@@ -18,12 +18,17 @@ and alike on every tp rank between blocks:
   ``[lo, lo + V/tp)`` of the embedding; ids outside them read row 0 and
   are zeroed, and ``reduce_from_tp`` sums the ranks' parts.
 
+- ``gather_from_tp``: the whole last dim from each rank's block of it,
+  one all-gather, no gradient: the serving programs' vocab-split head,
+  whose logits every tp rank needs whole to pick the same token.
+
 ``ALL_REDUCES`` counts the all-reduces each Function launched since the
 last reset, as ``fsdp.GATHERS`` counts the gathers: ``copy_to_tp`` one
 per backward, ``reduce_from_tp`` one per forward (the lookup's
-included); ``ops/xent.py`` adds its own under ``"xent"``. A forward that
-activation checkpointing re-runs re-runs what it wraps, so the model
-keeps ``reduce_from_tp`` outside every recomputed function.
+included); ``ops/xent.py`` adds its own under ``"xent"``.
+``ALL_GATHERS`` counts ``gather_from_tp``'s. A forward that activation
+checkpointing re-runs re-runs what it wraps, so the model keeps
+``reduce_from_tp`` outside every recomputed function.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 ALL_REDUCES: collections.Counter = collections.Counter()
+ALL_GATHERS: collections.Counter = collections.Counter()
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -85,6 +91,15 @@ def vocab_embed(table: torch.Tensor, ids: torch.Tensor, lo: int,
     return reduce_from_tp(torch.where(own[..., None], rows, 0), group)
 
 
+def gather_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """Each rank's block of the last dim of ``x``, laid end to end in
+    rank order (one all-gather over ``group``; no gradient)."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    ALL_GATHERS["gather_from_tp"] += 1
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=-1)
+
+
 class TPGroup:
     """The model's binding over this process's ``tp`` group: its size,
     this process's rank in it, and the Functions over it."""
@@ -103,3 +118,6 @@ class TPGroup:
     def embed(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         return vocab_embed(table, ids, self.rank * table.shape[0],
                            self.group)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return gather_from_tp(x, self.group)

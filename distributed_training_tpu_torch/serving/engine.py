@@ -1,8 +1,8 @@
 """Continuous-batching engine over the paged KV cache (port).
 
-The port of ``distributed_training_tpu/serving/engine.py`` for one card
-and one dp group. Requests join and leave the running batch at every
-step against fixed-shape programs:
+The port of ``distributed_training_tpu/serving/engine.py``, on one card
+or on a mesh of ``dp x tp`` processes (below). Requests join and leave
+the running batch at every step against fixed-shape programs:
 
 - **prefill**, in one of two modes:
   ``batched`` (default) — up to ``prefill_slots`` sequences' current
@@ -41,33 +41,69 @@ Scheduling (``EngineConfig.policy``): ``"prefill"`` runs pending prompt
 work before decode (lowest TTFT); ``"decode"`` decodes the active batch
 first. Sampling is greedy at ``temperature == 0`` (the parity-tested
 path) and per-slot categorical with optional top-k otherwise, drawn
-from a ``torch.Generator`` seeded with ``cfg.seed``.
+from a ``torch.Generator`` seeded with ``cfg.seed`` (``cfg.seed + g``
+for dp group g's slots).
 
 Prefix sharing (refcounted page reuse with copy-on-write) and chat
 sessions (a finished turn's pages retained under its session key for a
 zero-prefill resume) are on by default, as in the JAX engine.
 
+**On a mesh** (``mesh=``, the port's ``Runtime``; one process per mesh
+rank, as the trainer runs) the slot table of ``max_batch`` slots is
+dealt into ``G = dp`` groups of ``batch_local`` slots (slots ``g·B …
+(g+1)·B − 1`` are group g's), each with its own pool and allocator
+(``kv_cache.py``), and admission places a request in the group holding
+the longest resident prefix of its prompt, else in the one with the
+fewest active slots (ties to the lowest index). Every process runs the
+whole host scheduler in lock-step: the queue, every group's slots,
+allocator, prefix index and sessions. It builds the JAX engine's
+``(G, B_local, …)`` host arrays and launches only its own group's row
+of each program (``k_pages[0, i]`` is its group's pool), at its tp
+rank's heads: q/k/v column-parallel at ``H/tp`` and ``Hkv/tp`` heads,
+the attention's and the MLP's ``wo`` row-parallel ending in an
+all-reduce (``bo`` added once, after it), ``wi``/``bi`` column-parallel,
+the embedding vocab-parallel, and the head's vocab-split logits
+all-gathered over tp before the sample (``parallel/tensor.py``), so
+every tp rank picks the same token from the same row. Each device
+fetch (``_fetch_host``) is one all-gather over the dp group followed by
+one copy to the host, after which every process reads the ``(G, …)``
+results, as the JAX engine does.
+
+The contract is SPMD: every process is given the same submissions in
+the same order and steps as often. Each step begins with one all-gather
+over the whole mesh of a 64-bit digest of the scheduler state (queued
+ids, each slot's occupant, pages used per group) and the step number,
+before any other collective of the step; a process whose digest differs
+makes every process raise ``RuntimeError`` naming the step, instead of
+hanging in a later collective or going on with other decisions. No
+scheduling decision reads the clock.
+
 What waits for later slices raises ``NotImplementedError`` naming its
-ROADMAP.md item: a mesh or dp groups, int8 weight leaves, weight
-hot-swap, drain, preempt/adopt/export, fault hooks.
+ROADMAP.md item: int8 weight leaves, weight hot-swap, drain,
+preempt/adopt/export, fault hooks, a mesh over other axes than dp and
+tp, and the resident burst under tp > 1 on the card over anything but
+NCCL.
 """
 
 from __future__ import annotations
 
 import collections
 import functools
+import hashlib
 import logging
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from distributed_training_tpu_torch.kernels import build
 from distributed_training_tpu_torch.models.transformer import (
     _layer_norm,
     cast_for_compute,
+    check_tp_split,
     layer_slice,
 )
 from distributed_training_tpu_torch.ops.attention import dot_product_attention
@@ -76,17 +112,29 @@ from distributed_training_tpu_torch.ops.paged_attention import (
     paged_attention_chunk,
     paged_decode_chain,
 )
+from distributed_training_tpu_torch.parallel import fsdp
+from distributed_training_tpu_torch.parallel import tensor as tensor_parallel
+from distributed_training_tpu_torch.parallel.strategy import (
+    get_strategy,
+    layout,
+)
 from distributed_training_tpu_torch.runtime import resolve_device
 from distributed_training_tpu_torch.serving.kv_cache import (
     PagedCacheConfig,
     PagedKVCache,
 )
 from distributed_training_tpu_torch.telemetry import event
+from distributed_training_tpu_torch.train.optimizer import flatten, unflatten
 
 logger = logging.getLogger(__name__)
 
 # ROADMAP.md queue A items the deferred features name.
-DP_ITEM = "ROADMAP.md queue A 'Serving: dp groups and a mesh'"
+MESH_AXIS_ITEMS = {
+    "fsdp": "ROADMAP.md queue A item 17 (the planner's serving layouts)",
+    "sp": "ROADMAP.md queue A item 16 (sequence parallelism)",
+    "pp": "ROADMAP.md queue A item 16 (pipeline parallelism)"}
+TP_RESIDENT_ITEM = ("ROADMAP.md queue A item 7, left there: 'the resident "
+                    "burst under tp > 1 on cards'")
 INT8_ITEM = "ROADMAP.md queue A 'Serving: int8 weight-only leaves'"
 LIFECYCLE_ITEM = ("ROADMAP.md queue A 'Serving: hot-swap, drain, "
                   "preempt, adopt and export'")
@@ -107,16 +155,21 @@ class EngineConfig:
     """Engine knobs (mirrored by ``conf/serving/default.yaml``), the
     JAX engine's fields and validations.
 
-    ``prefill_slots`` is the lane count of the batched prefill program
-    (0 = same as ``max_batch``). ``spec_k`` is the tokens per decode
-    launch of speculative decode, ``resident_k`` the chain iterations of
-    one device-resident burst (each ``spec_k`` wide). ``kv_axis``/
-    ``dp_axis`` sharding and ``swap_staleness_tokens`` belong to
-    features later slices port."""
+    ``max_batch`` is the aggregate slot count over the dp groups, which
+    must deal it into equal group tables; ``num_pages`` is each group's
+    pool (scratch page 0 included). ``prefill_slots`` is the aggregate
+    lane count of the batched prefill program (0 = same as
+    ``max_batch``), dealt like the slots. ``spec_k`` is the tokens per
+    decode launch of speculative decode, ``resident_k`` the chain
+    iterations of one device-resident burst (each ``spec_k`` wide).
+    ``dp_axis`` names the mesh axis the slots and pools are dealt over,
+    ``kv_axis`` the one the pools' kv heads (and the programs' heads)
+    split over. ``swap_staleness_tokens`` belongs to hot-swap, a later
+    slice's."""
 
-    max_batch: int = 8            # decode slots
+    max_batch: int = 8            # decode slots, aggregate over dp
     page_size: int = 16
-    num_pages: int = 128          # scratch page 0 included
+    num_pages: int = 128          # per dp group, scratch page 0 included
     max_seq_len: int = 256        # per-sequence cap (prompt + new)
     prefill_chunk: int = 32       # tokens per prefill lane per step
     prefill_slots: int = 0        # batched-prefill lanes (0 = max_batch)
@@ -317,8 +370,12 @@ class NgramIndex:
 
 
 # ---------------------------------------------------------------------------
-# Programs: plain functions over device tensors. Pools arrive as the
-# (1, L, Hkv, N, ps, hd) tensors and are written in place.
+# Programs: plain functions over device tensors. Pools arrive as this
+# process's (1, L, Hkv, N, ps, hd) block and are written in place; the
+# weights are this process's tp blocks. ``tp`` (a ``TPGroup``, None off a
+# tensor-parallel mesh) runs the block's collectives: 2L + 1 all-reduces
+# (the lookup, each layer's two row-parallel outputs) and one all-gather
+# of the logits a forward, as ``parallel/tensor.py`` counts them.
 # ---------------------------------------------------------------------------
 
 
@@ -371,17 +428,38 @@ def _head(params: dict, cfg) -> torch.Tensor:
             else params["lm_head"])
 
 
-def _mlp(x: torch.Tensor, layer: dict) -> torch.Tensor:
+def _embed(params: dict, tokens: torch.Tensor, tp) -> torch.Tensor:
+    """Token embeddings: the lookup, vocab-parallel under tp."""
+    table = params["tok_embed"]
+    return table[tokens] if tp is None else tp.embed(table, tokens)
+
+
+def _reduce(y: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel product's output summed over tp."""
+    return y if tp is None else tp.reduce(y)
+
+
+def _logits(x: torch.Tensor, params: dict, cfg, tp) -> torch.Tensor:
+    """Final hidden states (already normed) → f32 logits over the whole
+    vocab: under tp each rank's vocab columns, gathered."""
+    lg = x @ _head(params, cfg)
+    return (lg if tp is None else tp.gather(lg)).float()
+
+
+def _mlp(x: torch.Tensor, layer: dict, tp=None) -> torch.Tensor:
     h = _layer_norm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
     m = layer["mlp"]
     u = F.gelu(h @ m["wi"] + m["bi"], approximate="tanh")
-    return x + (u @ m["wo"] + m["bo"])
+    if tp is None:
+        return x + (u @ m["wo"] + m["bo"])
+    # bo is whole on every rank: added once, after the sum.
+    return x + (tp.reduce(u @ m["wo"]) + m["bo"])
 
 
 @torch.no_grad()
 def _decode_program(params, k_pages, v_pages, tokens, positions,
                     page_tables, active, gen, *, cfg, temperature,
-                    top_k, paged_impl) -> torch.Tensor:
+                    top_k, paged_impl, tp=None) -> torch.Tensor:
     """One token for every slot of the table.
 
     ``params`` in compute dtype (``cast_for_compute``); tokens (B,) —
@@ -390,7 +468,7 @@ def _decode_program(params, k_pages, v_pages, tokens, positions,
     (B, P) int32; active (B,) bool. Returns next tokens (B,); inactive
     slots write into the scratch page and return 0."""
     ps, P = k_pages.shape[4], page_tables.shape[1]
-    x = params["tok_embed"][tokens]                      # (B, D)
+    x = _embed(params, tokens, tp)                       # (B, D)
     if cfg.pos_encoding == "learned":
         x = x + params["pos_embed"][positions]
     logical = torch.clamp(positions // ps, max=P - 1)
@@ -412,18 +490,18 @@ def _decode_program(params, k_pages, v_pages, tokens, positions,
         _write_kv(kp, vp, k, v, page_ids.long(), offsets)
         attn = paged_attention(q, kp, vp, lengths, page_tables,
                                impl=paged_impl)
-        x = x + torch.einsum("bhk,hkd->bd", attn, a["wo"])
-        x = _mlp(x, layer)
+        x = x + _reduce(torch.einsum("bhk,hkd->bd", attn, a["wo"]), tp)
+        x = _mlp(x, layer, tp)
     x = _layer_norm(x, params["final_norm"]["scale"],
                     params["final_norm"]["bias"])
-    logits = (x @ _head(params, cfg)).float()
+    logits = _logits(x, params, cfg, tp)
     return torch.where(active, _sample(logits, temperature, top_k, gen), 0)
 
 
 @torch.no_grad()
 def _prefill_program(params, k_pages, v_pages, page_row, live,
                      chunk_tokens, start_pos, n_valid, *, cfg,
-                     first) -> torch.Tensor:
+                     first, tp=None) -> torch.Tensor:
     """One prompt chunk of one sequence (the sequential prefill).
 
     page_row (P,) int32; live — False writes everything into the
@@ -441,7 +519,7 @@ def _prefill_program(params, k_pages, v_pages, page_row, live,
     idx = torch.arange(C, device=chunk_tokens.device)
     abs_pos = start_pos + idx
     valid = (idx < n_valid) & live
-    x = params["tok_embed"][chunk_tokens]                # (C, D)
+    x = _embed(params, chunk_tokens, tp)                 # (C, D)
     if cfg.pos_encoding == "learned":
         # Clamp padding positions into range; their rows are dead.
         x = x + params["pos_embed"][torch.clamp(abs_pos,
@@ -470,16 +548,17 @@ def _prefill_program(params, k_pages, v_pages, page_row, live,
         else:
             attn = paged_attention_chunk(q[None], kp, vp, page_row[None],
                                          q_pos)[0]
-        x = x + torch.einsum("chk,hkd->cd", attn, a["wo"])
-        x = _mlp(x, layer)
+        x = x + _reduce(torch.einsum("chk,hkd->cd", attn, a["wo"]), tp)
+        x = _mlp(x, layer, tp)
     x_last = x[max(int(n_valid) - 1, 0)]
     x_last = _layer_norm(x_last, params["final_norm"]["scale"],
                          params["final_norm"]["bias"])
-    return (x_last @ _head(params, cfg)).float()
+    return _logits(x_last, params, cfg, tp)
 
 
 def _chunk_hidden(params, k_pages, v_pages, page_rows, tokens, start_pos,
-                  n_valid, active, *, cfg, chain, paged_impl="auto"):
+                  n_valid, active, *, cfg, chain, paged_impl="auto",
+                  tp=None):
     """The multi-lane chunk forward shared by batched prefill, spec
     verification and every resident iteration, so none of them can
     drift from the others.
@@ -499,7 +578,7 @@ def _chunk_hidden(params, k_pages, v_pages, page_rows, tokens, start_pos,
     idx = torch.arange(C, device=tokens.device)
     abs_pos = start_pos[:, None] + idx[None, :]          # (S, C)
     valid = (idx[None, :] < n_valid[:, None]) & active[:, None]
-    x = params["tok_embed"][tokens]                      # (S, C, D)
+    x = _embed(params, tokens, tp)                       # (S, C, D)
     if cfg.pos_encoding == "learned":
         x = x + params["pos_embed"][torch.clamp(abs_pos,
                                                 max=cfg.max_seq_len - 1)]
@@ -530,26 +609,27 @@ def _chunk_hidden(params, k_pages, v_pages, page_rows, tokens, start_pos,
                                       impl=paged_impl)
         else:
             attn = paged_attention_chunk(q, kp, vp, page_rows, q_pos)
-        x = x + torch.einsum("schk,hkd->scd", attn, a["wo"])
-        x = _mlp(x, layer)
+        x = x + _reduce(torch.einsum("schk,hkd->scd", attn, a["wo"]), tp)
+        x = _mlp(x, layer, tp)
     return x, valid
 
 
-def _argmax_chain(params, x, valid, cfg) -> torch.Tensor:
+def _argmax_chain(params, x, valid, cfg, tp=None) -> torch.Tensor:
     """The verification chain over chunk hidden states: the argmax after
     every position (position c's argmax is the verified next token given
     tokens[:c+1]), greedy only by the spec/resident config contract.
     Invalid positions give 0."""
     xs = _layer_norm(x, params["final_norm"]["scale"],
                      params["final_norm"]["bias"])
-    logits = (xs @ _head(params, cfg)).float()
+    logits = _logits(xs, params, cfg, tp)
     return torch.where(valid, torch.argmax(logits, dim=-1), 0)
 
 
 @torch.no_grad()
 def _chunk_program(params, k_pages, v_pages, page_rows, tokens,
                    start_pos, n_valid, active, gen, *, cfg, temperature,
-                   top_k, emit="last", paged_impl="auto") -> torch.Tensor:
+                   top_k, emit="last", paged_impl="auto",
+                   tp=None) -> torch.Tensor:
     """Multi-token chunks for a whole lane table: batched prefill
     (``emit="last"``, S = prefill lanes, C = prefill_chunk) and
     speculative decode (``emit="all"``, S = decode slots, C = spec_k).
@@ -565,14 +645,15 @@ def _chunk_program(params, k_pages, v_pages, page_rows, tokens,
     S = tokens.shape[0]
     x, valid = _chunk_hidden(params, k_pages, v_pages, page_rows, tokens,
                              start_pos, n_valid, active, cfg=cfg,
-                             chain=emit == "all", paged_impl=paged_impl)
+                             chain=emit == "all", paged_impl=paged_impl,
+                             tp=tp)
     if emit == "all":
-        return _argmax_chain(params, x, valid, cfg)
+        return _argmax_chain(params, x, valid, cfg, tp)
     last = torch.clamp(n_valid - 1, min=0)
     x_last = x[torch.arange(S, device=x.device), last]   # (S, D)
     x_last = _layer_norm(x_last, params["final_norm"]["scale"],
                          params["final_norm"]["bias"])
-    logits = (x_last @ _head(params, cfg)).float()
+    logits = _logits(x_last, params, cfg, tp)
     return torch.where(active, _sample(logits, temperature, top_k, gen), 0)
 
 
@@ -609,7 +690,7 @@ def _draft_cols(hist, hlen, last, C: int, ngram: int) -> torch.Tensor:
 @torch.no_grad()
 def _resident_program(params, k_pages, v_pages, page_rows, history, kv_len,
                       budget, active, *, cfg, K, C, ngram, eos_id,
-                      paged_impl="auto") -> tuple:
+                      paged_impl="auto", tp=None) -> tuple:
     """Device-resident K-step decode for the slot table (JAX
     ``_resident_program``), a function of static-shape tensors.
 
@@ -658,8 +739,8 @@ def _resident_program(params, k_pages, v_pages, page_rows, history, kv_len,
             tokens = last[:, None]
         x, valid = _chunk_hidden(params, k_pages, v_pages, page_rows,
                                  tokens, kvl, n, running, cfg=cfg,
-                                 chain=True, paged_impl=paged_impl)
-        nxt = _argmax_chain(params, x, valid, cfg)       # (B, C)
+                                 chain=True, paged_impl=paged_impl, tp=tp)
+        nxt = _argmax_chain(params, x, valid, cfg, tp)   # (B, C)
         if C > 1:
             match = ((tokens[:, 1:] == nxt[:, :-1])
                      & (cl[None, :-1] < (n - 1)[:, None]))
@@ -690,6 +771,12 @@ def _resident_program(params, k_pages, v_pages, page_rows, history, kv_len,
         bud = bud - e
         running = running & (bud > 0) & ~any_eos
     return out, n_em, steps
+
+
+# The counters besides ``paged_attention.launches`` that the resident
+# burst's launches tick (``_ResidentGraph`` replays their capture deltas).
+_BURST_COUNTERS = (paged_attention.launches_by_design,
+                   tensor_parallel.ALL_REDUCES, tensor_parallel.ALL_GATHERS)
 
 
 class _ResidentGraph:
@@ -724,7 +811,7 @@ class _ResidentGraph:
         self.graph = None
         self.outputs = None
         self.captures = 0
-        self._launches = (0, {})
+        self._launches = (0, [{} for _ in _BURST_COUNTERS])
 
     def eager(self, k_pages, v_pages) -> tuple:
         """The body on the current static inputs, not captured (the CPU
@@ -743,21 +830,23 @@ class _ResidentGraph:
         with torch.cuda.stream(side):
             self.eager(*self._pools)
         stream.wait_stream(side)
-        # Python launch counters tick only while the capture records
-        # the launches, never on replay: keep the capture's deltas and
-        # add them on every replay (every replay runs all K iterations,
-        # so the count is exact).
+        # Python launch and collective counters tick only while the
+        # capture records the launches, never on replay: keep the
+        # capture's deltas and add them on every replay (every replay
+        # runs all K iterations, so the count is exact).
         n0 = paged_attention.launches
-        d0 = dict(paged_attention.launches_by_design)
+        c0 = [dict(c) for c in _BURST_COUNTERS]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self.outputs = self.eager(*self._pools)
         self._launches = (
             paged_attention.launches - n0,
-            {d: n - d0[d]
-             for d, n in paged_attention.launches_by_design.items()})
+            [{k: n - d0.get(k, 0) for k, n in c.items()}
+             for c, d0 in zip(_BURST_COUNTERS, c0)])
         paged_attention.launches = n0
-        paged_attention.launches_by_design.update(d0)
+        for c, d0 in zip(_BURST_COUNTERS, c0):
+            c.clear()
+            c.update(d0)
         self.graph = graph
         self.captures += 1
 
@@ -775,10 +864,11 @@ class _ResidentGraph:
         if self.device.type != "cuda":
             return self.eager(*self._pools)
         self.graph.replay()
-        n, by_design = self._launches
+        n, deltas = self._launches
         paged_attention.launches += n
-        for d, k in by_design.items():
-            paged_attention.launches_by_design[d] += k
+        for c, delta in zip(_BURST_COUNTERS, deltas):
+            for k, d in delta.items():
+                c[k] += d
         return self.outputs
 
 
@@ -810,18 +900,59 @@ def _check_weight_leaves(tree, device: torch.device, path: str = "") -> int:
     return tree.numel() * tree.element_size()
 
 
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """(world of ``group``, *x.shape): every process's ``x``, in rank
+    order (the list form, which gloo takes for CUDA tensors too)."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.stack(parts)
+
+
+def _mesh_extents(mesh, cfg: EngineConfig) -> tuple[int, int]:
+    """(dp groups, tp) of ``mesh`` (a ``Runtime``; (1, 1) without one).
+    The engine deals its slots over ``cfg.dp_axis`` = ``dp`` and splits
+    heads over ``cfg.kv_axis`` = ``tp``; any other axis above 1 raises
+    naming its ROADMAP.md item."""
+    if mesh is None:
+        return 1, 1
+    sizes = mesh.spec.as_dict()
+    for axis, n in sizes.items():
+        if n > 1 and not (axis == "dp" == cfg.dp_axis
+                          or axis == "tp" == cfg.kv_axis):
+            raise NotImplementedError(
+                f"serving over mesh axis '{axis}'={n} (dp_axis="
+                f"'{cfg.dp_axis}', kv_axis='{cfg.kv_axis}') waits for "
+                f"{MESH_AXIS_ITEMS.get(axis, MESH_AXIS_ITEMS['fsdp'])}")
+    return sizes["dp"], sizes["tp"]
+
+
+def _rank_params(params: dict, model, mesh, tp: int) -> dict:
+    """This process's blocks of the whole weights ``params``: under tp >
+    1 each leaf cut by the trainer's ``TensorParallel`` placements (query
+    and kv heads, MLP columns and rows, vocab rows of the embedding and
+    columns of the head; norms, ``bo`` and positions whole), else the
+    weights themselves."""
+    if tp == 1:
+        return params
+    lay = layout(get_strategy("tp", mesh.spec),
+                 flatten(model.param_shapes()), flatten(model.logical_axes()))
+    return unflatten({k: fsdp.shard(t, lay["params"][k], mesh)
+                      for k, t in flatten(params).items()})
+
+
 class Engine:
     """The continuous-batching engine over one model + weight set.
 
-    ``model`` is the port's ``Transformer``; ``params`` its weight
+    ``model`` is the port's ``Transformer``; ``params`` its whole weight
     pytree, already on ``device``. ``device=None`` runs on the CUDA card
-    and raises without one. Every step emits a ``serving`` telemetry
+    and raises without one. ``mesh``: a ``Runtime`` over ``dp x tp``
+    processes, each running one engine given the same submissions; this
+    one keeps its tp rank's blocks of the weights and its dp group's
+    pool (module docstring). Every step emits a ``serving`` telemetry
     record through the ambient sink."""
 
     def __init__(self, model, params, cfg: EngineConfig, mesh=None,
                  weights_version: str = "v0", device=None):
-        if mesh is not None or cfg.dp_axis != "dp" or cfg.kv_axis != "tp":
-            raise NotImplementedError(f"a mesh waits for {DP_ITEM}")
         if getattr(model.cfg, "moe_num_experts", 0) > 0:
             raise ValueError("serving engine has no MoE decode path")
         if cfg.max_seq_len > model.cfg.max_seq_len:
@@ -831,16 +962,59 @@ class Engine:
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
-        self.weight_bytes = _check_weight_leaves(params, self.device)
-        self.params = params
+        self.mesh = mesh
+        self.dp_groups, tp = _mesh_extents(mesh, cfg)
+        G = self.dp_groups
+        if cfg.max_batch % G:
+            raise ValueError(
+                f"max_batch ({cfg.max_batch}) must divide over the "
+                f"{G} dp group(s) — the slot table is dealt into equal "
+                "group-local tables")
+        self.batch_local = cfg.max_batch // G
+        prefill_slots = cfg.prefill_slots or cfg.max_batch
+        if prefill_slots % G:
+            raise ValueError(
+                f"prefill_slots ({prefill_slots}) must divide over the "
+                f"{G} dp group(s) — the prefill lane table deals exactly "
+                "like the decode table")
+        self.prefill_local = prefill_slots // G
+        # This process's groups on a mesh of more than one: every process
+        # (the step's digest), its dp group (each fetch) and its tp group
+        # (the programs' collectives).
+        self._mesh_group = self._dp_group = self._tp = None
+        if mesh is not None and mesh.process_count > 1:
+            self._mesh_group = mesh.group(("dp", "tp"))
+            if G > 1:
+                self._dp_group = mesh.group(("dp",))
+            if tp > 1:
+                check_tp_split(model.cfg, tp)
+                self._tp = tensor_parallel.TPGroup(mesh.group(("tp",)))
+        self.cache = PagedKVCache(
+            PagedCacheConfig(
+                n_layers=model.cfg.n_layers,
+                n_kv_heads=model.cfg.n_kv_heads,
+                head_dim=model.cfg.head_dim,
+                page_size=cfg.page_size,
+                num_pages=cfg.num_pages,
+                max_seq_len=cfg.max_seq_len,
+                dtype=model.cfg.dtype,
+                dp_groups=G),
+            device=self.device, mesh=mesh, kv_axis=cfg.kv_axis,
+            dp_axis=cfg.dp_axis)
+        # The dp group whose row of every program this process launches.
+        self._g = self.cache.local_group or 0
+        _check_weight_leaves(params, self.device)
+        self.params = _rank_params(params, model, mesh, tp)
+        self.weight_bytes = _check_weight_leaves(self.params, self.device)
         # Weights in compute dtype, cast once (the JAX programs cast at
         # each use); layer-norm parameters stay in param dtype.
-        self._cparams = cast_for_compute(params, model.cfg)
+        self._cparams = cast_for_compute(self.params, model.cfg)
         self.weights_version = weights_version
-        self.batch_local = cfg.max_batch
-        self.prefill_local = cfg.prefill_slots or cfg.max_batch
         self._sharing = cfg.prefix_sharing
         self.sessions: dict[str, dict] = {}
+        # Orders retained sessions for LRU eviction (a count, not the
+        # clock: every process of a mesh must evict alike).
+        self._session_clock = 0
         self.prefix_stats = {"hit_tokens": 0, "saved_tokens": 0,
                              "cow_pages": 0, "session_resumes": 0}
         self._step_prefix = [0, 0]
@@ -851,24 +1025,19 @@ class Engine:
         self.decode_launches = 0
         self._cow_width = max(self.batch_local, self.prefill_local)
         # Every device->host transfer of the step loop goes through
-        # ``_fetch_host``, so this count is exact.
+        # ``_fetch_host``, so this count is exact. ``gathers`` counts
+        # the engine's own collectives on a mesh: ``dp_fetch`` (one per
+        # fetch, over the dp group) and ``lockstep`` (one per step, over
+        # the mesh); the programs' tp collectives are
+        # ``parallel/tensor.py``'s.
         self.host_syncs = 0
-        self.cache = PagedKVCache(
-            PagedCacheConfig(
-                n_layers=model.cfg.n_layers,
-                n_kv_heads=model.cfg.n_kv_heads,
-                head_dim=model.cfg.head_dim,
-                page_size=cfg.page_size,
-                num_pages=cfg.num_pages,
-                max_seq_len=cfg.max_seq_len,
-                dtype=model.cfg.dtype),
-            device=self.device)
+        self.gathers: collections.Counter = collections.Counter()
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: list[_Seq | None] = [None] * cfg.max_batch
         self.completed: list[dict] = []
         self._step_counter = 0
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(cfg.seed)
+        self._gen.manual_seed(cfg.seed + self._g)
         self._host_gen = torch.Generator()
         self._host_gen.manual_seed(cfg.seed + 1_000_000)
         self._token_listeners: dict[str, object] = {}
@@ -877,18 +1046,28 @@ class Engine:
         # last step's (slot launches, emitted) for the step record.
         self.spec_stats = {"launches": 0, "emitted": 0}
         self._step_spec: tuple[int, int] | None = None
+        self._last_prefill_lanes: list[int] | None = None
         # Device-resident accounting: bursts, chain iterations run on
-        # the device, tokens emitted; the last burst's mean iterations.
+        # the device, tokens emitted; the last burst's mean iterations
+        # over the groups that ran.
         self.resident_stats = {"launches": 0, "steps": 0, "emitted": 0}
         self._step_resident: float | None = None
         self._resident = None
         if cfg.resident_k > 1:
+            if (self._tp is not None and self.device.type == "cuda"
+                    and dist.get_backend(self._tp.group) != "nccl"):
+                raise NotImplementedError(
+                    "the resident burst under tp > 1 on the card is a CUDA "
+                    "graph, which cannot capture "
+                    f"{dist.get_backend(self._tp.group)}'s collectives: it "
+                    f"waits for {TP_RESIDENT_ITEM}")
             self._resident = _ResidentGraph(
                 functools.partial(
                     _resident_program, self._cparams, cfg=model.cfg,
                     K=cfg.resident_k, C=cfg.spec_k, ngram=cfg.spec_ngram,
-                    eos_id=cfg.eos_id, paged_impl=cfg.paged_impl),
-                self.cache.k_pages, self.cache.v_pages, cfg.max_batch,
+                    eos_id=cfg.eos_id, paged_impl=cfg.paged_impl,
+                    tp=self._tp),
+                self.cache.k_pages, self.cache.v_pages, self.batch_local,
                 self.cache.cfg.pages_per_seq, cfg.max_seq_len, self.device)
 
     # -- deferred features ---------------------------------------------------
@@ -936,7 +1115,7 @@ class Engine:
             self._t(tokens).long(), self._t(positions).long(),
             self._t(rows), self._t(active), self._gen,
             cfg=self.model.cfg, temperature=c.temperature, top_k=c.top_k,
-            paged_impl=c.paged_impl)
+            paged_impl=c.paged_impl, tp=self._tp)
 
     def _chunk(self, rows, tokens, start_pos, n_valid, active,
                emit: str) -> torch.Tensor:
@@ -949,14 +1128,14 @@ class Engine:
             self._t(start_pos).long(), self._t(n_valid).long(),
             self._t(active), self._gen, cfg=self.model.cfg,
             temperature=c.temperature, top_k=c.top_k, emit=emit,
-            paged_impl=c.paged_impl)
+            paged_impl=c.paged_impl, tp=self._tp)
 
     def _prefill_one(self, row, live: bool, chunk, start: int,
                      n_valid: int) -> torch.Tensor:
         return _prefill_program(
             self._cparams, self.cache.k_pages, self.cache.v_pages,
             self._t(row), live, self._t(chunk).long(), start, n_valid,
-            cfg=self.model.cfg, first=start == 0)
+            cfg=self.model.cfg, first=start == 0, tp=self._tp)
 
     def _cow(self, src: np.ndarray, dst: np.ndarray) -> None:
         _cow_program(self.cache.k_pages, self.cache.v_pages,
@@ -1075,30 +1254,64 @@ class Engine:
     def idle(self) -> bool:
         return not self.queue and self.in_flight == 0
 
-    def _free_slot(self) -> int | None:
-        for i, s in enumerate(self.slots):
-            if s is None:
+    def group_of_slot(self, slot: int) -> int:
+        return slot // self.batch_local
+
+    def slots_active_by_group(self) -> list[int]:
+        B = self.batch_local
+        return [sum(1 for s in self.slots[g * B:(g + 1) * B]
+                    if s is not None)
+                for g in range(self.dp_groups)]
+
+    def _free_slot(self, group: int | None = None) -> int | None:
+        B = self.batch_local
+        span = (range(len(self.slots)) if group is None
+                else range(group * B, (group + 1) * B))
+        for i in span:
+            if self.slots[i] is None:
                 return i
+        return None
+
+    def _groups_by_load(self) -> list[int]:
+        """The groups, fewest active slots first, ties to the lowest
+        index."""
+        active = self.slots_active_by_group()
+        return sorted(range(self.dp_groups), key=lambda g: (active[g], g))
+
+    def _pick_group(self, first_tokens: int) -> tuple[int, int] | None:
+        """Admission load balancing: the fewest-active-slots group (ties
+        to the lowest index) that has both a free slot and pages for the
+        first chunk. None = every group is full or backpressured (the
+        request stays queued)."""
+        for g in self._groups_by_load():
+            slot = self._free_slot(g)
+            if slot is not None and self.cache.can_admit(first_tokens,
+                                                         group=g):
+                return g, slot
         return None
 
     def _admit(self) -> _Seq | None:
         """Move the head-of-queue request into a free slot. With prefix
-        sharing the new sequence attaches the longest resident
-        page-aligned prefix of its prompt read-only and prefills only
-        the unmatched tail (a full cover prefills nothing); a session
-        request whose retained turn matches resumes it. None =
-        backpressure — the request stays queued."""
+        sharing the placement prefers the group holding the longest
+        resident page-aligned prefix of the prompt (the new sequence
+        attaches those pages read-only and prefills only the unmatched
+        tail; a full cover prefills nothing); with no hit anywhere it
+        falls back to fewest-active-slots first. A session request whose
+        retained turn matches resumes in its own group (pages cannot
+        cross a pool) or waits for a slot there. None = backpressure —
+        the request stays queued."""
         if not self.queue:
             return None
         req = self.queue[0]
         plen = int(req.prompt.shape[0])
         first = min(plen, self.cfg.prefill_chunk)
         if not self._sharing:
-            slot = self._free_slot()
-            if slot is None or not self.cache.can_admit(first):
+            picked = self._pick_group(first)
+            if picked is None:
                 return None
+            group, slot = picked
             self.queue.popleft()
-            self.cache.join(req.id)
+            self.cache.join(req.id, group=group)
             self.cache.ensure(req.id, first)
             seq = _Seq(req=req, slot=slot)
             self._mark_admitted(seq)
@@ -1111,28 +1324,45 @@ class Engine:
             # The retained turn diverged from this prompt and was
             # dropped; the prefix index may still cover part of it.
         ps = self.cfg.page_size
-        slot = self._free_slot()
-        if slot is None:
+        best = None      # (m, pages, group, slot): the longest match
+        starved = None   # the best candidate short on pages
+        for g in self._groups_by_load():
+            slot = self._free_slot(g)
+            if slot is None:
+                continue
+            pages, m = self.cache.match_prefix(g, req.prompt)
+            if m * ps >= plen:
+                need = 1  # COW headroom for the boundary replay
+            elif m:
+                tgt = min(plen, m * ps + self.cfg.prefill_chunk)
+                need = -(-tgt // ps) - m
+            else:
+                need = -(-first // ps)
+            if need > self.cache.free_pages_in(g):
+                if starved is None or m > starved[0]:
+                    starved = (m, pages, g, slot, need)
+                continue
+            if best is None or m > best[0]:
+                best = (m, pages, g, slot)
+            if best[0] == 0:
+                break  # no hit, and the balanced pick is found
+        if best is None and starved is not None:
+            # Every group with a free slot is short on pages: evict idle
+            # sessions (LRU) in the best starved group before giving up —
+            # retained pages must never wedge admission. Re-match
+            # afterwards: the eviction may have freed the pages the
+            # match used.
+            m, pages, g, slot, need = starved
+            if self._evict_sessions(g, need):
+                pages, m = self.cache.match_prefix(g, req.prompt)
+                if m * ps >= plen or m or self.cache.can_admit(first,
+                                                               group=g):
+                    best = (m, pages, g, slot)
+        if best is None:
             return None
-        pages, m = self.cache.match_prefix(req.prompt)
-        if m * ps >= plen:
-            need = 1  # COW headroom for the boundary replay
-        elif m:
-            tgt = min(plen, m * ps + self.cfg.prefill_chunk)
-            need = -(-tgt // ps) - m
-        else:
-            need = -(-first // ps)
-        if need > self.cache.free_pages:
-            # Evict idle sessions (LRU) before giving up — retained
-            # pages must never wedge admission. Re-match afterwards:
-            # the eviction may have freed the pages the match used.
-            if not self._evict_sessions(need):
-                return None
-            pages, m = self.cache.match_prefix(req.prompt)
-            if not (m * ps >= plen or m or self.cache.can_admit(first)):
-                return None
+        m, pages, group, slot = best
         self.queue.popleft()
-        self.cache.join(req.id)
+        self.cache.join(req.id, group=group)
         seq = _Seq(req=req, slot=slot)
         if m * ps >= plen:
             # Full page-aligned cover: zero prefill — attach at length
@@ -1161,9 +1391,10 @@ class Engine:
     # -- prefix sharing / sessions -------------------------------------------
 
     def _try_resume(self, req: Request):
-        """Re-attach a retained session turn. Returns the installed
-        ``_Seq``, ``"wait"`` (no free slot), or None (the prompt
-        diverged from the retained history, which was just dropped)."""
+        """Re-attach a retained session turn in its group. Returns the
+        installed ``_Seq``, ``"wait"`` (no free slot in that group), or
+        None (the prompt diverged from the retained history, which was
+        just dropped)."""
         key = req.session
         sess = self.sessions[key]
         hist = sess["history"]
@@ -1173,7 +1404,7 @@ class Engine:
         if hl > plen or not np.array_equal(prompt[:hl], hist):
             self._drop_session(key)
             return None
-        slot = self._free_slot()
+        slot = self._free_slot(sess["group"])
         if slot is None:
             return "wait"
         self.queue.popleft()
@@ -1199,11 +1430,13 @@ class Engine:
         sess = self.sessions.pop(key)
         self.cache.free(sess["cache_id"])
 
-    def _evict_sessions(self, need: int) -> bool:
-        """Free retained sessions (LRU first) until ``need`` pages are
-        free. Returns True when satisfied."""
-        while self.cache.free_pages < need:
-            cands = sorted((s["t"], k) for k, s in self.sessions.items())
+    def _evict_sessions(self, group: int, need: int) -> bool:
+        """Free retained sessions in ``group`` (least recently retained
+        first) until ``need`` pages are free there. Returns True when
+        satisfied."""
+        while self.cache.free_pages_in(group) < need:
+            cands = sorted((s["t"], k) for k, s in self.sessions.items()
+                           if s["group"] == group)
             if not cands:
                 return False
             self._drop_session(cands[0][1])
@@ -1215,19 +1448,25 @@ class Engine:
         or None when the fork stalled on free pages."""
         pairs = self.cache.privatize(seq_id)
         if pairs is None:
-            self._evict_sessions(1)
+            self._evict_sessions(self.cache.group_of(seq_id), 1)
             pairs = self.cache.privatize(seq_id)
         return pairs
 
     def _apply_cow(self, pairs: list) -> None:
-        """One fixed-width page copy for every forked page; unused lanes
-        stay (0 -> 0) scratch identities."""
-        W = self._cow_width
-        src = np.zeros((W,), np.int32)
-        dst = np.zeros((W,), np.int32)
-        for i, (a, b) in enumerate(pairs):
-            src[i], dst[i] = a, b
-        self._cow(src, dst)
+        """One fixed-width page copy for every forked page of this
+        process's group (``pairs``: [(group, src, dst)]; only a group
+        with forks copies); unused lanes stay (0 -> 0) scratch
+        identities."""
+        G, W = self.dp_groups, self._cow_width
+        src = np.zeros((G, W), np.int32)
+        dst = np.zeros((G, W), np.int32)
+        fill = [0] * G
+        for g, a, b in pairs:
+            src[g, fill[g]] = a
+            dst[g, fill[g]] = b
+            fill[g] += 1
+        if fill[self._g]:
+            self._cow(src[self._g], dst[self._g])
         self.prefix_stats["cow_pages"] += len(pairs)
 
     def _register(self, seq: _Seq) -> None:
@@ -1254,10 +1493,38 @@ class Engine:
         return [s for s in self.slots
                 if s is not None and s.prefill_done and not s.done]
 
+    def _scheduler_digest(self) -> int:
+        """64 bits of the scheduler state every process of a mesh holds
+        alike: the queued ids, each slot's occupant, pages used per
+        group."""
+        state = ([r.id for r in self.queue],
+                 [None if s is None else s.req.id for s in self.slots],
+                 [self.cache.pages_used_in(g)
+                  for g in range(self.dp_groups)])
+        h = hashlib.blake2b(repr(state).encode(), digest_size=8).digest()
+        return int.from_bytes(h, "little", signed=True)
+
+    def _check_lockstep(self) -> None:
+        """One all-gather over every process of the mesh of (digest,
+        step number), before any other collective of the step: when one
+        differs every process raises, at the same step."""
+        mine = torch.tensor([self._scheduler_digest(), self._step_counter],
+                            dtype=torch.int64, device=self.device)
+        got = _all_gather(mine, self._mesh_group).cpu().numpy()
+        self.gathers["lockstep"] += 1
+        if (got != got[0]).any():
+            raise RuntimeError(
+                f"serving mesh out of lock-step at step "
+                f"{self._step_counter}: the processes' (scheduler digest, "
+                f"step) are {got.tolist()}; every process must be given "
+                "the same submissions in the same order")
+
     def step(self) -> dict:
         """One scheduling decision + one program launch. Returns a
         record of what ran (``op``: prefill/decode/idle)."""
         t0 = time.monotonic()
+        if self._mesh_group is not None:
+            self._check_lockstep()
         pending = self._prefill_candidates()
         can_admit = bool(self.queue) and self._free_slot() is not None
         want_prefill = bool(pending or can_admit)
@@ -1271,6 +1538,7 @@ class Engine:
         tokens_out = 0
         self._step_spec = None
         self._step_resident = None
+        self._last_prefill_lanes = None
         self._step_prefix = [0, 0]
         syncs0 = self.host_syncs
         if kind == "prefill":
@@ -1314,12 +1582,17 @@ class Engine:
             rec["prefix_hit_tokens"] = self._step_prefix[0]
             rec["prefill_tokens_saved"] = self._step_prefix[1]
             rec["sessions_resident"] = len(self.sessions)
-            rec["kv_pages_shared"] = [self.cache.shared_pages()]
+            rec["kv_pages_shared"] = [self.cache.shared_pages_in(g)
+                                      for g in range(self.dp_groups)]
         syncs = self.host_syncs - syncs0
         rec["host_syncs"] = syncs
         if tokens_out:
             rec["host_syncs_per_token"] = round(syncs / tokens_out, 6)
         rec["weight_bytes"] = self.weight_bytes
+        if self.dp_groups > 1:
+            rec["group_slots_active"] = self.slots_active_by_group()
+            if self._last_prefill_lanes is not None:
+                rec["group_prefill_slots_active"] = self._last_prefill_lanes
         event("serving", **rec)
         self._step_counter += 1
         if kind != "idle":
@@ -1329,13 +1602,43 @@ class Engine:
     def _fetch_host(self, *tensors) -> tuple:
         """The designated device->host transfer of the step loop: every
         blocking fetch goes through here, so ``host_syncs`` is exact.
-        One call = one sync, however many tensors ride it."""
+        One call = one sync, however many tensors ride it. Each tensor
+        comes back with a leading dp-group dim, ``(G, …)``: with dp
+        groups, every group's tensors by one all-gather over the dp
+        group (their bytes end to end), then one copy to the host; else
+        this process's own."""
         self.host_syncs += 1
-        return tuple(t.cpu().numpy() for t in tensors)
+        if self._dp_group is None:
+            return tuple(t.cpu().numpy()[None] for t in tensors)
+        G = self.dp_groups
+        buf = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors])
+        rows = _all_gather(buf, self._dp_group).cpu().numpy()
+        self.gathers["dp_fetch"] += 1
+        res, off = [], 0
+        for t in tensors:
+            n = t.numel() * t.element_size()
+            dt = torch.empty((), dtype=t.dtype).numpy().dtype
+            res.append(rows[:, off:off + n].copy().view(dt)
+                       .reshape(G, *t.shape))
+            off += n
+        return tuple(res)
+
+    def _group_row(self, seq_id) -> tuple[np.ndarray, np.ndarray, int]:
+        """(G, P) page rows + (G,) live mask for a single sequence: the
+        owner group's real row, all-scratch rows elsewhere."""
+        G = self.dp_groups
+        g = self.cache.group_of(seq_id)
+        rows = np.zeros((G, self.cache.cfg.pages_per_seq), np.int32)
+        rows[g] = self.cache.page_row(seq_id)
+        live = np.zeros((G,), bool)
+        live[g] = True
+        return rows, live, g
 
     def _run_prefill_chunk(self, seq: _Seq) -> bool:
         """One chunk of ``seq``'s prompt (sequential mode). False = no
-        progress (the pool could not cover the chunk's pages)."""
+        progress (the owning group's pool could not cover the chunk's
+        pages). Every process launches its group's row: the owner's live,
+        the others all-scratch."""
         c = self.cfg
         start = seq.prefilled
         n_valid = min(c.prefill_chunk, seq.prompt_len - start)
@@ -1346,10 +1649,12 @@ class Engine:
             if pairs is None:
                 return False  # fork stalled on pages — backpressure
             if pairs:
-                self._apply_cow(pairs)
+                g = self.cache.group_of(seq.req.id)
+                self._apply_cow([(g, a, b) for a, b in pairs])
         chunk = np.zeros((c.prefill_chunk,), np.int32)
         chunk[:n_valid] = seq.req.prompt[start:start + n_valid]
-        logits = self._prefill_one(self.cache.page_row(seq.req.id), True,
+        rows, live, g = self._group_row(seq.req.id)
+        logits = self._prefill_one(rows[self._g], bool(live[self._g]),
                                    chunk, start, n_valid)
         self.cache.advance(seq.req.id, n_valid)
         seq.prefilled = start + n_valid
@@ -1357,7 +1662,7 @@ class Engine:
         self.prefill_launches += 1
         if seq.prefill_done:
             (lg,) = self._fetch_host(logits)
-            tok = self._sample_host(lg)
+            tok = self._sample_host(lg[g])
             now = time.monotonic()
             seq.first_token_t = now
             seq.token_times.append(now)
@@ -1373,7 +1678,8 @@ class Engine:
 
     def _sample_host(self, logits: np.ndarray) -> int:
         """Sample the sequential prefill's first token from host logits
-        (already fetched through ``_fetch_host``)."""
+        (already fetched through ``_fetch_host``; every process samples
+        the same row with the same generator)."""
         if self.cfg.temperature <= 0:
             return int(logits.argmax())
         lg = torch.from_numpy(logits)[None]
@@ -1381,18 +1687,19 @@ class Engine:
                            self._host_gen)[0])
 
     def _run_prefill_batch(self, pending: list[_Seq]) -> int:
-        """One launch of the batched prefill program over up to
-        ``prefill_local`` pending sequences (pages ensured first), then
-        read the in-program sample of every lane whose chunk completed
-        its prompt. Returns the prompt tokens processed (0 = every
-        pending chunk stalled on pages)."""
+        """One launch of the batched prefill program: up to
+        ``prefill_local`` pending sequences per group (pages ensured
+        first), then read the in-program sample of every lane whose chunk
+        completed its prompt. Returns the prompt tokens processed (0 =
+        every pending chunk stalled on pages)."""
         c = self.cfg
-        Sp, C = self.prefill_local, c.prefill_chunk
-        chosen: list[_Seq] = []
+        G, Sp, C = self.dp_groups, self.prefill_local, c.prefill_chunk
+        chosen: list[list[_Seq]] = [[] for _ in range(G)]
         cow: list = []
         for s in pending:
-            if len(chosen) >= Sp:
-                break
+            g = self.cache.group_of(s.req.id)
+            if len(chosen[g]) >= Sp:
+                continue
             n = min(C, s.prompt_len - s.prefilled)
             if not self.cache.ensure(s.req.id, s.prefilled + n):
                 continue  # this lane stalls; others still launch
@@ -1400,51 +1707,57 @@ class Engine:
                 pairs = self._cow_guard(s.req.id)
                 if pairs is None:
                     continue  # lane stalls on fork pages
-                cow += pairs
-            chosen.append(s)
-        if not chosen:
+                cow += [(g, a, b) for a, b in pairs]
+            chosen[g].append(s)
+        if not any(chosen):
             return 0
         if cow:
             self._apply_cow(cow)
-        tokens = np.zeros((Sp, C), np.int32)
-        start_pos = np.zeros((Sp,), np.int32)
-        n_valid = np.zeros((Sp,), np.int32)
-        active = np.zeros((Sp,), bool)
-        for i, s in enumerate(chosen):
-            start = s.prefilled
-            n = min(C, s.prompt_len - start)
-            tokens[i, :n] = s.req.prompt[start:start + n]
-            start_pos[i] = start
-            n_valid[i] = n
-            active[i] = True
-        rows = self.cache.page_rows([s.req.id for s in chosen], width=Sp)
-        nxt = self._chunk(rows, tokens, start_pos, n_valid, active,
-                          emit="last")
+        tokens = np.zeros((G, Sp, C), np.int32)
+        start_pos = np.zeros((G, Sp), np.int32)
+        n_valid = np.zeros((G, Sp), np.int32)
+        active = np.zeros((G, Sp), bool)
+        for g, seqs in enumerate(chosen):
+            for i, s in enumerate(seqs):
+                start = s.prefilled
+                n = min(C, s.prompt_len - start)
+                tokens[g, i, :n] = s.req.prompt[start:start + n]
+                start_pos[g, i] = start
+                n_valid[g, i] = n
+                active[g, i] = True
+        rows = self.cache.page_rows_grouped(
+            [[s.req.id for s in seqs] for seqs in chosen], width=Sp)
+        me = self._g
+        nxt = self._chunk(rows[me], tokens[me], start_pos[me], n_valid[me],
+                          active[me], emit="last")
+        self._last_prefill_lanes = [len(seqs) for seqs in chosen]
         self.prefill_launches += 1
         total = 0
         fetched = None
         now = None
-        for i, s in enumerate(chosen):
-            n = int(n_valid[i])
-            self.cache.advance(s.req.id, n)
-            s.prefilled += n
-            total += n
-            if s.prefill_done:
-                if fetched is None:
-                    # One (Sp,) pull for the whole launch, and only when
-                    # some prompt completed; the clock is read after it.
-                    (fetched,) = self._fetch_host(nxt)
-                    now = time.monotonic()
-                tok = int(fetched[i])
-                s.first_token_t = now
-                s.token_times.append(now)
-                s.generated.append(tok)
-                if self.cfg.eos_id >= 0 and tok == self.cfg.eos_id:
-                    s.eos = True
-                self._emit_token(s, tok)
-            self._register(s)
-            if s.prefill_done:
-                self._maybe_finish(s)
+        for g, seqs in enumerate(chosen):
+            for i, s in enumerate(seqs):
+                n = int(n_valid[g, i])
+                self.cache.advance(s.req.id, n)
+                s.prefilled += n
+                total += n
+                if s.prefill_done:
+                    if fetched is None:
+                        # One (G, Sp) pull for the whole launch, and only
+                        # when some prompt completed; the clock is read
+                        # after it.
+                        (fetched,) = self._fetch_host(nxt)
+                        now = time.monotonic()
+                    tok = int(fetched[g, i])
+                    s.first_token_t = now
+                    s.token_times.append(now)
+                    s.generated.append(tok)
+                    if self.cfg.eos_id >= 0 and tok == self.cfg.eos_id:
+                        s.eos = True
+                    self._emit_token(s, tok)
+                self._register(s)
+                if s.prefill_done:
+                    self._maybe_finish(s)
         self.prefill_tokens_computed += total
         return total
 
@@ -1488,12 +1801,12 @@ class Engine:
         accepted length; rejected positions' KV sits past ``length``
         (masked) and the next launch overwrites it. Eager on the card
         too, as the JAX host loop is."""
-        B, K = self.batch_local, self.cfg.spec_k
-        tokens = np.zeros((B, K), np.int32)
-        start_pos = np.zeros((B,), np.int32)
-        n_valid = np.zeros((B,), np.int32)
-        active = np.zeros((B,), bool)
-        seq_ids: list = [None] * B
+        G, B, K = self.dp_groups, self.batch_local, self.cfg.spec_k
+        tokens = np.zeros((G, B, K), np.int32)
+        start_pos = np.zeros((G, B), np.int32)
+        n_valid = np.zeros((G, B), np.int32)
+        active = np.zeros((G, B), bool)
+        seq_ids: list[list] = [[None] * B for _ in range(G)]
         stepped: list[tuple[_Seq, int, np.ndarray]] = []
         cow: list = []
         for s in decodable:
@@ -1509,40 +1822,41 @@ class Engine:
                 if n == 1 or not self.cache.ensure(s.req.id, length + 1):
                     continue
                 n = 1
+            g, i = divmod(s.slot, B)
             if self._sharing:
                 pairs = self._cow_guard(s.req.id)
                 if pairs is None:
                     continue  # fork stalled on pages; retry next step
-                cow += pairs
+                cow += [(g, a, b) for a, b in pairs]
             draft = self._draft(s, n - 1)
-            i = s.slot
-            tokens[i, 0] = s.last_token
-            tokens[i, 1:n] = draft
-            start_pos[i] = length
-            n_valid[i] = n
-            active[i] = True
-            seq_ids[i] = s.req.id
+            tokens[g, i, 0] = s.last_token
+            tokens[g, i, 1:n] = draft
+            start_pos[g, i] = length
+            n_valid[g, i] = n
+            active[g, i] = True
+            seq_ids[g][i] = s.req.id
             stepped.append((s, n, draft))
         if not stepped:
             return 0
         if cow:
             self._apply_cow(cow)
-        rows = self.cache.page_rows(seq_ids)
-        out = self._chunk(rows, tokens, start_pos, n_valid, active,
-                          emit="all")
+        rows = self.cache.page_rows_grouped(seq_ids)
+        me = self._g
+        out = self._chunk(rows[me], tokens[me], start_pos[me], n_valid[me],
+                          active[me], emit="all")
         self.decode_launches += 1
         (out,) = self._fetch_host(out)
         now = time.monotonic()
         total = 0
         for s, n, draft in stepped:
-            i = s.slot
-            # out[i, j] is the verified argmax after position j. Draft j
-            # is accepted while it equals the chain's previous token, so
-            # every accepted argmax is conditioned on true tokens only.
-            emit = [int(out[i, 0])]
+            g, i = divmod(s.slot, B)
+            # out[g, i, j] is the verified argmax after position j. Draft
+            # j is accepted while it equals the chain's previous token,
+            # so every accepted argmax is conditioned on true tokens only.
+            emit = [int(out[g, i, 0])]
             j = 1
             while j < n and int(draft[j - 1]) == emit[-1]:
-                emit.append(int(out[i, j]))
+                emit.append(int(out[g, i, j]))
                 j += 1
             if self.cfg.eos_id >= 0 and self.cfg.eos_id in emit:
                 # Later positions are conditioned on an ended sequence.
@@ -1564,60 +1878,63 @@ class Engine:
         exactly the argmax chain the spec path would (the same
         ``_chunk_hidden``), so K moves only the sync cadence. The cache
         advances only after the fetch."""
-        B = self.batch_local
+        G, B = self.dp_groups, self.batch_local
         T = self.cfg.resident_k * self.cfg.spec_k
-        history = np.zeros((B, self.cfg.max_seq_len), np.int32)
-        kv_len = np.zeros((B,), np.int32)
-        budget = np.zeros((B,), np.int32)
-        active = np.zeros((B,), bool)
-        seq_ids: list = [None] * B
+        history = np.zeros((G, B, self.cfg.max_seq_len), np.int32)
+        kv_len = np.zeros((G, B), np.int32)
+        budget = np.zeros((G, B), np.int32)
+        active = np.zeros((G, B), bool)
+        seq_ids: list[list] = [[None] * B for _ in range(G)]
         stepped: list[_Seq] = []
         cow: list = []
         for s in decodable:
             length = self.cache.length(s.req.id)
             remaining = s.req.max_new_tokens - len(s.generated)
             # The budget is clamped to the pages the slot could claim
-            # now (its own plus the free list): a tight pool shrinks the
-            # burst toward one token instead of stalling the slot.
+            # now (its own plus its group's free list): a tight pool
+            # shrinks the burst toward one token instead of stalling it.
             want = min(remaining, T,
                        self.cache.token_capacity(s.req.id) - length)
             if want < 1:
                 continue  # no headroom: wait for frees
             if not self.cache.ensure(s.req.id, length + want):
                 continue
+            g, i = divmod(s.slot, B)
             if self._sharing:
                 pairs = self._cow_guard(s.req.id)
                 if pairs is None:
                     continue  # fork stalled on pages; retry next step
-                cow += pairs
+                cow += [(g, a, b) for a, b in pairs]
             hist = np.concatenate([np.array(s.req.prompt, np.int32),
                                    np.array(s.generated, np.int32)])
-            i = s.slot
-            history[i, :hist.shape[0]] = hist
-            kv_len[i] = length
-            budget[i] = want
-            active[i] = True
-            seq_ids[i] = s.req.id
+            history[g, i, :hist.shape[0]] = hist
+            kv_len[g, i] = length
+            budget[g, i] = want
+            active[g, i] = True
+            seq_ids[g][i] = s.req.id
             stepped.append(s)
         if not stepped:
             return 0
         if cow:
             self._apply_cow(cow)
-        rows = self.cache.page_rows(seq_ids)
+        rows = self.cache.page_rows_grouped(seq_ids)
+        me = self._g
         out, n_emitted, steps = self._fetch_host(*self._resident.run(
-            rows, history, kv_len, budget, active))
+            rows[me], history[me], kv_len[me], budget[me], active[me]))
         self.decode_launches += 1
         now = time.monotonic()
         total = 0
         for s in stepped:
-            e = int(n_emitted[s.slot])
+            g, i = divmod(s.slot, B)
+            e = int(n_emitted[g, i])
             self.cache.advance(s.req.id, e)
             total += e
-            self._emit_tokens(s, [int(t) for t in out[s.slot, :e]], now)
+            self._emit_tokens(s, [int(t) for t in out[g, i, :e]], now)
+        g_steps = [int(steps[g]) for g in range(G) if active[g].any()]
         self.resident_stats["launches"] += 1
-        self.resident_stats["steps"] += int(steps)
+        self.resident_stats["steps"] += max(g_steps, default=0)
         self.resident_stats["emitted"] += total
-        self._step_resident = float(steps)
+        self._step_resident = round(sum(g_steps) / max(1, len(g_steps)), 4)
         return total
 
     def _run_decode(self, decodable: list[_Seq]) -> int:
@@ -1625,11 +1942,11 @@ class Engine:
             return self._run_decode_resident(decodable)
         if self.cfg.spec_k > 1:
             return self._run_decode_spec(decodable)
-        B = self.batch_local
-        tokens = np.zeros((B,), np.int32)
-        positions = np.zeros((B,), np.int32)
-        active = np.zeros((B,), bool)
-        seq_ids: list = [None] * B
+        G, B = self.dp_groups, self.batch_local
+        tokens = np.zeros((G, B), np.int32)
+        positions = np.zeros((G, B), np.int32)
+        active = np.zeros((G, B), bool)
+        seq_ids: list[list] = [[None] * B for _ in range(G)]
         stepped: list[_Seq] = []
         cow: list = []
         for s in decodable:
@@ -1638,29 +1955,31 @@ class Engine:
             if not self.cache.ensure(s.req.id,
                                      self.cache.length(s.req.id) + 1):
                 continue
+            g, i = divmod(s.slot, B)
             if self._sharing:
                 pairs = self._cow_guard(s.req.id)
                 if pairs is None:
                     continue  # fork stalled on pages; retry next step
-                cow += pairs
-            i = s.slot
-            tokens[i] = s.last_token
-            positions[i] = self.cache.length(s.req.id)
-            active[i] = True
-            seq_ids[i] = s.req.id
+                cow += [(g, a, b) for a, b in pairs]
+            tokens[g, i] = s.last_token
+            positions[g, i] = self.cache.length(s.req.id)
+            active[g, i] = True
+            seq_ids[g][i] = s.req.id
             stepped.append(s)
         if not stepped:
             return 0
         if cow:
             self._apply_cow(cow)
-        rows = self.cache.page_rows(seq_ids)
-        nxt = self._decode(tokens, positions, rows, active)
+        rows = self.cache.page_rows_grouped(seq_ids)
+        me = self._g
+        nxt = self._decode(tokens[me], positions[me], rows[me], active[me])
         self.decode_launches += 1
         (nxt,) = self._fetch_host(nxt)
         now = time.monotonic()
         for s in stepped:
+            g, i = divmod(s.slot, B)
             self.cache.advance(s.req.id, 1)
-            self._emit_tokens(s, [int(nxt[s.slot])], now)
+            self._emit_tokens(s, [int(nxt[g, i])], now)
         return len(stepped)
 
     def _maybe_finish(self, seq: _Seq) -> None:
@@ -1674,12 +1993,14 @@ class Engine:
                 self._drop_session(key)
             cid = f"~session:{key}"
             self.cache.rename(seq.req.id, cid)
+            self._session_clock += 1
             self.sessions[key] = {
                 "cache_id": cid,
                 "history": np.concatenate([
                     np.array(seq.req.prompt, np.int32),
                     np.array(seq.generated, np.int32)]),
-                "t": time.monotonic()}
+                "group": self.cache.group_of(cid),
+                "t": self._session_clock}
         else:
             self.cache.free(seq.req.id)
         self.slots[seq.slot] = None
@@ -1699,7 +2020,7 @@ class Engine:
             "queue_wait_s": seq.queue_wait_s,
             "latency_s": now - arrival,
             "token_gaps_s": gaps,
-            "group": 0,
+            "group": self.group_of_slot(seq.slot),
         }
         self.completed.append(rec)
         event("serving_request",

@@ -21,7 +21,8 @@ What waits (ROADMAP.md queue A 'Server: metrics, debug, load shedding
 and incidents', and 'Server: main and build_server'): ``GET /metrics``
 and ``/debug/requests`` answer 501; the metrics port, queue-depth load
 shedding, drain and incident bundles raise ``NotImplementedError``, as
-do ``build_server`` and ``main``.
+do ``build_server``, ``main`` and an engine on a mesh of more than one
+process (its requests must reach every rank).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ logger = logging.getLogger(__name__)
 OPS_ITEM = ("ROADMAP.md queue A 'Server: metrics, debug, load shedding "
             "and incidents'")
 CLI_ITEM = "ROADMAP.md queue A 'Server: main and build_server'"
+MESH_ITEM = "ROADMAP.md queue A item 13 'Server: main and build_server'"
 
 
 class ServingServer:
@@ -56,6 +58,13 @@ class ServingServer:
             raise NotImplementedError(
                 f"metrics_port, max_queue_depth and incident_dir wait "
                 f"for {OPS_ITEM}")
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None and mesh.process_count > 1:
+            # Every rank's engine must be given the same submissions:
+            # requests taken in on one rank and passed to the others.
+            raise NotImplementedError(
+                f"serving an engine on a mesh of {mesh.process_count} "
+                f"processes over HTTP waits for {MESH_ITEM}")
         self.engine = engine
         self._requested_port = port
         self.port: int | None = None

@@ -20,6 +20,7 @@ from distributed_training_tpu_torch.models.transformer import (
     Transformer as PortTransformer,
     TransformerConfig as PortConfig,
 )
+from distributed_training_tpu_torch.runtime import MeshSpec, Runtime
 from distributed_training_tpu_torch.serving import engine as port_engine
 from distributed_training_tpu_torch.serving.kv_cache import (
     PagedCacheConfig,
@@ -312,8 +313,10 @@ def test_deferred_engine_features_raise(models, call):
 def test_deferred_mesh_int8_and_server_options_raise(models):
     _, _, pm, pp = models
     cfg = port_engine.EngineConfig(**ENGINE)
-    with pytest.raises(NotImplementedError, match="dp groups"):
-        port_engine.Engine(pm, pp, cfg, mesh=object(), device="cpu")
+    # A mesh axis the engine does not serve over (dp and tp it does).
+    fsdp_mesh = Runtime(device=torch.device("cpu"), spec=MeshSpec(fsdp=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+        port_engine.Engine(pm, pp, cfg, mesh=fsdp_mesh, device="cpu")
     int8 = dict(pp, attn=dict(pp["attn"], wq={"qw": pp["attn"]["wq"],
                                               "scale": pp["attn"]["wq"]}))
     with pytest.raises(NotImplementedError, match="int8"):
