@@ -65,7 +65,19 @@ a seed:
   gloo group, each on 6 of the 12 heads and half the vocab, the Trainer
   driven directly, its losses and gradient norms held against one
   process under ``ddp``, with a planted fault (layer 0's attention
-  all-reduce dropped) that must fail the same limits.
+  all-reduce dropped) that must fail the same limits;
+- serving weights and recovery: gpt2_125m served from int8 weight-only
+  leaves (``serving_int8``: batched and sequential prefill, one-token
+  and resident decode beside the bf16 engine, and float32 first-decode
+  logits against the plain forward on the dequantized weights); a live
+  weight swap on a resident engine (``serving_swap``: an identical-value
+  host publish mid-stream gives the unswapped tokens bit for bit with
+  one graph capture, and a swap to second-seed weights at the staleness
+  bound 0 equals a fresh engine on them at float32); and
+  ``engine_crash`` under ``supervise_serving`` (``serving_recovery``,
+  float32: the KV of every request exported and re-adopted, each stream
+  delivered once and equal to the uncrashed run, with a planted fault,
+  the high-water marks dropped, that must fail the same check).
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -171,6 +183,21 @@ TP_GRAD_NORM_RTOL = 3e-3
 # 2.93; the limit lies between.
 MESH_LOGITS_TOL = 1e-4
 SERVING_MESHES = {"dp2": {"dp": 2}, "tp2": {"tp": 2}}
+# serving_int8: float32 logits of the int8 engine's first decoded
+# position against the plain forward on the dequantized weights, max
+# abs; the two differ in summation order only (paged attention and the
+# per-layer dequantization inside the programs against the dense
+# forward), as the f32 mesh engines differ from one process (2.1e-6
+# on the H100; PERF.md). Read on the H100: 3.58e-6.
+INT8_LOGITS_TOL = 1e-4
+# serving_int8: device bytes an engine may hold beyond its pools and
+# ``weight_bytes`` (its slot tables, generator and scratch: well under a
+# MiB at gpt2_125m), far below a second copy of the int8 weights
+# (164 MB).
+HELD_SLACK_BYTES = 16 << 20
+# serving_recovery: the engine crashes after this many decode launches,
+# every request then holding decoded tokens to salvage.
+RECOVERY_DECODES = 8
 
 
 def emit(obj: dict) -> None:
@@ -1136,6 +1163,414 @@ def phase_parity(prompts: list, n: int) -> None:
     emit({"phase": "parity", "dtype": "float32",
           "prompt_lens": [len(p) for p in prompts], "tokens": n,
           **report})
+
+
+def _summed_launches(runs: list) -> tuple:
+    """The kernel launches and launches by design of several runs."""
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
+    designs = {n: {d: sum(r["launches_by_design"][n][d] for r in runs)
+                   for d in ds}
+               for n, ds in runs[0]["launches_by_design"].items()}
+    return launches, designs
+
+
+def _dequantized(tree: dict) -> dict:
+    """An int8 weight tree with each ``{"qw", "scale"}`` leaf replaced by
+    ``qw * scale`` in f32: the weights the plain forward runs on."""
+    return {k: (v["qw"].float() * v["scale"] if "qw" in v
+                else _dequantized(v)) if isinstance(v, dict) else v
+            for k, v in tree.items()}
+
+
+def _host_copy(tree: dict) -> dict:
+    """The same values in host memory: a publish from the host."""
+    from distributed_training_tpu_torch.train.optimizer import (
+        flatten,
+        unflatten,
+    )
+
+    return unflatten({k: t.cpu() for k, t in flatten(tree).items()})
+
+
+def phase_serving_int8(prompts: list, new_tokens: int,
+                       batched_tokens: dict) -> tuple:
+    """gpt2_125m served from int8 weight-only leaves (every q/k/v/o and
+    MLP weight, dequantized to bf16 one layer at a time inside the
+    programs), engine only: batched prefill with one-token decode and
+    with resident_k 8 (each beside the same run on the bf16 weights, in
+    this call), and sequential prefill (chunk 128) over the long prompts,
+    whose first chunks take the flash forward on int8-dequantized q/k/v.
+    Then float32: every request's first-decode logits of the int8 engine
+    against the plain forward on the dequantized weights."""
+    from distributed_training_tpu_torch.serving.disagg import (
+        quantize_params_int8,
+        quantized_weight_bytes,
+    )
+
+    model, params = _gpt2("bfloat16")
+    qparams = quantize_params_int8(params)
+    long = [i for i, p in enumerate(prompts) if len(p) >= 128]
+    K = 8
+    runs, counted = {}, []
+    for name, tree, over, ids in (
+            ("bf16_one_token", params, {}, range(len(prompts))),
+            ("int8_one_token", qparams, {}, range(len(prompts))),
+            ("bf16_resident_k_8", params, {"resident_k": K},
+             range(len(prompts))),
+            ("int8_resident_k_8", qparams, {"resident_k": K},
+             range(len(prompts))),
+            ("int8_sequential", qparams,
+             {"prefill_mode": "sequential", "prefill_chunk": 128}, long)):
+        ids = list(ids)
+        eng = _engine(model, tree, **over)
+        events = _time_bursts(eng) if "resident_k" in over else None
+        res = _mesh_serve(eng, [prompts[i] for i in ids], new_tokens)
+        what = f"serving_int8 {name}"
+        check(res["compile_counts_stable"], f"{what}: a build or capture "
+              "after warmup")
+        check(res["pages_left"] == [0], f"{what}: pages left")
+        got = {ids[j]: t for j, t in res["tokens"].items()}
+        check(len(got) == len(ids) and all(len(t) == new_tokens
+                                           for t in got.values()),
+              f"{what}: not every request completed in full")
+        launches = res["launches"]
+        if "resident_k" in over:
+            check(launches["paged_decode"] == 12 * K
+                  * eng.resident_stats["launches"] > 0,
+                  f"{what}: paged decode launches {launches['paged_decode']}")
+        else:
+            check(launches["paged_decode"] >= 12 * res["decode_launches"]
+                  > 0, f"{what}: paged decode launches "
+                  f"{launches['paged_decode']}")
+        _check_designs({"paged_decode": res["launches_by_design"]
+                        ["paged_decode"]}, "split_kv", what)
+        if name == "int8_sequential":
+            check(launches["flash_fwd"] == 12 * len(ids),
+                  f"{what}: flash launches {launches['flash_fwd']} != 12 x "
+                  f"{len(ids)} first chunks")
+            _check_designs({"flash_fwd": res["launches_by_design"]
+                            ["flash_fwd"]}, "wgmma", what)
+        bf16 = runs.get(name.replace("int8", "bf16"), {}).get("tokens",
+                                                              batched_tokens)
+        runs[name] = {
+            "wall_s": res["wall_s"], "tokens_per_s": res["tokens_per_s"],
+            "weight_bytes": eng.weight_bytes,
+            "decode_launches": res["decode_launches"],
+            "launches": launches,
+            "tokens_matching_bf16": _matching(got, {i: bf16[i]
+                                                    for i in ids}),
+            "tokens_total": sum(len(t) for t in got.values()),
+            "tokens": got}
+        if events is not None:
+            burst_ms = [a.elapsed_time(b) for a, b in events]
+            runs[name]["iteration_device_ms"] = float(
+                np.median(burst_ms)) / K
+        if name.startswith("int8"):
+            counted.append(res)
+        del eng
+        _free_memory()
+    check(runs["int8_one_token"]["weight_bytes"]
+          == quantized_weight_bytes(qparams)["int8"],
+          "serving_int8: engine weight bytes differ from the int8 count")
+    # One device copy: with the caller's tree dropped after the build,
+    # an engine holds its pools and its own weights, at most
+    # ``weight_bytes`` (an int8 leaf's scales are held in bf16).
+    held = {}
+    for name, make in (("int8", lambda: quantize_params_int8(params)),
+                       ("bf16", lambda: params)):
+        _free_memory()
+        base = torch.cuda.memory_allocated()
+        tree = make()
+        eng = _engine(model, tree)
+        del tree
+        _free_memory()
+        held[name] = (torch.cuda.memory_allocated() - base
+                      - eng.cache.pool_bytes)
+        check(held[name] <= eng.weight_bytes + HELD_SLACK_BYTES,
+              f"serving_int8: a {name} engine holds {held[name]} weight "
+              f"bytes on the device, more than its {eng.weight_bytes} "
+              f"(+{HELD_SLACK_BYTES}): a second copy")
+        del eng
+    # float32: the first decoded position's logits of every request.
+    m32, p32 = _gpt2("float32")
+    q32 = quantize_params_int8(p32)
+    eng = _engine(m32, q32)
+    few = prompts[:3]
+    logits = _first_decode_logits(eng, few)
+    deq = _dequantized(q32)
+    errs = {}
+    with torch.no_grad():
+        for rid, lg in logits.items():
+            seq = next(s for s in eng.slots
+                       if s is not None and s.req.id == rid)
+            ids = [int(t) for t in few[int(rid)]] + [seq.generated[0]]
+            dense, _ = m32.apply(deq, torch.tensor([ids]))
+            errs[rid] = (lg - dense[0, -1].float().cpu()).abs().max().item()
+    sizes = quantized_weight_bytes(q32)
+    f32_int8_bytes = eng.weight_bytes
+    del eng, deq
+    _free_memory()
+    check(len(errs) == len(few) and max(errs.values()) <= INT8_LOGITS_TOL,
+          f"serving_int8: f32 first-decode logits off the dequantized "
+          f"forward by {errs} (limit {INT8_LOGITS_TOL})")
+    emit({"phase": "serving_int8", "dtype": "bfloat16", "requests":
+          len(prompts), "new_tokens": new_tokens,
+          **{k: {f: v for f, v in r.items() if f != "tokens"}
+             for k, r in runs.items()},
+          "weight_bytes": {"int8_bf16_tree": runs["int8_one_token"]
+                           ["weight_bytes"],
+                           "bf16": runs["bf16_one_token"]["weight_bytes"],
+                           "int8_f32_tree": f32_int8_bytes,
+                           "fp32": sizes["fp32"],
+                           "int8_over_fp32": f32_int8_bytes
+                           / sizes["fp32"]},
+          "device_bytes_held_beyond_pools": held,
+          "f32_first_decode_logits_max_abs_err": max(errs.values()),
+          "f32_logits_tol": INT8_LOGITS_TOL})
+    return _summed_launches(counted)
+
+
+def _serve_until_burst(eng, prompts: list, new_tokens: int) -> None:
+    """Submit the prompts and step until the first decode launch."""
+    from distributed_training_tpu_torch.serving.engine import Request
+
+    for i, p in enumerate(prompts):
+        eng.submit(Request(id=str(i), prompt=p, max_new_tokens=new_tokens))
+    while eng.decode_launches == 0:
+        eng.step()
+
+
+def phase_serving_swap(prompts: list, new_tokens: int) -> tuple:
+    """Live weight swap on a resident engine (resident_k 8, one CUDA
+    graph captured at warmup): after the first burst every request is
+    in flight, and a host-resident copy of the same bf16 weights is
+    published; the tokens must equal the unswapped run's bit for bit,
+    with still one capture. Then a swap to second-seed weights with the
+    staleness bound 0 (every request preempted and regenerated on the
+    new weights) must equal a fresh engine on those weights at float32;
+    at bf16 the matching tokens are reported."""
+    K = 8
+    report = {}
+    model, params = _gpt2("bfloat16")
+    ref = _mesh_serve(_engine(model, params, resident_k=K), prompts,
+                      new_tokens)["tokens"]
+    _free_memory()
+    eng = _engine(model, params, resident_k=K)
+    counts = eng.warmup()
+    _reset_counts()
+    t0 = time.perf_counter()
+    _serve_until_burst(eng, prompts, new_tokens)
+    check(eng.in_flight == len(prompts), "serving_swap: a request finished "
+          "before the swap")
+    host = _host_copy(params)
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    stale = eng.swap_weights(host, "v1")
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - s0) * 1e3
+    while not eng.idle:
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, designs = _read_counts(), _read_designs()
+    got = {int(r["id"]): r["tokens"] for r in eng.completed}
+    versions = {int(r["id"]): r["weights_versions"] for r in eng.completed}
+    check(stale == 0 and eng.swap_stats["installed"] == 1,
+          f"serving_swap: {eng.swap_stats}")
+    check(got == ref, "serving_swap: tokens after an identical-value swap "
+          f"differ from the unswapped run's in {_matching(got, ref)} of "
+          f"{sum(len(t) for t in ref.values())} places")
+    check(eng.compile_counts() == counts and eng._resident.captures == 1,
+          f"serving_swap: captures {eng.compile_counts()} after {counts}")
+    check(all([v for v, _n in vs] == ["v0", "v1"] for vs in versions.values()),
+          f"serving_swap: weight versions {versions}")
+    report["identical_bf16"] = {"swap_ms": swap_ms, "wall_s": wall,
+                                "captures": eng._resident.captures,
+                                "tokens_equal": True,
+                                "swap_bytes": eng.weight_bytes}
+    del eng
+    _free_memory()
+    # Second-seed weights at the staleness bound 0.
+    for dtype in ("float32", "bfloat16"):
+        model, params = _gpt2(dtype)
+        params2 = model.init(SEED + 1)
+        want = _mesh_serve(_engine(model, params2, resident_k=K), prompts,
+                           new_tokens)["tokens"]
+        _free_memory()
+        eng = _engine(model, params, resident_k=K, swap_staleness_tokens=0)
+        eng.warmup()
+        _serve_until_burst(eng, prompts, new_tokens)
+        host = _host_copy(params2)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        stale = eng.swap_weights(host, "v1")
+        torch.cuda.synchronize()
+        swap_ms = (time.perf_counter() - s0) * 1e3
+        while not eng.idle:
+            eng.step()
+        got = {int(r["id"]): r["tokens"] for r in eng.completed}
+        check(stale == len(prompts), f"serving_swap {dtype}: {stale} "
+              "requests preempted for staleness")
+        check(all(r["weights_versions"] == [["v1", new_tokens]]
+                  for r in eng.completed),
+              f"serving_swap {dtype}: a completed request carries "
+              "superseded tokens")
+        same = _matching(got, want)
+        if dtype == "float32":
+            check(got == want, f"serving_swap: f32 tokens after a swap at "
+                  f"staleness 0 differ from a fresh engine's ({same} of "
+                  f"{sum(len(t) for t in want.values())} match)")
+        report[f"second_seed_{dtype}"] = {
+            "swap_ms": swap_ms, "stale_preempted": stale,
+            "tokens_matching_fresh": same,
+            "tokens_total": sum(len(t) for t in want.values())}
+        del eng, params, params2
+        _free_memory()
+    emit({"phase": "serving_swap", "resident_k": K,
+          "requests": len(prompts), "new_tokens": new_tokens, **report,
+          "launches": launches})
+    return launches, designs
+
+
+def _exactly_once(streams: dict, want: dict) -> bool:
+    """Every stream delivered each of its request's tokens once, in
+    order: equal to the uncrashed run's tokens."""
+    return streams == {str(i): t for i, t in want.items()}
+
+
+def _supervised_serve(model, params, prompts: list, new_tokens: int,
+                      crash_at: int, ledger: str, drop_hwm: bool) -> dict:
+    """The prompts under ``supervise_serving`` with ``engine_crash@N``
+    on one shared injector, streams collected from listeners; each
+    ``export_in_flight`` and ``adopt_batch`` timed (CUDA synchronized)
+    with the KV bytes it moved. ``drop_hwm`` plants a fault: the
+    successor imports the listeners but not the high-water marks."""
+    from distributed_training_tpu_torch.resilience.faults import (
+        FaultInjector,
+    )
+    from distributed_training_tpu_torch.resilience.supervisor import (
+        RestartPolicy,
+        supervise_serving,
+    )
+    from distributed_training_tpu_torch.serving.engine import Request
+
+    inj = FaultInjector(f"engine_crash@{crash_at}", ledger_path=ledger)
+    streams: dict = {}
+    moves: list = []
+
+    def timed(fn, what):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            items = out["adoptable"] if what == "export" else args[0]
+            moves.append({"op": what, "ms": (time.perf_counter() - t0) * 1e3,
+                          "sequences": len(items),
+                          "kv_bytes": sum(k.numel() * k.element_size() * 2
+                                          for _r, _t, k, _v in items)})
+            return out
+        return call
+
+    def make_engine():
+        eng = _engine(model, params)
+        eng.warmup()
+        eng.faults = inj
+        eng.export_in_flight = timed(eng.export_in_flight, "export")
+        eng.adopt_batch = timed(eng.adopt_batch, "adopt")
+        if drop_hwm:
+            imp = eng.import_emission_state
+            eng.import_emission_state = lambda st: imp(
+                {"listeners": st["listeners"]})
+        return eng
+
+    def run(eng, incarnation):
+        if incarnation == 0:
+            for i, p in enumerate(prompts):
+                rid = str(i)
+                eng.submit(Request(id=rid, prompt=p,
+                                   max_new_tokens=new_tokens))
+                eng.add_token_listener(rid, (
+                    lambda r: lambda t, d: streams.setdefault(r, []).append(
+                        t))(rid))
+        eng.run_until_drained()
+        return eng.finished_total
+
+    t0 = time.perf_counter()
+    res = supervise_serving(make_engine, run, policy=RestartPolicy(
+        max_restarts=2, backoff_base_s=0.0, backoff_max_s=0.0))
+    torch.cuda.synchronize()
+    eng = res["engine"]
+    return {"wall_s": time.perf_counter() - t0, "res": res,
+            "streams": streams, "moves": moves,
+            "tokens": {int(r["id"]): r["tokens"] for r in eng.completed},
+            "pages_used": eng.cache.pages_used,
+            "launch_count": eng.launch_count}
+
+
+def phase_serving_recovery(prompts: list, tmp: str) -> tuple:
+    """``engine_crash@N`` under ``supervise_serving``, float32, one-token
+    decode: the crash lands after every request decoded a few tokens;
+    the supervisor salvages every sequence's dense KV
+    (``export_in_flight``), a fresh engine re-adopts it
+    (``adopt_batch``), and the run finishes. Every stream must deliver
+    each token once and equal the uncrashed run; the same run with the
+    successor's high-water marks dropped (a planted fault) must fail
+    that check."""
+    new_tokens = 32
+    model, params = _gpt2("float32")
+    ref_eng = _engine(model, params)
+    ref = _mesh_serve(ref_eng, prompts, new_tokens)["tokens"]
+    # The launch after which the longest prompt is prefilled and every
+    # request has decoded RECOVERY_DECODES tokens.
+    crash_at = ref_eng.prefill_launches + RECOVERY_DECODES
+    del ref_eng
+    _free_memory()
+    _reset_counts()
+    run = _supervised_serve(model, params, prompts, new_tokens, crash_at,
+                            os.path.join(tmp, "ledger.json"), False)
+    torch.cuda.synchronize()
+    launches, designs = _read_counts(), _read_designs()
+    res = run["res"]
+    check(not res["gave_up"] and res["incarnations"] == 2
+          and len(res["crashes"]) == 1
+          and "InjectedCrash" in res["crashes"][0]["error"],
+          f"serving_recovery: {res['crashes']}, {res['incarnations']} "
+          "incarnations")
+    exports = [m for m in run["moves"] if m["op"] == "export"]
+    adopts = [m for m in run["moves"] if m["op"] == "adopt"]
+    check(len(exports) == len(adopts) == 1
+          and exports[0]["sequences"] == len(prompts),
+          f"serving_recovery: KV moves {run['moves']}")
+    check(run["tokens"] == ref, "serving_recovery: tokens differ from the "
+          "uncrashed run")
+    check(_exactly_once(run["streams"], ref), "serving_recovery: a stream "
+          "lost or repeated a token")
+    check(run["pages_used"] == 0, "serving_recovery: pages left")
+    check(launches["paged_decode"] > 0, "serving_recovery: no decode")
+    _check_designs({"paged_decode": designs["paged_decode"]}, "split_kv",
+                   "serving_recovery")
+    _free_memory()
+    fault = _supervised_serve(model, params, prompts, new_tokens, crash_at,
+                              os.path.join(tmp, "ledger_fault.json"), True)
+    check(not _exactly_once(fault["streams"], ref),
+          "serving_recovery: the planted fault (high-water marks dropped) "
+          "passed the exactly-once check")
+    repeated = sum(len(fault["streams"][str(i)]) - len(t)
+                   for i, t in ref.items())
+    emit({"phase": "serving_recovery", "dtype": "float32",
+          "requests": len(prompts), "new_tokens": new_tokens,
+          "crash_at_launch": crash_at, "wall_s": run["wall_s"],
+          "incarnations": res["incarnations"],
+          "export_ms": exports[0]["ms"], "adopt_ms": adopts[0]["ms"],
+          "kv_bytes": exports[0]["kv_bytes"],
+          "sequences_moved": exports[0]["sequences"],
+          "exactly_once": True, "tokens_equal_uncrashed": True,
+          "fault_tokens_repeated": repeated, "launches": launches})
+    del model, params
+    _free_memory()
+    return launches, designs
 
 
 def phase_trace(prompts: list, new_tokens: int) -> None:
@@ -2510,12 +2945,15 @@ def main() -> int:
     seq_launches = phase_sequential(long, 64, batched)
     spec_launches = phase_serving_spec(prompts, 64, batched)
     resident_launches = phase_serving_resident(prompts, 64, batched)
+    int8_launches = phase_serving_int8(prompts, 64, batched)
+    swap_launches = phase_serving_swap(prompts, 64)
     phase_parity([p for p in prompts if len(p) >= 128][:2], 16)
     phase_trace(prompts, 64)
     phase_trace_resident(prompts, 64)
     with tempfile.TemporaryDirectory(prefix="dtt_chip_smoke_") as tmp:
         mesh_launches = {name: phase_serving_mesh(name, prompts, batched, tmp)
                          for name in SERVING_MESHES}
+        recovery_launches = phase_serving_recovery(prompts, tmp)
         train_launches = phase_train(tmp)
         split_launches = phase_train_split(tmp)
         phase_train_parity(tmp)
@@ -2547,10 +2985,12 @@ def main() -> int:
             "distributed_training_tpu/ops/paged_attention.py:152")}
     # Launches: the sum over the paths driven above, each counted from 0
     # (serving, sequential prefill, speculative serving, resident serving,
+    # int8 serving, the swapped resident engine, the supervised recovery,
     # training, split-backward training, transformer_1b under fsdp and
     # under tp_fsdp, gpt2_125m under tp at tp 2, serving on the meshes dp
     # 2 and tp 2: both processes).
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
+             int8_launches, swap_launches, recovery_launches,
              *mesh_launches.values(), train_launches, split_launches,
              train_1b_launches, tp_1b_launches, tp2_launches)
     kernels = []

@@ -11,8 +11,11 @@ machine with enough memory for the whole state.
     python -m distributed_training_tpu_torch.checkpoint.export \\
         --ckpt outputs/default/checkpoints --out model.pt
 
-Weight-only int8 export waits for ROADMAP.md queue A item 8, and the
-sharding-plan provenance stamp for item 17.
+``--quantize int8`` writes the params in the int8 weight-only layout
+(``serving/disagg.py::quantize_params_int8``) and stamps
+``meta["quantization"] = "int8"``; such an artifact's params go straight
+into an ``Engine``. The sharding-plan provenance stamp waits for
+ROADMAP.md queue A item 17.
 """
 
 from __future__ import annotations
@@ -102,10 +105,9 @@ def restore_step_local(ckpt_dir: str, step: int | None = None
 
 def export(ckpt_dir: str, out_path: str, step: int | None = None,
            plan: str | None = None, quantize: str | None = None) -> dict:
-    if quantize is not None:
-        raise NotImplementedError(
-            f"--quantize {quantize}: weight-only int8 export waits for "
-            "ROADMAP.md queue A item 8")
+    if quantize not in (None, "int8"):
+        raise ValueError(
+            f"unsupported --quantize '{quantize}' (supported: int8)")
     if plan not in (None, "none"):
         raise NotImplementedError(
             f"--plan {plan}: sharding-plan provenance waits for ROADMAP.md "
@@ -122,9 +124,17 @@ def export(ckpt_dir: str, out_path: str, step: int | None = None,
         with open(meta_file) as f:
             meta = json.load(f) or {}
     meta.setdefault("step", int(step))
+    if quantize == "int8":
+        from distributed_training_tpu_torch.serving.disagg import (
+            quantize_params_int8,
+        )
+
+        state = dict(state)
+        state["params"] = quantize_params_int8(state["params"])
+        meta["quantization"] = "int8"
     n = write_artifact(out_path, state, meta)
     return {"out": out_path, "step": int(step), "bytes": n,
-            "quantization": "none"}
+            "quantization": quantize or "none"}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -138,8 +148,9 @@ def main(argv: list[str] | None = None) -> int:
                    help="sharding-plan provenance stamp (waits for "
                         "ROADMAP.md item 17; 'none' to skip)")
     p.add_argument("--quantize", default=None, choices=("int8",),
-                   help="weight-only quantization (waits for ROADMAP.md "
-                        "item 8)")
+                   help="weight-only quantization of the exported params "
+                        "(per-channel int8, stamped into the artifact's "
+                        "meta)")
     args = p.parse_args(argv)
     print(json.dumps(export(args.ckpt, args.out, args.step,
                             plan=args.plan, quantize=args.quantize)))

@@ -8,6 +8,11 @@ shapes, no ``lm_head`` when embeddings are tied (the head is
 ``tok_embed.T`` on both sides). This module imports neither framework's
 model code from the other: it checks the tree against
 ``param_shapes(cfg)``.
+
+An int8 weight-only tree (``serving/disagg.py::quantize_params_int8``,
+or the JAX package's) carries across too: a ``{"qw", "scale"}`` node at
+a ``_QUANT_AXES`` site becomes an int8 ``qw`` of the weight's shape and
+an f32 ``scale`` of its keepdims shape, never cast to the param dtype.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from distributed_training_tpu_torch.models.transformer import (
+    _QUANT_AXES,
     TransformerConfig,
     param_shapes,
     torch_dtype,
@@ -26,12 +32,37 @@ from distributed_training_tpu_torch.runtime import resolve_device
 def from_jax_params(np_tree: dict, cfg: TransformerConfig,
                     device=None) -> dict:
     """numpy weight tree → the port's tensors on ``device`` (None → the
-    CUDA card), in ``cfg.param_dtype``. Raises ``ValueError`` on a
-    missing or extra key or a wrong shape."""
+    CUDA card), in ``cfg.param_dtype`` (int8 leaves as int8 and f32).
+    Raises ``ValueError`` on a missing or extra key or a wrong shape."""
     dev = resolve_device(device)
     pdt = torch_dtype(cfg.param_dtype)
 
+    def tensor(node, shape, dtype, path):
+        arr = np.asarray(node)
+        if arr.shape != tuple(shape):
+            raise ValueError(f"weights at '{path}': shape {arr.shape} != "
+                             f"expected {tuple(shape)}")
+        if dtype == torch.int8:
+            if arr.dtype != np.int8:
+                raise ValueError(f"weights at '{path}': dtype {arr.dtype} "
+                                 "!= int8")
+            return torch.from_numpy(np.array(arr)).to(dev)
+        # via f32: numpy has no native bf16, and bf16 -> f32 is exact.
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+            device=dev, dtype=dtype)
+
     def conv(node, expected, path):
+        site = tuple(path.strip("/").split("/"))
+        if site in _QUANT_AXES and isinstance(node, dict):
+            if set(node) != {"qw", "scale"}:
+                raise ValueError(f"int8 leaf at '{path}': keys "
+                                 f"{sorted(node)} != ['qw', 'scale']")
+            kept = [1 if d in _QUANT_AXES[site] else n
+                    for d, n in enumerate(expected)]
+            return {"qw": tensor(node["qw"], expected, torch.int8,
+                                 f"{path}/qw"),
+                    "scale": tensor(node["scale"], kept, torch.float32,
+                                    f"{path}/scale")}
         if isinstance(expected, dict):
             if not isinstance(node, dict) or set(node) != set(expected):
                 got = sorted(node) if isinstance(node, dict) else node
@@ -40,12 +71,6 @@ def from_jax_params(np_tree: dict, cfg: TransformerConfig,
                     f"{sorted(expected)}")
             return {k: conv(node[k], expected[k], f"{path}/{k}")
                     for k in expected}
-        arr = np.asarray(node)
-        if arr.shape != tuple(expected):
-            raise ValueError(f"weights at '{path}': shape {arr.shape} != "
-                             f"expected {tuple(expected)}")
-        # via f32: numpy has no native bf16, and bf16 -> f32 is exact.
-        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
-            device=dev, dtype=pdt)
+        return tensor(node, expected, pdt, path)
 
     return conv(np_tree, param_shapes(cfg), "")

@@ -195,25 +195,51 @@ def param_shapes(cfg: TransformerConfig) -> dict:
     return shapes
 
 
+# The int8 weight-only sites (the serving transformer's matmul operands)
+# and the dims their per-output-channel scale reduces over; dim 0 is the
+# stacked layer axis, always kept. Embeddings, the head, norms and
+# biases stay as they are (``serving/disagg.py`` quantizes).
+_QUANT_AXES: dict[tuple[str, str], tuple[int, ...]] = {
+    ("attn", "wq"): (1,),        # (L, D, H, hd)  — reduce D
+    ("attn", "wk"): (1,),        # (L, D, Hkv, hd)
+    ("attn", "wv"): (1,),        # (L, D, Hkv, hd)
+    ("attn", "wo"): (1, 2),      # (L, H, hd, D)  — reduce H, hd
+    ("mlp", "wi"): (1,),         # (L, D, F)      — reduce D
+    ("mlp", "wo"): (1,),         # (L, F, D)      — reduce F
+}
+
+
+def _is_quant_leaf(x) -> bool:
+    """An int8 weight-only leaf: ``{"qw": int8, "scale": f32}``."""
+    return isinstance(x, dict) and "qw" in x and "scale" in x
+
+
 def cast_for_compute(params: dict, cfg: TransformerConfig) -> dict:
     """Every leaf the forward casts to the compute dtype, cast once.
 
     The JAX programs cast each weight at its use (``_w``); casting ahead
     gives the same values without a per-step cast. Layer-norm scales and
-    biases stay in the parameter dtype: the norm applies them in f32."""
+    biases stay in the parameter dtype: the norm applies them in f32. An
+    int8 weight-only leaf (``{"qw", "scale"}``) passes through whole: the
+    serving programs dequantize it one layer at a time."""
     dt = torch_dtype(cfg.dtype)
     out = {k: v for k, v in params.items()}
     for key in ("tok_embed", "pos_embed", "lm_head"):
         if key in params:
             out[key] = params[key].to(dt)
-    out["attn"] = {k: w.to(dt) for k, w in params["attn"].items()}
-    out["mlp"] = {k: w.to(dt) for k, w in params["mlp"].items()}
+    for grp in ("attn", "mlp"):
+        out[grp] = {k: w if _is_quant_leaf(w) else w.to(dt)
+                    for k, w in params[grp].items()}
     return out
 
 
 def layer_slice(params: dict, i: int) -> dict:
-    """Layer ``i``'s weights from the stacked ``(L, …)`` leaves."""
-    return {k: {n: w[i] for n, w in params[k].items()} for k in _STACKED}
+    """Layer ``i``'s weights from the stacked ``(L, …)`` leaves; an int8
+    leaf gives layer ``i``'s ``qw`` and ``scale``."""
+    return {k: {n: ({m: t[i] for m, t in w.items()} if _is_quant_leaf(w)
+                    else w[i])
+                for n, w in params[k].items()}
+            for k in _STACKED}
 
 
 def _cast_layer(layer: dict, dt: torch.dtype) -> dict:

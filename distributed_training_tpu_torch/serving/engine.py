@@ -78,11 +78,29 @@ makes every process raise ``RuntimeError`` naming the step, instead of
 hanging in a later collective or going on with other decisions. No
 scheduling decision reads the clock.
 
+**Serving weights and recovery.** Weights may be int8 weight-only
+leaves (``serving/disagg.py::quantize_params_int8``), dequantized at
+compute one layer at a time (``_w``). The engine computes from tensors
+of its own (``Engine.params``: this rank's weights in compute dtype,
+one device copy; it keeps no reference to the caller's tree), so
+``swap_weights`` republishes a weight set while it serves by copying
+the new values into them: the programs and the resident burst's CUDA
+graph read the new weights with no recapture.
+``drain`` stops admission and runs in-flight work out (or persists it
+at a deadline through ``export_in_flight``), ``preempt`` hands back
+every request, ``adopt_batch`` takes sequences with their dense KV, and
+every emitted token passes an exactly-once gate (``_emit_hwm``) that a
+resubmitted or re-adopted request's regenerated prefix never passes
+twice; ``resilience/supervisor.py::supervise_serving`` strings these
+together across an engine crash. The ``faults`` slot takes a
+``resilience/faults.py::FaultInjector`` whose serving kinds fire after
+each launch's step record.
+
 What waits for later slices raises ``NotImplementedError`` naming its
-ROADMAP.md item: int8 weight leaves, weight hot-swap, drain,
-preempt/adopt/export, fault hooks, a mesh over other axes than dp and
-tp, and the resident burst under tp > 1 on the card over anything but
-NCCL.
+ROADMAP.md item: a mesh over other axes than dp and tp, the resident
+burst under tp > 1 on the card over anything but NCCL, and
+``export_in_flight``/``adopt_batch`` on a mesh of more than one process
+(dense KV there needs a gather across the mesh).
 """
 
 from __future__ import annotations
@@ -101,10 +119,12 @@ import torch.nn.functional as F
 
 from distributed_training_tpu_torch.kernels import build
 from distributed_training_tpu_torch.models.transformer import (
+    _is_quant_leaf,
     _layer_norm,
     cast_for_compute,
     check_tp_split,
     layer_slice,
+    torch_dtype,
 )
 from distributed_training_tpu_torch.ops.attention import dot_product_attention
 from distributed_training_tpu_torch.ops.paged_attention import (
@@ -118,7 +138,14 @@ from distributed_training_tpu_torch.parallel.strategy import (
     get_strategy,
     layout,
 )
+from distributed_training_tpu_torch.resilience.faults import InjectedCrash
 from distributed_training_tpu_torch.runtime import resolve_device
+from distributed_training_tpu_torch.serving.disagg import (
+    ProvenanceError,
+    export_kv_batch,
+    import_kv_batch,
+    quant_leaves,
+)
 from distributed_training_tpu_torch.serving.kv_cache import (
     PagedCacheConfig,
     PagedKVCache,
@@ -135,10 +162,8 @@ MESH_AXIS_ITEMS = {
     "pp": "ROADMAP.md queue A item 16 (pipeline parallelism)"}
 TP_RESIDENT_ITEM = ("ROADMAP.md queue A item 7, left there: 'the resident "
                     "burst under tp > 1 on cards'")
-INT8_ITEM = "ROADMAP.md queue A 'Serving: int8 weight-only leaves'"
-LIFECYCLE_ITEM = ("ROADMAP.md queue A 'Serving: hot-swap, drain, "
-                  "preempt, adopt and export'")
-FAULTS_ITEM = "ROADMAP.md queue A 'Serving: fault hooks'"
+MESH_KV_ITEM = ("ROADMAP.md queue A item 9, left here: dense KV of a "
+                "mesh of more than one process")
 
 # The CUDA kernels each program launches (``compile_counts``).
 _PROGRAM_KERNELS = {
@@ -164,8 +189,9 @@ class EngineConfig:
     iterations of one device-resident burst (each ``spec_k`` wide).
     ``dp_axis`` names the mesh axis the slots and pools are dealt over,
     ``kv_axis`` the one the pools' kv heads (and the programs' heads)
-    split over. ``swap_staleness_tokens`` belongs to hot-swap, a later
-    slice's."""
+    split over. ``swap_staleness_tokens``: after a weight swap, a
+    sequence that has emitted more tokens than this is preempted and
+    resubmitted (-1: never)."""
 
     max_batch: int = 8            # decode slots, aggregate over dp
     page_size: int = 16
@@ -255,6 +281,9 @@ class _Seq:
     eos: bool = False             # emitted the configured stop token
     queue_wait_s: float | None = None  # arrival -> admission
     ngram: NgramIndex | None = None  # lazy prompt-lookup index
+    # Per-token weight-version tags, run-length encoded as [version,
+    # count] pairs in emission order.
+    versions: list = field(default_factory=list)
 
     @property
     def prompt_len(self) -> int:
@@ -446,9 +475,25 @@ def _logits(x: torch.Tensor, params: dict, cfg, tp) -> torch.Tensor:
     return (lg if tp is None else tp.gather(lg)).float()
 
 
+def _w(leaf) -> torch.Tensor:
+    """A weight leaf in compute dtype: an int8 weight-only leaf
+    (``{"qw", "scale"}``) dequantized here as ``qw * scale``, one
+    launch: the scale was cast to the compute dtype once
+    (``_own_compute``), and the int8 operand is promoted to it exactly
+    (|qw| <= 127), so the product has the bits of JAX's per-use
+    ``qw.astype(dt) * scale.astype(dt)``. Any other leaf is already in
+    compute dtype. Every weight product of the programs reads its
+    operand through this one helper, one layer at a time, so the device
+    holds int8 and scales plus one layer's dequantized transient, never
+    a whole dequantized copy."""
+    if isinstance(leaf, dict):
+        return leaf["qw"] * leaf["scale"]
+    return leaf
+
+
 def _mlp(x: torch.Tensor, layer: dict, tp=None) -> torch.Tensor:
     h = _layer_norm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
-    m = layer["mlp"]
+    m = {n: _w(w) for n, w in layer["mlp"].items()}
     u = F.gelu(h @ m["wi"] + m["bi"], approximate="tanh")
     if tp is None:
         return x + (u @ m["wo"] + m["bo"])
@@ -478,7 +523,7 @@ def _decode_program(params, k_pages, v_pages, tokens, positions,
     lengths = torch.where(active, positions + 1, 0).int()
     for i in range(cfg.n_layers):
         layer = layer_slice(params, i)
-        a = layer["attn"]
+        a = {n: _w(w) for n, w in layer["attn"].items()}
         kp, vp = k_pages[0, i], v_pages[0, i]
         h = _layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
         q = torch.einsum("bd,dhk->bhk", h, a["wq"])
@@ -532,7 +577,7 @@ def _prefill_program(params, k_pages, v_pages, page_row, live,
             if cfg.attention_impl in ("auto", "flash", "naive") else "auto")
     for i in range(cfg.n_layers):
         layer = layer_slice(params, i)
-        a = layer["attn"]
+        a = {n: _w(w) for n, w in layer["attn"].items()}
         kp, vp = k_pages[0, i], v_pages[0, i]
         h = _layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
         q = torch.einsum("cd,dhk->chk", h, a["wq"])
@@ -591,7 +636,7 @@ def _chunk_hidden(params, k_pages, v_pages, page_rows, tokens, start_pos,
     q_pos = torch.where(valid, abs_pos, -1)
     for i in range(cfg.n_layers):
         layer = layer_slice(params, i)
-        a = layer["attn"]
+        a = {n: _w(w) for n, w in layer["attn"].items()}
         kp, vp = k_pages[0, i], v_pages[0, i]
         h = _layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
         q = torch.einsum("scd,dhk->schk", h, a["wq"])
@@ -883,13 +928,17 @@ def _cow_program(k_pages, v_pages, src, dst) -> None:
 
 
 def _check_weight_leaves(tree, device: torch.device, path: str = "") -> int:
-    """Validate the weight pytree: tensors on ``device``; int8 weight-
-    only leaves (``{"qw", "scale"}``) are a later slice's. Returns the
-    byte count."""
+    """Validate the weight pytree: tensors on ``device``, an int8
+    weight-only leaf an int8 ``qw`` and an f32 ``scale``. Returns the
+    byte count (an int8 leaf's ``qw`` and ``scale`` bytes, as
+    ``quantized_weight_bytes(...)["int8"]`` counts them)."""
+    if _is_quant_leaf(tree):
+        if set(tree) != {"qw", "scale"} or \
+                tree["qw"].dtype != torch.int8 or \
+                tree["scale"].dtype != torch.float32:
+            raise TypeError(f"int8 weight leaf at '{path}' must be "
+                            "{'qw': int8, 'scale': float32}")
     if isinstance(tree, dict):
-        if "qw" in tree:
-            raise NotImplementedError(
-                f"int8 weight-only leaf at '{path}' waits for {INT8_ITEM}")
         return sum(_check_weight_leaves(v, device, f"{path}/{k}")
                    for k, v in tree.items())
     if not isinstance(tree, torch.Tensor):
@@ -898,6 +947,33 @@ def _check_weight_leaves(tree, device: torch.device, path: str = "") -> int:
         raise ValueError(f"weight leaf at '{path}' is on {tree.device}, "
                          f"the engine runs on {device}")
     return tree.numel() * tree.element_size()
+
+
+def _leaf_specs(params: dict) -> dict:
+    """``{"a/b": (shape, dtype)}`` of every tensor of a weight tree, an
+    int8 leaf's ``qw`` and ``scale`` each their own entry: the structure
+    ``swap_weights`` holds a publish to."""
+    return {k: (tuple(t.shape), t.dtype) for k, t in flatten(params).items()}
+
+
+def _own_compute(params: dict, cfg) -> dict:
+    """The weights in compute dtype (``cast_for_compute``, and an int8
+    leaf's ``scale`` too) in storage of the engine's own: a leaf the cast
+    would hand back as the caller's tensor (same dtype, an int8 ``qw``,
+    a norm) is cloned, so that ``swap_weights`` can copy a publish into
+    these in place without writing into the caller's weights, and the
+    engine keeps no reference to the caller's tree: one device copy."""
+    dt = torch_dtype(cfg.dtype)
+    cast = cast_for_compute(params, cfg)
+    for grp in ("attn", "mlp"):
+        cast[grp] = {n: ({"qw": w["qw"], "scale": w["scale"].to(dt)}
+                         if _is_quant_leaf(w) else w)
+                     for n, w in cast[grp].items()}
+    theirs = {t.untyped_storage().data_ptr()
+              for t in flatten(params).values()}
+    return unflatten({
+        k: t.clone() if t.untyped_storage().data_ptr() in theirs else t
+        for k, t in flatten(cast).items()})
 
 
 def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
@@ -931,28 +1007,47 @@ def _rank_params(params: dict, model, mesh, tp: int) -> dict:
     1 each leaf cut by the trainer's ``TensorParallel`` placements (query
     and kv heads, MLP columns and rows, vocab rows of the embedding and
     columns of the head; norms, ``bo`` and positions whole), else the
-    weights themselves."""
+    weights themselves. An int8 leaf's ``qw`` is cut like its weight and
+    its ``scale`` only on the dims where it is larger than 1 (the JAX
+    ``plan_shardings`` rule): column-parallel scales split with their
+    heads or columns, row-parallel ``wo`` scales stay whole."""
     if tp == 1:
         return params
     lay = layout(get_strategy("tp", mesh.spec),
                  flatten(model.param_shapes()), flatten(model.logical_axes()))
-    return unflatten({k: fsdp.shard(t, lay["params"][k], mesh)
-                      for k, t in flatten(params).items()})
+    out = {}
+    for k, leaf in quant_leaves(params).items():
+        pl = lay["params"][k]
+        if not _is_quant_leaf(leaf):
+            out[k] = fsdp.shard(leaf, pl, mesh)
+            continue
+        scale = leaf["scale"]
+        spl = pl and pl._replace(splits=tuple(
+            (d, axes) for d, axes in pl.splits if scale.shape[d] > 1))
+        out[k] = {"qw": fsdp.shard(leaf["qw"], pl, mesh),
+                  "scale": fsdp.shard(scale, spl or None, mesh)}
+    return unflatten(out)
 
 
 class Engine:
     """The continuous-batching engine over one model + weight set.
 
     ``model`` is the port's ``Transformer``; ``params`` its whole weight
-    pytree, already on ``device``. ``device=None`` runs on the CUDA card
-    and raises without one. ``mesh``: a ``Runtime`` over ``dp x tp``
-    processes, each running one engine given the same submissions; this
-    one keeps its tp rank's blocks of the weights and its dp group's
-    pool (module docstring). Every step emits a ``serving`` telemetry
-    record through the ambient sink."""
+    pytree (int8 weight-only leaves allowed), already on ``device``; the
+    engine copies what it needs (``self.params``) and keeps no reference
+    to it, so the caller may free it. ``device=None`` runs on the CUDA
+    card and raises without one.
+    ``mesh``: a ``Runtime`` over ``dp x tp`` processes, each running one
+    engine given the same submissions (and the same ``swap_weights``,
+    ``preempt`` and ``drain`` calls); this one keeps its tp rank's
+    blocks of the weights and its dp group's pool (module docstring).
+    ``weights_provenance``: the plan stamp (``{"name", "fingerprint"}``)
+    every later publish must carry. Every step emits a ``serving``
+    telemetry record through the ambient sink."""
 
     def __init__(self, model, params, cfg: EngineConfig, mesh=None,
-                 weights_version: str = "v0", device=None):
+                 weights_version: str = "v0", device=None,
+                 weights_provenance: dict | None = None):
         if getattr(model.cfg, "moe_num_experts", 0) > 0:
             raise ValueError("serving engine has no MoE decode path")
         if cfg.max_seq_len > model.cfg.max_seq_len:
@@ -1004,12 +1099,23 @@ class Engine:
         # The dp group whose row of every program this process launches.
         self._g = self.cache.local_group or 0
         _check_weight_leaves(params, self.device)
-        self.params = _rank_params(params, model, mesh, tp)
-        self.weight_bytes = _check_weight_leaves(self.params, self.device)
-        # Weights in compute dtype, cast once (the JAX programs cast at
-        # each use); layer-norm parameters stay in param dtype.
-        self._cparams = cast_for_compute(self.params, model.cfg)
+        self._specs = _leaf_specs(params)
+        self._tp_size = tp
+        rank = _rank_params(params, model, mesh, tp)
+        # Bytes of this rank's weights as given (an int8 leaf's qw and
+        # f32 scale): the JAX engine's count.
+        self.weight_bytes = _check_weight_leaves(rank, self.device)
+        # This rank's weights in compute dtype, cast once (the JAX
+        # programs cast at each use; int8 leaves are dequantized at each
+        # use), in storage of the engine's own that ``swap_weights``
+        # copies into: the engine's one device copy.
+        self.params = _own_compute(rank, model.cfg)
+        del rank
         self.weights_version = weights_version
+        self.weights_provenance = (dict(weights_provenance)
+                                   if weights_provenance else None)
+        self.swap_stats = {"installed": 0, "refused": 0,
+                           "stale_preempted": 0}
         self._sharing = cfg.prefix_sharing
         self.sessions: dict[str, dict] = {}
         # Orders retained sessions for LRU eviction (a count, not the
@@ -1041,7 +1147,20 @@ class Engine:
         self._host_gen = torch.Generator()
         self._host_gen.manual_seed(cfg.seed + 1_000_000)
         self._token_listeners: dict[str, object] = {}
+        # Exactly-once stream state: per request, the count of tokens
+        # already delivered. It survives preemption and export (unlike
+        # the listeners), so a resubmitted or re-adopted request's
+        # regenerated prefix is never delivered twice; popped at
+        # completion. ``finished_total`` is the progress count the
+        # serving supervisor's restart budget refunds against.
+        self._emit_hwm: dict[str, int] = {}
+        self.finished_total = 0
+        # ``draining`` gates admission only; ``launch_count`` (one per
+        # non-idle step) is what the ``faults`` injector's serving kinds
+        # key on (None: no injection).
+        self.draining = False
         self.launch_count = 0
+        self.faults = None
         # Speculative-decode accounting: per slot-launch totals, and the
         # last step's (slot launches, emitted) for the step record.
         self.spec_stats = {"launches": 0, "emitted": 0}
@@ -1063,44 +1182,12 @@ class Engine:
                     f"waits for {TP_RESIDENT_ITEM}")
             self._resident = _ResidentGraph(
                 functools.partial(
-                    _resident_program, self._cparams, cfg=model.cfg,
+                    _resident_program, self.params, cfg=model.cfg,
                     K=cfg.resident_k, C=cfg.spec_k, ngram=cfg.spec_ngram,
                     eos_id=cfg.eos_id, paged_impl=cfg.paged_impl,
                     tp=self._tp),
                 self.cache.k_pages, self.cache.v_pages, self.batch_local,
                 self.cache.cfg.pages_per_seq, cfg.max_seq_len, self.device)
-
-    # -- deferred features ---------------------------------------------------
-
-    @property
-    def faults(self):
-        """Fault-injection hook slot; always None in this slice."""
-        return None
-
-    @faults.setter
-    def faults(self, injector) -> None:
-        if injector is not None:
-            raise NotImplementedError(f"fault hooks wait for {FAULTS_ITEM}")
-
-    def swap_weights(self, params, version: str,
-                     provenance: dict | None = None):
-        raise NotImplementedError(f"swap_weights waits for {LIFECYCLE_ITEM}")
-
-    def drain(self, deadline_s: float | None = None) -> dict:
-        raise NotImplementedError(f"drain waits for {LIFECYCLE_ITEM}")
-
-    def preempt(self) -> list:
-        raise NotImplementedError(f"preempt waits for {LIFECYCLE_ITEM}")
-
-    def adopt(self, req, first_token, k_dense, v_dense) -> None:
-        raise NotImplementedError(f"adopt waits for {LIFECYCLE_ITEM}")
-
-    def adopt_batch(self, items) -> None:
-        raise NotImplementedError(f"adopt_batch waits for {LIFECYCLE_ITEM}")
-
-    def export_in_flight(self) -> dict:
-        raise NotImplementedError(
-            f"export_in_flight waits for {LIFECYCLE_ITEM}")
 
     # -- programs ------------------------------------------------------------
 
@@ -1111,7 +1198,7 @@ class Engine:
     def _decode(self, tokens, positions, rows, active) -> torch.Tensor:
         c = self.cfg
         return _decode_program(
-            self._cparams, self.cache.k_pages, self.cache.v_pages,
+            self.params, self.cache.k_pages, self.cache.v_pages,
             self._t(tokens).long(), self._t(positions).long(),
             self._t(rows), self._t(active), self._gen,
             cfg=self.model.cfg, temperature=c.temperature, top_k=c.top_k,
@@ -1123,7 +1210,7 @@ class Engine:
         (``emit="all"``)."""
         c = self.cfg
         return _chunk_program(
-            self._cparams, self.cache.k_pages, self.cache.v_pages,
+            self.params, self.cache.k_pages, self.cache.v_pages,
             self._t(rows), self._t(tokens).long(),
             self._t(start_pos).long(), self._t(n_valid).long(),
             self._t(active), self._gen, cfg=self.model.cfg,
@@ -1133,7 +1220,7 @@ class Engine:
     def _prefill_one(self, row, live: bool, chunk, start: int,
                      n_valid: int) -> torch.Tensor:
         return _prefill_program(
-            self._cparams, self.cache.k_pages, self.cache.v_pages,
+            self.params, self.cache.k_pages, self.cache.v_pages,
             self._t(row), live, self._t(chunk).long(), start, n_valid,
             cfg=self.model.cfg, first=start == 0, tp=self._tp)
 
@@ -1235,8 +1322,20 @@ class Engine:
         self._token_listeners.pop(req_id, None)
 
     def _emit_token(self, seq: _Seq, token: int) -> None:
+        """Tag the sequence's newest token with the live weight version
+        and deliver it to the request's listener unless its index is
+        below the request's high-water mark (a replayed prefix after a
+        preemption or a re-adoption, greedy-identical, is not delivered
+        again)."""
+        if not seq.versions or seq.versions[-1][0] != self.weights_version:
+            seq.versions.append([self.weights_version, 0])
+        seq.versions[-1][1] += 1
+        idx = len(seq.generated) - 1
+        fresh = idx >= self._emit_hwm.get(seq.req.id, 0)
+        if fresh:
+            self._emit_hwm[seq.req.id] = idx + 1
         fn = self._token_listeners.get(seq.req.id)
-        if fn is not None:
+        if fn is not None and fresh:
             try:
                 fn(int(token), seq.done)
             except Exception:
@@ -1496,11 +1595,12 @@ class Engine:
     def _scheduler_digest(self) -> int:
         """64 bits of the scheduler state every process of a mesh holds
         alike: the queued ids, each slot's occupant, pages used per
-        group."""
+        group, the weight version and whether it drains."""
         state = ([r.id for r in self.queue],
                  [None if s is None else s.req.id for s in self.slots],
                  [self.cache.pages_used_in(g)
-                  for g in range(self.dp_groups)])
+                  for g in range(self.dp_groups)],
+                 self.weights_version, self.draining)
         h = hashlib.blake2b(repr(state).encode(), digest_size=8).digest()
         return int.from_bytes(h, "little", signed=True)
 
@@ -1526,7 +1626,8 @@ class Engine:
         if self._mesh_group is not None:
             self._check_lockstep()
         pending = self._prefill_candidates()
-        can_admit = bool(self.queue) and self._free_slot() is not None
+        can_admit = (not self.draining and bool(self.queue)
+                     and self._free_slot() is not None)
         want_prefill = bool(pending or can_admit)
         decodable = self._decode_candidates()
         if self.cfg.policy == "prefill":
@@ -1544,7 +1645,8 @@ class Engine:
         if kind == "prefill":
             if self.cfg.prefill_mode == "batched":
                 # Admit everything slots+pages allow before the launch.
-                while self.queue and self._admit() is not None:
+                while not self.draining and self.queue \
+                        and self._admit() is not None:
                     pass
                 tokens_out = self._run_prefill_batch(
                     self._prefill_candidates())
@@ -1597,7 +1699,28 @@ class Engine:
         self._step_counter += 1
         if kind != "idle":
             self.launch_count += 1
+            if self.faults is not None:
+                self._run_faults()
         return rec
+
+    def _run_faults(self) -> None:
+        """The serving fault hook, after the step record (the injector
+        writes its ledger before any action, so a restart cannot re-fire
+        a fault). The injector sleeps ``slow_decode`` itself; the engine
+        acts on the kinds that need its state: ``client_disconnect``
+        drops one live stream listener (the high-water mark keeps
+        advancing, so the severed stream never resumes with duplicates),
+        and ``engine_crash`` raises out of ``step()`` as a real
+        engine-thread fault would."""
+        fired = self.faults.on_launch(self.launch_count)
+        if "client_disconnect" in fired and self._token_listeners:
+            rid = next(iter(self._token_listeners))
+            self._token_listeners.pop(rid, None)
+            logger.warning("injected client_disconnect: dropped stream "
+                           "listener %r", rid)
+        if "engine_crash" in fired:
+            raise InjectedCrash(
+                f"injected engine_crash at launch {self.launch_count}")
 
     def _fetch_host(self, *tensors) -> tuple:
         """The designated device->host transfer of the step loop: every
@@ -2021,8 +2144,11 @@ class Engine:
             "latency_s": now - arrival,
             "token_gaps_s": gaps,
             "group": self.group_of_slot(seq.slot),
+            "weights_versions": [list(p) for p in seq.versions],
         }
         self.completed.append(rec)
+        self.finished_total += 1
+        self._emit_hwm.pop(seq.req.id, None)
         event("serving_request",
               **{k: rec[k] for k in ("id", "tenant", "prompt_tokens",
                                      "new_tokens", "ttft_s",
@@ -2055,3 +2181,279 @@ class Engine:
         rec = next(r for r in reversed(self.completed)
                    if r["id"] == rid)
         return rec["tokens"]
+
+    # -- serving weights and recovery ---------------------------------------
+
+    def _single_process(self, what: str) -> None:
+        """Raise for ``what`` on a mesh of more than one process: a rank
+        holds only its dp group's pool at its own kv heads, so dense KV
+        needs a gather across the mesh."""
+        if self._mesh_group is not None:
+            raise NotImplementedError(
+                f"{what} on a mesh of {self.mesh.process_count} processes "
+                f"waits for {MESH_KV_ITEM}")
+
+    def adopt(self, req: Request, first_token: int, k_dense, v_dense
+              ) -> None:
+        """Adopt one externally prefilled sequence: its prompt KV arrives
+        dense (L, Hkv, prompt_len, hd) and decode continues here."""
+        self.adopt_batch([(req, first_token, k_dense, v_dense)])
+
+    def adopt_batch(self, items) -> None:
+        """Adopt many sequences in one batched page import (one scatter
+        per pool). ``items``: ``(req, tokens, k_dense, v_dense)`` with
+        ``tokens`` the first sampled token or the whole generated
+        history so far (the crash re-adoption of ``export_in_flight``);
+        the dense KV covers ``prompt_len + len(tokens) - 1`` positions
+        (the newest token's KV is written by its own decode launch).
+        Each goes to the group ``_pick_group`` picks. Raises before
+        touching the pools when a request gets no slot and pages, and
+        frees whatever the batch took: the caller holds it and
+        retries."""
+        self._single_process("adopt_batch")
+        now = time.monotonic()
+        staged = []
+        try:
+            for req, toks, k_dense, v_dense in items:
+                tokens = ([int(toks)] if isinstance(toks, (int, np.integer))
+                          else [int(t) for t in toks])
+                if not tokens:
+                    raise ValueError(
+                        f"adopt of {req.id!r} carries no tokens: a "
+                        "never-decoded sequence resubmits as a fresh "
+                        "request instead")
+                if req.arrival is None:
+                    req.arrival = now
+                self._validate(req)
+                need = req.prompt.shape[0] + len(tokens) - 1
+                picked = self._pick_group(need)
+                if picked is None:
+                    raise RuntimeError(
+                        f"no free slot/pages to adopt {req.id!r} into")
+                group, slot = picked
+                self.cache.join(req.id, group=group)
+                seq = _Seq(req=req, slot=slot,
+                           prefilled=int(req.prompt.shape[0]))
+                self._mark_admitted(seq)
+                self.slots[slot] = seq
+                staged.append((seq, tokens, k_dense, v_dense))
+            import_kv_batch(self.cache, [(s.req.id, k, v)
+                                         for s, _t, k, v in staged])
+        except Exception:
+            # A failed batch leaks no table entry or slot (a retry of the
+            # same id would otherwise hit "already joined"); ensure() is
+            # atomic per sequence, so freeing returns exactly the pages
+            # taken.
+            for s, _t, _k, _v in staged:
+                self.cache.free(s.req.id)
+                self.slots[s.slot] = None
+            raise
+        now = time.monotonic()
+        for seq, tokens, _k, _v in staged:
+            seq.first_token_t = now
+            for tok in tokens:
+                seq.token_times.append(now)
+                seq.generated.append(tok)
+                if self.cfg.eos_id >= 0 and tok == self.cfg.eos_id:
+                    seq.eos = True
+                self._emit_token(seq, tok)
+                self._register(seq)
+            self._maybe_finish(seq)
+
+    def preempt(self) -> list[Request]:
+        """Drop all device-side progress, free every sequence's pages and
+        hand back the unfinished work (in-flight requests, fresh, then
+        the queue), with their listeners dropped: a resubmitted request
+        restarts from its prompt. Retained sessions survive (their pages
+        are refcount-held and untouched by the frees)."""
+        lost: list[Request] = []
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            self.cache.free(s.req.id)
+            self.slots[i] = None
+            lost.append(Request(id=s.req.id, prompt=s.req.prompt,
+                                max_new_tokens=s.req.max_new_tokens,
+                                arrival=s.req.arrival, tenant=s.req.tenant))
+        lost.extend(self.queue)
+        self.queue.clear()
+        for req in lost:
+            self._token_listeners.pop(req.id, None)
+        event("serving_preempt", lost=len(lost))
+        return lost
+
+    def _replay_request(self, seq: _Seq) -> Request:
+        """A fresh Request with the original identity (id, arrival,
+        session, tenant), so the queue wait and the exactly-once stream
+        stay keyed to the same request."""
+        return Request(id=seq.req.id, prompt=seq.req.prompt,
+                       max_new_tokens=seq.req.max_new_tokens,
+                       arrival=seq.req.arrival, session=seq.req.session,
+                       tenant=seq.req.tenant)
+
+    def _preempt_seq(self, seq: _Seq) -> None:
+        """Preempt one in-flight sequence back to the head of the queue
+        (the staleness bound): pages freed, slot vacated, listener and
+        high-water mark kept, so greedy decode regenerates its prefix
+        without delivering it twice."""
+        self.cache.free(seq.req.id)
+        self.slots[seq.slot] = None
+        self.queue.appendleft(self._replay_request(seq))
+
+    def swap_weights(self, params, version: str,
+                     provenance: dict | None = None) -> int:
+        """Install a new weight set into the running engine between
+        launches. All or nothing: every gate runs before the first byte
+        is copied, and a refusal leaves the incumbent weights serving.
+
+        Gates, in order: (1) an injected ``swap_corrupt``; (2) plan
+        provenance, the same plan name and fingerprint as the engine's;
+        (3) tree structure and (4) each leaf's shape and dtype, against
+        the whole tree the engine was built with; (5) placement: the
+        tree is cut to this rank (``_rank_params``) and copied into the
+        engine's compute tensors, which the programs and the resident
+        burst's CUDA graph read, so nothing is captured again (the
+        port's "zero recompiles"). ``params`` may lie on the host or the
+        device; the engine keeps no reference to it.
+
+        In-flight sequences keep decoding on the new weights, each token
+        version-tagged. With ``cfg.swap_staleness_tokens`` >= 0 a
+        sequence that has emitted more tokens than that is preempted and
+        resubmitted instead. Returns the number so preempted."""
+
+        def refuse(exc: Exception):
+            self.swap_stats["refused"] += 1
+            event("serving_swap", outcome="refused", version=version,
+                  engine_version=self.weights_version, reason=str(exc))
+            logger.warning("weight swap to %r refused: %s", version, exc)
+            raise exc
+
+        if self.faults is not None and self.faults.on_swap(
+                self.launch_count):
+            refuse(ProvenanceError(
+                f"swap to {version!r}: injected swap_corrupt — published "
+                "artifact failed verification"))
+        if self.weights_provenance is not None:
+            if provenance is None:
+                refuse(ProvenanceError(
+                    f"swap to {version!r}: engine weights carry plan "
+                    f"provenance ({self.weights_provenance.get('name')}) "
+                    "but the publish carries none"))
+            for key in ("name", "fingerprint"):
+                if provenance.get(key) != self.weights_provenance.get(key):
+                    refuse(ProvenanceError(
+                        f"swap to {version!r}: plan {key} mismatch — "
+                        f"engine {self.weights_provenance.get(key)!r} vs "
+                        f"publish {provenance.get(key)!r}"))
+        elif provenance is None:
+            logger.warning("weight swap to %r: no provenance on either "
+                           "side; accepting on shape/dtype/placement gates "
+                           "only", version)
+        new = _leaf_specs(params)
+        if list(new) != list(self._specs):
+            refuse(ValueError(f"swap to {version!r}: params tree structure "
+                              "differs from the serving tree"))
+        bad = [i for i, (o, n) in enumerate(zip(self._specs.values(),
+                                                new.values())) if o != n]
+        if bad:
+            refuse(ValueError(
+                f"swap to {version!r}: {len(bad)} leaf(s) differ in "
+                f"shape/dtype (first at flat index {bad[0]})"))
+        rank = _rank_params(params, self.model, self.mesh, self._tp_size)
+        with torch.no_grad():
+            ours = flatten(self.params)
+            for k, t in flatten(rank).items():
+                ours[k].copy_(t)
+        self.weights_version = version
+        if provenance is not None:
+            self.weights_provenance = dict(provenance)
+        self.swap_stats["installed"] += 1
+        bound = self.cfg.swap_staleness_tokens
+        stale = []
+        if bound >= 0:
+            stale = [s for s in self.slots
+                     if s is not None and len(s.generated) > bound]
+            for s in stale:
+                self._preempt_seq(s)
+            self.swap_stats["stale_preempted"] += len(stale)
+        event("serving_swap", outcome="installed", version=version,
+              stale_preempted=len(stale), in_flight=self.in_flight,
+              swaps_installed=self.swap_stats["installed"])
+        return len(stale)
+
+    def drain(self, deadline_s: float | None = None) -> dict:
+        """Stop admission, run in-flight work to completion (or to
+        ``deadline_s``) and report each request's outcome: ``finished``,
+        ``persisted`` (still in flight at the deadline, exported through
+        ``export_in_flight`` for re-adoption, under ``export``) and
+        ``requeued`` (queued, never admitted; they stay queued).
+        Retained sessions survive. The engine stays draining (clear
+        ``draining`` to reopen admission). On a mesh a deadline would
+        read each process's clock, so only a drain without one runs
+        there."""
+        if deadline_s is not None:
+            self._single_process("drain with a deadline")
+        self.draining = True
+        t0 = time.monotonic()
+        n0 = len(self.completed)
+        steps = 0
+        while self.in_flight and (deadline_s is None
+                                  or time.monotonic() - t0 < deadline_s):
+            self.step()
+            steps += 1
+            if steps > 200_000:
+                raise RuntimeError(
+                    "drain not converging after 200k steps "
+                    f"(in_flight={self.in_flight})")
+        persisted = (self.export_in_flight() if self.in_flight
+                     else {"adoptable": [], "requests": []})
+        report = {
+            "finished": [r["id"] for r in self.completed[n0:]],
+            "persisted": ([it[0].id for it in persisted["adoptable"]]
+                          + [r.id for r in persisted["requests"]]),
+            "requeued": [r.id for r in self.queue],
+            "steps": steps,
+            "duration_s": time.monotonic() - t0,
+            "export": persisted,
+        }
+        event("serving_drain", deadline_s=deadline_s,
+              finished=len(report["finished"]),
+              persisted=len(report["persisted"]),
+              requeued=len(report["requeued"]), steps=steps,
+              duration_s=report["duration_s"])
+        return report
+
+    def export_in_flight(self) -> dict:
+        """Persist every in-flight sequence on the host and vacate its
+        device state (the crash salvage and the drain deadline).
+        Sequences that have decoded at least one token export their
+        exact dense KV (one ``export_kv_batch`` transfer) and generated
+        history as ``adopt_batch`` items (``"adoptable"``);
+        never-decoded ones come back as fresh requests (``"requests"``).
+        Listeners and high-water marks are left to
+        ``export_emission_state``."""
+        self._single_process("export_in_flight")
+        seqs = [s for s in self.slots if s is not None]
+        adoptable = [s for s in seqs if s.prefill_done and s.generated]
+        ks, vs = export_kv_batch(self.cache,
+                                 [s.req.id for s in adoptable])
+        items = [(self._replay_request(s), list(s.generated), k, v)
+                 for s, k, v in zip(adoptable, ks, vs)]
+        requests = [self._replay_request(s) for s in seqs
+                    if not (s.prefill_done and s.generated)]
+        for s in seqs:
+            self.cache.free(s.req.id)
+            self.slots[s.slot] = None
+        return {"adoptable": items, "requests": requests}
+
+    def export_emission_state(self) -> dict:
+        """The exactly-once stream state for a successor engine in this
+        process: the high-water marks and the live listeners."""
+        return {"hwm": dict(self._emit_hwm),
+                "listeners": dict(self._token_listeners)}
+
+    def import_emission_state(self, state: dict | None) -> None:
+        if not state:
+            return
+        self._emit_hwm.update(state.get("hwm", {}))
+        self._token_listeners.update(state.get("listeners", {}))

@@ -446,6 +446,28 @@ class PagedKVCache:
 
     # -- device-side views -------------------------------------------------
 
+    def gather_pages(self, groups: np.ndarray, pages: np.ndarray) -> tuple:
+        """The listed (group, page) pairs of both pools on the host,
+        (L, Hkv, n, ps, hd) each: one device gather, laid out there, and
+        one copy to the host per pool. Only these pages move, never the
+        whole pool. This process must hold every group
+        (``local_group`` None)."""
+        gi = torch.from_numpy(groups).to(self.device)
+        pi = torch.from_numpy(pages).to(self.device)
+        return tuple(pool[gi, :, :, pi].permute(1, 2, 0, 3, 4)
+                     .contiguous().cpu()
+                     for pool in (self.k_pages, self.v_pages))
+
+    def scatter_pages(self, groups: np.ndarray, pages: np.ndarray,
+                      k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write (L, Hkv, n, ps, hd) blocks into the listed (group, page)
+        pairs of the pools: one scatter per pool."""
+        gi = torch.from_numpy(groups).to(self.device)
+        pi = torch.from_numpy(pages).to(self.device)
+        for pool, new in ((self.k_pages, k), (self.v_pages, v)):
+            pool[gi, :, :, pi] = new.to(self.device, pool.dtype).permute(
+                2, 0, 1, 3, 4)
+
     def page_row(self, seq_id) -> np.ndarray:
         """(pages_per_seq,) int32 page-table row, scratch-padded."""
         row = np.zeros((self.cfg.pages_per_seq,), np.int32)

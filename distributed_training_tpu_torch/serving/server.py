@@ -10,18 +10,22 @@ The port of ``distributed_training_tpu/serving/server.py``'s core:
   encoding: one JSON line per token (``{"token": N}``) the moment the
   engine samples it, then a final ``{"done": true, "tokens", ...}``.
 - ``GET /healthz`` — 200 with queue/slot stats while the engine thread
-  is alive, 503 once it died.
+  is alive (``status`` "ok", or "draining" during a drain), 503 once it
+  died.
 
 Threading model: HTTP handlers never touch the engine. They append to a
 mailbox; the single engine thread admits mailbox requests, steps the
 engine and signals completion, so the engine stays single-threaded and
-a slow client cannot stall decode.
+a slow client cannot stall decode. ``swap_weights``, ``drain`` and
+``resume_admission`` are control commands that the engine thread runs
+between steps; while the engine drains, ``POST /generate`` answers 503
+with a ``Retry-After`` header.
 
 What waits (ROADMAP.md queue A 'Server: metrics, debug, load shedding
 and incidents', and 'Server: main and build_server'): ``GET /metrics``
 and ``/debug/requests`` answer 501; the metrics port, queue-depth load
-shedding, drain and incident bundles raise ``NotImplementedError``, as
-do ``build_server``, ``main`` and an engine on a mesh of more than one
+shedding and incident bundles raise ``NotImplementedError``, as do
+``build_server``, ``main`` and an engine on a mesh of more than one
 process (its requests must reach every rank).
 """
 
@@ -53,6 +57,7 @@ class ServingServer:
     def __init__(self, engine, port: int = 0,
                  metrics_port: int | None = None,
                  max_queue_depth: int = 0,
+                 retry_after_s: float = 1.0,
                  incident_dir: str | None = None):
         if metrics_port is not None or max_queue_depth or incident_dir:
             raise NotImplementedError(
@@ -82,17 +87,73 @@ class ServingServer:
         # reports "unhealthy"; waiting clients get the error).
         self.engine_error: str | None = None
         self.leaked_threads = 0
+        self.retry_after_s = float(retry_after_s)
+        # Control commands (drain, weight swap) run between steps on the
+        # engine thread; the public methods enqueue here and wait.
+        self._control: list = []
 
-    def drain(self, deadline_s: float | None = None,
-              timeout: float = 300.0) -> dict:
-        raise NotImplementedError(f"drain waits for {OPS_ITEM}")
+    @property
+    def draining(self) -> bool:
+        return self.engine.draining
+
+    def _control_call(self, cmd: str, args, timeout: float):
+        """Run a command on the engine thread (started server) or inline
+        (engine thread not running); either way one thread at a time
+        touches the engine. Re-raises the command's exception here."""
+        done = threading.Event()
+        slot: dict = {}
+        with self._lock:
+            self._control.append((cmd, args, done, slot))
+        t = self._engine_thread
+        if t is None or not t.is_alive():
+            self._run_control(self.engine)
+        elif not done.wait(timeout):
+            raise TimeoutError(f"{cmd} command timed out after {timeout}s")
+        if "error" in slot:
+            raise slot["error"]
+        return slot.get("result")
 
     def swap_weights(self, params, version: str,
                      provenance: dict | None = None,
                      timeout: float = 300.0):
-        raise NotImplementedError(
-            "swap_weights waits for ROADMAP.md queue A 'Serving: "
-            "hot-swap, drain, preempt, adopt and export'")
+        """Live weight swap through the engine thread
+        (``Engine.swap_weights``: every gate, no recapture). Raises the
+        engine's refusal; the incumbent weights keep serving."""
+        return self._control_call("swap", (params, version, provenance),
+                                  timeout)
+
+    def drain(self, deadline_s: float | None = None,
+              timeout: float = 300.0) -> dict:
+        """Graceful drain through the engine thread: admission stops
+        (POST /generate answers 503 with Retry-After, /healthz reports
+        "draining"), in-flight work finishes (or persists at the
+        deadline), and the engine's report returns.
+        ``resume_admission()`` reopens."""
+        return self._control_call("drain", deadline_s,
+                                  max(timeout, (deadline_s or 0) * 2))
+
+    def resume_admission(self, timeout: float = 60.0) -> None:
+        self._control_call("undrain", None, timeout)
+
+    def _run_control(self, eng) -> None:
+        """Run the queued control commands; each result or exception
+        goes back through its command's slot (a refused swap reaches its
+        caller and never ends the engine thread)."""
+        with self._lock:
+            cmds, self._control = self._control, []
+        for cmd, args, done, slot in cmds:
+            try:
+                if cmd == "swap":
+                    slot["result"] = eng.swap_weights(*args)
+                elif cmd == "drain":
+                    slot["result"] = eng.drain(args)
+                else:
+                    eng.draining = False
+                    slot["result"] = True
+            except Exception as e:  # noqa: BLE001 — handed to the caller
+                slot["error"] = e
+            finally:
+                done.set()
 
     # -- engine thread -------------------------------------------------------
 
@@ -124,6 +185,7 @@ class ServingServer:
 
     def _engine_loop_inner(self, eng) -> None:
         while not self._stop.is_set():
+            self._run_control(eng)
             with self._lock:
                 incoming, self._mailbox = self._mailbox, []
             for rid, prompt, n, arrival, session, tenant in incoming:
@@ -296,11 +358,14 @@ class ServingServer:
             # Chunked transfer encoding is an HTTP/1.1 construct.
             protocol_version = "HTTP/1.1"
 
-            def _reply(self, code: int, payload: dict) -> None:
+            def _reply(self, code: int, payload: dict,
+                       headers: tuple = ()) -> None:
                 body = (json.dumps(payload) + "\n").encode()
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
+                for k, v in headers:
+                    self.send_header(k, v)
                 # One request per connection: clients here are one-shot.
                 self.send_header("Connection", "close")
                 self.close_connection = True
@@ -355,6 +420,12 @@ class ServingServer:
                     self._reply(503, {"error": "engine crashed: "
                                       + server.engine_error})
                     return
+                if server.draining:
+                    self._reply(503, {"error": "draining: not admitting "
+                                      "new requests"}, headers=(
+                        ("Retry-After",
+                         str(max(1, int(server.retry_after_s)))),))
+                    return
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     body = json.loads(self.rfile.read(n) or b"{}")
@@ -378,8 +449,10 @@ class ServingServer:
                     alive = (server._engine_thread is not None
                              and server._engine_thread.is_alive())
                     ok = server.engine_error is None and alive
+                    status = ("unhealthy" if not ok else "draining"
+                              if server.draining else "ok")
                     self._reply(200 if ok else 503, {
-                        "status": "ok" if ok else "unhealthy",
+                        "status": status,
                         "error": server.engine_error,
                         "in_flight": eng.in_flight,
                         "queue_depth": len(eng.queue),

@@ -317,6 +317,41 @@ def test_spec_resident_engine_greedy_matches_dense_on_gpu(cuda, over):
     assert pa.paged_attention.launches - p0 == per * eng.decode_launches > 0
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_resident_graph_replays_swapped_weights_on_gpu(cuda, int8):
+    """A resident engine's CUDA graph, captured once at warmup, replays
+    weights published by ``swap_weights`` (copied into the engine's own
+    tensors from the host): after a swap to other weights its tokens
+    equal a fresh engine's on them, with no second capture; with int8
+    leaves the per-layer dequantization is inside the graph."""
+    from distributed_training_tpu_torch.serving.disagg import (
+        quantize_params_int8,
+    )
+
+    model = Transformer(TransformerConfig(
+        vocab_size=512, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+        max_seq_len=512, pos_encoding="rope", tie_embeddings=False,
+        dtype="float32"))
+    a, b = model.init(cuda), model.init(cuda)
+    if int8:
+        a, b = quantize_params_int8(a), quantize_params_int8(b)
+    cfg = EngineConfig(max_batch=4, page_size=16, num_pages=64,
+                       max_seq_len=256, prefill_chunk=16, resident_k=4)
+    prompt = np.random.default_rng(2).integers(0, 512, 140).astype(np.int32)
+    fresh = Engine(model, b, cfg)
+    fresh.warmup()
+    want = fresh.generate(prompt, 12)
+    eng = Engine(model, a, cfg)
+    counts = eng.warmup()
+    eng.generate(prompt, 4)
+    host = {k: ({n: {m: t.cpu() for m, t in w.items()}
+                 if isinstance(w, dict) else w.cpu() for n, w in v.items()}
+                if isinstance(v, dict) else v.cpu()) for k, v in b.items()}
+    eng.swap_weights(host, "v1")
+    assert eng.generate(prompt, 12) == want
+    assert eng.compile_counts() == counts and counts["decode_graph"] == 1
+
+
 def _bwd_inputs(cuda, B, H, Hkv, S, D, dtype, causal, window):
     q = torch.randn(B, H, S, D, generator=cuda, device="cuda").to(dtype)
     k = torch.randn(B, Hkv, S, D, generator=cuda, device="cuda").to(dtype)

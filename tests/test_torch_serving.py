@@ -21,6 +21,7 @@ from distributed_training_tpu_torch.models.transformer import (
     TransformerConfig as PortConfig,
 )
 from distributed_training_tpu_torch.runtime import MeshSpec, Runtime
+from distributed_training_tpu_torch.serving import disagg as port_disagg
 from distributed_training_tpu_torch.serving import engine as port_engine
 from distributed_training_tpu_torch.serving.kv_cache import (
     PagedCacheConfig,
@@ -293,23 +294,6 @@ def test_server_round_trip_streamed_equals_plain(models):
     assert srv.leaked_threads == 0
 
 
-@pytest.mark.parametrize("call", [
-    "swap_weights", "drain", "preempt", "adopt_batch", "export_in_flight",
-    "faults"])
-def test_deferred_engine_features_raise(models, call):
-    _, _, pm, pp = models
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng = _port(pm, pp)
-        if call == "faults":
-            eng.faults = object()
-        elif call == "adopt_batch":
-            eng.adopt_batch([])
-        elif call in ("swap_weights",):
-            eng.swap_weights(pp, "v1")
-        else:
-            getattr(eng, call)()
-
-
 def test_deferred_mesh_int8_and_server_options_raise(models):
     _, _, pm, pp = models
     cfg = port_engine.EngineConfig(**ENGINE)
@@ -317,10 +301,13 @@ def test_deferred_mesh_int8_and_server_options_raise(models):
     fsdp_mesh = Runtime(device=torch.device("cpu"), spec=MeshSpec(fsdp=2))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         port_engine.Engine(pm, pp, cfg, mesh=fsdp_mesh, device="cpu")
-    int8 = dict(pp, attn=dict(pp["attn"], wq={"qw": pp["attn"]["wq"],
-                                              "scale": pp["attn"]["wq"]}))
-    with pytest.raises(NotImplementedError, match="int8"):
-        port_engine.Engine(pm, int8, cfg, device="cpu")
+    # int8 weight-only leaves serve (tests/test_torch_int8.py holds
+    # their tokens against the JAX int8 engine).
+    int8 = port_disagg.quantize_params_int8(pp)
+    q = port_engine.Engine(pm, int8, cfg, device="cpu")
+    assert q.weight_bytes == \
+        port_disagg.quantized_weight_bytes(int8)["int8"]
+    assert len(q.generate(np.arange(1, 9, dtype=np.int32), 4)) == 4
     eng = port_engine.Engine(pm, pp, cfg, device="cpu")
     for kw in (dict(metrics_port=0), dict(max_queue_depth=4),
                dict(incident_dir="x")):

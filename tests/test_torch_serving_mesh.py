@@ -20,7 +20,13 @@ held against the JAX package.
   returns to zero pages, completed records name every group, the
   collectives equal the design, the weight slices equal the tp
   trainer's, and a process given one extra submission raises at the
-  first step instead of hanging.
+  first step instead of hanging. And the serving lifecycle on the mesh:
+  int8 weight-only leaves (``qw`` cut like its weight, ``scale`` only on
+  its dims above 1) give the one-process int8 engine's and the JAX int8
+  engine's tokens; an identical-value ``swap_weights`` mid-stream, a
+  ``preempt`` and a ``drain``, in lock-step on every process, give the
+  unswapped run's tokens; ``export_in_flight``, ``adopt_batch`` and a
+  drain with a deadline raise naming the dense-KV remainder of item 9.
 """
 
 import dataclasses
@@ -39,6 +45,7 @@ from distributed_training_tpu_torch.models.transformer import (
     TransformerConfig as PortConfig,
 )
 from distributed_training_tpu_torch.runtime import MeshSpec, Runtime
+from distributed_training_tpu_torch.serving import disagg as port_disagg
 from distributed_training_tpu_torch.serving import engine as port_engine
 from distributed_training_tpu_torch.serving import kv_cache as port_kv
 from distributed_training_tpu_torch.serving.server import ServingServer
@@ -53,6 +60,7 @@ from distributed_training_tpu.models.transformer import (  # noqa: E402
 from distributed_training_tpu.parallel.planner import (  # noqa: E402
     SERVING_MODEL_KWARGS,
 )
+from distributed_training_tpu.serving import disagg as jax_disagg  # noqa: E402
 from distributed_training_tpu.serving import engine as jax_engine  # noqa: E402
 from distributed_training_tpu.serving import kv_cache as jax_kv  # noqa: E402
 
@@ -331,6 +339,21 @@ def _references(models, G: int) -> dict:
             got[name] = {r["id"]: r["tokens"] for r in eng.completed}
             assert eng.cache.pages_used == 0
         out[mode] = got
+    out["int8"] = {}
+    for name, eng in (
+            ("port", port_engine.Engine(
+                pm, port_disagg.quantize_params_int8(pp),
+                port_engine.EngineConfig(**kw), device="cpu")),
+            ("jax", jax_engine.Engine(
+                jm, jax_disagg.quantize_params_int8(
+                    jax.tree.map(np.asarray, jp)),
+                jax_engine.EngineConfig(**kw)))):
+        mod = port_engine if name == "port" else jax_engine
+        for i, p in enumerate(mesh_prompts()):
+            eng.submit(mod.Request(id=f"r{i}", prompt=p,
+                                   max_new_tokens=NEW_TOKENS))
+        eng.run_until_drained()
+        out["int8"][name] = {r["id"]: r["tokens"] for r in eng.completed}
     _REFS[G] = out
     return out
 
@@ -431,6 +454,7 @@ def test_mesh_engine_matches_one_process_and_jax(world, models,
         assert r["lockstep"] is not None and \
             "out of lock-step at step 0" in r["lockstep"], (what,
                                                             r["lockstep"])
+        _check_lifecycle(r["lifecycle"], refs, pm.cfg, G, tp, what)
     # Every process read the same tokens.
     for r in ranks[1:]:
         assert {m: g["tokens"] for m, g in r["modes"].items()} == \
@@ -441,6 +465,32 @@ def test_mesh_engine_matches_one_process_and_jax(world, models,
         assert set(groups.values()) == {0}
         assert any(ranks[0]["composition"]["batched"][i]["group"] != 0
                    for i in groups)
+
+
+def _check_lifecycle(life: dict, refs: dict, c, G: int, tp: int,
+                     what: str) -> None:
+    assert life["int8"] == refs["int8"]["port"] == refs["int8"]["jax"], what
+    L, D, H, Hkv, hd, F = (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads,
+                           c.head_dim, c.d_ff)
+    want = {"attn/wq": ([L, D, H // tp, hd], [L, 1, H // tp, hd]),
+            "attn/wk": ([L, D, Hkv // tp, hd], [L, 1, Hkv // tp, hd]),
+            "attn/wv": ([L, D, Hkv // tp, hd], [L, 1, Hkv // tp, hd]),
+            "attn/wo": ([L, H // tp, hd, D], [L, 1, 1, D]),
+            "mlp/wi": ([L, D, F // tp], [L, 1, F // tp]),
+            "mlp/wo": ([L, F // tp, D], [L, 1, D])}
+    assert life["int8_shapes"] == {
+        k: {"qw": qw, "scale": sc} for k, (qw, sc) in want.items()}, what
+    swap = life["swap"]
+    assert swap["tokens"] == refs["batched"]["port"], what
+    assert swap["swap_stats"] == {"installed": 1, "refused": 0,
+                                  "stale_preempted": 0}, what
+    assert swap["lost"] and swap["persisted"] == [], what
+    assert sorted(swap["lost"]) == swap["drained"], what
+    assert swap["requeued"], what
+    assert swap["pages_left"] == [0] * G, what
+    assert all(v[-1][0] == "v1" for v in swap["versions"].values()), what
+    for name, msg in life["mesh_kv_errors"].items():
+        assert msg is not None and "item 9" in msg, (what, name, msg)
 
 
 def test_one_process_engine_keeps_its_single_group_surface(models):

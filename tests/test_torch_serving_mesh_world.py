@@ -19,7 +19,13 @@ in the same order. It writes its readings to ``<out>/rank<r>.pt``:
 - ``weights``: whether this rank's weight slices equal the ones the
   port's ``tp`` trainer holds on the same mesh;
 - ``lockstep``: the last rank is given one extra submission; every rank
-  must raise at the first step (the message, or None).
+  must raise at the first step (the message, or None);
+- ``lifecycle``: the batched tokens of an engine on int8 weight-only
+  leaves, with this rank's ``qw``/``scale`` shapes and weight bytes; the
+  batched run again with an identical-value ``swap_weights`` mid-stream,
+  then ``preempt`` and a resubmission, then ``drain``, every call in
+  lock-step; and the ``NotImplementedError`` messages of
+  ``export_in_flight``, ``adopt_batch`` and a drain with a deadline.
 
 It imports only the port (and torch, numpy), never JAX: the parent holds
 the results against the port's one-process engine and the JAX engine.
@@ -43,6 +49,10 @@ from distributed_training_tpu_torch.data.datasets import SyntheticLMDataset
 from distributed_training_tpu_torch.models import transformer as port_tf
 from distributed_training_tpu_torch.parallel import tensor as tp_lib
 from distributed_training_tpu_torch.runtime import initialize_runtime
+from distributed_training_tpu_torch.serving.disagg import (
+    _QUANT_AXES,
+    quantize_params_int8,
+)
 from distributed_training_tpu_torch.serving.engine import (
     Engine,
     EngineConfig,
@@ -187,6 +197,64 @@ def _lockstep(model, params, rt, ecfg: dict, rank: int, world: int):
     return None
 
 
+def _lifecycle(model, params, rt, ecfg: dict, prompts: list,
+               new_tokens: int) -> dict:
+    out: dict = {}
+    eng = Engine(model, quantize_params_int8(params), EngineConfig(**ecfg),
+                 mesh=rt, device="cpu")
+    out["int8"] = {k: r["tokens"] for k, r in
+                   _serve(eng, prompts, new_tokens, "r").items()}
+    out["int8_shapes"] = {
+        f"{g}/{n}": {part: list(eng.params[g][n][part].shape)
+                     for part in ("qw", "scale")} for g, n in _QUANT_AXES}
+    out["int8_weight_bytes"] = eng.weight_bytes
+    eng = Engine(model, params, EngineConfig(**ecfg), mesh=rt, device="cpu")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(id=f"r{i}", prompt=p, max_new_tokens=new_tokens))
+    for _ in range(3):
+        eng.step()
+    eng.swap_weights(unflatten({k: t.clone()
+                                for k, t in flatten(params).items()}), "v1")
+    for _ in range(2):
+        eng.step()
+    lost = eng.preempt()
+    for r in lost:
+        eng.submit(r)
+    eng.step()
+    report = eng.drain()
+    eng.draining = False
+    eng.run_until_drained()
+    out["swap"] = {"tokens": {r["id"]: r["tokens"] for r in eng.completed},
+                   "versions": {r["id"]: r["weights_versions"]
+                                for r in eng.completed},
+                   "lost": [r.id for r in lost],
+                   "drained": sorted(report["finished"]
+                                     + report["requeued"]),
+                   "requeued": report["requeued"],
+                   "persisted": report["persisted"],
+                   "swap_stats": dict(eng.swap_stats),
+                   "pages_left": [eng.cache.pages_used_in(g)
+                                  for g in range(eng.dp_groups)]}
+    eng = Engine(model, params, EngineConfig(**ecfg), mesh=rt, device="cpu")
+    _serve(eng, prompts[:2], 2, "w")
+    for i, p in enumerate(prompts[:2]):
+        eng.submit(Request(id=f"k{i}", prompt=p, max_new_tokens=new_tokens))
+    eng.step()
+    eng.step()
+    errors = {}
+    for name, call in (("export_in_flight", eng.export_in_flight),
+                       ("adopt_batch", lambda: eng.adopt_batch([])),
+                       ("drain_deadline", lambda: eng.drain(1.0))):
+        try:
+            call()
+            errors[name] = None
+        except NotImplementedError as e:
+            errors[name] = str(e)
+    eng.run_until_drained()
+    out["mesh_kv_errors"] = errors
+    return out
+
+
 def main(job_path: str, rank: int) -> int:
     with open(job_path) as f:
         job = json.load(f)
@@ -218,6 +286,8 @@ def main(job_path: str, rank: int) -> int:
             job, rt, model, params, eng)
         out["lockstep"] = _lockstep(model, params, rt, job["engine"], rank,
                                     job["world"])
+        out["lifecycle"] = _lifecycle(model, params, rt, job["engine"],
+                                      prompts, job["new_tokens"])
         torch.save(out, os.path.join(job["out"], f"rank{rank}.pt"))
         dist.barrier()
     finally:

@@ -57,6 +57,10 @@ from distributed_training_tpu_torch.models.convert import from_jax_params
 from distributed_training_tpu_torch.parallel import strategy as port_strategy
 from distributed_training_tpu_torch.runtime import MeshSpec as PortMeshSpec
 from distributed_training_tpu_torch.runtime import MeshSpecError, Runtime
+from distributed_training_tpu_torch.serving.disagg import (
+    _QUANT_AXES,
+    quantize_params_int8,
+)
 from distributed_training_tpu_torch.train import cli as port_cli
 from distributed_training_tpu_torch.train.optimizer import flatten
 from distributed_training_tpu_torch.train.trainer import Trainer
@@ -385,8 +389,16 @@ def _check_artifact(res: dict, tmp_path) -> None:
     assert meta["step"] == 2 and meta["data"]["step_in_epoch"] == 2
     for k, v in flatten(state["params"]).items():
         assert torch.equal(v, art["params"][k]), k
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_export.export(res["ckpt"], out, quantize="int8")
+    qout = str(tmp_path / "exported_int8.pt")
+    info = port_export.export(res["ckpt"], qout, step=2, quantize="int8")
+    assert info["quantization"] == "int8"
+    qstate, qmeta = load_consolidated(qout)
+    assert qmeta["quantization"] == "int8" and qmeta["step"] == 2
+    want = quantize_params_int8(state["params"])
+    for grp, name in _QUANT_AXES:
+        for part in ("qw", "scale"):
+            assert torch.equal(qstate["params"][grp][name][part],
+                               want[grp][name][part]), (grp, name, part)
     with pytest.raises(NotImplementedError, match="item 17"):
         port_export.export(res["ckpt"], out, plan="some_plan")
 
