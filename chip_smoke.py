@@ -77,7 +77,14 @@ a seed:
   ``engine_crash`` under ``supervise_serving`` (``serving_recovery``,
   float32: the KV of every request exported and re-adopted, each stream
   delivered once and equal to the uncrashed run, with a planted fault,
-  the high-water marks dropped, that must fail the same check).
+  the high-water marks dropped, that must fail the same check);
+- disaggregated serving (``serving_disagg``): the weights written as an
+  artifact and loaded through ``WeightStore``, a prefill plan and a
+  decode plan at a mesh of 1 built in memory, ``DisaggPipeline`` handing
+  each step's finished prompts' KV from the prefill engine to the decode
+  engine on the card, against one colocated engine under the decode
+  plan's geometry: tokens/s, TTFT, handoff time (CUDA events) and bytes,
+  B4 launches, token agreement at bf16 and equality at float32.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -1573,6 +1580,187 @@ def phase_serving_recovery(prompts: list, tmp: str) -> tuple:
     return launches, designs
 
 
+def _mesh_one_plan(name: str, model, model_kwargs: dict) -> object:
+    """A plan at a mesh of 1 for ``model`` (every leaf replicated), 8
+    slots of 1024 tokens, built in memory by the port's ``Plan``."""
+    from distributed_training_tpu_torch.parallel.planner import (
+        MESH_AXES,
+        Plan,
+    )
+    from distributed_training_tpu_torch.train.optimizer import flatten
+
+    return Plan(name=name, devices=1, mesh={a: 1 for a in MESH_AXES},
+                base_strategy="ddp", remat="none", batch_per_shard=8,
+                seq_len=1024, batch_axes=["dp", "fsdp"],
+                sharding_map={k: [] for k in flatten(model.param_shapes())},
+                inputs={"model_kwargs": model_kwargs})
+
+
+def _disagg_serve(store, plans: tuple, prompts: list,
+                  new_tokens: int) -> dict:
+    """The prompts through ``DisaggPipeline.generate_many`` (both engines
+    on the card, warmed up), timed, with the launch counts from 0 and
+    each handoff's export and adopt timed by CUDA events."""
+    from distributed_training_tpu_torch.serving.disagg import DisaggPipeline
+    from distributed_training_tpu_torch.serving.engine import Request
+
+    pipe = DisaggPipeline(store, *plans)
+    pipe.prefill_engine.warmup()
+    pipe.decode_engine.warmup()
+    spans: list = []
+    on_card: list = []
+
+    def timed(fn, op):
+        def call(*args):
+            if not args[0]:
+                return fn(*args)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args)
+            end.record()
+            spans.append((op, start, end))
+            if op == "export":
+                on_card.extend(k.device.type == "cuda"
+                               for _r, _t, k, _v in out[0])
+            return out
+        return call
+
+    pipe._handoff = timed(pipe._handoff, "export")
+    pipe._adopt = timed(pipe._adopt, "adopt")
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = pipe.generate_many([Request(id=str(i), prompt=p,
+                                      max_new_tokens=new_tokens)
+                              for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = {op: [a.elapsed_time(b) for o, a, b in spans if o == op]
+          for op in ("export", "adopt")}
+    de, pe = pipe.decode_engine, pipe.prefill_engine
+    return {"wall_s": wall,
+            "tokens": {int(k): v for k, v in got.items()},
+            "tokens_per_s": sum(len(t) for t in got.values()) / wall,
+            "mean_ttft_s": float(np.mean([r["ttft_s"]
+                                          for r in de.completed])),
+            "handoff": dict(pipe.handoff_stats), "handoff_ms": ms,
+            "kv_on_card": bool(on_card) and all(on_card),
+            "prefill_decode_launches": pe.decode_launches,
+            "decode_launches": de.decode_launches,
+            "pages_left": pe.cache.pages_used + de.cache.pages_used,
+            "launches": _read_counts(), "launches_by_design": _read_designs()}
+
+
+def _colocated_serve(model, params, cfg, prompts: list,
+                     new_tokens: int) -> dict:
+    """The prompts through one engine under ``cfg``, warmed up, timed."""
+    from distributed_training_tpu_torch.serving.engine import Engine, Request
+
+    eng = Engine(model, params, cfg)
+    eng.warmup()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(id=str(i), prompt=p, max_new_tokens=new_tokens))
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {int(r["id"]): r["tokens"] for r in eng.completed}
+    return {"wall_s": wall, "tokens": got,
+            "tokens_per_s": sum(len(t) for t in got.values()) / wall,
+            "mean_ttft_s": float(np.mean([r["ttft_s"]
+                                          for r in eng.completed]))}
+
+
+def phase_serving_disagg(prompts: list, new_tokens: int, tmp: str) -> tuple:
+    """Disaggregated serving of gpt2_125m at full width: the weights
+    written as an artifact and loaded once through ``WeightStore``, two
+    plans at a mesh of 1 (8 slots of 1024 tokens), the prefill engine
+    handing each step's finished prompts' KV to the decode engine on the
+    card (``DisaggPipeline.generate_many``), against one colocated engine
+    under the decode plan's ``engine_config_for_plan``. bf16: throughput,
+    TTFT, handoff time and bytes, B4 launches and the tokens that match
+    the colocated engine; float32 on the two longest prompts: tokens
+    equal to the colocated engine's."""
+    from distributed_training_tpu_torch.checkpoint.consolidate import (
+        write_artifact,
+    )
+    from distributed_training_tpu_torch.models.transformer import PRESETS
+    from distributed_training_tpu_torch.serving.disagg import (
+        WeightStore,
+        engine_config_for_plan,
+    )
+
+    out: dict = {}
+    longest = sorted(range(len(prompts)), key=lambda i: -len(prompts[i]))[:2]
+    for dtype in ("bfloat16", "float32"):
+        model, params = _gpt2(dtype)
+        path = os.path.join(tmp, f"disagg_{dtype}.pt")
+        write_artifact(path, {"params": _host_copy(params)}, {})
+        mk = {**PRESETS["gpt2_125m"], "dtype": dtype, "param_dtype": dtype}
+        plans = (_mesh_one_plan("gpt2_prefill", model, mk),
+                 _mesh_one_plan("gpt2_decode", model, mk))
+        store = WeightStore(path)
+        use = prompts if dtype == "bfloat16" else [prompts[i]
+                                                   for i in longest]
+        ref = _colocated_serve(model, params,
+                               engine_config_for_plan(plans[1]), use,
+                               new_tokens)
+        del params
+        _free_memory()
+        run = _disagg_serve(store, plans, use, new_tokens)
+        del store
+        _free_memory()
+        check(run["kv_on_card"], f"serving_disagg {dtype}: the handed-over "
+              "KV left the card")
+        check(run["prefill_decode_launches"] == 0
+              and run["decode_launches"] > 0 and run["pages_left"] == 0,
+              f"serving_disagg {dtype}: decode launches "
+              f"{run['prefill_decode_launches']} (prefill) "
+              f"{run['decode_launches']} (decode), pages left "
+              f"{run['pages_left']}")
+        check(run["launches"]["paged_decode"] >= 12 * run["decode_launches"],
+              f"serving_disagg {dtype}: paged decode launches "
+              f"{run['launches']['paged_decode']}")
+        _check_designs({"paged_decode": run["launches_by_design"][
+            "paged_decode"]}, "split_kv", f"serving_disagg {dtype}")
+        check(all(len(t) == new_tokens for t in run["tokens"].values()),
+              f"serving_disagg {dtype}: a request returned the wrong "
+              "number of tokens")
+        matching = _matching(run["tokens"], ref["tokens"])
+        if dtype == "float32":
+            check(run["tokens"] == ref["tokens"], "serving_disagg float32: "
+                  "tokens differ from the colocated engine's")
+        steps = run["handoff"]["steps"]
+        check(steps == len(run["handoff_ms"]["export"]) > 0,
+              f"serving_disagg {dtype}: {steps} handoff steps, timings "
+              f"{run['handoff_ms']}")
+        out[dtype] = {
+            "prompt_lens": [len(p) for p in use],
+            "tokens_per_s": run["tokens_per_s"],
+            "colocated_tokens_per_s": ref["tokens_per_s"],
+            "mean_ttft_s": run["mean_ttft_s"],
+            "colocated_mean_ttft_s": ref["mean_ttft_s"],
+            "wall_s": run["wall_s"], "colocated_wall_s": ref["wall_s"],
+            "handoff_steps": steps,
+            "handoff_ms_per_step": sum(map(sum, run["handoff_ms"].values()))
+            / steps,
+            "handoff_ms": run["handoff_ms"],
+            "kv_bytes": run["handoff"]["bytes"],
+            "sequences_handed": run["handoff"]["items"],
+            "decode_launches": run["decode_launches"],
+            "b4_launches": run["launches"]["paged_decode"],
+            "tokens_matching": matching,
+            "tokens_total": sum(len(t) for t in ref["tokens"].values())}
+        if dtype == "bfloat16":
+            launches = (run["launches"], run["launches_by_design"])
+        del model
+        _free_memory()
+    emit({"phase": "serving_disagg", "model": "gpt2_125m",
+          "new_tokens": new_tokens, "plans_mesh": 1, "batch_per_shard": 8,
+          "seq_len": 1024, **out})
+    return launches
+
+
 def phase_trace(prompts: list, new_tokens: int) -> None:
     """Where a serving burst's time goes: the phase-4 requests through
     the engine directly (no HTTP) under ``torch.profiler``. Device busy
@@ -1784,28 +1972,17 @@ def serving_mesh_rank(rank: int, port: int, out_path: str,
     smoke's prompts batched and the long ones sequential, to the end.
     Writes its readings to ``out_path``."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     from distributed_training_tpu_torch.parallel.tensor import TPGroup
-    from distributed_training_tpu_torch.runtime import (
-        MESH_AXES,
-        MeshSpec,
-        Runtime,
-        sub_mesh_groups,
-    )
+    from distributed_training_tpu_torch.runtime import MeshSpec, slice_runtime
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=2)
     try:
-        spec = MeshSpec(**SERVING_MESHES[name])
-        mesh = init_device_mesh("cpu", tuple(spec.as_dict()[a]
-                                             for a in MESH_AXES),
-                                mesh_dim_names=MESH_AXES)
-        rt = Runtime(device=torch.device("cuda", 0), process_index=rank,
-                     process_count=2, spec=spec, mesh=mesh, backend="gloo",
-                     groups=sub_mesh_groups(spec, rank))
+        rt = slice_runtime([MeshSpec(**SERVING_MESHES[name])],
+                           torch.device("cuda", 0))
         prompts = _smoke_prompts()
         result = {"rank": rank, "describe": rt.describe()}
         model, params = _gpt2("float32")
@@ -2588,28 +2765,17 @@ def train_tp2_rank(rank: int, port: int, out_path: str) -> int:
     sound run then the planted fault's; writes its readings to
     ``out_path``."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     from distributed_training_tpu_torch.parallel import tensor as tp_lib
-    from distributed_training_tpu_torch.runtime import (
-        MESH_AXES,
-        MeshSpec,
-        Runtime,
-        sub_mesh_groups,
-    )
+    from distributed_training_tpu_torch.runtime import MeshSpec, slice_runtime
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=2)
     try:
-        spec = MeshSpec(tp=2)
-        mesh = init_device_mesh("cpu", tuple(spec.as_dict()[a]
-                                             for a in MESH_AXES),
-                                mesh_dim_names=MESH_AXES)
-        rt = Runtime(device=torch.device("cuda", 0), process_index=rank,
-                     process_count=2, spec=spec, mesh=mesh, backend="gloo",
-                     groups=sub_mesh_groups(spec, rank))
+        rt = slice_runtime([MeshSpec(tp=2)],
+                           torch.device("cuda", 0))
         result = {"rank": rank, "describe": rt.describe()}
         for run in ("sound", "fault"):
             trainer, loader = _tp2_trainer(rt, "tp", fault=run == "fault")
@@ -2954,6 +3120,7 @@ def main() -> int:
         mesh_launches = {name: phase_serving_mesh(name, prompts, batched, tmp)
                          for name in SERVING_MESHES}
         recovery_launches = phase_serving_recovery(prompts, tmp)
+        disagg_launches = phase_serving_disagg(prompts, 64, tmp)
         train_launches = phase_train(tmp)
         split_launches = phase_train_split(tmp)
         phase_train_parity(tmp)
@@ -2986,11 +3153,12 @@ def main() -> int:
     # Launches: the sum over the paths driven above, each counted from 0
     # (serving, sequential prefill, speculative serving, resident serving,
     # int8 serving, the swapped resident engine, the supervised recovery,
-    # training, split-backward training, transformer_1b under fsdp and
-    # under tp_fsdp, gpt2_125m under tp at tp 2, serving on the meshes dp
-    # 2 and tp 2: both processes).
+    # the disaggregated pipeline's bf16 run, training, split-backward
+    # training, transformer_1b under fsdp and under tp_fsdp, gpt2_125m
+    # under tp at tp 2, serving on the meshes dp 2 and tp 2: both
+    # processes).
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
-             int8_launches, swap_launches, recovery_launches,
+             int8_launches, swap_launches, recovery_launches, disagg_launches,
              *mesh_launches.values(), train_launches, split_launches,
              train_1b_launches, tp_1b_launches, tp2_launches)
     kernels = []
@@ -3035,6 +3203,8 @@ def main() -> int:
                        for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")},
                     "launches": mesh_launches[mesh][0][name]}
+            # Its launches on the disaggregated pipeline's decode engine.
+            kernels[-1]["serving_disagg_launches"] = disagg_launches[0][name]
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the path was never launched")
     emit({"kernels": kernels})

@@ -14,8 +14,10 @@ machine with enough memory for the whole state.
 ``--quantize int8`` writes the params in the int8 weight-only layout
 (``serving/disagg.py::quantize_params_int8``) and stamps
 ``meta["quantization"] = "int8"``; such an artifact's params go straight
-into an ``Engine``. The sharding-plan provenance stamp waits for
-ROADMAP.md queue A item 17.
+into an ``Engine``. ``meta["sharding_plan"]`` stamps the plan the run
+trained under, ``{"name", "fingerprint"}`` (``--plan``, or the run's
+``train.sharding_plan`` read from its ``resolved_config.yaml``), which
+``serving/disagg.py::WeightStore`` checks against the committed plan.
 """
 
 from __future__ import annotations
@@ -103,27 +105,58 @@ def restore_step_local(ckpt_dir: str, step: int | None = None
     return state, step
 
 
+def _plan_provenance(ckpt_dir: str, plan: str | None) -> dict | None:
+    """The ``sharding_plan`` stamp of the artifact's meta: the source
+    run's plan name and fingerprint. ``plan``: None → the run's
+    ``train.sharding_plan`` from ``resolved_config.yaml`` in the
+    directory above ``ckpt_dir`` (no file or no plan → no stamp);
+    "none" → no stamp; anything else → that plan's name or path."""
+    import yaml
+
+    name = plan
+    if name is None:
+        cfg_path = os.path.join(os.path.dirname(ckpt_dir),
+                                "resolved_config.yaml")
+        if not os.path.exists(cfg_path):
+            return None
+        with open(cfg_path) as f:
+            resolved = yaml.safe_load(f) or {}
+        name = (resolved.get("train") or {}).get("sharding_plan") or ""
+        if not name:
+            return None
+    if name == "none":
+        return None
+    from distributed_training_tpu_torch.parallel.planner import load_plan
+
+    p = load_plan(name)
+    return {"name": p.name, "fingerprint": p.fingerprint()}
+
+
+# A runtime publish (``Engine.swap_weights``'s provenance gate) stamps
+# what the export CLI stamps, from the same code.
+plan_provenance = _plan_provenance
+
+
 def export(ckpt_dir: str, out_path: str, step: int | None = None,
            plan: str | None = None, quantize: str | None = None) -> dict:
     if quantize not in (None, "int8"):
         raise ValueError(
             f"unsupported --quantize '{quantize}' (supported: int8)")
-    if plan not in (None, "none"):
-        raise NotImplementedError(
-            f"--plan {plan}: sharding-plan provenance waits for ROADMAP.md "
-            "queue A item 17")
+    ckpt_dir = os.path.abspath(ckpt_dir)
     from distributed_training_tpu_torch.checkpoint.consolidate import (
         write_artifact,
     )
 
     state, step = restore_step_local(ckpt_dir, step)
     meta: dict = {}
-    meta_file = os.path.join(os.path.abspath(ckpt_dir), str(step),
-                             "meta.json")
+    meta_file = os.path.join(ckpt_dir, str(step), "meta.json")
     if os.path.exists(meta_file):
         with open(meta_file) as f:
             meta = json.load(f) or {}
     meta.setdefault("step", int(step))
+    prov = _plan_provenance(ckpt_dir, plan)
+    if prov is not None:
+        meta["sharding_plan"] = prov
     if quantize == "int8":
         from distributed_training_tpu_torch.serving.disagg import (
             quantize_params_int8,
@@ -145,8 +178,9 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--step", type=int, default=None,
                    help="checkpoint step (default: latest)")
     p.add_argument("--plan", default=None,
-                   help="sharding-plan provenance stamp (waits for "
-                        "ROADMAP.md item 17; 'none' to skip)")
+                   help="sharding-plan provenance to stamp into the "
+                        "artifact's meta (default: the run's "
+                        "train.sharding_plan; 'none' to skip)")
     p.add_argument("--quantize", default=None, choices=("int8",),
                    help="weight-only quantization of the exported params "
                         "(per-channel int8, stamped into the artifact's "

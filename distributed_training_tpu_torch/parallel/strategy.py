@@ -179,6 +179,21 @@ class DataParallel:
         """Spec of a param-shaped optimizer leaf (Adam moments)."""
         return self.param_spec(shape, logical)
 
+    @property
+    def family(self) -> str:
+        """The spec generator's family: the strategy's own name here, a
+        plan's base strategy for ``planner.PlannedStrategy``."""
+        return self.name
+
+    def specs_for_tree(self, shapes: dict, logical: dict) -> dict:
+        """``{path: Spec}`` of the flat leaf shapes ``shapes``."""
+        return {k: self.param_spec(s, logical.get(k))
+                for k, s in shapes.items()}
+
+    def opt_specs_for_tree(self, shapes: dict, logical: dict) -> dict:
+        return {k: self.opt_spec(s, logical.get(k))
+                for k, s in shapes.items()}
+
 
 @dataclasses.dataclass
 class ZeRO1(DataParallel):
@@ -306,10 +321,10 @@ def layout(strategy: DataParallel, shapes: dict, logical: dict) -> dict:
     divide). The tensor-parallel block uses only this rank's part of
     such a leaf, so each tp rank's gradient of it is partial and
     ``fsdp.average_grads`` sums them over tp."""
-    out = {"params": {k: placement(strategy.param_spec(s, logical.get(k)))
-                      for k, s in shapes.items()},
-           "opt": {k: placement(strategy.opt_spec(s, logical.get(k)))
-                   for k, s in shapes.items()},
+    out = {"params": {k: placement(spec) for k, spec in
+                      strategy.specs_for_tree(shapes, logical).items()},
+           "opt": {k: placement(spec) for k, spec in
+                   strategy.opt_specs_for_tree(shapes, logical).items()},
            "tp_partial": ()}
     if getattr(strategy, "tp_size", 1) > 1:
         to_tp = {n for n, a in strategy.rules.items() if a == AXIS_TP}

@@ -8,15 +8,23 @@ adopts a ``torch.distributed`` process group that is already initialized,
 or starts one from torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``): NCCL on
 ``cuda:LOCAL_RANK``, or gloo under ``train.device=cpu``. Over the group
-it builds a ``DeviceMesh`` with all five axes (``pp, dp, fsdp, sp,
+it builds a ``ProcessMesh`` with all five axes (``pp, dp, fsdp, sp,
 tp``), size-1 ones included, so every axis has a group to name, even in a
-world of one, and a group over every set of two or more axes that are
-larger than 1 and do not span the world (``Runtime.group``): the batch
-axes (dp, fsdp) under a mesh with tp > 1, (fsdp, tp) for a leaf split on
-both. Every process creates every one of them at initialization, in the
-same order, as ``torch.distributed.new_group`` requires. A world of 1
-with neither a group nor torchrun's environment runs without a process
-group, as before.
+world of one, and a group over every set of two or more axes larger
+than 1 (``Runtime.group``): the batch axes (dp, fsdp) under a mesh with
+tp > 1, (fsdp, tp) for a leaf split on both. A world of 1 with neither a
+group nor torchrun's environment runs without a process group.
+
+A mesh may also cover a slice of the world (``slice_runtime``, the
+port's counterpart of the JAX ``build_mesh(spec, devices)``): the world
+is cut into consecutive runs of ranks, one mesh each, as the
+disaggregated pipeline runs its prefill and decode meshes side by side
+(``serving/disagg.py``). A slice's runtime counts its own processes
+(``process_index``, ``process_count``; ``first_rank`` is its offset in
+the world), and its groups never reach past it: the group over every
+axis of the mesh is the slice's, not the world's. Every process creates
+every group of every slice, in one order, as
+``torch.distributed.new_group`` requires.
 
 Sequence and pipeline parallelism (``sp``, ``pp``) wait for ROADMAP.md
 queue A item 16.
@@ -122,6 +130,78 @@ def make_generator(seed: int, device=None) -> torch.Generator:
     return gen
 
 
+class ProcessMesh:
+    """The processes of a mesh, ranks ``first .. first + n - 1`` of the
+    world laid out row-major over ``MESH_AXES`` (dp-major over (dp,
+    fsdp)), and this process's group over any set of its axes.
+
+    Built collectively (``slice_meshes``): every process of the world
+    builds every slice's mesh, in one order; a process outside the slice
+    keeps no group of it. One group per distinct member list; a list
+    that is the whole world is ``WORLD``."""
+
+    def __init__(self, spec: MeshSpec, first: int, rank: int):
+        sizes = spec.as_dict()
+        self.spec = spec
+        self.first = first
+        self.size = math.prod(sizes.values())
+        self.ranks = (first + torch.arange(self.size)).view(
+            [sizes[a] for a in MESH_AXES])
+        self._groups: dict[tuple, object] = {}
+        inside = first <= rank < first + self.size
+        self._coords = (dict(zip(MESH_AXES, (
+            int(i) for i in torch.nonzero(self.ranks == rank)[0])))
+            if inside else None)
+        world = dist.get_world_size()
+        live = [a for a in MESH_AXES if sizes[a] > 1]
+        axis_sets = [(a,) for a in MESH_AXES] + [
+            axes for n in range(2, len(live) + 1)
+            for axes in itertools.combinations(live, n)]
+        for axes in axis_sets:
+            keep = [MESH_AXES.index(a) for a in axes]
+            rest = [i for i in range(len(MESH_AXES)) if i not in keep]
+            n = math.prod(sizes[a] for a in axes)
+            for members in self.ranks.permute(rest + keep).reshape(
+                    -1, n).tolist():
+                key = tuple(members)
+                if key in self._groups:
+                    continue
+                self._groups[key] = (dist.group.WORLD
+                                     if key == tuple(range(world))
+                                     else dist.new_group(members))
+
+    def get_local_rank(self, axis: str) -> int:
+        """This process's coordinate on ``axis``."""
+        return self._coords[axis]
+
+    def members(self, axes: tuple[str, ...]) -> tuple[int, ...]:
+        """World ranks of this process's group over ``axes``, ascending
+        with their coordinates on them."""
+        index = tuple(slice(None) if a in axes else self._coords[a]
+                      for a in MESH_AXES)
+        return tuple(self.ranks[index].reshape(-1).tolist())
+
+    def group(self, axes: tuple[str, ...]):
+        """This process's group over ``axes`` (axes of size 1 add
+        nothing to it)."""
+        return self._groups[self.members(axes)]
+
+
+def slice_meshes(specs: list[MeshSpec], rank: int) -> list[ProcessMesh]:
+    """The meshes of consecutive slices of the world, one per spec, in
+    order from rank 0 (collective: every process calls this with the
+    same specs)."""
+    out, first = [], 0
+    for spec in specs:
+        out.append(ProcessMesh(spec, first, rank))
+        first += out[-1].size
+    if first != dist.get_world_size():
+        raise MeshSpecError(
+            f"meshes {[s.as_dict() for s in specs]} cover {first} "
+            f"processes but the world has {dist.get_world_size()}")
+    return out
+
+
 @dataclass
 class Runtime:
     """Where a training program runs: this process's device, its rank in
@@ -129,21 +209,24 @@ class Runtime:
     ``Runtime``'s interface (``process_index``, ``process_count``,
     ``num_devices``, ``data_shard_count``, ``device_kind``,
     ``is_coordinator``, ``describe``) over a ``torch.device``. ``mesh``
-    is None when no process group runs (a world of 1)."""
+    is None when no process group runs (a world of 1). On a slice of the
+    world (``slice_runtime``) the counts are the slice's and
+    ``first_rank`` its first world rank."""
 
     device: torch.device
     process_index: int = 0
     process_count: int = 1
     spec: MeshSpec = field(default_factory=MeshSpec)
-    mesh: object = None          # torch DeviceMesh over MESH_AXES
+    mesh: ProcessMesh | None = None
     backend: str | None = None   # "nccl" | "gloo" | None
     # Whether initialize_runtime started the group (and its owner should
     # destroy it) rather than adopting the caller's.
     owns_group: bool = False
-    # Groups over two or more mesh axes (each larger than 1, together not
-    # the world), keyed by the axes in MESH_AXES order: this process's
-    # slice of each (sub_mesh_groups).
-    groups: dict = field(default_factory=dict)
+
+    @property
+    def first_rank(self) -> int:
+        """The world rank of this mesh's first process."""
+        return self.mesh.first if self.mesh is not None else 0
 
     @property
     def platform(self) -> str:
@@ -172,25 +255,18 @@ class Runtime:
                 + self.mesh.get_local_rank("fsdp"))
 
     def group(self, axes: tuple[str, ...]):
-        """The process group over mesh ``axes`` (this process's slice):
-        the world when they span it; else, over the axes larger than 1,
-        the mesh's group of the one axis or the sub-mesh group of several
-        (axes of size 1 add nothing to a group); a group of one when no
-        axis is larger than 1."""
+        """The process group over mesh ``axes`` (this process's part of
+        it): the mesh's whole group when they span it (``WORLD`` for a
+        mesh over the world), a group of one when no axis of them is
+        larger than 1."""
         if self.mesh is None:
             raise RuntimeError("no process group: this runtime has a "
                                "world of 1 without torch.distributed")
-        sizes = self.spec.as_dict()
-        if math.prod(sizes[a] for a in axes) == self.process_count:
-            return dist.group.WORLD
-        live = tuple(a for a in MESH_AXES if a in axes and sizes[a] > 1)
-        if len(live) <= 1:
-            return self.mesh.get_group(live[0] if live else axes[0])
-        return self.groups[live]
+        return self.mesh.group(axes)
 
     def barrier(self) -> None:
         if self.mesh is not None:
-            dist.barrier()
+            dist.barrier(group=self.group(MESH_AXES))
 
     @property
     def device_kind(self) -> str:
@@ -213,30 +289,6 @@ def _refuse_unported_axes(sizes: dict) -> None:
             raise NotImplementedError(
                 f"mesh.{axis}={sizes[axis]}: sharding over '{axis}' waits "
                 f"for ROADMAP.md queue A item {item}")
-
-
-def sub_mesh_groups(spec: MeshSpec, rank: int) -> dict:
-    """This process's group over every set of two or more mesh axes
-    larger than 1 that does not span the world, keyed by the axes (in
-    MESH_AXES order). Collective: every process creates every slice's
-    group, in one order; a group's ranks ascend with the slice's
-    coordinates (row-major, so dp-major over (dp, fsdp))."""
-    sizes = spec.as_dict()
-    world = math.prod(sizes.values())
-    ranks = torch.arange(world).view([sizes[a] for a in MESH_AXES])
-    live = [a for a in MESH_AXES if sizes[a] > 1]
-    out = {}
-    for n in range(2, len(live)):
-        for axes in itertools.combinations(live, n):
-            keep = [MESH_AXES.index(a) for a in axes]
-            rest = [i for i in range(len(MESH_AXES)) if i not in keep]
-            size = math.prod(sizes[a] for a in axes)
-            for members in ranks.permute(rest + keep).reshape(
-                    -1, size).tolist():
-                group = dist.new_group(members)
-                if rank in members:
-                    out[axes] = group
-    return out
 
 
 def initialize_runtime(cfg) -> Runtime:
@@ -279,26 +331,35 @@ def initialize_runtime(cfg) -> Runtime:
     else:
         backend = None
     world = dist.get_world_size() if backend else 1
-    rank = dist.get_rank() if backend else 0
     try:
         spec = MeshSpec.resolve(cfg.mesh, world)
         _refuse_unported_axes(spec.as_dict())
-        mesh, groups = None, {}
-        if backend:
-            from torch.distributed.device_mesh import init_device_mesh
-            mesh = init_device_mesh(
-                device.type, tuple(spec.as_dict()[a] for a in MESH_AXES),
-                mesh_dim_names=MESH_AXES)
-            groups = sub_mesh_groups(spec, rank)
+        rt = (slice_runtime([spec], device) if backend
+              else Runtime(device=device, spec=spec))
     except BaseException:
         if owns:
             dist.destroy_process_group()
         raise
-    rt = Runtime(device=device, process_index=rank, process_count=world,
-                 spec=spec, mesh=mesh, backend=backend, owns_group=owns,
-                 groups=groups)
+    rt.owns_group = owns
     logger.info("runtime initialized: %s", rt.describe())
     return rt
+
+
+def slice_runtime(specs: list[MeshSpec], device) -> Runtime:
+    """This process's runtime in one of the meshes ``specs`` laid over
+    consecutive slices of the world's ranks, in order from rank 0, on
+    the process group already initialized (collective: every process
+    calls this with the same specs). ``specs`` of one mesh over the
+    whole world is ``initialize_runtime``'s runtime."""
+    for spec in specs:
+        _refuse_unported_axes(spec.as_dict())
+    rank = dist.get_rank()
+    mesh = next(m for m in slice_meshes(specs, rank)
+                if m.first <= rank < m.first + m.size)
+    return Runtime(device=torch.device(device),
+                   process_index=rank - mesh.first,
+                   process_count=mesh.size, spec=mesh.spec, mesh=mesh,
+                   backend=dist.get_backend())
 
 
 def shutdown_runtime(rt: Runtime) -> None:

@@ -96,11 +96,16 @@ together across an engine crash. The ``faults`` slot takes a
 ``resilience/faults.py::FaultInjector`` whose serving kinds fire after
 each launch's step record.
 
+On a mesh of more than one process ``export_in_flight`` gathers each
+sequence's dense KV from the processes holding its dp group's kv heads
+(one all-gather over the mesh, so every process exports the same),
+``adopt_batch`` writes each process's own group and heads of the
+incoming KV, and a drain's deadline is rank 0's clock, broadcast at
+every step so that every process stops at the same one.
+
 What waits for later slices raises ``NotImplementedError`` naming its
-ROADMAP.md item: a mesh over other axes than dp and tp, the resident
-burst under tp > 1 on the card over anything but NCCL, and
-``export_in_flight``/``adopt_batch`` on a mesh of more than one process
-(dense KV there needs a gather across the mesh).
+ROADMAP.md item: a mesh over other axes than dp and tp, and the
+resident burst under tp > 1 on the card over anything but NCCL.
 """
 
 from __future__ import annotations
@@ -162,8 +167,6 @@ MESH_AXIS_ITEMS = {
     "pp": "ROADMAP.md queue A item 16 (pipeline parallelism)"}
 TP_RESIDENT_ITEM = ("ROADMAP.md queue A item 7, left there: 'the resident "
                     "burst under tp > 1 on cards'")
-MESH_KV_ITEM = ("ROADMAP.md queue A item 9, left here: dense KV of a "
-                "mesh of more than one process")
 
 # The CUDA kernels each program launches (``compile_counts``).
 _PROGRAM_KERNELS = {
@@ -1133,9 +1136,10 @@ class Engine:
         # Every device->host transfer of the step loop goes through
         # ``_fetch_host``, so this count is exact. ``gathers`` counts
         # the engine's own collectives on a mesh: ``dp_fetch`` (one per
-        # fetch, over the dp group) and ``lockstep`` (one per step, over
-        # the mesh); the programs' tp collectives are
-        # ``parallel/tensor.py``'s.
+        # fetch, over the dp group), ``lockstep`` (one per step, over
+        # the mesh), ``kv_export`` (one per export of dense KV) and
+        # ``deadline`` (one per step of a drain with a deadline); the
+        # programs' tp collectives are ``parallel/tensor.py``'s.
         self.host_syncs = 0
         self.gathers: collections.Counter = collections.Counter()
         self.queue: collections.deque[Request] = collections.deque()
@@ -2184,15 +2188,6 @@ class Engine:
 
     # -- serving weights and recovery ---------------------------------------
 
-    def _single_process(self, what: str) -> None:
-        """Raise for ``what`` on a mesh of more than one process: a rank
-        holds only its dp group's pool at its own kv heads, so dense KV
-        needs a gather across the mesh."""
-        if self._mesh_group is not None:
-            raise NotImplementedError(
-                f"{what} on a mesh of {self.mesh.process_count} processes "
-                f"waits for {MESH_KV_ITEM}")
-
     def adopt(self, req: Request, first_token: int, k_dense, v_dense
               ) -> None:
         """Adopt one externally prefilled sequence: its prompt KV arrives
@@ -2206,11 +2201,11 @@ class Engine:
         history so far (the crash re-adoption of ``export_in_flight``);
         the dense KV covers ``prompt_len + len(tokens) - 1`` positions
         (the newest token's KV is written by its own decode launch).
-        Each goes to the group ``_pick_group`` picks. Raises before
-        touching the pools when a request gets no slot and pages, and
-        frees whatever the batch took: the caller holds it and
-        retries."""
-        self._single_process("adopt_batch")
+        Each goes to the group ``_pick_group`` picks; on a mesh every
+        process is given the same items, whole, and writes its own
+        group's pages at its kv heads. Raises before touching the pools
+        when a request gets no slot and pages, and frees whatever the
+        batch took: the caller holds it and retries."""
         now = time.monotonic()
         staged = []
         try:
@@ -2388,17 +2383,13 @@ class Engine:
         ``export_in_flight`` for re-adoption, under ``export``) and
         ``requeued`` (queued, never admitted; they stay queued).
         Retained sessions survive. The engine stays draining (clear
-        ``draining`` to reopen admission). On a mesh a deadline would
-        read each process's clock, so only a drain without one runs
-        there."""
-        if deadline_s is not None:
-            self._single_process("drain with a deadline")
+        ``draining`` to reopen admission). On a mesh the deadline is read
+        from the mesh's first process's clock (``_past``)."""
         self.draining = True
         t0 = time.monotonic()
         n0 = len(self.completed)
         steps = 0
-        while self.in_flight and (deadline_s is None
-                                  or time.monotonic() - t0 < deadline_s):
+        while self.in_flight and not self._past(t0, deadline_s):
             self.step()
             steps += 1
             if steps > 200_000:
@@ -2423,6 +2414,29 @@ class Engine:
               duration_s=report["duration_s"])
         return report
 
+    def _past(self, t0: float, deadline_s: float | None) -> bool:
+        """Whether ``deadline_s`` from ``t0`` has passed: on a mesh, by
+        the first process's clock, broadcast over the mesh, so that every
+        process stops at the same step."""
+        if deadline_s is None:
+            return False
+        past = time.monotonic() - t0 >= deadline_s
+        if self._mesh_group is None:
+            return past
+        flag = torch.tensor([past], dtype=torch.int64, device=self.device)
+        dist.broadcast(flag, src=self.mesh.first_rank,
+                       group=self._mesh_group)
+        self.gathers["deadline"] += 1
+        return bool(flag.item())
+
+    def export_kv(self, seq_ids: list, to_host: bool = True) -> tuple:
+        """Dense KV of ``seq_ids`` (``disagg.export_kv_batch``): on a mesh
+        gathered over its processes, the same on every one."""
+        if self._mesh_group is not None and seq_ids:
+            self.gathers["kv_export"] += 1
+        return export_kv_batch(self.cache, seq_ids, group=self._mesh_group,
+                               to_host=to_host)
+
     def export_in_flight(self) -> dict:
         """Persist every in-flight sequence on the host and vacate its
         device state (the crash salvage and the drain deadline).
@@ -2430,13 +2444,12 @@ class Engine:
         exact dense KV (one ``export_kv_batch`` transfer) and generated
         history as ``adopt_batch`` items (``"adoptable"``);
         never-decoded ones come back as fresh requests (``"requests"``).
-        Listeners and high-water marks are left to
-        ``export_emission_state``."""
-        self._single_process("export_in_flight")
+        On a mesh the KV is gathered over its processes and every
+        process exports the same. Listeners and high-water marks are
+        left to ``export_emission_state``."""
         seqs = [s for s in self.slots if s is not None]
         adoptable = [s for s in seqs if s.prefill_done and s.generated]
-        ks, vs = export_kv_batch(self.cache,
-                                 [s.req.id for s in adoptable])
+        ks, vs = self.export_kv([s.req.id for s in adoptable])
         items = [(self._replay_request(s), list(s.generated), k, v)
                  for s, k, v in zip(adoptable, ks, vs)]
         requests = [self._replay_request(s) for s in seqs

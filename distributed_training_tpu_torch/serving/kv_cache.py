@@ -446,27 +446,42 @@ class PagedKVCache:
 
     # -- device-side views -------------------------------------------------
 
-    def gather_pages(self, groups: np.ndarray, pages: np.ndarray) -> tuple:
-        """The listed (group, page) pairs of both pools on the host,
-        (L, Hkv, n, ps, hd) each: one device gather, laid out there, and
-        one copy to the host per pool. Only these pages move, never the
-        whole pool. This process must hold every group
-        (``local_group`` None)."""
-        gi = torch.from_numpy(groups).to(self.device)
+    def _pool_index(self, groups: np.ndarray) -> torch.Tensor:
+        local = groups if self.local_group is None else (
+            groups - self.local_group)
+        return torch.from_numpy(local).to(self.device)
+
+    def gather_pages(self, groups: np.ndarray, pages: np.ndarray,
+                     to_host: bool = True) -> tuple:
+        """The listed (group, page) pairs of both pools, (L, hkv, n, ps,
+        hd) each at this process's kv heads: one device gather, laid out
+        there, and (``to_host``) one copy to the host per pool. Only these
+        pages move, never the whole pool. This process must hold every
+        listed group."""
+        gi = self._pool_index(groups)
         pi = torch.from_numpy(pages).to(self.device)
-        return tuple(pool[gi, :, :, pi].permute(1, 2, 0, 3, 4)
-                     .contiguous().cpu()
-                     for pool in (self.k_pages, self.v_pages))
+        out = tuple(pool[gi, :, :, pi].permute(1, 2, 0, 3, 4).contiguous()
+                    for pool in (self.k_pages, self.v_pages))
+        return tuple(t.cpu() for t in out) if to_host else out
 
     def scatter_pages(self, groups: np.ndarray, pages: np.ndarray,
                       k: torch.Tensor, v: torch.Tensor) -> None:
-        """Write (L, Hkv, n, ps, hd) blocks into the listed (group, page)
-        pairs of the pools: one scatter per pool."""
-        gi = torch.from_numpy(groups).to(self.device)
+        """Write (L, Hkv, n, ps, hd) blocks of every kv head into the
+        listed (group, page) pairs of the pools: one scatter per pool, of
+        the pairs in groups this process holds, at its kv heads."""
+        if self.local_group is not None:
+            keep = groups == self.local_group
+            sel = torch.from_numpy(np.flatnonzero(keep))
+            k, v = (t.index_select(2, sel.to(t.device)) for t in (k, v))
+            groups, pages = groups[keep], pages[keep]
+            if not len(groups):
+                return
+        kv0, hkv = self.kv_heads
+        gi = self._pool_index(groups)
         pi = torch.from_numpy(pages).to(self.device)
         for pool, new in ((self.k_pages, k), (self.v_pages, v)):
-            pool[gi, :, :, pi] = new.to(self.device, pool.dtype).permute(
-                2, 0, 1, 3, 4)
+            pool[gi, :, :, pi] = new[:, kv0:kv0 + hkv].to(
+                self.device, pool.dtype).permute(2, 0, 1, 3, 4)
 
     def page_row(self, seq_id) -> np.ndarray:
         """(pages_per_seq,) int32 page-table row, scratch-padded."""

@@ -412,17 +412,26 @@ class ServingServer:
                         logger.debug("stream client gone before the "
                                      "final chunk")
 
+            def _shed(self) -> dict | None:
+                """The refusal gate of POST /generate (JAX ``_shed``):
+                a 503 with ``Retry-After`` after an engine crash or
+                while draining. The queue-depth bound is refused at
+                construction (``max_queue_depth``)."""
+                if server.engine_error is not None:
+                    return {"error": "engine crashed: "
+                                     + server.engine_error}
+                if server.draining:
+                    return {"error": "draining: not admitting new "
+                                     "requests"}
+                return None
+
             def do_POST(self):  # noqa: N802 — http.server API
                 if self.path.split("?")[0] != "/generate":
                     self._reply(404, {"error": "try POST /generate"})
                     return
-                if server.engine_error is not None:
-                    self._reply(503, {"error": "engine crashed: "
-                                      + server.engine_error})
-                    return
-                if server.draining:
-                    self._reply(503, {"error": "draining: not admitting "
-                                      "new requests"}, headers=(
+                shed = self._shed()
+                if shed is not None:
+                    self._reply(503, shed, headers=(
                         ("Retry-After",
                          str(max(1, int(server.retry_after_s)))),))
                     return

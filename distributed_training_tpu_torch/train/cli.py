@@ -6,6 +6,8 @@
         train.device=cpu train.parallel_strategy=fsdp mesh.fsdp=2 ...
     torchrun --nproc_per_node 2 -m distributed_training_tpu_torch.train \
         train.device=cpu train.parallel_strategy=tp mesh.tp=2 ...
+    torchrun --nproc_per_node 4 -m distributed_training_tpu_torch.train \
+        train.device=cpu train.sharding_plan=<name or path> ...
 
 The same ``conf/`` tree and override grammar as the JAX CLI. It runs on
 the CUDA card (``cuda:LOCAL_RANK`` under torchrun, over NCCL) unless
@@ -37,6 +39,9 @@ from distributed_training_tpu_torch.data import (
 )
 from distributed_training_tpu_torch.models.registry import build_model
 from distributed_training_tpu_torch.parallel import check_strategy
+from distributed_training_tpu_torch.parallel.planner import (
+    apply_plan_to_config,
+)
 from distributed_training_tpu_torch.runtime import (
     initialize_runtime,
     shutdown_runtime,
@@ -72,20 +77,28 @@ def main(argv: list[str] | None = None) -> int:
     cfg = load_config(args.config_dir, args.config_name, args.overrides)
     refuse_unported(cfg.train)
     check_strategy(cfg.train.parallel_strategy)
+    plan = None
+    if cfg.train.sharding_plan:
+        # The mesh is derived from the plan: its model-sharding axes
+        # pinned, dp the wildcard; the Trainer checks the resolved mesh.
+        plan = apply_plan_to_config(cfg)
     run_dir = os.path.join(cfg.run.output_dir, cfg.run.experiment_name)
     os.makedirs(run_dir, exist_ok=True)
     rt = initialize_runtime(cfg)
     guard = PreemptionGuard.install()
     try:
-        return _run(cfg, rt, guard, run_dir)
+        return _run(cfg, rt, guard, run_dir, plan)
     finally:
         guard.uninstall()
         shutdown_runtime(rt)
 
 
-def _run(cfg, rt, guard, run_dir: str) -> int:
+def _run(cfg, rt, guard, run_dir: str, plan=None) -> int:
     setup_logging(cfg.run.log_level, os.path.join(run_dir, cfg.run.log_file),
                   rt.process_index, force=True)
+    if plan is not None:
+        logger.info("sharding plan %s@%s: mesh derived %s", plan.name,
+                    plan.fingerprint(), plan.mesh)
     if cfg.train.global_batch_size:
         if cfg.train.global_batch_size % rt.data_shard_count:
             raise ValueError(

@@ -23,7 +23,10 @@ keeps each process's slice of the Adam moments, updates its slice of the
 params and all-gathers them; tensor parallelism binds the tp group to
 the model (``parallel/tensor.py``), whose block then computes on this
 rank's blocks of the weights. tp ranks take the same batch: the data
-axes are (dp, fsdp), and MFU counts every card. The JAX
+axes are (dp, fsdp), and MFU counts every card. Under
+``train.sharding_plan`` the placements come from the plan's sharding
+map instead (``parallel/planner.py::PlannedStrategy``), and a runtime
+mesh other than the plan's raises ``PlanError`` here. The JAX
 trainer's other hooks are not ported yet and asking for one raises,
 naming its ROADMAP.md queue A item.
 """
@@ -40,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 from distributed_training_tpu_torch.models.base import count_params
-from distributed_training_tpu_torch.parallel import fsdp
+from distributed_training_tpu_torch.parallel import fsdp, planner
 from distributed_training_tpu_torch.parallel.strategy import (
     get_strategy,
     layout as strategy_layout,
@@ -62,7 +65,6 @@ logger = logging.getLogger(__name__)
 # TrainConfig fields whose feature is not ported yet: field → (the value
 # that leaves it off, what it is, its ROADMAP.md queue A item).
 _UNPORTED = {
-    "sharding_plan": ("", "sharding plans", 17),
     "eval_fraction": (0.0, "held-out evaluation", 5),
     "data_sources": ({}, "the streaming data pipeline", 14),
     "fault_plan": ("", "fault injection", 14),
@@ -203,9 +205,20 @@ class Trainer:
             raise ValueError(
                 f"grad_accum_steps={tcfg.grad_accum_steps} must divide "
                 f"the per-shard batch_size={loader.batch_size}")
-        self.strategy = get_strategy(tcfg.parallel_strategy, runtime.spec,
-                                     min_shard_elems=tcfg.min_shard_elems,
-                                     gather_on_save=tcfg.gather_on_save)
+        # The layout's source: a resolved plan when one is pinned (its
+        # sharding map by path, on exactly the plan's mesh), else the
+        # strategy's rules.
+        if tcfg.sharding_plan:
+            plan = planner.load_plan(tcfg.sharding_plan)
+            planner.check_plan_runtime(plan, runtime.spec)
+            self.strategy = planner.PlannedStrategy(
+                plan=plan, min_shard_elems=tcfg.min_shard_elems,
+                gather_on_save=tcfg.gather_on_save)
+        else:
+            self.strategy = get_strategy(
+                tcfg.parallel_strategy, runtime.spec,
+                min_shard_elems=tcfg.min_shard_elems,
+                gather_on_save=tcfg.gather_on_save)
         self.layout = self._layout()
         self._bind_gather()
         self._bind_tensor_parallel()
@@ -285,7 +298,7 @@ class Trainer:
         group to the model (a group of one at tp 1: the same code and
         collectives as at tp > 1, which change no bit there)."""
         tp = None
-        if self.layout is not None and self.strategy.name == "tp":
+        if self.layout is not None and self.strategy.family == "tp":
             tp = TPGroup(self.rt.group(("tp",)))
         self.model.bind_tensor_parallel(tp)
 

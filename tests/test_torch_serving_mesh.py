@@ -25,8 +25,12 @@ held against the JAX package.
   its dims above 1) give the one-process int8 engine's and the JAX int8
   engine's tokens; an identical-value ``swap_weights`` mid-stream, a
   ``preempt`` and a ``drain``, in lock-step on every process, give the
-  unswapped run's tokens; ``export_in_flight``, ``adopt_batch`` and a
-  drain with a deadline raise naming the dense-KV remainder of item 9.
+  unswapped run's tokens; a stream stopped mid-way, exported with
+  ``export_in_flight`` (one all-gather of the dense KV over the mesh)
+  and adopted back with ``adopt_batch``, and a drain with a deadline
+  (the first process's clock) whose persisted work is adopted back,
+  each end with the uninterrupted run's tokens, and every process
+  persists the same requests.
 """
 
 import dataclasses
@@ -455,8 +459,14 @@ def test_mesh_engine_matches_one_process_and_jax(world, models,
             "out of lock-step at step 0" in r["lockstep"], (what,
                                                             r["lockstep"])
         _check_lifecycle(r["lifecycle"], refs, pm.cfg, G, tp, what)
-    # Every process read the same tokens.
+    # Every process read the same tokens, and stopped and persisted the
+    # same requests.
     for r in ranks[1:]:
+        for name in ("export", "deadline"):
+            mine, first = (x["lifecycle"]["mesh_kv"][name]
+                           for x in (r, ranks[0]))
+            assert {k: mine[k] for k in ("adopted", "fresh", "persisted")} \
+                == {k: first[k] for k in ("adopted", "fresh", "persisted")}
         assert {m: g["tokens"] for m, g in r["modes"].items()} == \
             {m: g["tokens"] for m, g in ranks[0]["modes"].items()}
     if G > 1:
@@ -489,8 +499,11 @@ def _check_lifecycle(life: dict, refs: dict, c, G: int, tp: int,
     assert swap["requeued"], what
     assert swap["pages_left"] == [0] * G, what
     assert all(v[-1][0] == "v1" for v in swap["versions"].values()), what
-    for name, msg in life["mesh_kv_errors"].items():
-        assert msg is not None and "item 9" in msg, (what, name, msg)
+    for name, kv in life["mesh_kv"].items():
+        assert kv["tokens"] == refs["batched"]["port"], (what, name)
+        assert kv["gathers"]["kv_export"] == 1, (what, name)
+    assert life["mesh_kv"]["export"]["adopted"], what
+    assert life["mesh_kv"]["deadline"]["gathers"]["deadline"] >= 1, what
 
 
 def test_one_process_engine_keeps_its_single_group_surface(models):

@@ -24,8 +24,9 @@ in the same order. It writes its readings to ``<out>/rank<r>.pt``:
   leaves, with this rank's ``qw``/``scale`` shapes and weight bytes; the
   batched run again with an identical-value ``swap_weights`` mid-stream,
   then ``preempt`` and a resubmission, then ``drain``, every call in
-  lock-step; and the ``NotImplementedError`` messages of
-  ``export_in_flight``, ``adopt_batch`` and a drain with a deadline.
+  lock-step; and dense KV on the mesh: a stream stopped mid-way,
+  exported (``export_in_flight``) and adopted back (``adopt_batch``),
+  then a drain with a deadline and its persisted work adopted back.
 
 It imports only the port (and torch, numpy), never JAX: the parent holds
 the results against the port's one-process engine and the JAX engine.
@@ -235,23 +236,44 @@ def _lifecycle(model, params, rt, ecfg: dict, prompts: list,
                    "swap_stats": dict(eng.swap_stats),
                    "pages_left": [eng.cache.pages_used_in(g)
                                   for g in range(eng.dp_groups)]}
-    eng = Engine(model, params, EngineConfig(**ecfg), mesh=rt, device="cpu")
-    _serve(eng, prompts[:2], 2, "w")
-    for i, p in enumerate(prompts[:2]):
-        eng.submit(Request(id=f"k{i}", prompt=p, max_new_tokens=new_tokens))
-    eng.step()
-    eng.step()
-    errors = {}
-    for name, call in (("export_in_flight", eng.export_in_flight),
-                       ("adopt_batch", lambda: eng.adopt_batch([])),
-                       ("drain_deadline", lambda: eng.drain(1.0))):
-        try:
-            call()
-            errors[name] = None
-        except NotImplementedError as e:
-            errors[name] = str(e)
+    out["mesh_kv"] = mesh_kv(model, params, rt, ecfg, prompts, new_tokens)
+    return out
+
+
+def _resume(eng, persisted: dict) -> dict:
+    """Adopt ``persisted`` (an ``export_in_flight``) back, resubmit its
+    fresh requests and run to the end: every request's tokens."""
+    eng.draining = False
+    eng.adopt_batch(persisted["adoptable"])
+    for r in persisted["requests"]:
+        eng.submit(r)
     eng.run_until_drained()
-    out["mesh_kv_errors"] = errors
+    return {r["id"]: r["tokens"] for r in eng.completed}
+
+
+def mesh_kv(model, params, rt, ecfg: dict, prompts: list,
+            new_tokens: int) -> dict:
+    """Dense KV on the mesh, in lock-step: a stream stopped after four
+    steps, exported and adopted back; then a drain with a deadline (the
+    first process's clock) and its persisted work adopted back."""
+    out = {}
+    for name, stop in (("export", lambda e: e.export_in_flight()),
+                       ("deadline", lambda e: e.drain(deadline_s=0.0))):
+        eng = Engine(model, params, EngineConfig(**ecfg), mesh=rt,
+                     device="cpu")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(id=f"r{i}", prompt=p,
+                               max_new_tokens=new_tokens))
+        for _ in range(4):
+            eng.step()
+        got = stop(eng)
+        persisted = got.get("export", got)
+        out[name] = {"adopted": sorted(it[0].id
+                                       for it in persisted["adoptable"]),
+                     "fresh": sorted(r.id for r in persisted["requests"]),
+                     "persisted": got.get("persisted"),
+                     "tokens": _resume(eng, persisted),
+                     "gathers": dict(eng.gathers)}
     return out
 
 

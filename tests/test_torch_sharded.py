@@ -55,6 +55,7 @@ from distributed_training_tpu_torch.data.datasets import SyntheticLMDataset
 from distributed_training_tpu_torch.models import transformer as port_tf
 from distributed_training_tpu_torch.models.convert import from_jax_params
 from distributed_training_tpu_torch.parallel import strategy as port_strategy
+from distributed_training_tpu_torch.parallel.planner import PlanError
 from distributed_training_tpu_torch.runtime import MeshSpec as PortMeshSpec
 from distributed_training_tpu_torch.runtime import MeshSpecError, Runtime
 from distributed_training_tpu_torch.serving.disagg import (
@@ -399,7 +400,7 @@ def _check_artifact(res: dict, tmp_path) -> None:
         for part in ("qw", "scale"):
             assert torch.equal(qstate["params"][grp][name][part],
                                want[grp][name][part]), (grp, name, part)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(PlanError, match="some_plan"):
         port_export.export(res["ckpt"], out, plan="some_plan")
 
 
