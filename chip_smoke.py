@@ -100,6 +100,7 @@ import gc
 import json
 import math
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -741,17 +742,23 @@ def _gpt2(dtype: str):
     return model, model.init(SEED)
 
 
-def _engine(model, params, mesh=None, **over):
-    from distributed_training_tpu_torch.serving.engine import (
-        Engine,
-        EngineConfig,
-    )
+def _engine_config(**over):
+    """The serving phases' engine geometry: 8 slots of 1024 tokens, the
+    one ``conf/serving/default.yaml`` gives a plan at a mesh of 1 with 8
+    slots of 1024 tokens (phase serving_cli checks it)."""
+    from distributed_training_tpu_torch.serving.engine import EngineConfig
 
     kw = dict(max_batch=8, page_size=16, num_pages=513, max_seq_len=1024,
               prefill_chunk=16, prefix_sharing=True, prefill_mode="batched",
               policy="prefill", temperature=0.0)
     kw.update(over)
-    return Engine(model, params, EngineConfig(**kw), mesh=mesh)
+    return EngineConfig(**kw)
+
+
+def _engine(model, params, mesh=None, **over):
+    from distributed_training_tpu_torch.serving.engine import Engine
+
+    return Engine(model, params, _engine_config(**over), mesh=mesh)
 
 
 def _smoke_prompts() -> list:
@@ -1759,6 +1766,216 @@ def phase_serving_disagg(prompts: list, new_tokens: int, tmp: str) -> tuple:
           "new_tokens": new_tokens, "plans_mesh": 1, "batch_per_shard": 8,
           "seq_len": 1024, **out})
     return launches
+
+
+class _ServerCLI:
+    """One ``python -m distributed_training_tpu_torch.serving.server``
+    process on the card: its working directory ``cwd``, standard error in
+    ``<cwd>/server.log``, its JSON status lines read from standard output
+    on a thread."""
+
+    def __init__(self, artifact: str, plan: str, cwd: str):
+        repo = os.path.dirname(os.path.abspath(__file__))
+        self.cwd = cwd
+        self.log = open(os.path.join(cwd, "server.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "distributed_training_tpu_torch.serving.server",
+             "--artifact", artifact, "--plan", plan,
+             "--config", os.path.join(repo, "conf", "serving",
+                                      "default.yaml"),
+             "--port", "0", "--metrics-port", "0"],
+            cwd=cwd, env=dict(os.environ, PYTHONPATH=repo),
+            stdout=subprocess.PIPE, stderr=self.log, text=True)
+        self.lines: list = []
+        self._ready = threading.Event()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            if line.startswith("{"):
+                self.lines.append(json.loads(line))
+                if self.lines[-1].get("serving") == "ready":
+                    self._ready.set()
+        self._ready.set()
+
+    def _tail(self) -> str:
+        with open(os.path.join(self.cwd, "server.log")) as f:
+            return f.read()[-4000:]
+
+    def ready(self, timeout: float = 300) -> dict:
+        self._ready.wait(timeout)
+        got = [x for x in self.lines if x.get("serving") == "ready"]
+        check(bool(got), f"serving_cli: the server did not start: "
+              f"{self._tail()}")
+        return got[0]
+
+    def stop(self) -> tuple:
+        """SIGINT, then (exit code, the stop line)."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+        try:
+            rc = self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        self._reader.join(timeout=10)
+        self.log.close()
+        stopped = [x for x in self.lines if x.get("serving") == "stopped"]
+        return rc, (stopped[0] if stopped else None)
+
+
+def _get(port: int, path: str) -> tuple:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return r.status, r.read().decode()
+
+
+def _cli_burst(port: int, prompts: list, new_tokens: int) -> dict:
+    """The prompts as concurrent POST /generate requests, timed."""
+    results: dict = {}
+
+    def client(i):
+        results[i] = _post(port, {"prompt_ids": prompts[i].tolist(),
+                                  "max_new_tokens": new_tokens})
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(len(results) == len(prompts), "serving_cli: not every request "
+          "completed")
+    tokens = {i: r["tokens"] for i, r in results.items()}
+    return {"tokens": tokens, "wall_s": wall,
+            "tokens_per_s": sum(map(len, tokens.values())) / wall,
+            "mean_ttft_s": float(np.mean([r["ttft_s"]
+                                          for r in results.values()]))}
+
+
+def phase_serving_cli(prompts: list, new_tokens: int, batched: dict,
+                      tmp: str) -> tuple:
+    """gpt2_125m served through the server's own entry point: the weights
+    written as an artifact, a plan at a mesh of 1 saved with the port's
+    ``save_plan`` (8 slots of 1024 tokens), and ``python -m
+    distributed_training_tpu_torch.serving.server --artifact A --plan P
+    --config conf/serving/default.yaml --port 0`` started as a process of
+    its own, on the card. bf16: the smoke's prompts as concurrent POST
+    /generate requests, tokens/s and mean TTFT over HTTP, B4 and B1
+    launches counted in the server process (its status lines at ready and
+    at stop), token agreement with phase serving's engine, whose config is
+    the one ``engine_config_from_yaml`` derives; float32 on the two
+    longest prompts: tokens equal to an in-process Engine under that
+    config. ``GET /metrics`` counts the requests and their TTFTs, ``GET
+    /debug/requests`` answers, and SIGINT ends the server with 0."""
+    import yaml
+
+    from distributed_training_tpu_torch.checkpoint.consolidate import (
+        write_artifact,
+    )
+    from distributed_training_tpu_torch.models.transformer import PRESETS
+    from distributed_training_tpu_torch.parallel.planner import save_plan
+    from distributed_training_tpu_torch.serving.server import (
+        engine_config_from_yaml,
+    )
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(repo, "conf", "serving", "default.yaml")) as f:
+        block = yaml.safe_load(f)["engine"]
+    longest = sorted(range(len(prompts)), key=lambda i: -len(prompts[i]))[:2]
+    servers, cfgs = {}, {}
+    try:
+        for dtype in ("bfloat16", "float32"):
+            model, params = _gpt2(dtype)
+            cwd = os.path.join(tmp, f"cli_{dtype}")
+            os.makedirs(cwd)
+            artifact = os.path.join(cwd, "model.pt")
+            write_artifact(artifact, {"params": _host_copy(params)}, {})
+            mk = {**PRESETS["gpt2_125m"], "dtype": dtype,
+                  "param_dtype": dtype}
+            plan = _mesh_one_plan(f"gpt2_cli_{dtype}", model, mk)
+            cfgs[dtype] = engine_config_from_yaml(plan, block)
+            servers[dtype] = _ServerCLI(
+                artifact, save_plan(plan, os.path.join(cwd, "plan.json")),
+                cwd)
+            if dtype == "float32":
+                # The in-process reference while the servers start.
+                ref = _colocated_serve(model, params, cfgs[dtype],
+                                       [prompts[i] for i in longest],
+                                       new_tokens)
+            del model, params
+            _free_memory()
+        check(cfgs["bfloat16"] == _engine_config(),
+              f"serving_cli: engine_config_from_yaml gives "
+              f"{cfgs['bfloat16']}, not phase serving's engine config")
+        out: dict = {}
+        for dtype in ("float32", "bfloat16"):
+            srv = servers[dtype]
+            ready = srv.ready()
+            use = prompts if dtype == "bfloat16" else [prompts[i]
+                                                       for i in longest]
+            run = _cli_burst(ready["port"], use, new_tokens)
+            st_m, metrics = _get(ready["port"], "/metrics")
+            st_d, _debug = _get(ready["port"], "/debug/requests")
+            rc, stopped = srv.stop()
+            check(rc == 0 and stopped is not None,
+                  f"serving_cli {dtype}: the server exited {rc}, stop "
+                  f"line {stopped}: {srv._tail()}")
+            n = len(use)
+            check(st_m == 200 and st_d == 200
+                  and f"dtt_serving_requests_total {n}\n" in metrics
+                  and 'dtt_serving_time_to_first_token_seconds_count'
+                      f'{{tenant="default"}} {n}\n' in metrics,
+                  f"serving_cli {dtype}: /metrics does not count {n} "
+                  f"requests:\n{metrics[-2000:]}")
+            check(all(len(t) == new_tokens for t in run["tokens"].values()),
+                  f"serving_cli {dtype}: a request returned the wrong "
+                  "number of tokens")
+            served = {k: {d: stopped["kernel_launches"][k]["by_design"][d]
+                          - ready["kernel_launches"][k]["by_design"][d]
+                          for d in ready["kernel_launches"][k]["by_design"]}
+                      for k in ready["kernel_launches"]}
+            if dtype == "float32":
+                want = {j: ref["tokens"][j] for j in range(n)}
+                check(run["tokens"] == want, "serving_cli float32: tokens "
+                      "over HTTP differ from the in-process engine's")
+            else:
+                want = {j: batched[j] for j in range(n)}
+            out[dtype] = {
+                "prompt_lens": [len(p) for p in use],
+                "wall_s": run["wall_s"], "tokens_per_s": run["tokens_per_s"],
+                "mean_ttft_s": run["mean_ttft_s"],
+                "b4_launches": sum(served["paged_decode"].values()),
+                "b1_launches": sum(served["flash_fwd"].values()),
+                "launches_by_design": served,
+                "requests_finished": stopped["requests_finished"],
+                "tokens_matching": _matching(run["tokens"], want),
+                "tokens_total": sum(len(t) for t in want.values())}
+            check(out[dtype]["b4_launches"] > 0,
+                  f"serving_cli {dtype}: paged decode never launched in "
+                  "the server process")
+            _check_designs({"paged_decode": served["paged_decode"]},
+                           "split_kv", f"serving_cli {dtype}")
+    finally:
+        for srv in servers.values():
+            if srv.proc.poll() is None:
+                srv.proc.kill()
+                srv.proc.wait()
+    emit({"phase": "serving_cli", "model": "gpt2_125m",
+          "new_tokens": new_tokens, "plans_mesh": 1,
+          "config": "conf/serving/default.yaml", **out})
+    bf16 = out["bfloat16"]["launches_by_design"]
+    launches = {name: 0 for name in KERNELS}
+    designs = {name: dict.fromkeys(fn.launches_by_design, 0)
+               for name, fn in _wrappers().items()}
+    for name, by_design in bf16.items():
+        launches[name] = sum(by_design.values())
+        designs[name].update(by_design)
+    return launches, designs
 
 
 def phase_trace(prompts: list, new_tokens: int) -> None:
@@ -3121,6 +3338,7 @@ def main() -> int:
                          for name in SERVING_MESHES}
         recovery_launches = phase_serving_recovery(prompts, tmp)
         disagg_launches = phase_serving_disagg(prompts, 64, tmp)
+        cli_launches = phase_serving_cli(prompts, 64, batched, tmp)
         train_launches = phase_train(tmp)
         split_launches = phase_train_split(tmp)
         phase_train_parity(tmp)
@@ -3153,12 +3371,14 @@ def main() -> int:
     # Launches: the sum over the paths driven above, each counted from 0
     # (serving, sequential prefill, speculative serving, resident serving,
     # int8 serving, the swapped resident engine, the supervised recovery,
-    # the disaggregated pipeline's bf16 run, training, split-backward
+    # the disaggregated pipeline's bf16 run, the CLI-started server's bf16
+    # run (counted in its process), training, split-backward
     # training, transformer_1b under fsdp and under tp_fsdp, gpt2_125m
     # under tp at tp 2, serving on the meshes dp 2 and tp 2: both
     # processes).
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
              int8_launches, swap_launches, recovery_launches, disagg_launches,
+             cli_launches,
              *mesh_launches.values(), train_launches, split_launches,
              train_1b_launches, tp_1b_launches, tp2_launches)
     kernels = []
@@ -3205,6 +3425,9 @@ def main() -> int:
                     "launches": mesh_launches[mesh][0][name]}
             # Its launches on the disaggregated pipeline's decode engine.
             kernels[-1]["serving_disagg_launches"] = disagg_launches[0][name]
+        if name in ("paged_decode", "flash_fwd"):
+            # Its launches in the server process started through the CLI.
+            kernels[-1]["serving_cli_launches"] = cli_launches[0][name]
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the path was never launched")
     emit({"kernels": kernels})

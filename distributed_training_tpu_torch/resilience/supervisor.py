@@ -6,9 +6,11 @@ The serving half of ``distributed_training_tpu/resilience/supervisor.py``:
 carries its work across, with the JAX function's budget, refund,
 salvage, re-adoption and resubmission order.
 
+At each crash it takes the ``/debug/requests`` snapshot and, with
+``incident_dir``, writes an ``engine_crash`` incident bundle (and a
+``give_up`` one when the budget runs out), as the JAX function does.
 ``supervise()`` for training, with its exit sentinels and checkpoint
-progress, waits for ROADMAP.md queue A item 14; engine-crash incident
-bundles and the ``/debug/requests`` snapshot wait for item 12.
+progress, waits for ROADMAP.md queue A item 14.
 """
 
 from __future__ import annotations
@@ -22,9 +24,6 @@ from typing import Callable
 logger = logging.getLogger(__name__)
 
 CRASH = "crash"
-INCIDENTS_ITEM = ("ROADMAP.md queue A item 12 ('Server: metrics, debug, "
-                  "load shedding and incidents': engine-crash incident "
-                  "bundles)")
 
 
 @dataclass
@@ -77,15 +76,16 @@ def supervise_serving(make_engine: Callable[[], object],
 
     Budget: an incarnation that finished at least one request refunds it
     to ``max_restarts``; one that did not burns one, and below zero the
-    supervisor gives up. ``snapshot`` (a callable returning the
-    ``/debug/requests`` body) is called at each crash and kept in the
-    crash record; without one none is taken until ROADMAP.md item 12
-    brings the server's. ``incident_dir`` waits for item 12."""
+    supervisor gives up. At each crash the ``/debug/requests`` body is
+    taken (``snapshot()``, or ``debug_requests_snapshot`` of the dead
+    engine) and kept in the crash record; with ``incident_dir`` every
+    crash, and the give-up, leaves an incident bundle carrying it and the
+    last weight-swap provenance."""
     from distributed_training_tpu_torch import telemetry as tel
+    from distributed_training_tpu_torch.serving.server import (
+        debug_requests_snapshot,
+    )
 
-    if incident_dir is not None:
-        raise NotImplementedError(
-            f"supervise_serving(incident_dir=...) waits for {INCIDENTS_ITEM}")
     policy = policy or RestartPolicy()
     engine = make_engine()
     budget = policy.max_restarts
@@ -109,12 +109,12 @@ def supervise_serving(make_engine: Callable[[], object],
                            "launch %d): %s", incarnation,
                            engine.launch_count, err)
             snap = None
-            if snapshot is not None:
-                try:
-                    snap = snapshot()
-                except Exception as e:  # noqa: BLE001 — evidence is
-                    # optional; a broken snapshot must not stop recovery.
-                    logger.debug("serving snapshot unavailable: %s", e)
+            try:
+                snap = (snapshot() if snapshot is not None
+                        else debug_requests_snapshot(engine))
+            except Exception as e:  # noqa: BLE001 — evidence is optional;
+                # a broken snapshot must not stop recovery.
+                logger.debug("serving snapshot unavailable: %s", e)
             emission = engine.export_emission_state()
             queued = list(engine.queue)
             engine.queue.clear()
@@ -136,6 +136,17 @@ def supervise_serving(make_engine: Callable[[], object],
                       resubmitted=len(export["requests"]) + len(queued),
                       finished_this_incarnation=(
                           engine.finished_total - base_finished))
+            # After the event, so the bundle's events tail carries it.
+            if incident_dir:
+                tel.write_incident_bundle(
+                    incident_dir, reason=err, kind="engine_crash",
+                    events_tail=tel.current().tail(),
+                    extra={"incarnation": incarnation,
+                           "launch_count": engine.launch_count,
+                           "weights_version": engine.weights_version,
+                           "weights_provenance": engine.weights_provenance,
+                           "swap_stats": dict(engine.swap_stats)},
+                    serving=snap)
             crashes.append({"incarnation": incarnation, "error": err,
                             "advanced": advanced,
                             **({"snapshot": snap} if snap is not None
@@ -154,6 +165,16 @@ def supervise_serving(make_engine: Callable[[], object],
                 tel.event("supervisor_give_up",
                           incarnations=incarnation + 1, streak=streak,
                           outcome=CRASH, scope="serving", error=err)
+                if incident_dir:
+                    tel.write_incident_bundle(
+                        incident_dir,
+                        reason=("serving crash-loop: no finished request "
+                                f"in the last {streak} attempt(s); last "
+                                f"error {err}"),
+                        kind="give_up", events_tail=tel.current().tail(),
+                        extra={"incarnations": incarnation + 1,
+                               "streak": streak, "scope": "serving"},
+                        serving=snap)
                 return {"engine": engine, "result": None,
                         "incarnations": incarnation + 1,
                         "restarts": incarnation, "gave_up": True,

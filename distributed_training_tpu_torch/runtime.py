@@ -32,6 +32,7 @@ queue A item 16.
 
 from __future__ import annotations
 
+import datetime
 import itertools
 import logging
 import math
@@ -291,8 +292,10 @@ def _refuse_unported_axes(sizes: dict) -> None:
                 f"for ROADMAP.md queue A item {item}")
 
 
-def initialize_runtime(cfg) -> Runtime:
-    """The runtime for ``cfg`` (a ``config.Config``).
+def initialize_runtime(cfg, timeout: datetime.timedelta | None = None
+                       ) -> Runtime:
+    """The runtime for ``cfg`` (a ``config.Config``, or any object with
+    its ``train.device`` and ``mesh.<axis>`` fields).
 
     ``train.device`` "auto" or "cuda" means the CUDA card
     (``cuda:LOCAL_RANK`` under torchrun; raises without one), "cpu" the
@@ -301,7 +304,8 @@ def initialize_runtime(cfg) -> Runtime:
     from torchrun's environment when ``RANK`` and ``WORLD_SIZE`` are
     set; otherwise the world is this one process. The mesh
     (``MeshSpec.resolve``, at most one ``-1`` axis) must cover the world
-    exactly; ``sp`` or ``pp`` above 1 raises."""
+    exactly; ``sp`` or ``pp`` above 1 raises. ``timeout`` bounds each
+    collective of a group started here (torch's default when None)."""
     pref = cfg.train.device
     if pref not in ("auto", "", "cuda", "gpu", "cpu"):
         raise ValueError(f"train.device '{pref}' is not a device of the "
@@ -326,7 +330,8 @@ def initialize_runtime(cfg) -> Runtime:
         dist.init_process_group(
             want, init_method="env://", rank=int(env["RANK"]),
             world_size=int(env["WORLD_SIZE"]),
-            device_id=None if cpu else device)
+            device_id=None if cpu else device,
+            **({} if timeout is None else {"timeout": timeout}))
         backend, owns = want, True
     else:
         backend = None

@@ -284,9 +284,19 @@ class _Seq:
     eos: bool = False             # emitted the configured stop token
     queue_wait_s: float | None = None  # arrival -> admission
     ngram: NgramIndex | None = None  # lazy prompt-lookup index
+    trace: list = field(default_factory=list)  # lifecycle spans
+    prefix_hit: int = 0           # prompt tokens served from cache
     # Per-token weight-version tags, run-length encoded as [version,
     # count] pairs in emission order.
     versions: list = field(default_factory=list)
+
+    def span(self, ev: str, t: float, **fields) -> None:
+        """Append a lifecycle span at ``t``, a monotonic host time the
+        caller already took, stored relative to arrival. A host list
+        append only: no device sync, no launch."""
+        rel = t - self.req.arrival if self.req.arrival is not None \
+            else t
+        self.trace.append({"ev": ev, "t": round(rel, 6), **fields})
 
     @property
     def prompt_len(self) -> int:
@@ -1311,9 +1321,53 @@ class Engine:
         self._validate(req)
         self.queue.append(req)
 
-    def _mark_admitted(self, seq: _Seq) -> None:
+    # -- request-lifecycle tracing -------------------------------------------
+    #
+    # Spans are host list appends at points the admission and launch
+    # bookkeeping already occupies, timed by the clock reads the engine
+    # takes after ``_fetch_host`` where there is one: no device sync, no
+    # launch, nothing captured. The record goes out through the ambient
+    # telemetry sink (telemetry/serving_trace.py has its schema).
+
+    def _mark_admitted(self, seq: _Seq, ev: str, **fields) -> None:
+        """Open a sequence's trace: ``queued`` at t=0 (its arrival),
+        then the admission span (``admitted``, ``resumed`` or
+        ``adopted``). ``queue_wait_s`` is fixed here; a request
+        resubmitted after a preemption keeps its first arrival, so its
+        second trace shows the whole wait."""
+        now = time.monotonic()
+        seq.trace.append({"ev": "queued", "t": 0.0})
+        seq.span(ev, now, slot=seq.slot, **fields)
         if seq.req.arrival is not None:
-            seq.queue_wait_s = time.monotonic() - seq.req.arrival
+            seq.queue_wait_s = now - seq.req.arrival
+        seq.prefix_hit = int(fields.get("prefix_hit_tokens")
+                             or fields.get("hit_tokens") or 0)
+
+    def _emit_trace(self, seq: _Seq, outcome: str, now: float,
+                    tokens_discarded: int = 0) -> None:
+        """Close a sequence's trace with ``outcome`` (``finished`` or
+        ``preempted``) at ``now``, a time the caller already took, and
+        emit its ``serving_trace`` record."""
+        seq.span(outcome, now,
+                 **({"tokens_discarded": tokens_discarded}
+                    if outcome == "preempted" else {}))
+        arrival = seq.req.arrival
+        ttft = None
+        if seq.first_token_t is not None and arrival is not None:
+            ttft = seq.first_token_t - arrival
+        event("serving_trace",
+              id=seq.req.id,
+              tenant=seq.req.tenant,
+              outcome=outcome,
+              prompt_tokens=seq.prompt_len,
+              new_tokens=len(seq.generated),
+              queue_wait_s=seq.queue_wait_s,
+              ttft_s=ttft,
+              e2e_s=(now - arrival) if arrival is not None else None,
+              prefix_hit_tokens=seq.prefix_hit,
+              tokens_discarded=tokens_discarded,
+              weights_versions=[list(p) for p in seq.versions],
+              spans=list(seq.trace))
 
     def add_token_listener(self, req_id: str, fn) -> None:
         """Register ``fn(token: int, done: bool)`` to fire as each of
@@ -1417,7 +1471,8 @@ class Engine:
             self.cache.join(req.id, group=group)
             self.cache.ensure(req.id, first)
             seq = _Seq(req=req, slot=slot)
-            self._mark_admitted(seq)
+            self._mark_admitted(seq, "admitted", group=group,
+                                prefix_hit_tokens=0)
             self.slots[slot] = seq
             return seq
         if req.session is not None and req.session in self.sessions:
@@ -1487,7 +1542,8 @@ class Engine:
             self.prefix_stats["saved_tokens"] += hit
             self._step_prefix[0] += hit
             self._step_prefix[1] += hit
-        self._mark_admitted(seq)
+        self._mark_admitted(seq, "admitted", group=group,
+                            prefix_hit_tokens=hit)
         self.slots[slot] = seq
         return seq
 
@@ -1521,7 +1577,8 @@ class Engine:
                    prefilled=plen if exact else hl - 1)
         self.slots[slot] = seq
         saved = plen if exact else hl - 1
-        self._mark_admitted(seq)
+        self._mark_admitted(seq, "resumed", group=sess["group"],
+                            session=key, hit_tokens=saved)
         self.prefix_stats["session_resumes"] += 1
         self.prefix_stats["hit_tokens"] += saved
         self.prefix_stats["saved_tokens"] += saved
@@ -1791,6 +1848,7 @@ class Engine:
             (lg,) = self._fetch_host(logits)
             tok = self._sample_host(lg[g])
             now = time.monotonic()
+            seq.span("prefill", now, tokens=n_valid)
             seq.first_token_t = now
             seq.token_times.append(now)
             seq.generated.append(tok)
@@ -1800,6 +1858,9 @@ class Engine:
             self._register(seq)
             self._maybe_finish(seq)
             return True
+        # Mid-prompt chunk: no fetch, so the span's time is the host
+        # clock after the enqueue (the token count is what it carries).
+        seq.span("prefill", time.monotonic(), tokens=n_valid)
         self._register(seq)
         return True
 
@@ -1862,12 +1923,15 @@ class Engine:
         total = 0
         fetched = None
         now = None
+        t_launch = time.monotonic()  # for lanes that trigger no fetch
         for g, seqs in enumerate(chosen):
             for i, s in enumerate(seqs):
                 n = int(n_valid[g, i])
                 self.cache.advance(s.req.id, n)
                 s.prefilled += n
                 total += n
+                if not s.prefill_done:
+                    s.span("prefill", t_launch, tokens=n)
                 if s.prefill_done:
                     if fetched is None:
                         # One (G, Sp) pull for the whole launch, and only
@@ -1876,6 +1940,7 @@ class Engine:
                         (fetched,) = self._fetch_host(nxt)
                         now = time.monotonic()
                     tok = int(fetched[g, i])
+                    s.span("prefill", now, tokens=n)
                     s.first_token_t = now
                     s.token_times.append(now)
                     s.generated.append(tok)
@@ -1992,6 +2057,7 @@ class Engine:
             self.spec_stats["launches"] += 1
             self.spec_stats["emitted"] += len(emit)
             total += len(emit)
+            s.span("decode", now, emitted=len(emit), budget=n)
             self._emit_tokens(s, emit, now)
         self._step_spec = (len(stepped), total)
         return total
@@ -2056,6 +2122,7 @@ class Engine:
             e = int(n_emitted[g, i])
             self.cache.advance(s.req.id, e)
             total += e
+            s.span("decode", now, emitted=e, budget=int(budget[g, i]))
             self._emit_tokens(s, [int(t) for t in out[g, i, :e]], now)
         g_steps = [int(steps[g]) for g in range(G) if active[g].any()]
         self.resident_stats["launches"] += 1
@@ -2106,6 +2173,7 @@ class Engine:
         for s in stepped:
             g, i = divmod(s.slot, B)
             self.cache.advance(s.req.id, 1)
+            s.span("decode", now, emitted=1)
             self._emit_tokens(s, [int(nxt[g, i])], now)
         return len(stepped)
 
@@ -2128,6 +2196,7 @@ class Engine:
                     np.array(seq.generated, np.int32)]),
                 "group": self.cache.group_of(cid),
                 "t": self._session_clock}
+            seq.span("session_retain", time.monotonic(), session=key)
         else:
             self.cache.free(seq.req.id)
         self.slots[seq.slot] = None
@@ -2158,6 +2227,7 @@ class Engine:
                                      "new_tokens", "ttft_s",
                                      "queue_wait_s", "latency_s",
                                      "group")})
+        self._emit_trace(seq, "finished", now)
 
     # -- convenience ---------------------------------------------------------
 
@@ -2229,7 +2299,7 @@ class Engine:
                 self.cache.join(req.id, group=group)
                 seq = _Seq(req=req, slot=slot,
                            prefilled=int(req.prompt.shape[0]))
-                self._mark_admitted(seq)
+                self._mark_admitted(seq, "adopted", group=group)
                 self.slots[slot] = seq
                 staged.append((seq, tokens, k_dense, v_dense))
             import_kv_batch(self.cache, [(s.req.id, k, v)
@@ -2262,9 +2332,14 @@ class Engine:
         restarts from its prompt. Retained sessions survive (their pages
         are refcount-held and untouched by the frees)."""
         lost: list[Request] = []
+        now = time.monotonic()
         for i, s in enumerate(self.slots):
             if s is None:
                 continue
+            # The trace closes before the state goes: the tokens thrown
+            # away are recorded, not inferred.
+            self._emit_trace(s, "preempted", now,
+                             tokens_discarded=len(s.generated))
             self.cache.free(s.req.id)
             self.slots[i] = None
             lost.append(Request(id=s.req.id, prompt=s.req.prompt,
@@ -2290,7 +2365,9 @@ class Engine:
         """Preempt one in-flight sequence back to the head of the queue
         (the staleness bound): pages freed, slot vacated, listener and
         high-water mark kept, so greedy decode regenerates its prefix
-        without delivering it twice."""
+        without delivering it twice. Its trace closes as preempted."""
+        self._emit_trace(seq, "preempted", time.monotonic(),
+                         tokens_discarded=len(seq.generated))
         self.cache.free(seq.req.id)
         self.slots[seq.slot] = None
         self.queue.appendleft(self._replay_request(seq))
@@ -2454,7 +2531,13 @@ class Engine:
                  for s, k, v in zip(adoptable, ks, vs)]
         requests = [self._replay_request(s) for s in seqs
                     if not (s.prefill_done and s.generated)]
+        now = time.monotonic()
         for s in seqs:
+            # Traces close as preempted; the exported ones discard
+            # nothing (their tokens travel with them).
+            kept = s.prefill_done and s.generated
+            self._emit_trace(s, "preempted", now,
+                             tokens_discarded=0 if kept else len(s.generated))
             self.cache.free(s.req.id)
             self.slots[s.slot] = None
         return {"adoptable": items, "requests": requests}

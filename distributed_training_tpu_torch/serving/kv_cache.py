@@ -311,6 +311,12 @@ class PagedKVCache:
     def length(self, seq_id) -> int:
         return self._lengths[seq_id]
 
+    def pages_of(self, seq_id) -> int:
+        """Pages in ``seq_id``'s table (shared pages count: they are
+        held, refcounted). The ``/debug/requests`` read; a KeyError for
+        an unknown id, as every per-sequence accessor raises."""
+        return len(self._tables[seq_id])
+
     # -- sharing: refcounted attach / COW / prefix index -------------------
 
     def attach(self, seq_id, pages, n_tokens: int) -> None:

@@ -19,6 +19,7 @@ Float32 on the CPU, the same weights on both sides.
 
 import http.client
 import json
+import os
 import time
 
 import numpy as np
@@ -248,10 +249,14 @@ def test_backoff_matches_jax():
 
 def test_supervise_serving_incident_dir_waits_for_item_12(models,
                                                           tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_supervisor.supervise_serving(
-            lambda: _engine(models["port"]), lambda e, i: 0,
-            incident_dir=str(tmp_path))
+    """Item 12 has landed: ``incident_dir`` is taken, and a run without
+    a crash writes no bundle (tests/test_torch_server_ops.py holds the
+    crash bundles against JAX's)."""
+    res = port_supervisor.supervise_serving(
+        lambda: _engine(models["port"]), lambda e, i: 0,
+        incident_dir=str(tmp_path / "incidents"))
+    assert (res["result"], res["gave_up"], res["crashes"]) == (0, False, [])
+    assert not os.path.exists(tmp_path / "incidents")
 
 
 @pytest.mark.parametrize("plan", ["slow_decode@3:50ms",

@@ -308,8 +308,10 @@ def test_deferred_mesh_int8_and_server_options_raise(models):
     assert q.weight_bytes == \
         port_disagg.quantized_weight_bytes(int8)["int8"]
     assert len(q.generate(np.arange(1, 9, dtype=np.int32), 4)) == 4
+    # The server options serve since ROADMAP.md item 12 landed
+    # (tests/test_torch_server_ops.py holds them against JAX's server).
     eng = port_engine.Engine(pm, pp, cfg, device="cpu")
-    for kw in (dict(metrics_port=0), dict(max_queue_depth=4),
-               dict(incident_dir="x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServingServer(eng, port=0, **kw)
+    srv = ServingServer(eng, port=0, metrics_port=0, max_queue_depth=4,
+                        incident_dir="x")
+    assert (srv.max_queue_depth, srv.incident_dir, srv.is_front) == \
+        (4, "x", True)

@@ -275,8 +275,9 @@ def test_pool_shard_rules_follow_jax():
     """``pool_shard`` raises where the JAX ``pool_sharding`` does (a kv
     axis that does not divide the kv heads, allocator groups that are
     not the dp extent), and the engine refuses mesh axes it does not
-    serve over; ``ServingServer`` refuses an engine on a mesh of more
-    than one process."""
+    serve over. ``ServingServer`` over an engine on a mesh of more than
+    one process fronts it from the mesh's first process only (ROADMAP.md
+    item 13; tests/test_torch_server_cli.py serves a world of 4)."""
     with pytest.raises(ValueError, match="cannot shard 2 kv heads"):
         port_kv.pool_shard(types.SimpleNamespace(spec=MeshSpec(tp=4)), 2, 1,
                            "tp", "dp")
@@ -306,9 +307,11 @@ def test_pool_shard_rules_follow_jax():
         port_engine.Engine(pm, params, cfg, device="cpu", mesh=Runtime(
             device=torch.device("cpu"), spec=MeshSpec(dp=3)))
     engine = types.SimpleNamespace(mesh=types.SimpleNamespace(
-        process_count=2))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ServingServer(engine, port=0)
+        process_count=2, process_index=1))
+    srv = ServingServer(engine, port=0)
+    assert not srv.is_front
+    with pytest.raises(RuntimeError, match="first process"):
+        srv.drain()
 
 
 # -- the engine on a mesh ------------------------------------------------------
