@@ -84,7 +84,18 @@ a seed:
   each step's finished prompts' KV from the prefill engine to the decode
   engine on the card, against one colocated engine under the decode
   plan's geometry: tokens/s, TTFT, handoff time (CUDA events) and bytes,
-  B4 launches, token agreement at bf16 and equality at float32.
+  B4 launches, token agreement at bf16 and equality at float32;
+- the default config and the real-text path: the C++ gather and fill
+  against NumPy (``native``); the trainer CLI with no override, the MLP
+  on ``synthetic`` under SGD, and its resume (``train_mlp``); a byte
+  corpus of the repository's own text (``data/prepare.py``), the byte LM
+  of ``conf/model/byte_lm.yaml`` trained on it at full width with its
+  held-out split, ``eval.py`` on the run, and ``generate.py`` with paged
+  and fused decode, their greedy tokens equal at float32
+  (``train_bytes_lm``); gpt2_125m under Adafactor (``adafactor``); the
+  local launcher at one process on the card and two on the CPU, and the
+  DDP playground at world 2 on the card over gloo
+  (``launch_playground``).
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -206,6 +217,17 @@ HELD_SLACK_BYTES = 16 << 20
 # serving_recovery: the engine crashes after this many decode launches,
 # every request then holding decoded tokens to salvage.
 RECOVERY_DECODES = 8
+# native: the C++ gather's source rows (int32, 64 bytes a row) and the
+# fill's tokens.
+NATIVE_ROWS = 1_000_000
+NATIVE_FILL = 10_000_000
+# train_bytes_lm: steps in each of its 2 epochs, eval.py's batches, and
+# the tokens generate.py decodes.
+BYTES_STEPS_PER_EPOCH = 100
+BYTES_EVAL_BATCHES = 50
+GEN_TOKENS = 64
+# adafactor: gpt2_125m steps.
+ADAFACTOR_STEPS = 10
 
 
 def emit(obj: dict) -> None:
@@ -597,6 +619,9 @@ def phase_kernels() -> dict:
                                  library=True)
     # gpt2_125m's attention under tp 2 (train_tp2): each rank's 6 heads.
     flash["tp2"] = _flash_case(timer, 8, 6, 6, 1024, 64, bf16, library=True)
+    # byte_lm's attention (train_bytes_lm, eval.py): B 16, H 8, S 512.
+    flash["byte_lm"] = _flash_case(timer, 16, 8, 8, 512, 64, bf16,
+                                   library=True)
     paged = {"main": _paged_case(timer, 8, 12, 12, 64, 16, 1024, bf16),
              "f32_gqa": _paged_case(timer, 8, 12, 4, 64, 16, 1024, f32),
              # transformer_7b's attention heads (H 32, Hkv 8, hd 128) over
@@ -643,6 +668,10 @@ def phase_kernels() -> dict:
     # heads.
     bwd["fused_tp2"] = _bwd_case(timer, 8, 6, 6, 1024, 64, bf16, False,
                                  library=True)
+    # byte_lm's training (train_bytes_lm): B 16, H 8, S 512, the fused
+    # backward.
+    bwd["fused_byte_lm"] = _bwd_case(timer, 16, 8, 8, 512, 64, bf16, False,
+                                     library=True)
     # The SIMT kernels on bf16 inputs with f32 gradients: fused at head
     # dim 32 (GRADS_F32_OF_BF16_TOL), the split pair at head dim 96 (TOL,
     # 1e-4).
@@ -657,6 +686,8 @@ def phase_kernels() -> dict:
             "paged_decode_dp2": paged["dp2_rank"],
             "flash_fwd_tp2": flash["tp2"],
             "flash_bwd_fused_tp2": bwd["fused_tp2"]["flash_bwd_fused"],
+            "flash_fwd_byte_lm": flash["byte_lm"],
+            "flash_bwd_fused_byte_lm": bwd["fused_byte_lm"]["flash_bwd_fused"],
             "flash_bwd_fused": bwd["fused_train"]["flash_bwd_fused"],
             "flash_bwd_dq": bwd["split_train"]["flash_bwd_dq"],
             "flash_bwd_dkv": bwd["split_train"]["flash_bwd_dkv"]}
@@ -3304,6 +3335,382 @@ def phase_train_fsdp_ckpt(tmp: str) -> None:
               os.path.join(ckpt_a, "consolidated_step2.pt"))})
 
 
+# -- the default config and the real-text path -----------------------------
+
+
+def _repo() -> str:
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _run_module(args: list, timeout: float = 900) -> str:
+    """``python -m <args>`` from the repository root (on the card unless
+    the arguments say otherwise); its standard output. A nonzero exit
+    fails the phase with the tail of both streams."""
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=_repo(),
+                          env=dict(os.environ, PYTHONPATH=_repo()),
+                          capture_output=True, text=True, timeout=timeout)
+    check(proc.returncode == 0,
+          f"python -m {' '.join(args[:3])} exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def _last_json(text: str) -> dict:
+    return json.loads([line for line in text.splitlines()
+                       if line.startswith("{")][-1])
+
+
+def _subprocess_launches(report: dict) -> tuple:
+    """A CLI's ``kernel_launches`` as (counts, by design), the shape of
+    ``_read_counts``/``_read_designs``."""
+    return ({k: v["launches"] for k, v in report.items()},
+            {k: dict(v["by_design"]) for k, v in report.items()})
+
+
+def _best_s(fn, runs: int = 3) -> tuple:
+    """(result, fastest wall seconds of ``runs`` calls)."""
+    best, out = float("inf"), None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def phase_native() -> None:
+    """The C++ gather and fill (``native/dtt_native.cpp``, built with g++
+    at first use) against NumPy's, byte for byte: a gather of every row of
+    a NATIVE_ROWS-row int32 source in a random order, and a NATIVE_FILL-
+    token SplitMix64 fill. Host times, the fastest of three."""
+    from distributed_training_tpu_torch import native
+
+    t0 = time.perf_counter()
+    check(native.available(), "native: the C++ library did not build")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    src = rng.integers(0, 2 ** 31 - 1, (NATIVE_ROWS, 16), dtype=np.int32)
+    idx = rng.permutation(NATIVE_ROWS)
+    got, gather_s = _best_s(lambda: native.gather_rows(src, idx))
+    want, gather_np_s = _best_s(lambda: src[idx])
+    check(got.tobytes() == want.tobytes(), "native gather != NumPy")
+    fill, fill_s = _best_s(lambda: native.fill_tokens(SEED, 50304,
+                                                      NATIVE_FILL))
+    ref, fill_np_s = _best_s(lambda: native._fill_tokens_numpy(
+        SEED, 50304, NATIVE_FILL))
+    check(fill.tobytes() == ref.tobytes(), "native fill != NumPy")
+    emit({"phase": "native", "available": True, "build_or_load_s": build_s,
+          "gather_rows": NATIVE_ROWS, "row_bytes": 64,
+          "gather_s": gather_s, "gather_numpy_s": gather_np_s,
+          "fill_tokens": NATIVE_FILL, "fill_s": fill_s,
+          "fill_numpy_s": fill_np_s, "equal_bytes": True,
+          "host_cpus": os.cpu_count()})
+
+
+def _runtime_event(out_dir: str) -> dict:
+    rt = [e for e in _events(out_dir) if e["kind"] == "runtime"]
+    check(bool(rt), f"no runtime event under {out_dir}")
+    return rt[-1]
+
+
+def phase_train_mlp(tmp: str) -> None:
+    """The trainer CLI with no model or data override (conf/config.yaml:
+    the MLP Linear(20, 1) on ``synthetic``, SGD, ``ddp``) on the card for
+    2 epochs of 64 steps, then a rerun to 3 epochs that resumes from the
+    epoch-0 checkpoint (``save_every`` 2)."""
+    out = os.path.join(tmp, "mlp")
+    argv = ["distributed_training_tpu_torch.train", "run.log_level=WARNING",
+            f"run.output_dir={out}",
+            f"train.snapshot_path={out}/checkpoints"]
+    t0 = time.perf_counter()
+    _run_module(argv + ["train.total_epochs=2"])
+    wall = time.perf_counter() - t0
+    rows = _metrics_rows(out)
+    check({r["epoch"] for r in rows} == {0, 1}, f"mlp rows {rows}")
+    check(all(math.isfinite(r["loss"]) for r in rows),
+          f"mlp: non-finite loss {rows}")
+    rt = _runtime_event(out)
+    check(rt["device"].startswith("cuda"), f"mlp ran on {rt['device']}")
+    steps = sorted(int(d) for d in os.listdir(os.path.join(
+        out, "checkpoints")) if d.isdigit())
+    check(steps == [64], f"mlp checkpoints {steps}")
+    first_steps = steps
+    _run_module(argv + ["train.total_epochs=3"])
+    resumed = [e for e in _events(out) if e["kind"] == "resume"]
+    check([e["step"] for e in resumed] == [64], f"mlp resume {resumed}")
+    rows2 = _metrics_rows(out)
+    steps = sorted(int(d) for d in os.listdir(os.path.join(
+        out, "checkpoints")) if d.isdigit())
+    check(steps == [64, 192] and rows2[-1]["step"] == 190
+          and all(math.isfinite(r["loss"]) for r in rows2),
+          f"mlp rerun: checkpoints {steps}, rows {rows2[-3:]}")
+    step_s = float(np.median([1.0 / r["steps_per_sec"] for r in rows
+                              if "steps_per_sec" in r]))
+    emit({"phase": "train_mlp", "config": "config.yaml (model default, "
+          "train default)", "steps": 128, "wall_s": wall,
+          "median_step_s": step_s,
+          "samples_per_s": 32 / step_s, "first_loss": rows[0]["loss"],
+          "last_loss": rows[-1]["loss"], "checkpoints": first_steps,
+          "resumed_at": 64, "rerun_checkpoints": steps,
+          "device": rt["device"]})
+
+
+def _byte_corpus(tmp: str) -> str:
+    """The repository's own text as a byte corpus (data/prepare.py)."""
+    corpus = os.path.join(tmp, "bytes", "corpus.bin")
+    repo = _repo()
+    meta = _last_json(_run_module([
+        "distributed_training_tpu_torch.data.prepare", "--out", corpus,
+        os.path.join(repo, "README.md"), os.path.join(repo, "SURVEY.md"),
+        os.path.join(repo, "distributed_training_tpu", "**", "*.py"),
+        os.path.join(repo, "distributed_training_tpu_torch", "**",
+                     "*.py")]))
+    check(meta["n_tokens"] > 1_000_000 and meta["vocab_size"] == 256,
+          f"corpus {meta}")
+    emit({"phase": "prepare", **meta})
+    return corpus
+
+
+def _generate(src: list, decode: str, prompt: str) -> dict:
+    return _last_json(_run_module([
+        "distributed_training_tpu_torch.generate", *src, "--prompt", prompt,
+        "-n", str(GEN_TOKENS), "--decode", decode, "--json"]))
+
+
+def phase_train_bytes_lm(tmp: str, corpus: str) -> dict:
+    """The real-text path at the config's full width (conf/model/
+    byte_lm.yaml: vocab 256, d 512, 8 layers of 8 heads, seq 512; conf/
+    train/bytes_lm.yaml: batch 16, bf16, AdamW) on the repository's own
+    text: BYTES_STEPS_PER_EPOCH steps in each of 2 epochs with the
+    held-out split (5%) scored after each, then ``eval.py`` on the run,
+    then ``generate.py`` with both decodes, bf16 from the run and f32
+    from its consolidated artifact."""
+    from distributed_training_tpu_torch.data import (
+        build_dataset,
+        train_eval_split,
+    )
+    from distributed_training_tpu_torch.train import cli
+
+    _free_memory()
+    out = os.path.join(tmp, "bytes_lm")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    check(cli.main([
+        "train=bytes_lm", "model=byte_lm",
+        f"train.dataset_kwargs.path={corpus}",
+        f"train.max_steps_per_epoch={BYTES_STEPS_PER_EPOCH}",
+        "train.total_epochs=2", "train.warmup_steps=10",
+        "train.eval_fraction=0.05", "train.eval_every=1",
+        "train.log_every=1", "run.log_level=WARNING",
+        f"run.output_dir={out}",
+        f"train.snapshot_path={out}/checkpoints"]) == 0,
+        "bytes_lm training failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train = (_read_counts(), _read_designs())
+    with open(os.path.join(out, "default", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r for r in rows if "loss" in r]
+    vals = [r["val_loss"] for r in rows if "val_loss" in r]
+    steps = 2 * BYTES_STEPS_PER_EPOCH
+    check(len(losses) == steps and len(vals) == 2
+          and all(math.isfinite(x) for x in vals)
+          and all(math.isfinite(r["loss"]) for r in losses),
+          f"bytes_lm rows: {len(losses)} losses, val {vals}")
+    _, held = train_eval_split(build_dataset("bytes", path=corpus,
+                                             seq_len=512), 0.05, seed=42,
+                               multiple_of=16)
+    eval_batches = len(held) // 16
+    n_layers = 8
+    _check_designs({n: train[1][n] for n in ("flash_fwd",
+                                             "flash_bwd_fused")},
+                   "wgmma", "bytes_lm (bf16, head dim 64)")
+    check(train[0]["flash_fwd"] == n_layers * (steps + 2 * eval_batches)
+          and train[0]["flash_bwd_fused"] == n_layers * steps
+          and train[0]["flash_bwd_dq"] == train[0]["flash_bwd_dkv"] == 0,
+          f"bytes_lm launches {train[0]} (eval batches {eval_batches})")
+    step_s = float(np.median([1.0 / r["steps_per_sec"] for r in losses[3:]
+                              if "steps_per_sec" in r]))
+    emit({"phase": "train_bytes_lm", "model": "byte_lm", "batch": 16,
+          "seq": 512, "steps": steps, "eval_batches": eval_batches,
+          "wall_s": wall, "median_step_s": step_s,
+          "tokens_per_s": 16 * 512 / step_s,
+          "first_loss": losses[0]["loss"], "last_loss": losses[-1]["loss"],
+          "val_loss": vals, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "launches": train[0], "launches_by_design": train[1]})
+
+    run_dir = os.path.join(out, "default")
+    ev = _last_json(_run_module([
+        "distributed_training_tpu_torch.eval", "--run-dir", run_dir,
+        "--max-batches", str(BYTES_EVAL_BATCHES)]))
+    evl = _subprocess_launches(ev["kernel_launches"])
+    check(math.isfinite(ev["loss"]) and ev["batches"] == BYTES_EVAL_BATCHES
+          and evl[0]["flash_fwd"] == n_layers * BYTES_EVAL_BATCHES,
+          f"eval.py: {ev}")
+    emit({"phase": "eval_bytes_lm", "loss": ev["loss"],
+          "batches": ev["batches"], "tokens": ev["tokens"],
+          "seconds": ev["seconds"],
+          "tokens_per_s": ev["tokens"] / ev["seconds"],
+          "launches": evl[0], "launches_by_design": evl[1]})
+
+    # 128 bytes: the model's attention gate takes the flash forward for
+    # a prompt of at least 128 positions in whole tiles, the naive path
+    # below that (as the JAX gate does).
+    prompt = ("def main(argv: list[str] | None = None) -> int:\n"
+              "    args = build_argparser().parse_args(argv)\n"
+              "    cfg = load_config(args.config_dir, args.config_name, "
+              "args.overrides)\n")[:128]
+    art = os.path.join(out, "byte_lm.pt")
+    _run_module(["distributed_training_tpu_torch.checkpoint.export",
+                 "--ckpt", os.path.join(out, "checkpoints"), "--out", art])
+    gens = {}
+    for dtype, src in (("bfloat16", ["--run-dir", run_dir]),
+                       ("float32", ["--artifact", art, "--model-kwargs",
+                                    '{"dtype": "float32"}'])):
+        for decode in ("paged", "fused"):
+            gens[(dtype, decode)] = _generate(src, decode, prompt)
+            check(gens[(dtype, decode)]["decode"] == decode,
+                  f"generate {dtype} {decode}: {gens[(dtype, decode)]}")
+    same = {d: sum(a == b for a, b in zip(gens[(d, "paged")]["tokens"],
+                                          gens[(d, "fused")]["tokens"]))
+            for d in ("bfloat16", "float32")}
+    check(same["float32"] == GEN_TOKENS,
+          f"generate f32: paged and fused greedy tokens differ "
+          f"({same['float32']}/{GEN_TOKENS} equal)")
+    launches = {k: _subprocess_launches(g["kernel_launches"])
+                for k, g in gens.items()}
+    for (dtype, decode), (counts, _) in launches.items():
+        if decode == "paged":
+            check(counts["paged_decode"] == n_layers * (GEN_TOKENS - 1),
+                  f"generate {dtype} paged: B4 launches {counts}")
+    emit({"phase": "generate_bytes_lm", "prompt_tokens": len(prompt),
+          "tokens_bf16_fused": gens[("bfloat16", "fused")]["tokens"],
+          "new_tokens": GEN_TOKENS, "tokens_equal_paged_vs_fused": same,
+          "distinct_tokens": {f"{d}_{m}": len(set(g["tokens"]))
+                              for (d, m), g in gens.items()},
+          "tokens_per_s": {f"{d}_{m}": g["tokens_per_s"]
+                           for (d, m), g in gens.items()},
+          "launches": {f"{d}_{m}": c for (d, m), (c, _) in
+                       launches.items()}})
+    # The bf16 runs are the path's; the f32 ones (the SIMT design of the
+    # flash forward in the fused prefill) are the check's.
+    return {"train_bytes_lm": train, "eval": evl,
+            **{f"generate_{m}": v for (d, m), v in launches.items()
+               if d == "bfloat16"}}
+
+
+def _state_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_state_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
+
+
+def phase_adafactor(tmp: str, corpus: str) -> tuple:
+    """gpt2_125m at full width (conf/train/gpt2.yaml, batch 8 x seq 1024,
+    bf16) under ``train.optimizer=adafactor`` (lr 3e-3, constant, no
+    weight decay: optax's Adafactor adds the decay after the learning
+    rate, so gpt2.yaml's 0.1 would shrink every weight by a tenth a
+    step) on the byte corpus for ADAFACTOR_STEPS steps: finite losses
+    that fall. Then the optimizer state of gpt2_125m's f32 params under
+    Adafactor and under AdamW, in bytes."""
+    from distributed_training_tpu_torch.models.transformer import (
+        PRESETS,
+        Transformer,
+        TransformerConfig,
+    )
+    from distributed_training_tpu_torch.train import cli
+    from distributed_training_tpu_torch.train.optimizer import (
+        Optimizer,
+        flatten,
+    )
+
+    _free_memory()
+    out = os.path.join(tmp, "adafactor")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    check(cli.main(_train_overrides(out, ADAFACTOR_STEPS, extra=(
+        "train.optimizer=adafactor", "train.learning_rate=0.003",
+        "train.weight_decay=0", "train.warmup_steps=0",
+        "train.lr_schedule=constant",
+        "train.dataset=bytes", f"train.dataset_kwargs.path={corpus}",
+        f"train.max_steps_per_epoch={ADAFACTOR_STEPS}", "train.save_every=0",
+        f"train.snapshot_path={out}/checkpoints"))) == 0,
+        "adafactor training failed")
+    torch.cuda.synchronize()
+    launches = (_read_counts(), _read_designs())
+    peak = torch.cuda.max_memory_allocated()
+    rows = _metrics_rows(out)
+    losses = [r["loss"] for r in rows]
+    check(len(losses) == ADAFACTOR_STEPS
+          and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0], f"adafactor losses {losses}")
+    step_s = float(np.median([1.0 / r["steps_per_sec"] for r in rows[3:]]))
+    _free_memory()
+    model = Transformer(TransformerConfig(**PRESETS["gpt2_125m"]))
+    flat = flatten(model.init(SEED))
+    state = {}
+    for kind in ("adafactor", "adamw"):
+        opt = Optimizer(kind=kind, schedule=lambda count: 0.0)
+        opt.bind_layout({k: tuple(v.shape) for k, v in flat.items()}, {},
+                        None)
+        state[kind] = _state_bytes(opt.init(flat))
+    param_bytes = _state_bytes(flat)
+    del flat
+    emit({"phase": "adafactor", "model": "gpt2_125m", "batch": 8,
+          "seq": 1024, "steps": ADAFACTOR_STEPS, "losses": losses,
+          "median_step_s": step_s, "peak_mem_bytes": peak,
+          "param_bytes": param_bytes,
+          "opt_state_bytes": state,
+          "opt_state_ratio": state["adafactor"] / state["adamw"],
+          "launches": launches[0]})
+    return launches
+
+
+def phase_launch_playground(tmp: str) -> None:
+    """The local launcher: ``--nproc 1`` on the card (the default MLP for
+    one epoch, a NCCL group of one rank on cuda:0) and ``--nproc 2`` with
+    CPU children (gloo); then the DDP playground at world 2, two
+    processes on cuda:0 over gloo: both ranks end with the same params."""
+    times = {}
+    for n, extra, backend, device in ((1, [], "nccl", "cuda:0"),
+                                      (2, ["train.device=cpu"], "gloo",
+                                       "cpu")):
+        out = os.path.join(tmp, f"launch{n}")
+        t0 = time.perf_counter()
+        _run_module(["distributed_training_tpu_torch.launch", "--nproc",
+                     str(n), "--log-dir", os.path.join(out, "logs"), "--",
+                     "-m", "distributed_training_tpu_torch.train",
+                     "train.total_epochs=1", "run.log_level=WARNING",
+                     f"run.output_dir={out}",
+                     f"train.snapshot_path={out}/checkpoints", *extra])
+        times[f"nproc{n}_s"] = time.perf_counter() - t0
+        rt = _runtime_event(out)
+        check(rt["backend"] == backend and rt["world"] == n
+              and rt["device"] == device, f"launch --nproc {n}: {rt}")
+        rows = _metrics_rows(out)
+        check(rows and all(math.isfinite(r["loss"]) for r in rows),
+              f"launch --nproc {n}: rows {rows}")
+    logs = os.path.join(tmp, "playground")
+    t0 = time.perf_counter()
+    text = _run_module(["distributed_training_tpu_torch.playground."
+                        "ddp_from_primitives", "--world-size", "2",
+                        "--epochs", "4", "--lr", "0.05", "--log-dir", logs])
+    times["playground_s"] = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(logs, f"ddp_rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+    check(all(x["device"] == "cuda:0" for x in ranks)
+          and ranks[0]["params"] == ranks[1]["params"]
+          and ranks[0]["history"] == ranks[1]["history"]
+          and "final mean_loss" in text, f"playground ranks {ranks}")
+    hist = [h["mean_loss"] for h in ranks[0]["history"]]
+    check(all(math.isfinite(x) for x in hist) and hist[-1] < hist[0],
+          f"playground losses {hist}")
+    emit({"phase": "launch_playground", **times, "playground_losses": hist,
+          "playground_ranks_equal": True})
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--train-tp2-rank"]:
         return train_tp2_rank(int(sys.argv[2]), int(sys.argv[3]),
@@ -3319,6 +3726,7 @@ def main() -> int:
 
     device = phase_device()
     phase_build()
+    phase_native()
     measured = phase_kernels()
     phase_xent()
     prompts = _smoke_prompts()
@@ -3347,6 +3755,11 @@ def main() -> int:
         tp_1b_launches = phase_train_tp_1b(tmp, rows_1b)
         tp2_launches = phase_train_tp2(tmp)
         phase_train_fsdp_ckpt(tmp)
+        phase_train_mlp(tmp)
+        corpus = _byte_corpus(tmp)
+        slice14 = phase_train_bytes_lm(tmp, corpus)
+        slice14["adafactor"] = phase_adafactor(tmp, corpus)
+        phase_launch_playground(tmp)
     phase_train_trace()
     phase_train_trace(split=True)
     phase_train_1b_trace()
@@ -3375,12 +3788,14 @@ def main() -> int:
     # run (counted in its process), training, split-backward
     # training, transformer_1b under fsdp and under tp_fsdp, gpt2_125m
     # under tp at tp 2, serving on the meshes dp 2 and tp 2: both
-    # processes).
+    # processes; then byte_lm's training, eval.py and generate.py's bf16
+    # runs, each in its process, and gpt2_125m under Adafactor).
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
              int8_launches, swap_launches, recovery_launches, disagg_launches,
              cli_launches,
              *mesh_launches.values(), train_launches, split_launches,
-             train_1b_launches, tp_1b_launches, tp2_launches)
+             train_1b_launches, tp_1b_launches, tp2_launches,
+             *slice14.values())
     kernels = []
     for name in KERNELS:
         src, replaces = sources[name]
@@ -3402,11 +3817,17 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
         if name in ("flash_fwd", "flash_bwd_fused"):
-            # The same kernel at train_tp2's geometry (6 heads a rank).
-            kernels[-1]["tp2_case"] = {
-                k: measured[f"{name}_tp2"][k]
-                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                          "bound_by", "library_ms")}
+            # The same kernel at train_tp2's geometry (6 heads a rank)
+            # and at byte_lm's (B 16, H 8, S 512).
+            for case in ("tp2", "byte_lm"):
+                kernels[-1][f"{case}_case"] = {
+                    k: measured[f"{name}_{case}"][k]
+                    for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}
+        # Its launches on the paths of the default config and the real
+        # text (train_bytes_lm, eval.py, generate.py, adafactor).
+        kernels[-1]["real_text_launches"] = {
+            path: counts[name] for path, (counts, _) in slice14.items()}
         if name == "paged_decode":
             # The same kernel at the decode chain's geometry (32 rows),
             # the case speculative and resident decode launch.

@@ -47,6 +47,8 @@ def _join(local: list, pls: dict, coords: list, sizes: dict) -> dict:
     along the first."""
     out = {}
     for k, pl in pls.items():
+        if k not in local[0]:
+            continue  # a moment that only some leaves have
         blocks = {(): local[0][k]}
         if pl is not None:
             blocks = {}
@@ -97,10 +99,12 @@ def restore_step_local(ckpt_dir: str, step: int | None = None
         [flatten(s["params"]) for s in local],
         placements_of(manifest, "params"), coords, sizes))
     opt = dict(state["opt_state"])
-    for name in ("mu", "nu"):
+    kinds = {name: "opt" for name in ("mu", "nu", "v")}
+    kinds.update({name: name for name in manifest.get("factored", {})})
+    for name, kind in kinds.items():
         if name in opt:
             opt[name] = _join([s["opt_state"][name] for s in local],
-                              placements_of(manifest, "opt"), coords, sizes)
+                              placements_of(manifest, kind), coords, sizes)
     state["opt_state"] = opt
     return state, step
 

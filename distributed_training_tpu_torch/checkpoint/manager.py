@@ -63,18 +63,25 @@ def layout_manifest(layout: dict, runtime) -> dict:
             splits = [[d, list(axes)] for d, axes in (pl.splits if pl else ())]
             out[k] = (splits[0] if len(splits) == 1 else splits) or None
         return out
-    return {"world": runtime.process_count,
-            "mesh": runtime.spec.as_dict(),
-            "params": enc(layout["params"]), "opt": enc(layout["opt"])}
+    out = {"world": runtime.process_count,
+           "mesh": runtime.spec.as_dict(),
+           "params": enc(layout["params"]), "opt": enc(layout["opt"])}
+    if layout.get("factored"):
+        # Adafactor's factored moments (train/optimizer.py).
+        out["factored"] = {name: enc(pls)
+                           for name, pls in layout["factored"].items()}
+    return out
 
 
 def placements_of(manifest: dict, kind: str) -> dict:
-    """A manifest's placements back as ``Placement`` (or None)."""
+    """A manifest's placements back as ``Placement`` (or None):
+    ``kind`` "params", "opt", or a factored moment's name under
+    "factored"."""
     def dec(v):
         splits = [v] if isinstance(v[0], int) else v
         return Placement(tuple((d, tuple(axes)) for d, axes in splits))
-    return {k: None if v is None else dec(v)
-            for k, v in manifest[kind].items()}
+    enc = manifest[kind] if kind in manifest else manifest["factored"][kind]
+    return {k: None if v is None else dec(v) for k, v in enc.items()}
 
 
 class Checkpointer:

@@ -12,16 +12,20 @@ runtime's device: gathered on the host, pinned, and copied with
 Each process assembles only its own data shard's rows: shard ``s``
 (dp-major over (dp, fsdp), ``runtime.data_shard_index``) takes rows
 ``[s*b, (s+1)*b)`` of the global batch of ``b * num_shards`` rows, the
-JAX loader's layout, and the index stream is the JAX one. The only
-dataset is in memory, so the JAX loader's retry of transient IO
-errors (``train.data_retries``) waits for the file-backed datasets
-(item 2).
+JAX loader's layout, and the index stream is the JAX one. A batch whose
+assembly raises a transient IO error (``OSError``: a network file
+system's blip under ``memmap_tokens``/``bytes``) is retried
+``data_retries`` times with a short exponential backoff, one
+``data_retry`` event each (``retry_transient``, the JAX policy), then
+the error is raised.
 """
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
+import time
 from typing import Iterator, Mapping
 
 import numpy as np
@@ -30,8 +34,44 @@ import torch
 from distributed_training_tpu_torch.data.sampler import DistributedShardSampler
 from distributed_training_tpu_torch.telemetry import events as telemetry
 
+logger = logging.getLogger(__name__)
+
 # Batches assembled ahead of the step loop (the JAX loader's default).
 PREFETCH_DEPTH = 2
+# The retryable failure class: host-side IO blips (TimeoutError is an
+# OSError). A ValueError or KeyError stays fatal: malformed data does not
+# improve on a second read.
+TRANSIENT_DATA_ERRORS = (OSError,)
+
+
+def retry_transient(assemble, *, retries: int, rollback=None,
+                    **event_fields):
+    """Run one batch assembly with a budget of ``retries`` retries of a
+    transient failure (the JAX package's policy): a short exponential
+    backoff (0.05 s doubling, at most 2 s) and a ``data_retry`` event per
+    attempt (``event_fields`` name the position), then the error is
+    raised. ``rollback`` runs before each retry, so a stateful assembler
+    restarts the batch from its pre-batch state."""
+    attempt = 0
+    while True:
+        try:
+            return assemble()
+        except TRANSIENT_DATA_ERRORS as e:
+            if rollback is not None:
+                rollback()
+            attempt += 1
+            if attempt > retries:
+                raise
+            delay = min(2.0, 0.05 * 2 ** (attempt - 1))
+            logger.warning(
+                "transient data error (attempt %d/%d, retrying in "
+                "%.2fs): %s: %s", attempt, retries, delay,
+                type(e).__name__, e)
+            telemetry.event(
+                "data_retry", attempt=attempt, retries=retries,
+                backoff_s=delay, error=f"{type(e).__name__}: {e}",
+                **event_fields)
+            time.sleep(delay)
 
 
 class ShardedDataLoader:
@@ -42,7 +82,8 @@ class ShardedDataLoader:
 
     def __init__(self, dataset, runtime, batch_size: int,
                  shuffle: bool = True, seed: int = 0,
-                 drop_last: bool = False, max_steps_per_epoch: int = 0):
+                 drop_last: bool = False, max_steps_per_epoch: int = 0,
+                 data_retries: int = 2):
         if batch_size <= 0:
             raise ValueError(f"batch_size must be > 0, got {batch_size}")
         self.dataset = dataset
@@ -52,6 +93,7 @@ class ShardedDataLoader:
         self.num_shards = runtime.data_shard_count
         self.shard_index = runtime.data_shard_index
         self.global_batch = batch_size * self.num_shards
+        self.data_retries = data_retries
         self.sampler = DistributedShardSampler(
             len(dataset), self.num_shards, shuffle=shuffle, seed=seed,
             drop_last=drop_last)
@@ -169,9 +211,12 @@ class ShardedDataLoader:
             for step in range(start, self.steps_per_epoch):
                 sl = slice(step * self.batch_size,
                            (step + 1) * self.batch_size)
+                rows = orders[self.shard_index:self.shard_index + 1, sl]
                 with telemetry.span("data_assemble", step_in_epoch=step):
-                    batch = self._assemble(
-                        orders[self.shard_index:self.shard_index + 1, sl])
+                    batch = retry_transient(
+                        lambda rows=rows: self._assemble(rows),
+                        retries=self.data_retries, epoch=epoch,
+                        step_in_epoch=step)
                 yield batch
 
         it = _prefetch(produce(), PREFETCH_DEPTH)

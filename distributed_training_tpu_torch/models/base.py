@@ -3,7 +3,10 @@
 
 from __future__ import annotations
 
+import math
 from typing import Any
+
+import torch
 
 
 def count_params(params: Any) -> int:
@@ -11,3 +14,14 @@ def count_params(params: Any) -> int:
     if isinstance(params, dict):
         return sum(count_params(v) for v in params.values())
     return int(params.numel())
+
+
+def uniform_fan_in(gen: torch.Generator, shape: tuple, fan_in: int,
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+    """torch.nn.Linear's default init, U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+    drawn from ``gen`` (the JAX ``uniform_fan_in``'s family; the two
+    frameworks draw different numbers from one seed)."""
+    bound = 1.0 / math.sqrt(max(fan_in, 1))
+    u = torch.rand(shape, generator=gen, dtype=torch.float32,
+                   device=device or gen.device)
+    return (u * (2 * bound) - bound).to(dtype)

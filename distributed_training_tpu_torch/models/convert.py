@@ -1,5 +1,8 @@
 """Carry JAX-package weights into the port, leaf for leaf.
 
+``mlp_from_jax_params`` does the same for the MLP's ``{"layer<i>":
+{"w", "b"}}`` tree against ``MLP.param_shapes()``.
+
 ``from_jax_params`` takes the nested dict that
 ``distributed_training_tpu.models.transformer.Transformer.init`` returns,
 converted to numpy (``jax.tree.map(np.asarray, params)``), and returns
@@ -74,3 +77,28 @@ def from_jax_params(np_tree: dict, cfg: TransformerConfig,
         return tensor(node, expected, pdt, path)
 
     return conv(np_tree, param_shapes(cfg), "")
+
+
+def mlp_from_jax_params(np_tree: dict, model, device=None) -> dict:
+    """An MLP's numpy weight tree (``jax.tree.map(np.asarray, params)``
+    of the JAX ``MLP.init``) → the port's f32 tensors on ``device`` (None
+    → the CUDA card). Raises ``ValueError`` on a missing or extra key or
+    a wrong shape."""
+    dev = resolve_device(device)
+    want = model.param_shapes()
+    if set(np_tree) != set(want):
+        raise ValueError(f"MLP weights: layers {sorted(np_tree)} != "
+                         f"expected {sorted(want)}")
+    out = {}
+    for layer, leaves in want.items():
+        if set(np_tree[layer]) != set(leaves):
+            raise ValueError(f"MLP weights at '{layer}': keys "
+                             f"{sorted(np_tree[layer])} != ['b', 'w']")
+        out[layer] = {}
+        for k, shape in leaves.items():
+            arr = np.array(np_tree[layer][k], dtype=np.float32)
+            if arr.shape != tuple(shape):
+                raise ValueError(f"MLP weights at '{layer}/{k}': shape "
+                                 f"{arr.shape} != expected {shape}")
+            out[layer][k] = torch.from_numpy(arr).to(dev)
+    return out

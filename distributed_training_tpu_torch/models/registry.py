@@ -12,18 +12,22 @@ _TRANSFORMERS = ("transformer", "gpt2", "gpt2_125m", "gpt2_350m",
 def build_model(name: str, loss: str = "auto", dtype: str = "float32",
                 device=None, **kwargs: Any):
     """Construct a model family from config, as the JAX ``build_model``
-    (``loss="auto"`` keeps the family's default). ``device`` as
-    ``Transformer`` (None = the CUDA card). The MLP and ResNet families
-    wait for ROADMAP.md queue A items 2 and 16."""
+    (``loss="auto"`` keeps the family's default: mse for the MLP,
+    next-token xent for a transformer). ``device`` as ``Transformer``
+    (None = the CUDA card). ResNet waits for ROADMAP.md queue A item
+    16."""
     name = name.lower()
+    if name == "mlp":
+        from distributed_training_tpu_torch.models.mlp import MLP, MLPConfig
+        return MLP(MLPConfig(loss_name="mse" if loss == "auto" else loss,
+                             dtype=dtype, **kwargs), device=device)
     if name in _TRANSFORMERS:
         from distributed_training_tpu_torch.models.transformer import (
             build_transformer,
         )
         return build_transformer(name, loss=loss, dtype=dtype,
                                  device=device, **kwargs)
-    if name in ("mlp", "resnet", "resnet18"):
+    if name in ("resnet", "resnet18"):
         raise NotImplementedError(
-            f"model '{name}' waits for ROADMAP.md queue A "
-            f"item {2 if name == 'mlp' else 16}")
+            f"model '{name}' waits for ROADMAP.md queue A item 16")
     raise ValueError(f"unknown model '{name}'")

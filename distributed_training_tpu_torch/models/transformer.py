@@ -9,7 +9,8 @@ weight pytree as the JAX package: a nested dict of tensors with stacked
 loop over layers replaces ``lax.scan``.
 
 ``apply`` is the inference forward (the serving engine's dense
-reference); ``loss`` is the training forward, differentiable by autograd
+reference); ``prefill``/``generate`` decode over a dense KV cache
+(``generate.py --decode fused``); ``loss`` is the training forward, differentiable by autograd
 through the stacked leaves (the tied ``tok_embed`` takes both the
 embedding-gather and the head gradient). Remat keeps the JAX policies'
 intent with ``torch.utils.checkpoint``, and never around attention: the
@@ -461,13 +462,14 @@ class Transformer:
                                      window=window)
 
     def _block(self, x: torch.Tensor, layer: dict,
-               positions: torch.Tensor, remat: str | None = None
-               ) -> torch.Tensor:
+               positions: torch.Tensor, remat: str | None = None,
+               return_kv: bool = False):
         """One decoder block. x: (B, S, D) in compute dtype. ``remat``:
         the remat policy to apply (None: save everything autograd
         needs). Under a tp binding the weights are this rank's blocks
         and the two ``reduce_from_tp`` stay outside every recomputed
-        function."""
+        function. ``return_kv``: also return the post-rope (k, v), from
+        which generation's prefill fills its cache."""
         c = self.cfg
         dt = x.dtype
         a, m = layer["attn"], layer["mlp"]
@@ -512,7 +514,8 @@ class Transformer:
             x = x + attn_out(self._attention(q, k, v))
             part = _checkpoint(lambda x: mlp_post(mlp_pre(mlp_in(x))), x)
         else:
-            x = x + attn_out(self._attention(*qkv(x)))
+            q, k, v = qkv(x)
+            x = x + attn_out(self._attention(q, k, v))
             h = mlp_in(x)
             if remat == "mlp":
                 part = _checkpoint(lambda h: mlp_post(mlp_pre(h)), h)
@@ -520,7 +523,8 @@ class Transformer:
                 part = _checkpoint(mlp_post, mlp_pre(h))
             else:
                 part = mlp_post(mlp_pre(h))
-        return x + (reduce(part) + m["bo"].to(dt))
+        x = x + (reduce(part) + m["bo"].to(dt))
+        return (x, (k, v)) if return_kv else x
 
     def _trunk(self, params: dict, tokens: torch.Tensor,
                remat: str | None = None) -> tuple:
@@ -622,6 +626,162 @@ class Transformer:
         metrics = {"loss": loss.detach(),
                    "perplexity": torch.exp(loss.detach())}
         return loss, metrics
+
+    # -- generation ----------------------------------------------------------
+
+    def _decode_cache_len(self, max_len: int) -> int:
+        """KV-cache capacity for decode: a sliding window keeps only its
+        last ``window`` positions (a rolling buffer), full causal every
+        position."""
+        c = self.cfg
+        return min(max_len, c.attention_window) if c.attention_window \
+            else max_len
+
+    def _attend_cache(self, q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+        """One position's attention: q (B, 1, H, hd) against the cache
+        (B, Sm, Hkv, hd), GQA-grouped (hkv-major head order), products
+        summed in f32 as the JAX ``preferred_element_type``.
+
+        The cache is a modular ring over absolute positions: position p
+        lives in slot ``p % Sm``, so slot s holds absolute position
+        ``pos - ((pos - s) mod Sm)``; a slot is visible when that is >= 0
+        (written) and inside the attention window when one is set."""
+        c = self.cfg
+        group = c.n_heads // c.n_kv_heads
+        B, Sm = k_cache.shape[0], k_cache.shape[1]
+        qg = q[:, 0].reshape(B, c.n_kv_heads, group, c.head_dim)
+        logits = torch.einsum("bhgd,bshd->bhgs", qg.float(),
+                              k_cache.float()) * c.head_dim ** -0.5
+        idx = torch.arange(Sm, device=q.device)
+        abs_pos = pos - torch.remainder(pos - idx, Sm)
+        mask = abs_pos >= 0
+        if c.attention_window:
+            mask = mask & (abs_pos >= pos - (c.attention_window - 1))
+        logits = torch.where(mask, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhgs,bshd->bhgd",
+                           probs.to(v_cache.dtype).float(), v_cache.float())
+        return out.reshape(B, 1, c.n_heads, c.head_dim).to(q.dtype)
+
+    def _block_decode(self, x: torch.Tensor, layer: dict,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      pos: int) -> torch.Tensor:
+        """One block for one new token at position ``pos``, x (B, 1, D);
+        writes the token's k and v into the layer's cache in place."""
+        c = self.cfg
+        dt = x.dtype
+        a, m = layer["attn"], layer["mlp"]
+        h = _layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
+        q = torch.einsum("bsd,dhk->bshk", h, a["wq"].to(dt))
+        k = torch.einsum("bsd,dhk->bshk", h, a["wk"].to(dt))
+        v = torch.einsum("bsd,dhk->bshk", h, a["wv"].to(dt))
+        if c.pos_encoding == "rope":
+            q, k = _rope(q, k, torch.full((1,), pos, device=x.device))
+        slot = pos % k_cache.shape[1]
+        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+        attn = self._attend_cache(q, k_cache, v_cache, pos)
+        x = x + torch.einsum("bshk,hkd->bsd", attn, a["wo"].to(dt))
+        h = _layer_norm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
+        u = F.gelu(torch.einsum("bsd,df->bsf", h, m["wi"].to(dt))
+                   + m["bi"].to(dt), approximate="tanh")
+        return x + torch.einsum("bsf,fd->bsd", u, m["wo"].to(dt)) + \
+            m["bo"].to(dt)
+
+    def _lm_head(self, params: dict, x_last: torch.Tensor) -> torch.Tensor:
+        """(B, D) hidden → (B, V) f32 logits (final norm and head)."""
+        x = _layer_norm(x_last, params["final_norm"]["scale"],
+                        params["final_norm"]["bias"])
+        return torch.einsum("bd,dv->bv", x,
+                            self._head(params, x.dtype)).float()
+
+    @torch.no_grad()
+    def prefill(self, params: dict, tokens, max_len: int) -> tuple:
+        """The prompt (B, P) through the stack: per-layer KV caches
+        (L, B, Sm, Hkv, hd) in the compute dtype, ``Sm =
+        _decode_cache_len(max_len)`` (position p in slot ``p % Sm``, the
+        layout ``_attend_cache`` reads), and f32 logits (B, V) for the
+        next position. The prompt's attention takes the model's
+        ``attention_impl``, the flash forward on the card."""
+        c = self.cfg
+        dt = torch_dtype(c.dtype)
+        tokens = torch.as_tensor(tokens).to(device=self.device,
+                                            dtype=torch.long)
+        B, P = tokens.shape
+        x = params["tok_embed"][tokens].to(dt)
+        positions = torch.arange(P, device=self.device)
+        if c.pos_encoding == "learned":
+            x = x + params["pos_embed"][:P].to(dt)
+        ks, vs = [], []
+        for layer in _layers(params, c.n_layers):
+            x, (k, v) = self._block(x, layer, positions, return_kv=True)
+            ks.append(k)
+            vs.append(v)
+        Sm = self._decode_cache_len(max_len)
+        keep = min(P, Sm)
+        slots = torch.arange(P - keep, P, device=self.device) % Sm
+        shape = (c.n_layers, B, Sm, c.n_kv_heads, c.head_dim)
+        k_cache = torch.zeros(shape, dtype=dt, device=self.device)
+        v_cache = torch.zeros(shape, dtype=dt, device=self.device)
+        k_cache[:, :, slots] = torch.stack(ks)[:, :, P - keep:].to(dt)
+        v_cache[:, :, slots] = torch.stack(vs)[:, :, P - keep:].to(dt)
+        return k_cache, v_cache, self._lm_head(params, x[:, -1])
+
+    @torch.no_grad()
+    def generate(self, params: dict, prompt, max_new_tokens: int,
+                 temperature: float = 0.0, top_k: int = 0, rng=None,
+                 max_len: int | None = None) -> torch.Tensor:
+        """Autoregressive decode over a dense KV cache: (B, P) prompt →
+        (B, max_new_tokens) int32 tokens. ``temperature == 0`` is greedy;
+        otherwise categorical sampling (after the ``top_k`` cut when
+        set) from ``rng``, a seed or a ``torch.Generator`` on this
+        model's device. The JAX package draws with ``jax.random``, which
+        torch cannot replay: greedy tokens agree across the packages,
+        sampled ones only within one."""
+        c = self.cfg
+        prompt = torch.as_tensor(prompt).to(device=self.device,
+                                            dtype=torch.long)
+        B, P = prompt.shape
+        max_len = max_len or c.max_seq_len
+        if P + max_new_tokens > max_len:
+            raise ValueError(
+                f"prompt ({P}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds max_len ({max_len})")
+        if temperature > 0 and rng is None:
+            raise ValueError("sampling (temperature > 0) needs an rng")
+        gen = None
+        if temperature > 0:
+            gen = rng if isinstance(rng, torch.Generator) else \
+                make_generator(rng, self.device)
+
+        def sample(logits):
+            if temperature <= 0:
+                return torch.argmax(logits, dim=-1)
+            logits = logits / temperature
+            if top_k:
+                kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+                logits = torch.where(logits < kth, -torch.inf, logits)
+            return torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                                     generator=gen)[:, 0]
+
+        params = cast_for_compute(params, c)
+        dt = torch_dtype(c.dtype)
+        k_cache, v_cache, logits = self.prefill(params, prompt, max_len)
+        layers = _layers(params, c.n_layers)
+        tok = sample(logits)
+        out = [tok]
+        for i in range(max_new_tokens - 1):
+            pos = P + i
+            x = params["tok_embed"][tok][:, None, :].to(dt)
+            if c.pos_encoding == "learned":
+                x = x + params["pos_embed"][pos].to(dt)
+            for li, layer in enumerate(layers):
+                x = self._block_decode(x, layer, k_cache[li], v_cache[li],
+                                       pos)
+            tok = sample(self._lm_head(params, x[:, 0]))
+            out.append(tok)
+        return torch.stack(out, dim=1).to(torch.int32)
 
     # -- accounting ----------------------------------------------------------
 

@@ -125,15 +125,9 @@ def kernel_launches() -> dict:
     takes, in all and by design: the flash forward (the first chunk of a
     sequential prefill) and paged decode. Each wrapper counts where it
     launches its kernel, so a server on the CPU reads zeros."""
-    from distributed_training_tpu_torch.ops.flash_attention import flash_fwd
-    from distributed_training_tpu_torch.ops.paged_attention import (
-        paged_attention,
-    )
+    from distributed_training_tpu_torch.ops import kernel_launches as count
 
-    return {name: {"launches": fn.launches,
-                   "by_design": dict(fn.launches_by_design)}
-            for name, fn in (("flash_fwd", flash_fwd),
-                             ("paged_decode", paged_attention))}
+    return count(("flash_fwd", "paged_decode"))
 
 
 class ServingServer:

@@ -2,6 +2,8 @@
 
     python -m distributed_training_tpu_torch.train [key=value ...]
     python -m distributed_training_tpu_torch.train model=gpt2_125m train=gpt2
+    python -m distributed_training_tpu_torch.train train=bytes_lm \
+        model=byte_lm train.dataset_kwargs.path=<corpus.bin>
     torchrun --nproc_per_node 2 -m distributed_training_tpu_torch.train \
         train.device=cpu train.parallel_strategy=fsdp mesh.fsdp=2 ...
     torchrun --nproc_per_node 2 -m distributed_training_tpu_torch.train \
@@ -9,7 +11,11 @@
     torchrun --nproc_per_node 4 -m distributed_training_tpu_torch.train \
         train.device=cpu train.sharding_plan=<name or path> ...
 
-The same ``conf/`` tree and override grammar as the JAX CLI. It runs on
+The same ``conf/`` tree and override grammar as the JAX CLI; with no
+override it trains the default config, the MLP ``Linear(20, 1)`` on
+``synthetic`` under SGD and ``ddp``. ``train.eval_fraction`` splits
+held-out rows off the dataset, scored every ``train.eval_every`` epochs
+(``val_loss`` in ``metrics.jsonl``). It runs on
 the CUDA card (``cuda:LOCAL_RANK`` under torchrun, over NCCL) unless
 ``train.device=cpu`` is given (gloo). Under torchrun every process runs
 this; only process 0 writes ``resolved_config.yaml``, ``metrics.jsonl``
@@ -36,6 +42,7 @@ from distributed_training_tpu_torch.config import (
 from distributed_training_tpu_torch.data import (
     ShardedDataLoader,
     build_dataset,
+    train_eval_split,
 )
 from distributed_training_tpu_torch.models.registry import build_model
 from distributed_training_tpu_torch.parallel import check_strategy
@@ -75,6 +82,10 @@ def main(argv: list[str] | None = None) -> int:
     args = build_argparser().parse_args(argv)
 
     cfg = load_config(args.config_dir, args.config_name, args.overrides)
+    if cfg.train.data_sources and cfg.train.eval_fraction > 0:
+        raise ValueError(
+            "train.eval_fraction is not supported with train.data_sources "
+            "(the stream has no held-out split); set eval_fraction=0")
     refuse_unported(cfg.train)
     check_strategy(cfg.train.parallel_strategy)
     plan = None
@@ -118,11 +129,22 @@ def _run(cfg, rt, guard, run_dir: str, plan=None) -> int:
         cfg.train.dataset,
         _defaults={"size": cfg.train.dataset_size, "seed": cfg.train.seed},
         **cfg.train.dataset_kwargs)
+    eval_loader = None
+    if cfg.train.eval_fraction > 0:
+        # The held-out rows, rounded up to whole global batches so the
+        # loader never wrap-pads them: val_loss is an exact mean.
+        dataset, eval_ds = train_eval_split(
+            dataset, cfg.train.eval_fraction, seed=cfg.train.seed,
+            multiple_of=cfg.train.batch_size * rt.data_shard_count)
+        eval_loader = ShardedDataLoader(
+            eval_ds, rt, batch_size=cfg.train.batch_size, shuffle=False,
+            seed=cfg.train.seed, data_retries=cfg.train.data_retries)
     loader = ShardedDataLoader(
         dataset, rt, batch_size=cfg.train.batch_size,
         shuffle=cfg.train.shuffle, seed=cfg.train.seed,
         drop_last=cfg.train.drop_last,
-        max_steps_per_epoch=cfg.train.max_steps_per_epoch)
+        max_steps_per_epoch=cfg.train.max_steps_per_epoch,
+        data_retries=cfg.train.data_retries)
     model_kwargs = dict(cfg.model.kwargs)
     # A model-level dtype wins over the training compute dtype.
     model_dtype = model_kwargs.pop("dtype", cfg.train.dtype)
@@ -145,7 +167,8 @@ def _run(cfg, rt, guard, run_dir: str, plan=None) -> int:
                           reason="the anomaly detector waits for "
                                  "ROADMAP.md queue A item 15")
             trainer = Trainer(cfg, rt, model, loader, checkpointer,
-                              preemption_guard=guard)
+                              preemption_guard=guard,
+                              eval_loader=eval_loader)
             if trainer.global_step > 0:
                 data_state = loader.state_dict()
                 tel.event("resume", step=trainer.global_step,

@@ -7,14 +7,30 @@ decay on the old params, ``eps`` outside the square root, bias
 correction from the update count) scaled by the learning-rate schedule
 (constant or cosine with floor ``alpha=0.1``, after a linear warmup that
 gives lr 0 on the very first update). Every quantity the optax chain
-computes in f32 is computed in f32 here. Adafactor waits for ROADMAP.md
-queue A item 2.
+computes in f32 is computed in f32 here.
+
+``adafactor`` is ``optax.adafactor(lr, weight_decay_rate=,
+weight_decay_mask=)`` step for step (optax's defaults otherwise):
+``scale_by_factored_rms`` (decay ``1 - (count+1)^-0.8``, ``g² + 1e-30``;
+a leaf is factored on the two largest dims of its global shape when both
+are at least 128, so a stacked ``(L, D, F)`` leaf keeps its layer axis
+in the statistics), ``clip_by_block_rms(1.0)`` per leaf, the learning
+rate, ``scale_by_param_block_rms`` (``max(rms(param), 1e-3)``), the
+masked decoupled decay (after the learning rate, so not scaled by it),
+then the sign flip; all after ``clip_by_global_norm``.
 
 The state is a dict: ``count`` (updates applied so far, a Python int,
-so the schedule needs no device sync) plus ``mu``/``nu`` keyed like the
-params (under a sharded strategy each moment is this process's shard,
-laid out by the strategy's ``opt_spec``); the checkpoint saves it as it
-is.
+so the schedule needs no device sync) plus ``mu``/``nu`` (AdamW) or
+``v_row``/``v_col`` (factored leaves) and ``v`` (the others, shaped like
+the param) for Adafactor, keyed like the params. Under a sharded
+strategy each moment is this process's block: param-shaped moments are
+laid out by the strategy's ``opt_spec``; a factored moment keeps the
+param's split where it keeps the split dim and is whole (replicated over
+the split's group) where it averaged over it (``factored_placements``).
+Adafactor's row and column means and both block RMS sum over the split's
+group first (``bind_layout``), as ``global_norm(groups=)`` does, so a
+sharded update equals the whole one. The checkpoint saves the state as
+it is.
 """
 
 from __future__ import annotations
@@ -124,6 +140,56 @@ def global_norm(tensors, groups=()) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(sum(sums), dtype=torch.float32))
 
 
+# optax.adafactor's defaults.
+_FACTOR_MIN_DIM = 128
+_FACTOR_DECAY = 0.8
+_FACTOR_EPS = 1e-30
+_BLOCK_RMS_CLIP = 1.0
+_PARAM_MIN_RMS = 1e-3
+
+
+def factored_dims(shape: tuple) -> tuple | None:
+    """(d1, d0): the second-largest and largest dims of ``shape`` (numpy's
+    argsort, as optax), or None when the leaf is not factored (fewer than
+    two dims, or the second-largest under 128)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < _FACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _without(pl, dim: int):
+    """The placement of a moment that averaged ``pl``'s tensor over
+    ``dim``: the other splits, their dims renumbered; None when none
+    remains."""
+    if pl is None:
+        return None
+    splits = tuple((d - (d > dim), axes) for d, axes in pl.splits
+                   if d != dim)
+    return type(pl)(splits) if splits else None
+
+
+def factored_placements(shapes: dict, placements: dict) -> dict:
+    """``{"v_row": {path: Placement | None}, "v_col": {...}}`` of the
+    factored leaves of the flat global ``shapes``, whose param-shaped
+    tensors sit at ``placements`` (the layout's ``opt``)."""
+    out: dict = {"v_row": {}, "v_col": {}}
+    for k, shape in shapes.items():
+        fd = factored_dims(tuple(shape))
+        if fd is not None:
+            d1, d0 = fd
+            out["v_row"][k] = _without(placements.get(k), d0)
+            out["v_col"][k] = _without(placements.get(k), d1)
+    return out
+
+
+def _split_dims(pl) -> dict:
+    """dim → the mesh axes it is split over."""
+    return dict(pl.splits) if pl is not None else {}
+
+
 @dataclass
 class Optimizer:
     """The optax chain as ``init(params) -> state`` and
@@ -138,12 +204,91 @@ class Optimizer:
     decay_mask: str = "all"
     clip_norm: float = 0.0
 
+    def __post_init__(self) -> None:
+        # Adafactor over sharded tensors (bind_layout): each leaf's
+        # global shape, the placement of the blocks update() is given,
+        # and axes → process group.
+        self._shapes: dict = {}
+        self._placements: dict = {}
+        self._group_of = None
+
+    def bind_layout(self, shapes: dict, placements: dict, group_of) -> None:
+        """Name the global shape (flat ``shapes``) and placement of every
+        leaf ``init``/``update`` will be given blocks of, and
+        ``group_of(axes)``, the process group over mesh axes."""
+        self._shapes = {k: tuple(v) for k, v in shapes.items()}
+        self._placements = dict(placements)
+        self._group_of = group_of
+
     def init(self, params: dict) -> dict:
-        state = {"count": 0}
+        state: dict = {"count": 0}
         if self.kind == "adamw":
             state["mu"] = {k: torch.zeros_like(p) for k, p in params.items()}
             state["nu"] = {k: torch.zeros_like(p) for k, p in params.items()}
+        elif self.kind == "adafactor":
+            state.update(v_row={}, v_col={}, v={})
+            for k, p in params.items():
+                fd = factored_dims(self._shapes.get(k, tuple(p.shape)))
+                if fd is None:
+                    state["v"][k] = torch.zeros_like(p)
+                    continue
+                d1, d0 = fd
+                shape = list(p.shape)
+                state["v_row"][k] = p.new_zeros(shape[:d0] + shape[d0 + 1:])
+                state["v_col"][k] = p.new_zeros(shape[:d1] + shape[d1 + 1:])
         return state
+
+    def _mean(self, x: torch.Tensor, dims: tuple, splits: dict,
+              full: tuple, keepdim: bool = False) -> torch.Tensor:
+        """Mean of ``x`` (a block of a tensor of global shape ``full``
+        split at ``splits``) over ``dims``; the local sums are summed over
+        the group of the splits on those dims first."""
+        axes = tuple(a for d in dims for a in splits.get(d, ()))
+        if not axes:
+            return x.mean(dim=dims, keepdim=keepdim)
+        total = x.sum(dim=dims, keepdim=keepdim)
+        dist.all_reduce(total, group=self._group_of(axes))
+        return total / math.prod(full[d] for d in dims)
+
+    def _adafactor(self, k: str, g: torch.Tensor, p: torch.Tensor,
+                   state: dict, new: dict, decay_t: np.float32,
+                   lr: float, decay: bool) -> torch.Tensor:
+        """One leaf's Adafactor update (the optax chain after the global
+        clip, sign flipped)."""
+        full = self._shapes.get(k, tuple(p.shape))
+        pl = self._placements.get(k)
+        splits = _split_dims(pl)
+        every = tuple(range(len(full)))
+        keep, fresh = float(decay_t), float(_f32(1) - decay_t)
+        gsq = g * g + _FACTOR_EPS
+        fd = factored_dims(full)
+        if fd is not None:
+            d1, d0 = fd
+            v_row = (keep * state["v_row"][k]
+                     + fresh * self._mean(gsq, (d0,), splits, full))
+            v_col = (keep * state["v_col"][k]
+                     + fresh * self._mean(gsq, (d1,), splits, full))
+            new["v_row"][k], new["v_col"][k] = v_row, v_col
+            rd1 = d1 - 1 if d1 > d0 else d1
+            row_full = full[:d0] + full[d0 + 1:]
+            row_mean = self._mean(v_row, (rd1,),
+                                  _split_dims(_without(pl, d0)), row_full,
+                                  keepdim=True)
+            u = (g * ((v_row / row_mean) ** -0.5).unsqueeze(d0)
+                 * (v_col ** -0.5).unsqueeze(d1))
+        else:
+            v = keep * state["v"][k] + fresh * gsq
+            new["v"][k] = v
+            u = g * v ** -0.5
+        rms = torch.sqrt(self._mean(u * u, every, splits, full))
+        u = u / torch.clamp(rms / _BLOCK_RMS_CLIP, min=1.0)
+        u = u * lr
+        p_rms = torch.sqrt(self._mean(p * p, every, splits, full))
+        u = u * torch.where(p_rms <= _PARAM_MIN_RMS,
+                            torch.full_like(p_rms, _PARAM_MIN_RMS), p_rms)
+        if self.weight_decay and decay:
+            u = u + self.weight_decay * p
+        return -u
 
     def update(self, grads: dict, state: dict, params: dict,
                gnorm: torch.Tensor | None = None) -> tuple[dict, dict]:
@@ -162,11 +307,18 @@ class Optimizer:
         if self.kind == "sgd":
             updates = {k: g * -lr for k, g in grads.items()}
             return updates, new
+        decay = (_matrices_mask(params) if self.decay_mask == "matrices"
+                 else dict.fromkeys(params, True))
+        if self.kind == "adafactor":
+            decay_t = _f32(1) - _f32(count + 1) ** _f32(-_FACTOR_DECAY)
+            new.update(v_row={}, v_col={}, v={})
+            updates = {k: self._adafactor(k, g, params[k], state, new,
+                                          decay_t, lr, decay[k])
+                       for k, g in grads.items()}
+            return updates, new
         n = count + 1
         bc1 = float(_f32(1) - _f32(self.b1) ** n)
         bc2 = float(_f32(1) - _f32(self.b2) ** n)
-        decay = (_matrices_mask(params) if self.decay_mask == "matrices"
-                 else dict.fromkeys(params, True))
         mu, nu, updates = {}, {}, {}
         for k, g in grads.items():
             mu[k] = (1 - self.b1) * g + self.b1 * state["mu"][k]
@@ -185,11 +337,7 @@ def build_optimizer(cfg, total_steps: int) -> Optimizer:
     if cfg.decay_mask not in ("all", "matrices"):
         raise ValueError(f"unknown decay_mask '{cfg.decay_mask}' "
                          "(expected 'all' or 'matrices')")
-    if cfg.optimizer == "adafactor":
-        raise NotImplementedError(
-            "adafactor waits for ROADMAP.md queue A item 2 "
-            "(train/optimizer.py)")
-    if cfg.optimizer not in ("sgd", "adamw"):
+    if cfg.optimizer not in ("sgd", "adamw", "adafactor"):
         raise ValueError(f"unknown optimizer '{cfg.optimizer}'")
     return Optimizer(kind=cfg.optimizer,
                      schedule=build_schedule(cfg, total_steps),

@@ -13,7 +13,11 @@ metrics row every ``log_every`` steps, a checkpoint every ``save_every``
 epochs (and the consolidated artifact with ``gather_on_save``), a stop
 on preemption agreed by every process with a mid-epoch save,
 ``total_steps``/``max_steps_per_epoch``, ``nan_guard``,
-``offload_opt_state`` and ``divergence_check_every``.
+``offload_opt_state`` and ``divergence_check_every``, and the held-out
+evaluation: with an ``eval_loader`` the trainer scores the held-out rows
+every ``eval_every`` epochs (``evaluate``: the model's loss with
+``train=False`` per batch, summed on the device, one host sync per
+evaluation, an ``eval`` span) and logs ``val_loss``.
 
 The strategy (``ddp``, ``zero1``, ``fsdp``, ``hybrid``, ``tp``,
 ``tp_fsdp``) lays the state out over the runtime's mesh
@@ -54,6 +58,7 @@ from distributed_training_tpu_torch.telemetry import events as telemetry
 from distributed_training_tpu_torch.train import state as state_lib
 from distributed_training_tpu_torch.train.optimizer import (
     build_optimizer,
+    factored_placements,
     flatten,
     global_norm,
 )
@@ -65,7 +70,6 @@ logger = logging.getLogger(__name__)
 # TrainConfig fields whose feature is not ported yet: field → (the value
 # that leaves it off, what it is, its ROADMAP.md queue A item).
 _UNPORTED = {
-    "eval_fraction": (0.0, "held-out evaluation", 5),
     "data_sources": ({}, "the streaming data pipeline", 14),
     "fault_plan": ("", "fault injection", 14),
     "watchdog_timeout_s": (0.0, "the hang watchdog", 15),
@@ -179,13 +183,17 @@ class Trainer:
     """Config-driven training orchestrator over the runtime's mesh."""
 
     def __init__(self, cfg, runtime, model, loader, checkpointer=None,
-                 preemption_guard=None, params: dict | None = None):
+                 preemption_guard=None, params: dict | None = None,
+                 eval_loader=None):
         """``params``: whole weights to start from instead of the
-        seed's init (ignored when a checkpoint resumes)."""
+        seed's init (ignored when a checkpoint resumes).
+        ``eval_loader``: the held-out rows, scored every ``eval_every``
+        epochs."""
         self.cfg = cfg
         self.rt = runtime
         self.model = model
         self.loader = loader
+        self.eval_loader = eval_loader
         self.checkpointer = checkpointer
         # Cooperative stop flag (SIGTERM → save + clean exit); see
         # utils/preemption.py. None → never stops early.
@@ -226,6 +234,9 @@ class Trainer:
         total_steps = tcfg.total_steps or (
             loader.steps_per_epoch * tcfg.total_epochs)
         self.optimizer = build_optimizer(tcfg, total_steps)
+        self.optimizer.bind_layout(
+            flatten(model.param_shapes()),
+            (self.layout or {}).get("opt", {}), runtime.group)
         self._step_fn = make_train_step(
             model, self.optimizer, nan_guard=tcfg.nan_guard,
             grad_accum_steps=tcfg.grad_accum_steps,
@@ -274,9 +285,12 @@ class Trainer:
         group: every leaf whole)."""
         if self.rt.mesh is None:
             return None
-        return strategy_layout(self.strategy,
-                               flatten(self.model.param_shapes()),
-                               flatten(self.model.logical_axes()))
+        shapes = flatten(self.model.param_shapes())
+        out = strategy_layout(self.strategy, shapes,
+                              flatten(self.model.logical_axes()))
+        if self.cfg.train.optimizer == "adafactor":
+            out["factored"] = factored_placements(shapes, out["opt"])
+        return out
 
     def _bind_gather(self) -> None:
         """Bind the per-layer gather when any weight is stored sharded
@@ -327,16 +341,21 @@ class Trainer:
 
     def _check_dataset(self) -> None:
         """The model/dataset contract, checked before the first step:
-        batch keys, and token ids inside the model's vocab."""
+        batch keys (of the training and the held-out rows), and token
+        ids inside the model's vocab."""
+        need = set(getattr(self.model, "batch_keys", ()) or ())
+        for role, ldr in (("eval", self.eval_loader), ("train", self.loader)):
+            ds = getattr(ldr, "dataset", None)
+            if ds is None or len(ds) == 0:
+                continue
+            have = set(ds.batch(np.array([0])).keys())
+            if not need <= have:
+                raise ValueError(
+                    f"model expects batch keys {sorted(need)} but the "
+                    f"{role} dataset yields {sorted(have)}")
         ds = getattr(self.loader, "dataset", None)
         if ds is None or len(ds) == 0:
             return
-        need = set(getattr(self.model, "batch_keys", ()) or ())
-        have = set(ds.batch(np.array([0])).keys())
-        if not need <= have:
-            raise ValueError(
-                f"model expects batch keys {sorted(need)} but the dataset "
-                f"yields {sorted(have)}")
         model_vocab = getattr(getattr(self.model, "cfg", None),
                               "vocab_size", None)
         ds_vocab = getattr(ds, "vocab_size", None)
@@ -469,6 +488,15 @@ class Trainer:
             if self.rt.is_coordinator:
                 logger.info("epoch %d | mean_loss %.6f", epoch,
                             summary["mean_loss"])
+            eval_every = self.cfg.train.eval_every
+            if (self.eval_loader is not None and eval_every
+                    and (epoch + 1) % eval_every == 0
+                    and not self._stop_agreed):
+                summary["val_loss"] = self.evaluate(
+                    self.eval_loader.epoch(epoch))
+                # Unthrottled: never dropped by the log_every window.
+                self.metrics.record_scalar(self.global_step, "val_loss",
+                                           summary["val_loss"], epoch=epoch)
             preempted = self._stop_agreed
             save_every = self.cfg.train.save_every
             if self.checkpointer is not None and (
@@ -487,6 +515,27 @@ class Trainer:
             self.checkpointer.wait()
         summary["wall_time_s"] = time.perf_counter() - t0
         return summary
+
+    def evaluate(self, batches) -> float:
+        """Mean loss over ``batches`` without updating the state
+        (``model.loss(train=False)``, no autograd). Each process scores
+        its shard of every batch; the per-batch losses are averaged over
+        the data processes and summed on the device, and the host syncs
+        once, at the end (the JAX trainer's one sync per evaluation)."""
+        total, count = None, 0
+        with self.telemetry.span("eval", step=self.global_step), \
+                torch.no_grad():
+            for b in batches:
+                loss, _ = self.model.loss(self.state["params"], b,
+                                          train=False)
+                if self.rt.mesh is not None:
+                    loss = fsdp.mean_over_data({"loss": loss},
+                                               self.rt)["loss"]
+                total = loss if total is None else total + loss
+                count += 1
+            if count == 0:
+                return float("nan")
+            return float(total) / count
 
     def _save(self, epoch: int, force: bool = False) -> None:
         if self._offload and self.model.device.type == "cuda":

@@ -152,3 +152,13 @@ class MetricsLogger:
             f" | mfu {entry['mfu']:.3f}" if "mfu" in entry else "")
         self._last_time = now
         self._last_step = step
+
+    def record_scalar(self, step: int, name: str, value: float,
+                      epoch: int = 0) -> None:
+        """One unthrottled scalar row (an evaluation's ``val_loss``); it
+        leaves the throughput window as it is."""
+        if not self.enabled:
+            return
+        self._append({"epoch": epoch, "step": step, name: float(value)})
+        logger.info("step %d | epoch %d | %s %.6f", step, epoch, name,
+                    float(value))

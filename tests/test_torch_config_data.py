@@ -47,8 +47,8 @@ def test_synthetic_corpus_is_bit_identical():
     got = port_ds.build_dataset("synthetic_lm", _defaults={"seed": 0},
                                 **kw).columns["tokens"]
     assert got.dtype == want.dtype and np.array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_ds.build_dataset("memmap_tokens", path="x", seq_len=4)
+    with pytest.raises(ValueError, match="unknown dataset"):
+        port_ds.build_dataset("memmap_token", path="x", seq_len=4)
 
 
 def test_loader_index_stream_matches_jax():
