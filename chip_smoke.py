@@ -221,11 +221,21 @@ RECOVERY_DECODES = 8
 # fill's tokens.
 NATIVE_ROWS = 1_000_000
 NATIVE_FILL = 10_000_000
-# train_bytes_lm: steps in each of its 2 epochs, eval.py's batches, and
-# the tokens generate.py decodes.
+# train_bytes_lm: steps in each of its 2 epochs, eval.py's batches, the
+# bytes of generate.py's prompt and the tokens it decodes. 128 bytes: the
+# model's attention gate takes the flash forward for a prompt of at least
+# 128 positions in whole tiles, the naive path below that (as the JAX
+# gate does).
 BYTES_STEPS_PER_EPOCH = 100
 BYTES_EVAL_BATCHES = 50
+GEN_PROMPT_BYTES = 128
 GEN_TOKENS = 64
+# generate's bf16 decodes against the f32 forward of the same prefix
+# (_bf16_decode_logits): the paged decode's largest logit error may be at
+# most this multiple of the fused decode's. Both round the same weights
+# and activations to bf16 at different points; a fault in the paged
+# decode's attention errs on the scale of the logits themselves.
+DECODE_LOGITS_RATIO = 4.0
 # adafactor: gpt2_125m steps.
 ADAFACTOR_STEPS = 10
 
@@ -240,23 +250,38 @@ def check(cond: bool, msg: str) -> None:
 
 
 class Timer:
-    """Median device time of single launches (CUDA events), each after
-    an L2 flush and a short device sleep, so the card is busy while the
-    host enqueues the launch and its inputs are not cache-warm."""
+    """Median device time of single calls (CUDA events), each after an
+    L2 flush and a device sleep, so that the inputs are not cache-warm
+    and the card is busy while the host enqueues the call: the sleep
+    lasts at least twice the host's enqueue time of the call (its
+    slowest warm-up, at up to 2e9 cycles a second), so the timed span
+    opens with the call's work already queued. ``hide_host=False``
+    keeps the fixed sleep of 200k cycles (about 0.1 ms) that earlier
+    readings used, which a call enqueued more slowly than that times
+    together with the host."""
 
     def __init__(self):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, runs: int = 30, warmup: int = 3) -> float:
-        for _ in range(warmup):
+    def ms(self, fn, runs: int = 30, warmup: int = 3,
+           hide_host: bool = True) -> float:
+        host = 0.0
+        for i in range(warmup):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             fn()
+            if i:
+                host = max(host, time.perf_counter() - t0)
         torch.cuda.synchronize()
+        cycles = 200_000
+        if hide_host:
+            cycles = min(max(cycles, int(2 * host * 2e9)), 40_000_000)
         events = []
         for _ in range(runs):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             self.flush.zero_()
-            torch.cuda._sleep(200_000)
+            torch.cuda._sleep(cycles)
             start.record()
             fn()
             end.record()
@@ -586,8 +611,14 @@ def _bwd_case(timer, B, H, Hkv, S, D, dtype, split, window=0,
         xs = [t.detach().requires_grad_() for t in (q, k, v)]
         o = F.scaled_dot_product_attention(*xs, is_causal=True,
                                            enable_gqa=Hkv != H)
-        lib = timer.ms(lambda: torch.autograd.grad(o, xs, do,
-                                                   retain_graph=True))
+
+        def lib_bwd():
+            return torch.autograd.grad(o, xs, do, retain_graph=True)
+
+        lib = timer.ms(lib_bwd)
+        # The same call under the fixed 0.1 ms sleep: autograd's host
+        # dispatch, when slower than that, lands inside the timed span.
+        res["library_ms_fixed_sleep"] = timer.ms(lib_bwd, hide_host=False)
     for name in runs:
         res[name].update(plain_ms=plain, library_ms=lib)
     return res
@@ -622,6 +653,9 @@ def phase_kernels() -> dict:
     # byte_lm's attention (train_bytes_lm, eval.py): B 16, H 8, S 512.
     flash["byte_lm"] = _flash_case(timer, 16, 8, 8, 512, 64, bf16,
                                    library=True)
+    # generate.py --decode fused on byte_lm: its prompt's prefill.
+    flash["generate"] = _flash_case(timer, 1, 8, 8, GEN_PROMPT_BYTES, 64,
+                                    bf16, library=True)
     paged = {"main": _paged_case(timer, 8, 12, 12, 64, 16, 1024, bf16),
              "f32_gqa": _paged_case(timer, 8, 12, 4, 64, 16, 1024, f32),
              # transformer_7b's attention heads (H 32, Hkv 8, hd 128) over
@@ -640,7 +674,14 @@ def phase_kernels() -> dict:
              # slots at tp 2's 6 kv heads, and a dp group's 4 slots at
              # all 12.
              "tp2_rank": _paged_case(timer, 8, 6, 6, 64, 16, 1024, bf16),
-             "dp2_rank": _paged_case(timer, 4, 12, 12, 64, 16, 1024, bf16)}
+             "dp2_rank": _paged_case(timer, 4, 12, 12, 64, 16, 1024, bf16),
+             # generate.py --decode paged on byte_lm: one slot, H = Hkv 8,
+             # pages of 16 for the prompt and GEN_TOKENS, at the first
+             # and the last decode's length.
+             **{f"generate_{at}": _paged_case(
+                 timer, 1, 8, 8, 64, 16, GEN_PROMPT_BYTES + GEN_TOKENS,
+                 bf16, lengths=[GEN_PROMPT_BYTES + n])
+                for at, n in (("first", 1), ("last", GEN_TOKENS - 1))}}
     emit({"phase": "kernels", "flash_fwd": flash, "paged_decode": paged})
     bwd = {}
     for split in (False, True):
@@ -687,8 +728,15 @@ def phase_kernels() -> dict:
             "flash_fwd_tp2": flash["tp2"],
             "flash_bwd_fused_tp2": bwd["fused_tp2"]["flash_bwd_fused"],
             "flash_fwd_byte_lm": flash["byte_lm"],
+            "flash_fwd_generate": flash["generate"],
+            "paged_decode_generate_first": paged["generate_first"],
+            "paged_decode_generate_last": paged["generate_last"],
             "flash_bwd_fused_byte_lm": bwd["fused_byte_lm"]["flash_bwd_fused"],
             "flash_bwd_fused": bwd["fused_train"]["flash_bwd_fused"],
+            "flash_bwd_library_fixed_sleep":
+                bwd["fused_train"]["library_ms_fixed_sleep"],
+            "flash_bwd_byte_lm_library_fixed_sleep":
+                bwd["fused_byte_lm"]["library_ms_fixed_sleep"],
             "flash_bwd_dq": bwd["split_train"]["flash_bwd_dq"],
             "flash_bwd_dkv": bwd["split_train"]["flash_bwd_dkv"]}
 
@@ -3476,6 +3524,105 @@ def _generate(src: list, decode: str, prompt: str) -> dict:
         "-n", str(GEN_TOKENS), "--decode", decode, "--json"]))
 
 
+def _bf16_decode_logits(run_dir: str, prompt: str) -> dict:
+    """generate.py's two bf16 greedy decodes of ``prompt`` rerun in this
+    process, each keeping the f32 logits it took every token from, and
+    the f32 model's forward over the prompt and the fused tokens (teacher
+    forcing). Up to the first token where the decodes part, both read the
+    same prefix: over those decode steps, each decode's largest logit
+    error against f32, and the paged decode's against the fused. The
+    paged decode's error must stay within DECODE_LOGITS_RATIO of the
+    fused decode's: bf16 rounding, not a fault of its attention. At the
+    first difference, how close a call it was: the fused decode's top-2
+    gap, and each path's and f32's margin between the two tokens."""
+    from distributed_training_tpu_torch import generate as gen
+    from distributed_training_tpu_torch.models.registry import build_model
+    from distributed_training_tpu_torch.serving import engine as em
+
+    dev = torch.device("cuda:0")
+    cfg = gen._load_run_config(run_dir)
+    params, _ = gen._restore_params(run_dir, cfg.train.snapshot_path, None,
+                                    dev)
+    model = gen._build_model_from_cfg(cfg, dev)
+    ids = np.frombuffer(prompt.encode(), np.uint8).astype(np.int32)
+    kept = {"fused": [], "paged": []}
+    head = model._lm_head
+
+    def fused_head(p, x):
+        out = head(p, x)
+        kept["fused"].append(out[0].cpu())
+        return out
+
+    model._lm_head = fused_head
+    fused = model.generate(params, ids[None], GEN_TOKENS)[0].tolist()
+    del model._lm_head
+    eng = gen._paged_engine(model, params, ids.size + GEN_TOKENS, dev)
+    logits_fn, decode, armed = em._logits, eng._decode, []
+
+    def logits(*args, **kw):
+        out = logits_fn(*args, **kw)
+        if armed:
+            armed.pop()
+            kept["paged"].append(out[0].cpu())
+        return out
+
+    def paged_decode(*args, **kw):
+        armed.append(True)
+        return decode(*args, **kw)
+
+    em._logits, eng._decode = logits, paged_decode
+    try:
+        paged = [int(t) for t in eng.generate(ids, GEN_TOKENS)]
+    finally:
+        em._logits, eng._decode = logits_fn, decode
+    kwargs = dict(cfg.model.kwargs)
+    kwargs.pop("dtype", None)
+    ref_model = build_model(cfg.model.name, loss=cfg.train.loss,
+                            dtype="float32", device=dev, **kwargs)
+    seq = np.concatenate([ids, np.asarray(fused[:-1], np.int32)])
+    # Row i: the logits token i is taken from.
+    ref = ref_model.apply(params, seq[None])[0][0, ids.size - 1:].cpu()
+    fl = torch.stack(kept["fused"])
+    pl = torch.stack(kept["paged"])
+    check(fl.shape[0] == GEN_TOKENS and pl.shape[0] == GEN_TOKENS - 1,
+          f"kept logits {fl.shape} {pl.shape}")
+    first = next((i for i, (a, b) in enumerate(zip(fused, paged))
+                  if a != b), None)
+    # Tokens 1.. come from decode steps (token 0 from the prefill): the
+    # paged decode's step i - 1 gave token i.
+    steps = range(1, GEN_TOKENS if first is None else first + 1)
+
+    def worst(rows):
+        return max(((a - b).abs().max().item() for a, b in rows),
+                   default=None)
+
+    err_fused = worst((fl[i], ref[i]) for i in steps)
+    err_paged = worst((pl[i - 1], ref[i]) for i in steps)
+    out = {"fused_tokens": fused, "paged_tokens": paged,
+           "first_difference": first, "decode_steps_compared": len(steps),
+           "fused_vs_f32_max_abs": err_fused,
+           "paged_vs_f32_max_abs": err_paged,
+           "paged_vs_fused_max_abs": worst((pl[i - 1], fl[i])
+                                           for i in steps),
+           "logit_scale": fl.abs().max().item()}
+    if steps:
+        check(err_paged <= DECODE_LOGITS_RATIO * err_fused,
+              f"generate bf16: the paged decode's logits err {err_paged} "
+              f"against f32, more than {DECODE_LOGITS_RATIO} x the fused "
+              f"decode's {err_fused}")
+    if first is not None:
+        a, b = fused[first], paged[first]
+        top2 = torch.topk(fl[first], 2).values
+        out["at_first_difference"] = {
+            "fused_token": a, "paged_token": b,
+            "fused_top2_gap": (top2[0] - top2[1]).item(),
+            "fused_margin": (fl[first][a] - fl[first][b]).item(),
+            "paged_margin": (pl[first - 1][b] - pl[first - 1][a]).item()
+            if first else None,
+            "f32_margin": (ref[first][a] - ref[first][b]).item()}
+    return out
+
+
 def phase_train_bytes_lm(tmp: str, corpus: str) -> dict:
     """The real-text path at the config's full width (conf/model/
     byte_lm.yaml: vocab 256, d 512, 8 layers of 8 heads, seq 512; conf/
@@ -3553,13 +3700,11 @@ def phase_train_bytes_lm(tmp: str, corpus: str) -> dict:
           "tokens_per_s": ev["tokens"] / ev["seconds"],
           "launches": evl[0], "launches_by_design": evl[1]})
 
-    # 128 bytes: the model's attention gate takes the flash forward for
-    # a prompt of at least 128 positions in whole tiles, the naive path
-    # below that (as the JAX gate does).
     prompt = ("def main(argv: list[str] | None = None) -> int:\n"
               "    args = build_argparser().parse_args(argv)\n"
               "    cfg = load_config(args.config_dir, args.config_name, "
-              "args.overrides)\n")[:128]
+              "args.overrides)\n")[:GEN_PROMPT_BYTES]
+    check(len(prompt.encode()) == GEN_PROMPT_BYTES, "generate prompt size")
     art = os.path.join(out, "byte_lm.pt")
     _run_module(["distributed_training_tpu_torch.checkpoint.export",
                  "--ckpt", os.path.join(out, "checkpoints"), "--out", art])
@@ -3583,6 +3728,11 @@ def phase_train_bytes_lm(tmp: str, corpus: str) -> dict:
         if decode == "paged":
             check(counts["paged_decode"] == n_layers * (GEN_TOKENS - 1),
                   f"generate {dtype} paged: B4 launches {counts}")
+    # The bf16 fused prefill is the design phase_kernels' generate case
+    # holds against its plain version.
+    _check_designs({"flash_fwd": launches[("bfloat16", "fused")][1][
+        "flash_fwd"]}, "wgmma", "generate --decode fused (bf16) prefill")
+    logits = _bf16_decode_logits(run_dir, prompt)
     emit({"phase": "generate_bytes_lm", "prompt_tokens": len(prompt),
           "tokens_bf16_fused": gens[("bfloat16", "fused")]["tokens"],
           "new_tokens": GEN_TOKENS, "tokens_equal_paged_vs_fused": same,
@@ -3591,7 +3741,10 @@ def phase_train_bytes_lm(tmp: str, corpus: str) -> dict:
           "tokens_per_s": {f"{d}_{m}": g["tokens_per_s"]
                            for (d, m), g in gens.items()},
           "launches": {f"{d}_{m}": c for (d, m), (c, _) in
-                       launches.items()}})
+                       launches.items()},
+          "bf16_logits": {**logits, "same_tokens_as_cli": {
+              m: logits[f"{m}_tokens"] == gens[("bfloat16", m)]["tokens"]
+              for m in ("paged", "fused")}}})
     # The bf16 runs are the path's; the f32 ones (the SIMT design of the
     # flash forward in the fused prefill) are the check's.
     return {"train_bytes_lm": train, "eval": evl,
@@ -3824,6 +3977,19 @@ def main() -> int:
                     k: measured[f"{name}_{case}"][k]
                     for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
+        if name == "flash_bwd_fused":
+            # SDPA's backward under the old fixed sleep, beside its device
+            # time (library_ms), at gpt2's shape and byte_lm's.
+            kernels[-1]["library_ms_fixed_sleep"] = measured[
+                "flash_bwd_library_fixed_sleep"]
+            kernels[-1]["byte_lm_case"]["library_ms_fixed_sleep"] = \
+                measured["flash_bwd_byte_lm_library_fixed_sleep"]
+        if name == "flash_fwd":
+            # And at generate.py's fused prefill (B 1, H 8, S 128).
+            kernels[-1]["generate_case"] = {
+                k: measured["flash_fwd_generate"][k]
+                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms")}
         # Its launches on the paths of the default config and the real
         # text (train_bytes_lm, eval.py, generate.py, adafactor).
         kernels[-1]["real_text_launches"] = {
@@ -3844,6 +4010,14 @@ def main() -> int:
                        for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")},
                     "launches": mesh_launches[mesh][0][name]}
+            # And at generate.py's paged decode on byte_lm (one slot, 8
+            # heads, 12 pages), its first and last decode.
+            for at in ("first", "last"):
+                kernels[-1][f"generate_{at}_case"] = {
+                    k: measured[f"paged_decode_generate_{at}"][k]
+                    for k in ("shape", "lengths", "splits", "max_abs_err",
+                              "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}
             # Its launches on the disaggregated pipeline's decode engine.
             kernels[-1]["serving_disagg_launches"] = disagg_launches[0][name]
         if name in ("paged_decode", "flash_fwd"):

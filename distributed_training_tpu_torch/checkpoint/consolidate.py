@@ -22,7 +22,11 @@ from typing import Any
 import torch
 
 from distributed_training_tpu_torch.parallel import fsdp
-from distributed_training_tpu_torch.train.optimizer import flatten, unflatten
+from distributed_training_tpu_torch.train.optimizer import (
+    flatten,
+    moment_placements,
+    unflatten,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -35,18 +39,6 @@ def _to_cpu(tree: Any) -> Any:
     return tree
 
 
-def moment_placements(layout: dict, opt: dict) -> dict:
-    """The placements of each optimizer moment in ``opt`` (a flat dict
-    of blocks keyed like the params): AdamW's ``mu``/``nu`` and
-    Adafactor's param-shaped ``v`` at the layout's ``opt``, its factored
-    ``v_row``/``v_col`` at the layout's ``factored``."""
-    out = {name: layout["opt"] for name in ("mu", "nu", "v") if name in opt}
-    for name, pls in (layout.get("factored") or {}).items():
-        if name in opt:
-            out[name] = pls
-    return out
-
-
 def gather_full_state(state: dict, layout: dict | None, runtime) -> dict:
     """The whole train state on the host. COLLECTIVE under a process
     group: every process must call it. ``layout``: the trainer's
@@ -57,7 +49,8 @@ def gather_full_state(state: dict, layout: dict | None, runtime) -> dict:
     out["params"] = unflatten(fsdp.gather_full(
         flatten(state["params"]), layout["params"], runtime))
     opt = dict(state["opt_state"])
-    for name, pls in moment_placements(layout, opt).items():
+    for name, pls in moment_placements(opt, layout["opt"],
+                                       layout.get("factored") or {}).items():
         opt[name] = fsdp.gather_full(opt[name], pls, runtime)
     out["opt_state"] = opt
     return _to_cpu(out)

@@ -38,7 +38,11 @@ from distributed_training_tpu_torch.checkpoint.manager import (
     rank_file,
 )
 from distributed_training_tpu_torch.runtime import MESH_AXES
-from distributed_training_tpu_torch.train.optimizer import flatten, unflatten
+from distributed_training_tpu_torch.train.optimizer import (
+    flatten,
+    moment_placements,
+    unflatten,
+)
 
 
 def _join(local: list, pls: dict, coords: list, sizes: dict) -> dict:
@@ -99,12 +103,12 @@ def restore_step_local(ckpt_dir: str, step: int | None = None
         [flatten(s["params"]) for s in local],
         placements_of(manifest, "params"), coords, sizes))
     opt = dict(state["opt_state"])
-    kinds = {name: "opt" for name in ("mu", "nu", "v")}
-    kinds.update({name: name for name in manifest.get("factored", {})})
-    for name, kind in kinds.items():
-        if name in opt:
-            opt[name] = _join([s["opt_state"][name] for s in local],
-                              placements_of(manifest, kind), coords, sizes)
+    factored = {name: placements_of(manifest, name)
+                for name in manifest.get("factored", {})}
+    for name, pls in moment_placements(opt, placements_of(manifest, "opt"),
+                                       factored).items():
+        opt[name] = _join([s["opt_state"][name] for s in local], pls,
+                          coords, sizes)
     state["opt_state"] = opt
     return state, step
 

@@ -44,21 +44,17 @@ PREFETCH_DEPTH = 2
 TRANSIENT_DATA_ERRORS = (OSError,)
 
 
-def retry_transient(assemble, *, retries: int, rollback=None,
-                    **event_fields):
+def retry_transient(assemble, *, retries: int, **event_fields):
     """Run one batch assembly with a budget of ``retries`` retries of a
     transient failure (the JAX package's policy): a short exponential
     backoff (0.05 s doubling, at most 2 s) and a ``data_retry`` event per
     attempt (``event_fields`` name the position), then the error is
-    raised. ``rollback`` runs before each retry, so a stateful assembler
-    restarts the batch from its pre-batch state."""
+    raised."""
     attempt = 0
     while True:
         try:
             return assemble()
         except TRANSIENT_DATA_ERRORS as e:
-            if rollback is not None:
-                rollback()
             attempt += 1
             if attempt > retries:
                 raise

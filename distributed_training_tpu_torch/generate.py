@@ -137,24 +137,32 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _paged_generate(model, params, ids: np.ndarray, n: int, device):
-    """Greedy tokens through a one-slot serving engine, or None when the
-    request does not fit the model's window floored to whole pages."""
+def _paged_engine(model, params, total: int, device):
+    """A one-slot serving engine over pages of 16 for ``total`` tokens
+    (prompt and new), or None when they do not fit the model's window
+    floored to whole pages."""
     from distributed_training_tpu_torch.serving.engine import (
         Engine,
         EngineConfig,
     )
 
     page = 16
-    total = int(ids.size) + n
     model_cap = model.cfg.max_seq_len // page * page
     max_len = min(-(-total // page) * page, model_cap)
     if total > max_len:
         return None
-    eng = Engine(model, params, EngineConfig(
+    return Engine(model, params, EngineConfig(
         max_batch=1, page_size=page, num_pages=-(-max_len // page) + 1,
         max_seq_len=max_len, prefill_chunk=min(64, max_len)),
         device=device)
+
+
+def _paged_generate(model, params, ids: np.ndarray, n: int, device):
+    """Greedy tokens through a one-slot serving engine, or None when the
+    request does not fit (``_paged_engine``)."""
+    eng = _paged_engine(model, params, int(ids.size) + n, device)
+    if eng is None:
+        return None
     return np.asarray(eng.generate(ids, n), np.int32)
 
 

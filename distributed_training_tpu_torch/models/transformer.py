@@ -463,13 +463,15 @@ class Transformer:
 
     def _block(self, x: torch.Tensor, layer: dict,
                positions: torch.Tensor, remat: str | None = None,
-               return_kv: bool = False):
+               return_kv: bool = False, attend=None):
         """One decoder block. x: (B, S, D) in compute dtype. ``remat``:
         the remat policy to apply (None: save everything autograd
         needs). Under a tp binding the weights are this rank's blocks
         and the two ``reduce_from_tp`` stay outside every recomputed
         function. ``return_kv``: also return the post-rope (k, v), from
-        which generation's prefill fills its cache."""
+        which generation's prefill fills its cache. ``attend(q, k, v)``:
+        the attention (default: the model's, over these positions)."""
+        attend = attend or self._attention
         c = self.cfg
         dt = x.dtype
         a, m = layer["attn"], layer["mlp"]
@@ -511,11 +513,11 @@ class Transformer:
 
         if remat in ("full", "selective"):
             q, k, v = _checkpoint(qkv, x)
-            x = x + attn_out(self._attention(q, k, v))
+            x = x + attn_out(attend(q, k, v))
             part = _checkpoint(lambda x: mlp_post(mlp_pre(mlp_in(x))), x)
         else:
             q, k, v = qkv(x)
-            x = x + attn_out(self._attention(q, k, v))
+            x = x + attn_out(attend(q, k, v))
             h = mlp_in(x)
             if remat == "mlp":
                 part = _checkpoint(lambda h: mlp_post(mlp_pre(h)), h)
@@ -667,27 +669,17 @@ class Transformer:
     def _block_decode(self, x: torch.Tensor, layer: dict,
                       k_cache: torch.Tensor, v_cache: torch.Tensor,
                       pos: int) -> torch.Tensor:
-        """One block for one new token at position ``pos``, x (B, 1, D);
-        writes the token's k and v into the layer's cache in place."""
-        c = self.cfg
-        dt = x.dtype
-        a, m = layer["attn"], layer["mlp"]
-        h = _layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
-        q = torch.einsum("bsd,dhk->bshk", h, a["wq"].to(dt))
-        k = torch.einsum("bsd,dhk->bshk", h, a["wk"].to(dt))
-        v = torch.einsum("bsd,dhk->bshk", h, a["wv"].to(dt))
-        if c.pos_encoding == "rope":
-            q, k = _rope(q, k, torch.full((1,), pos, device=x.device))
-        slot = pos % k_cache.shape[1]
-        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
-        attn = self._attend_cache(q, k_cache, v_cache, pos)
-        x = x + torch.einsum("bshk,hkd->bsd", attn, a["wo"].to(dt))
-        h = _layer_norm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
-        u = F.gelu(torch.einsum("bsd,df->bsf", h, m["wi"].to(dt))
-                   + m["bi"].to(dt), approximate="tanh")
-        return x + torch.einsum("bsf,fd->bsd", u, m["wo"].to(dt)) + \
-            m["bo"].to(dt)
+        """One block (``_block``) for one new token at position ``pos``,
+        x (B, 1, D): its attention writes the token's k and v into the
+        layer's cache in place and reads the cache."""
+        def attend(q, k, v):
+            slot = pos % k_cache.shape[1]
+            k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+            v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+            return self._attend_cache(q, k_cache, v_cache, pos)
+
+        return self._block(x, layer, torch.full((1,), pos, device=x.device),
+                           attend=attend)
 
     def _lm_head(self, params: dict, x_last: torch.Tensor) -> torch.Tensor:
         """(B, D) hidden → (B, V) f32 logits (final norm and head)."""

@@ -185,6 +185,20 @@ def factored_placements(shapes: dict, placements: dict) -> dict:
     return out
 
 
+# The moments shaped like the params: AdamW's ``mu``/``nu``, Adafactor's
+# ``v``.
+PARAM_SHAPED_MOMENTS = ("mu", "nu", "v")
+
+
+def moment_placements(state: dict, opt: dict, factored: dict) -> dict:
+    """Each moment of an optimizer ``state`` with its placements: the
+    param-shaped ones at ``opt`` (the layout's), Adafactor's factored
+    ones at ``factored[name]`` (``Optimizer.factored_layout``)."""
+    out = {n: opt for n in PARAM_SHAPED_MOMENTS if n in state}
+    out.update({n: pls for n, pls in factored.items() if n in state})
+    return out
+
+
 def _split_dims(pl) -> dict:
     """dim → the mesh axes it is split over."""
     return dict(pl.splits) if pl is not None else {}
@@ -219,6 +233,15 @@ class Optimizer:
         self._shapes = {k: tuple(v) for k, v in shapes.items()}
         self._placements = dict(placements)
         self._group_of = group_of
+
+    def factored_layout(self, shapes: dict, placements: dict) -> dict:
+        """The placements of the moments not shaped like the params, by
+        name (``factored_placements`` for Adafactor; none for the
+        others), given the flat global ``shapes`` and the param-shaped
+        moments' ``placements``."""
+        if self.kind != "adafactor":
+            return {}
+        return factored_placements(shapes, placements)
 
     def init(self, params: dict) -> dict:
         state: dict = {"count": 0}

@@ -58,7 +58,6 @@ from distributed_training_tpu_torch.telemetry import events as telemetry
 from distributed_training_tpu_torch.train import state as state_lib
 from distributed_training_tpu_torch.train.optimizer import (
     build_optimizer,
-    factored_placements,
     flatten,
     global_norm,
 )
@@ -227,13 +226,13 @@ class Trainer:
                 tcfg.parallel_strategy, runtime.spec,
                 min_shard_elems=tcfg.min_shard_elems,
                 gather_on_save=tcfg.gather_on_save)
+        total_steps = tcfg.total_steps or (
+            loader.steps_per_epoch * tcfg.total_epochs)
+        self.optimizer = build_optimizer(tcfg, total_steps)
         self.layout = self._layout()
         self._bind_gather()
         self._bind_tensor_parallel()
         self._check_dataset()
-        total_steps = tcfg.total_steps or (
-            loader.steps_per_epoch * tcfg.total_epochs)
-        self.optimizer = build_optimizer(tcfg, total_steps)
         self.optimizer.bind_layout(
             flatten(model.param_shapes()),
             (self.layout or {}).get("opt", {}), runtime.group)
@@ -288,8 +287,9 @@ class Trainer:
         shapes = flatten(self.model.param_shapes())
         out = strategy_layout(self.strategy, shapes,
                               flatten(self.model.logical_axes()))
-        if self.cfg.train.optimizer == "adafactor":
-            out["factored"] = factored_placements(shapes, out["opt"])
+        factored = self.optimizer.factored_layout(shapes, out["opt"])
+        if factored:
+            out["factored"] = factored
         return out
 
     def _bind_gather(self) -> None:
