@@ -95,7 +95,21 @@ a seed:
   (``train_bytes_lm``); gpt2_125m under Adafactor (``adafactor``); the
   local launcher at one process on the card and two on the CPU, and the
   DDP playground at world 2 on the card over gloo
-  (``launch_playground``).
+  (``launch_playground``);
+- resilience and exactly-once data, gpt2_125m at full width on a stream
+  of two sources (the repository's text as bytes and synthetic
+  documents) packed into blocks of 1025: the save stalls of a
+  synchronous and an asynchronous checkpoint of its 1.49 GB train state,
+  its manifest, and an update right behind an async save that leaves the
+  saved bits alone; ``launch --supervise`` with ``corrupt_ckpt@8,
+  crash@10`` under the split backward, whose restarted run quarantines
+  step 8, resumes from step 4 and ends bit-identical to an uninterrupted
+  run (``train_supervised``); ``sigterm@6`` mid-epoch with the fused
+  backward, whose resume takes the uninterrupted run's batches (by
+  sha256) from step 7 on (``train_preempt_stream``); and a world of 2
+  under ``fsdp`` (two processes on ``cuda:0`` over gloo) resumed at
+  world 1 through the resharded restore, every batch taken once
+  (``train_elastic``).
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -3341,7 +3355,8 @@ def phase_train_fsdp_ckpt(tmp: str) -> None:
     la = run(a, *fsdp_args)
     ckpt_a = os.path.join(a, "default", "checkpoints")
     files = sorted(os.listdir(os.path.join(ckpt_a, "2")))
-    check(files == ["layout.json", "meta.json", "state.rank0.pt"],
+    check(files == ["layout.json", "manifest.dtt.json", "meta.json",
+                    "state.rank0.pt"],
           f"train_fsdp_ckpt: step-2 checkpoint holds {files}")
     shutil.copytree(os.path.join(ckpt_a, "2"),
                     os.path.join(c, "default", "checkpoints", "2"))
@@ -3864,10 +3879,489 @@ def phase_launch_playground(tmp: str) -> None:
           "playground_ranks_equal": True})
 
 
+# -- resilience and exactly-once data ----------------------------------------
+
+# Two sources packed into blocks of 1025: the repository's text as bytes
+# (weight 3) and synthetic documents at gpt2's vocab. Epochs of
+# RESILIENCE_SPE steps, RESILIENCE_EPOCHS of them, a save at every epoch.
+RESILIENCE_SPE = 4
+RESILIENCE_EPOCHS = 3
+# The fused backward adds dq tiles by atomics in an order that varies, so
+# two fused runs part after their first update (train_tp_1b's reading:
+# 2.8e-5 relative on the losses after 10 steps). A resumed run (and the
+# elastic world-2 half, whose gradients sum over two processes by gloo)
+# must stay within this of the uninterrupted run's losses; the batches
+# themselves are held exactly, by their sha256.
+RESUME_LOSS_RTOL = 1e-3
+
+
+def _stream_overrides(out: str, corpus: str, *extra) -> list:
+    snap = os.path.join(out, "ckpt")
+    return ["model=gpt2_125m", "train=gpt2", "train.global_batch_size=8",
+            "train.data_sources={text: {dataset: bytes, weight: 3, "
+            f"path: {corpus}, seq_len: 1024}}, docs: {{dataset: "
+            "synthetic_doc, vocab_size: 50304, min_len: 128, "
+            "max_len: 2048}}",
+            "train.pack_seq_len=1024",
+            f"train.max_steps_per_epoch={RESILIENCE_SPE}",
+            f"train.total_epochs={RESILIENCE_EPOCHS}",
+            "train.save_every=1", "train.warmup_steps=4",
+            "train.log_every=1", "run.log_level=WARNING",
+            f"run.output_dir={out}", f"train.snapshot_path={snap}", *extra]
+
+
+def _digests(out_dir: str) -> dict:
+    """step → (samples, sha256) of the batches a run took (the last
+    record of each step: a resumed run takes the steps it replays
+    again)."""
+    return {e["step"]: (e["samples"], e["sha256"]) for e in _events(out_dir)
+            if e["kind"] == "data_batch"}
+
+
+def _losses(out_dir: str) -> dict:
+    return {r["step"]: r["loss"] for r in _metrics_rows(out_dir)}
+
+
+def _launch_events(out_dir: str) -> tuple:
+    """The summed ``kernel_launches`` events of a run's processes (one
+    per incarnation) as (counts, by design)."""
+    counts, designs = {}, {}
+    for e in _events(out_dir):
+        if e["kind"] != "kernel_launches":
+            continue
+        for name in KERNELS:
+            counts[name] = counts.get(name, 0) + e[name]["launches"]
+            d = designs.setdefault(name, {})
+            for k, v in e[name]["by_design"].items():
+                d[k] = d.get(k, 0) + v
+    return counts, designs
+
+
+def _save_stalls(tmp: str) -> dict:
+    """gpt2_125m's train state on the card (f32 params and AdamW moments,
+    about 1.5 GB): the caller's stall at a synchronous save and at an
+    asynchronous one (its first, which pins the host buffers, and its
+    second), the manifest's time and bytes, and an update written in
+    place right after an async save: the restored bits are the saved
+    ones."""
+    from distributed_training_tpu_torch.checkpoint import Checkpointer
+    from distributed_training_tpu_torch.models.transformer import (
+        PRESETS,
+        Transformer,
+        TransformerConfig,
+    )
+    from distributed_training_tpu_torch.train.optimizer import flatten
+
+    _free_memory()
+    model = Transformer(TransformerConfig(**PRESETS["gpt2_125m"]),
+                        device="cuda")
+    params = flatten(model.init(SEED))
+    state = {"params": params,
+             "opt_state": {"count": 3,
+                           "mu": {k: torch.randn_like(p) * 1e-3
+                                  for k, p in params.items()},
+                           "nu": {k: torch.rand_like(p) * 1e-6
+                                  for k, p in params.items()}},
+             "step": 3}
+    nbytes = _state_bytes(state)
+    out = {"state_bytes": nbytes}
+    torch.cuda.synchronize()
+    with Checkpointer(os.path.join(tmp, "stall_sync"),
+                      async_save=False) as ck:
+        ck.save(1, state)
+        out["sync_stall_s"] = ck.last_save_stall_s
+        out["sync_manifest"] = ck.last_manifest
+    want = {k: t.detach().cpu() for k, t in flatten(state).items()
+            if isinstance(t, torch.Tensor)}
+    with Checkpointer(os.path.join(tmp, "stall_async"),
+                      async_save=True) as ck:
+        for step in (1, 2):
+            torch.cuda.synchronize()
+            ck.save(step, state)
+            out[f"async_stall_s_save{step}"] = ck.last_save_stall_s
+            if step == 1:
+                # The update right behind the save, in place, as the
+                # optimizer's (the fence orders it after the copy).
+                ck.fence()
+                with torch.no_grad():
+                    for t in params.values():
+                        t.add_(1.0)
+                    for t in state["opt_state"]["mu"].values():
+                        t.mul_(-1.0)
+            t0 = time.perf_counter()
+            ck.wait()
+            out[f"async_drain_s_save{step}"] = time.perf_counter() - t0
+        out["async_manifest"] = ck.last_manifest
+    saved = torch.load(os.path.join(tmp, "stall_async", "1", "state.pt"),
+                       map_location="cpu", weights_only=True)
+    got = {k: t for k, t in flatten(saved).items()
+           if isinstance(t, torch.Tensor)}
+    check(got.keys() == want.keys()
+          and all(torch.equal(got[k], want[k]) for k in want),
+          "save_stalls: an async save raced the update after it")
+    out["async_racing_update_bitwise"] = True
+    del model, params, state, saved
+    _free_memory()
+    return out
+
+
+def phase_train_supervised(tmp: str, corpus: str) -> tuple:
+    """gpt2_125m at full width on the two-source stream with the split
+    backward (``DTT_FLASH_SPLIT_BWD=1``: dq sums in a fixed order, so a
+    resume is held bit for bit), through ``launch --nproc 1 --supervise``
+    with ``corrupt_ckpt@8,crash@10``: the step-8 save is damaged once its
+    manifest is written, the crash after step 10 restarts the run, the
+    restore quarantines step 8 and resumes from step 4, and the finished
+    run's params and moments equal an uninterrupted supervised run's bit
+    for bit. Also the save stalls, sync and async, and the manifest."""
+    from distributed_training_tpu_torch.checkpoint.export import (
+        restore_step_local,
+    )
+    from distributed_training_tpu_torch.resilience.integrity import (
+        checkpoint_steps_on_disk,
+    )
+
+    stalls = _save_stalls(tmp)
+    env = dict(os.environ, DTT_FLASH_SPLIT_BWD="1")
+    runs = {}
+    for name, plan in (("clean", ()),
+                       ("faulty", ("train.fault_plan=corrupt_ckpt@8,"
+                                   "crash@10",))):
+        out = os.path.join(tmp, f"supervised_{name}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "distributed_training_tpu_torch.launch",
+             "--nproc", "1", "--log-dir", os.path.join(out, "logs"),
+             "--supervise", "--max-restarts", "2", "--backoff-base-s",
+             "0.5", "--ckpt-dir", os.path.join(out, "ckpt"), "--", "-m",
+             "distributed_training_tpu_torch.train",
+             *_stream_overrides(out, corpus, *plan)],
+            cwd=_repo(), env=dict(env, PYTHONPATH=_repo()),
+            capture_output=True, text=True, timeout=900)
+        runs[name] = {"out": out, "wall_s": time.perf_counter() - t0}
+        if proc.returncode != 0:
+            logs = os.path.join(out, "logs")
+            for d in sorted(os.listdir(logs)):
+                p = os.path.join(logs, d, "proc_0.log")
+                if os.path.exists(p):
+                    with open(p) as f:
+                        print(f"{name} {d}:\n{f.read()[-4000:]}",
+                              file=sys.stderr)
+        check(proc.returncode == 0,
+              f"train_supervised {name}: launcher exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+    faulty, clean = runs["faulty"]["out"], runs["clean"]["out"]
+    with open(os.path.join(faulty, "logs", "supervisor",
+                           "events.jsonl")) as f:
+        sup_events = [json.loads(line) for line in f]
+    restarts = [e for e in sup_events if e["kind"] == "restart"]
+    check(len(restarts) == 1 and restarts[0]["outcome"] == "crash",
+          f"train_supervised: supervisor restarts {restarts}")
+    events = _events(faulty)
+    fired = {e["fault"]: e for e in events if e["kind"] == "fault_injected"}
+    check(set(fired) == {"corrupt_ckpt@8", "crash@10"}
+          and fired["corrupt_ckpt@8"]["target_step"] == 8,
+          f"train_supervised: faults {fired}")
+    quarantined = [e for e in events if e["kind"] == "ckpt_quarantined"]
+    check(len(quarantined) == 1 and quarantined[0]["step"] == 8,
+          f"train_supervised: quarantined {quarantined}")
+    resumes = [e for e in events if e["kind"] == "resume"]
+    check(len(resumes) == 1 and resumes[0]["step"] == 4
+          and resumes[0]["samples_consumed"] == 4 * 8,
+          f"train_supervised: resumes {resumes}")
+    ckpt = os.path.join(faulty, "ckpt")
+    check(os.path.isdir(os.path.join(ckpt, "step_8.corrupt")),
+          "train_supervised: step 8 was not quarantined")
+    got, got_step = restore_step_local(ckpt)
+    want, want_step = restore_step_local(os.path.join(clean, "ckpt"))
+    last = RESILIENCE_SPE * RESILIENCE_EPOCHS
+    check(got_step == want_step == last,
+          f"train_supervised: final steps {got_step}, {want_step}")
+    check(_same_tree(got["params"], want["params"])
+          and _same_tree(got["opt_state"], want["opt_state"]),
+          "train_supervised: the restarted run's params or moments differ "
+          "from the uninterrupted run's")
+    check(_digests(faulty) == _digests(clean)
+          and sorted(_digests(clean)) == list(range(1, last + 1)),
+          "train_supervised: the batches differ from the uninterrupted run")
+    check(_losses(faulty) == _losses(clean),
+          "train_supervised: the losses differ from the uninterrupted run")
+    # Restart wall: the crash to the restarted run's first finished step
+    # (its first metrics row reads the loss, a sync).
+    t_crash = fired["crash@10"]["t"]
+    first = next(e for e in events if e["kind"] == "train_metrics"
+                 and e["t"] > resumes[0]["t"])
+    saves = [e for e in events if e.get("name") == "ckpt_save"
+             and e["kind"] == "span"]
+    launches, designs = _launch_events(faulty)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(designs[name]["wgmma"] == launches[name] > 0,
+              f"train_supervised: {name} launches {designs[name]}")
+    check(launches["flash_bwd_fused"] == 0,
+          "train_supervised: the split run took the fused kernel")
+    manifests = {}
+    for step in checkpoint_steps_on_disk(ckpt):
+        with open(os.path.join(ckpt, str(step), "manifest.dtt.json")) as f:
+            files = json.load(f)["files"]
+        manifests[step] = sum(v["bytes"] for v in files.values())
+    emit({"phase": "train_supervised", "model": "gpt2_125m",
+          "backward": "split", "batch": 8, "seq": 1024,
+          "steps": last, "plan": "corrupt_ckpt@8,crash@10",
+          "restarts": len(restarts), "quarantined_step": 8,
+          "resumed_at": resumes[0]["step"],
+          "steps_lost": 10 - resumes[0]["step"],
+          "restart_wall_s": first["t"] - t_crash,
+          "restore": resumes[0].get("restore"),
+          "cli_async_save_stall_s": [e.get("dur_s") for e in saves],
+          "manifest_bytes": manifests, "bitwise": True,
+          "wall_s": {k: v["wall_s"] for k, v in runs.items()},
+          **stalls, "launches": launches, "launches_by_design": designs})
+    return launches, designs
+
+
+def phase_train_preempt_stream(tmp: str, corpus: str) -> tuple:
+    """gpt2_125m on the stream with the fused backward (the default),
+    through the CLI in this process: ``sigterm@6`` stops the run after
+    step 6, mid-epoch, with a save; the rerun resumes at step 6 with 48
+    samples consumed, and the batches of both runs (by sha256) equal an
+    uninterrupted run's step for step, the losses within
+    RESUME_LOSS_RTOL. Returns the launches and the uninterrupted run's
+    directory (train_elastic's reference)."""
+    from distributed_training_tpu_torch.train import cli
+
+    _free_memory()
+    last = RESILIENCE_SPE * RESILIENCE_EPOCHS
+    out = os.path.join(tmp, "preempt")
+    ref = os.path.join(tmp, "preempt_clean")
+    _reset_counts()
+    t0 = time.perf_counter()
+    check(cli.main(_stream_overrides(out, corpus,
+                                     "train.fault_plan=sigterm@6")) == 0,
+          "train_preempt_stream: the preempted run failed")
+    check(cli.main(_stream_overrides(out, corpus,
+                                     "train.fault_plan=sigterm@6")) == 0,
+          "train_preempt_stream: the resumed run failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, designs = _read_counts(), _read_designs()
+    check(cli.main(_stream_overrides(ref, corpus)) == 0,
+          "train_preempt_stream: the uninterrupted run failed")
+    events = _events(out)
+    fired = [e["fault"] for e in events if e["kind"] == "fault_injected"]
+    check(fired == ["sigterm@6"], f"train_preempt_stream: faults {fired}")
+    resumes = [e for e in events if e["kind"] == "resume"]
+    check(len(resumes) == 1 and resumes[0]["step"] == 6
+          and resumes[0]["epoch"] == 1
+          and resumes[0]["samples_consumed"] == 6 * 8,
+          f"train_preempt_stream: resumes {resumes}")
+    got, want = _digests(out), _digests(ref)
+    check(got == want and sorted(want) == list(range(1, last + 1)),
+          "train_preempt_stream: the batches differ from the uninterrupted "
+          "run's")
+    steps = [e["step"] for e in events if e["kind"] == "data_batch"]
+    check(steps == list(range(1, last + 1)),
+          f"train_preempt_stream: batches taken at steps {steps}")
+    a, b = _losses(out), _losses(ref)
+    diff = _rel_diffs([a[s] for s in sorted(b)], [b[s] for s in sorted(b)])
+    check(sorted(a) == sorted(b) and diff <= RESUME_LOSS_RTOL,
+          f"train_preempt_stream: losses {a} vs {b} ({diff})")
+    _check_designs({n: designs[n] for n in ("flash_fwd", "flash_bwd_fused")},
+                   "wgmma", "train_preempt_stream")
+    check(launches["flash_fwd"] == launches["flash_bwd_fused"] == 12 * last,
+          f"train_preempt_stream: launches {launches}")
+    emit({"phase": "train_preempt_stream", "model": "gpt2_125m",
+          "backward": "fused", "batch": 8, "seq": 1024, "steps": last,
+          "plan": "sigterm@6", "resumed_at": 6, "samples_consumed": 48,
+          "realized_mixture": resumes[0].get("realized_mixture"),
+          "batches_equal": True, "loss_rel_diff": diff,
+          "loss_rtol": RESUME_LOSS_RTOL, "restore": resumes[0].get("restore"),
+          "wall_s": wall, "launches": launches,
+          "launches_by_design": designs})
+    return (launches, designs), ref
+
+
+def train_elastic_rank(rank: int, port: int, out: str, corpus: str) -> int:
+    """One of phase train_elastic's two processes: on ``cuda:0`` in a gloo
+    group of 2 over ``127.0.0.1:port``, ``fsdp`` over the mesh fsdp 2 (a
+    runtime built here: the CLI's would ask for NCCL on a card), the
+    stream at a global batch of 8 (4 rows a process), ``sigterm@6`` for a
+    mid-epoch save; wires the run as the train CLI does."""
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.checkpoint import Checkpointer
+    from distributed_training_tpu_torch.config import load_config
+    from distributed_training_tpu_torch.data import (
+        StreamingDataLoader,
+        build_stream_sources,
+    )
+    from distributed_training_tpu_torch.models.registry import build_model
+    from distributed_training_tpu_torch.resilience import faults
+    from distributed_training_tpu_torch.runtime import MeshSpec, slice_runtime
+    from distributed_training_tpu_torch.telemetry import events as tel_lib
+    from distributed_training_tpu_torch.train.trainer import Trainer
+    from distributed_training_tpu_torch.utils.preemption import (
+        PreemptionGuard,
+    )
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    guard = PreemptionGuard.install()
+    try:
+        rt = slice_runtime([MeshSpec(dp=1, fsdp=2)], torch.device("cuda", 0))
+        cfg = load_config(overrides=_stream_overrides(
+            out, corpus, "train.parallel_strategy=fsdp", "mesh.dp=1",
+            "mesh.fsdp=2", "train.stop_poll_every=1"))
+        cfg.train.batch_size = 8 // rt.data_shard_count
+        run_dir = os.path.join(out, "default")
+        os.makedirs(run_dir, exist_ok=True)
+        inj = faults.FaultInjector(
+            "sigterm@6", ledger_path=os.path.join(
+                run_dir, f"host_{rank}", "faults_fired.json"),
+            ckpt_dir=cfg.train.snapshot_path, host=rank)
+        loader = StreamingDataLoader(
+            build_stream_sources(cfg.train.data_sources,
+                                 defaults={"size": cfg.train.dataset_size,
+                                           "seed": cfg.train.seed}),
+            rt, batch_size=cfg.train.batch_size,
+            pack_len=cfg.train.pack_seq_len, seed=cfg.train.seed,
+            steps_per_epoch=cfg.train.max_steps_per_epoch)
+        kwargs = dict(cfg.model.kwargs)
+        dtype = kwargs.pop("dtype", cfg.train.dtype)
+        model = build_model(cfg.model.name, loss=cfg.train.loss, dtype=dtype,
+                            device=rt.device, **kwargs)
+        tel = tel_lib.install(tel_lib.Telemetry(
+            events_jsonl=(os.path.join(run_dir, "events.jsonl")
+                          if rank == 0 else None)))
+        _reset_counts()
+        with Checkpointer(cfg.train.snapshot_path, runtime=rt,
+                          fault_injector=inj) as ck:
+            trainer = Trainer(cfg, rt, model, loader, ck,
+                              preemption_guard=guard, fault_injector=inj)
+            trainer.train()
+        torch.cuda.synchronize()
+        tel_lib.uninstall()
+        tel.close()
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "step": trainer.global_step,
+                       "stopped": guard.should_stop,
+                       "losses": [r["loss"] for r in trainer.metrics.history
+                                  if "loss" in r],
+                       "launches": _read_counts(),
+                       "launches_by_design": _read_designs()}, f)
+    finally:
+        guard.uninstall()
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_train_elastic(tmp: str, corpus: str, ref: str) -> tuple:
+    """gpt2_125m on the stream with the fused backward, resized: a world
+    of 2 (two processes on ``cuda:0``, gloo, ``fsdp`` over fsdp 2) stops
+    after step 6 with a sharded mid-epoch save; the CLI in this process
+    resumes it at world 1 on ``cuda:0`` (no process group) through the
+    resharded restore. The batches taken by both worlds (by sha256)
+    equal the uninterrupted world-1 run's (``ref``, train_preempt_stream)
+    step for step, each sample once, and the losses lie within
+    RESUME_LOSS_RTOL of it."""
+    from distributed_training_tpu_torch.train import cli
+
+    _free_memory()
+    last = RESILIENCE_SPE * RESILIENCE_EPOCHS
+    out = os.path.join(tmp, "elastic")
+    os.makedirs(out, exist_ok=True)
+    port = _free_port()
+    logs = [open(os.path.join(tmp, f"elastic.rank{r}.log"), "w")
+            for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-elastic-rank",
+         str(r), str(port), out, corpus], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    world2_s = time.perf_counter() - t0
+    if codes != [0, 0]:
+        for r in range(2):
+            with open(logs[r].name) as f:
+                print(f"train_elastic rank {r}:\n{f.read()[-4000:]}",
+                      file=sys.stderr)
+    check(codes == [0, 0], f"train_elastic: world-2 ranks exited {codes}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    check(all(r["step"] == 6 and r["stopped"] for r in ranks),
+          f"train_elastic: world 2 stopped at {[r['step'] for r in ranks]}")
+    ckpt = os.path.join(out, "ckpt")
+    with open(os.path.join(ckpt, "6", "layout.json")) as f:
+        layout = json.load(f)
+    check(layout["world"] == 2 and layout["mesh"]["fsdp"] == 2,
+          f"train_elastic: step-6 layout {layout['mesh']}")
+    with open(os.path.join(ckpt, "6", "manifest.dtt.json")) as f:
+        files = sorted(json.load(f)["files"])
+    check(files == ["layout.json", "meta.json", "state.rank0.pt",
+                    "state.rank1.pt"], f"train_elastic: manifest {files}")
+    _reset_counts()
+    t0 = time.perf_counter()
+    check(cli.main(_stream_overrides(out, corpus)) == 0,
+          "train_elastic: the world-1 resume failed")
+    torch.cuda.synchronize()
+    world1_s = time.perf_counter() - t0
+    launches1, designs1 = _read_counts(), _read_designs()
+    events = _events(out)
+    resumes = [e for e in events if e["kind"] == "resume"]
+    check(len(resumes) == 1 and resumes[0]["step"] == 6
+          and resumes[0]["world_size"] == 1
+          and resumes[0]["samples_consumed"] == 6 * 8
+          and resumes[0]["restore"]["resharded"],
+          f"train_elastic: resumes {resumes}")
+    at = events.index(resumes[0])
+    before = [e["step"] for e in events[:at] if e["kind"] == "data_batch"]
+    after = [e["step"] for e in events[at:] if e["kind"] == "data_batch"]
+    check(before == list(range(1, 7)) and after == list(range(7, last + 1)),
+          f"train_elastic: batches at steps {before} then {after}")
+    check(_digests(out) == _digests(ref),
+          "train_elastic: the batches differ from the uninterrupted run's")
+    a, b = _losses(out), _losses(ref)
+    a.update({i + 1: x for i, x in enumerate(ranks[0]["losses"])})
+    diff = _rel_diffs([a[s] for s in sorted(b)], [b[s] for s in sorted(b)])
+    check(sorted(a) == sorted(b) and diff <= RESUME_LOSS_RTOL,
+          f"train_elastic: losses {a} vs {b} ({diff})")
+    check(len(ranks[0]["losses"]) == 6,
+          f"train_elastic: world 2 logged {ranks[0]['losses']}")
+    launches = {k: launches1[k] + sum(r["launches"][k] for r in ranks)
+                for k in launches1}
+    designs = {k: {d: designs1[k][d] + sum(r["launches_by_design"][k][d]
+                                           for r in ranks)
+                   for d in designs1[k]} for k in designs1}
+    _check_designs({n: designs[n] for n in ("flash_fwd", "flash_bwd_fused")},
+                   "wgmma", "train_elastic")
+    emit({"phase": "train_elastic", "model": "gpt2_125m",
+          "backward": "fused", "batch": 8, "seq": 1024, "steps": last,
+          "world_history": [2, 1], "strategy_world2": "fsdp (gloo)",
+          "saved_at": 6, "restore": resumes[0]["restore"],
+          "batches_equal": True, "loss_rel_diff": diff,
+          "loss_rtol": RESUME_LOSS_RTOL, "world2_wall_s": world2_s,
+          "world1_wall_s": world1_s, "launches": launches,
+          "launches_by_design": designs})
+    return launches, designs
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--train-tp2-rank"]:
         return train_tp2_rank(int(sys.argv[2]), int(sys.argv[3]),
                               sys.argv[4])
+    if sys.argv[1:2] == ["--train-elastic-rank"]:
+        return train_elastic_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                  sys.argv[4], sys.argv[5])
     if sys.argv[1:2] == ["--serving-mesh-rank"]:
         return serving_mesh_rank(int(sys.argv[2]), int(sys.argv[3]),
                                  sys.argv[4], sys.argv[5])
@@ -3913,6 +4407,10 @@ def main() -> int:
         slice14 = phase_train_bytes_lm(tmp, corpus)
         slice14["adafactor"] = phase_adafactor(tmp, corpus)
         phase_launch_playground(tmp)
+        slice15 = {"train_supervised": phase_train_supervised(tmp, corpus)}
+        slice15["train_preempt_stream"], ref = phase_train_preempt_stream(
+            tmp, corpus)
+        slice15["train_elastic"] = phase_train_elastic(tmp, corpus, ref)
     phase_train_trace()
     phase_train_trace(split=True)
     phase_train_1b_trace()
@@ -3942,13 +4440,15 @@ def main() -> int:
     # training, transformer_1b under fsdp and under tp_fsdp, gpt2_125m
     # under tp at tp 2, serving on the meshes dp 2 and tp 2: both
     # processes; then byte_lm's training, eval.py and generate.py's bf16
-    # runs, each in its process, and gpt2_125m under Adafactor).
+    # runs, each in its process, and gpt2_125m under Adafactor; then the
+    # resilience paths: the supervised crash-restart, the preempted
+    # stream and the elastic resize).
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
              int8_launches, swap_launches, recovery_launches, disagg_launches,
              cli_launches,
              *mesh_launches.values(), train_launches, split_launches,
              train_1b_launches, tp_1b_launches, tp2_launches,
-             *slice14.values())
+             *slice14.values(), *slice15.values())
     kernels = []
     for name in KERNELS:
         src, replaces = sources[name]
@@ -3994,6 +4494,11 @@ def main() -> int:
         # text (train_bytes_lm, eval.py, generate.py, adafactor).
         kernels[-1]["real_text_launches"] = {
             path: counts[name] for path, (counts, _) in slice14.items()}
+        # And on the resilience paths (train_supervised: both supervised
+        # incarnations; train_preempt_stream: both runs; train_elastic:
+        # both world-2 processes and the world-1 resume).
+        kernels[-1]["resilience_launches"] = {
+            path: counts[name] for path, (counts, _) in slice15.items()}
         if name == "paged_decode":
             # The same kernel at the decode chain's geometry (32 rows),
             # the case speculative and resident decode launch.

@@ -14,14 +14,24 @@ machine, without a mesh or a process group.
 
 from __future__ import annotations
 
+import json
 import logging
+import math
 import os
 import tempfile
 from typing import Any
 
+import numpy as np
 import torch
 
+from distributed_training_tpu_torch.checkpoint.manager import (
+    LAYOUT_FILE,
+    WHOLE_FILE,
+    placements_of,
+    rank_file,
+)
 from distributed_training_tpu_torch.parallel import fsdp
+from distributed_training_tpu_torch.runtime import MESH_AXES
 from distributed_training_tpu_torch.train.optimizer import (
     flatten,
     moment_placements,
@@ -90,3 +100,84 @@ def load_consolidated(path: str) -> tuple[dict, dict]:
     """(state, meta) of a consolidated artifact, tensors on the CPU."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     return payload["state"], dict(payload.get("meta") or {})
+
+
+def _join(local: list, pls: dict, coords: list, sizes: dict) -> dict:
+    """Whole leaves from every process's flat dict of local blocks: a
+    leaf split on two dims is joined along its last split first, then
+    along the first."""
+    out = {}
+    for k, pl in pls.items():
+        if k not in local[0]:
+            continue  # a moment that only some leaves have
+        blocks = {(): local[0][k]}
+        if pl is not None:
+            blocks = {}
+            for r, c in enumerate(coords):
+                at = tuple(int(np.ravel_multi_index(
+                    [c[a] for a in axes], [sizes[a] for a in axes]))
+                    for _, axes in pl.splits)
+                blocks.setdefault(at, local[r][k])
+            for j in reversed(range(len(pl.splits))):
+                dim, axes = pl.splits[j]
+                n = math.prod(sizes[a] for a in axes)
+                blocks = {at: torch.cat([blocks[at + (i,)]
+                                         for i in range(n)], dim=dim)
+                          for at in {at[:j] for at in blocks}}
+        out[k] = blocks[()]
+    return out
+
+
+def whole_state_of(step_dir: str) -> dict:
+    """A committed step's whole state on the host, whatever mesh wrote
+    it: ``state.pt`` as saved, or every process's ``state.rank<r>.pt``
+    joined by ``layout.json``. One process, no process group; it holds
+    every rank file in memory at once."""
+    whole = os.path.join(step_dir, WHOLE_FILE)
+    if os.path.exists(whole):
+        return torch.load(whole, map_location="cpu", weights_only=True)
+    with open(os.path.join(step_dir, LAYOUT_FILE)) as f:
+        manifest = json.load(f)
+    sizes = manifest["mesh"]
+    shape = [sizes[a] for a in MESH_AXES]
+    coords = [dict(zip(MESH_AXES, np.unravel_index(r, shape)))
+              for r in range(manifest["world"])]
+    local = [torch.load(os.path.join(step_dir, rank_file(r)),
+                        map_location="cpu", weights_only=True)
+             for r in range(manifest["world"])]
+    state = dict(local[0])
+    state["params"] = unflatten(_join(
+        [flatten(s["params"]) for s in local],
+        placements_of(manifest, "params"), coords, sizes))
+    opt = dict(state["opt_state"])
+    factored = {name: placements_of(manifest, name)
+                for name in manifest.get("factored", {})}
+    for name, pls in moment_placements(opt, placements_of(manifest, "opt"),
+                                       factored).items():
+        opt[name] = _join([s["opt_state"][name] for s in local], pls,
+                          coords, sizes)
+    state["opt_state"] = opt
+    return state
+
+
+def place_state(whole: dict, layout: dict | None, runtime, device) -> dict:
+    """A whole state (``whole_state_of``) on ``device``, cut to this
+    process's shards by ``layout`` (None: every leaf whole) — the
+    inverse of the join, for a run on another mesh than the one that
+    saved."""
+    def to(t):
+        return t.to(device) if isinstance(t, torch.Tensor) else t
+    flat = {k: to(t) for k, t in flatten(whole["params"]).items()}
+    out = dict(whole)
+    opt = {k: ({n: to(t) for n, t in v.items()} if isinstance(v, dict)
+               else to(v)) for k, v in whole["opt_state"].items()}
+    if layout is not None:
+        flat = {k: fsdp.shard(t, layout["params"][k], runtime)
+                for k, t in flat.items()}
+        for name, pls in moment_placements(
+                opt, layout["opt"], layout.get("factored") or {}).items():
+            opt[name] = {k: fsdp.shard(t, pls[k], runtime)
+                         for k, t in opt[name].items()}
+    out["params"] = unflatten(flat)
+    out["opt_state"] = opt
+    return out

@@ -24,51 +24,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import sys
 
-import numpy as np
-import torch
-
-from distributed_training_tpu_torch.checkpoint.manager import (
-    LAYOUT_FILE,
-    WHOLE_FILE,
-    placements_of,
-    rank_file,
+from distributed_training_tpu_torch.checkpoint.consolidate import (
+    whole_state_of,
 )
-from distributed_training_tpu_torch.runtime import MESH_AXES
-from distributed_training_tpu_torch.train.optimizer import (
-    flatten,
-    moment_placements,
-    unflatten,
-)
-
-
-def _join(local: list, pls: dict, coords: list, sizes: dict) -> dict:
-    """Whole leaves from every process's flat dict of local blocks: a
-    leaf split on two dims is joined along its last split first, then
-    along the first."""
-    out = {}
-    for k, pl in pls.items():
-        if k not in local[0]:
-            continue  # a moment that only some leaves have
-        blocks = {(): local[0][k]}
-        if pl is not None:
-            blocks = {}
-            for r, c in enumerate(coords):
-                at = tuple(int(np.ravel_multi_index(
-                    [c[a] for a in axes], [sizes[a] for a in axes]))
-                    for _, axes in pl.splits)
-                blocks.setdefault(at, local[r][k])
-            for j in reversed(range(len(pl.splits))):
-                dim, axes = pl.splits[j]
-                n = math.prod(sizes[a] for a in axes)
-                blocks = {at: torch.cat([blocks[at + (i,)]
-                                         for i in range(n)], dim=dim)
-                          for at in {at[:j] for at in blocks}}
-        out[k] = blocks[()]
-    return out
 
 
 def restore_step_local(ckpt_dir: str, step: int | None = None
@@ -86,31 +47,7 @@ def restore_step_local(ckpt_dir: str, step: int | None = None
     if not os.path.isdir(step_dir):
         raise FileNotFoundError(
             f"checkpoint step {step} not found in {ckpt_dir}")
-    whole = os.path.join(step_dir, WHOLE_FILE)
-    if os.path.exists(whole):
-        return torch.load(whole, map_location="cpu", weights_only=True), step
-    with open(os.path.join(step_dir, LAYOUT_FILE)) as f:
-        manifest = json.load(f)
-    sizes = manifest["mesh"]
-    shape = [sizes[a] for a in MESH_AXES]
-    coords = [dict(zip(MESH_AXES, np.unravel_index(r, shape)))
-              for r in range(manifest["world"])]
-    local = [torch.load(os.path.join(step_dir, rank_file(r)),
-                        map_location="cpu", weights_only=True)
-             for r in range(manifest["world"])]
-    state = dict(local[0])
-    state["params"] = unflatten(_join(
-        [flatten(s["params"]) for s in local],
-        placements_of(manifest, "params"), coords, sizes))
-    opt = dict(state["opt_state"])
-    factored = {name: placements_of(manifest, name)
-                for name in manifest.get("factored", {})}
-    for name, pls in moment_placements(opt, placements_of(manifest, "opt"),
-                                       factored).items():
-        opt[name] = _join([s["opt_state"][name] for s in local], pls,
-                          coords, sizes)
-    state["opt_state"] = opt
-    return state, step
+    return whole_state_of(step_dir), step
 
 
 def _plan_provenance(ckpt_dir: str, plan: str | None) -> dict | None:

@@ -1,5 +1,5 @@
-"""Data pipeline of the port: datasets, sampler, loader and corpus
-preparation."""
+"""Data pipeline of the port: datasets, sampler, the sharded loader, the
+exactly-once streaming loader and corpus preparation."""
 
 from distributed_training_tpu_torch.data.datasets import (
     ArrayDataset,
@@ -17,9 +17,16 @@ from distributed_training_tpu_torch.data.sampler import (
     DistributedShardSampler,
     epoch_permutation,
 )
+from distributed_training_tpu_torch.data.stream import (
+    StreamingDataLoader,
+    StreamSource,
+    StreamState,
+    build_stream_sources,
+)
 
 __all__ = ["ArrayDataset", "DistributedShardSampler", "MemmapTokenDataset",
-           "ShardedDataLoader", "SubsetDataset", "SyntheticDocDataset",
+           "ShardedDataLoader", "StreamSource", "StreamState",
+           "StreamingDataLoader", "SubsetDataset", "SyntheticDocDataset",
            "SyntheticImageDataset", "SyntheticLMDataset",
-           "SyntheticRegressionDataset", "build_dataset", "epoch_permutation",
-           "train_eval_split"]
+           "SyntheticRegressionDataset", "build_dataset",
+           "build_stream_sources", "epoch_permutation", "train_eval_split"]

@@ -17,7 +17,9 @@ assembly raises a transient IO error (``OSError``: a network file
 system's blip under ``memmap_tokens``/``bytes``) is retried
 ``data_retries`` times with a short exponential backoff, one
 ``data_retry`` event each (``retry_transient``, the JAX policy), then
-the error is raised.
+the error is raised. With a fault injector, ``on_data`` runs inside the
+retried block, keyed by the optimizer's global step, so an injected
+``data_error``/``data_stall`` takes the real recovery path.
 """
 
 from __future__ import annotations
@@ -44,17 +46,22 @@ PREFETCH_DEPTH = 2
 TRANSIENT_DATA_ERRORS = (OSError,)
 
 
-def retry_transient(assemble, *, retries: int, **event_fields):
+def retry_transient(assemble, *, retries: int, rollback=None,
+                    **event_fields):
     """Run one batch assembly with a budget of ``retries`` retries of a
     transient failure (the JAX package's policy): a short exponential
     backoff (0.05 s doubling, at most 2 s) and a ``data_retry`` event per
     attempt (``event_fields`` name the position), then the error is
-    raised."""
+    raised. ``rollback`` (if given) runs after each failure, so a
+    stateful assembler restarts the batch from its pre-batch snapshot
+    and a retried batch equals an untried one."""
     attempt = 0
     while True:
         try:
             return assemble()
         except TRANSIENT_DATA_ERRORS as e:
+            if rollback is not None:
+                rollback()
             attempt += 1
             if attempt > retries:
                 raise
@@ -79,7 +86,7 @@ class ShardedDataLoader:
     def __init__(self, dataset, runtime, batch_size: int,
                  shuffle: bool = True, seed: int = 0,
                  drop_last: bool = False, max_steps_per_epoch: int = 0,
-                 data_retries: int = 2):
+                 data_retries: int = 2, fault_injector=None):
         if batch_size <= 0:
             raise ValueError(f"batch_size must be > 0, got {batch_size}")
         self.dataset = dataset
@@ -90,6 +97,7 @@ class ShardedDataLoader:
         self.shard_index = runtime.data_shard_index
         self.global_batch = batch_size * self.num_shards
         self.data_retries = data_retries
+        self._faults = fault_injector
         self.sampler = DistributedShardSampler(
             len(dataset), self.num_shards, shuffle=shuffle, seed=seed,
             drop_last=drop_last)
@@ -208,10 +216,16 @@ class ShardedDataLoader:
                 sl = slice(step * self.batch_size,
                            (step + 1) * self.batch_size)
                 rows = orders[self.shard_index:self.shard_index + 1, sl]
+                fault_step = epoch * self.steps_per_epoch + step + 1
+
+                def assemble(rows=rows, fault_step=fault_step):
+                    if self._faults is not None:
+                        self._faults.on_data(fault_step)
+                    return self._assemble(rows)
+
                 with telemetry.span("data_assemble", step_in_epoch=step):
                     batch = retry_transient(
-                        lambda rows=rows: self._assemble(rows),
-                        retries=self.data_retries, epoch=epoch,
+                        assemble, retries=self.data_retries, epoch=epoch,
                         step_in_epoch=step)
                 yield batch
 

@@ -17,24 +17,47 @@ forwards SIGTERM/SIGINT to the children (their preemption guard saves
 and exits cleanly), kills the group on the first failure (torchrun's
 fail-fast) and returns the first failure's exit code; when process 0's
 log shows that the store's port was taken between the probe and its
-bind, the whole group is relaunched on a fresh port. The restart
-supervisor (``--supervise``, ``--elastic``) waits for ROADMAP.md queue
-A item 14; the JAX launcher's cross-host report (``--summarize``) and
-live metrics port (``--metrics-port``) come with item 15.
+bind, the whole group is relaunched on a fresh port.
+
+``--supervise`` runs incarnations of the group under the restart
+supervisor (``resilience/supervisor.py::supervise``): exits are
+classified by the children's exit sentinels, a restart that commits a
+new checkpoint under ``--ckpt-dir`` refunds the budget of
+``--max-restarts``, and failures without progress back off from
+``--backoff-base-s``. Supervisor state and its ``events.jsonl`` go to
+``<log-dir>/supervisor/``, each incarnation's logs and ``summary.json``
+to ``<log-dir>/attempt_<i>/``. ``--elastic`` (with ``--supervise``)
+re-forms the group at the surviving world size when a host is lost
+(``resilience/elastic.py``), never below ``--elastic-min-world``, and
+grows it back after ``--elastic-grow-after-ckpts`` new checkpoints at
+the smaller size (``_GrowWatcher`` signals the group down at that
+checkpoint boundary) unless ``--elastic-no-grow``. The JAX launcher's
+cross-host report (``--summarize``) and live metrics port
+(``--metrics-port``) come with ROADMAP.md queue A item 15.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import json
 import logging
 import os
 import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 from dataclasses import dataclass
+
+from distributed_training_tpu_torch.resilience import elastic as elastic_mod
+from distributed_training_tpu_torch.resilience import supervisor as sup
+from distributed_training_tpu_torch.resilience.elastic import GroupReport
+from distributed_training_tpu_torch.resilience.integrity import (
+    checkpoint_steps_on_disk,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -47,20 +70,6 @@ ENV_PORT_ATTEMPT = "DTT_PORT_ATTEMPT"
 # ``_free_port`` probe and its own bind (the race ``run_group`` retries).
 _BIND_FAILURE_MARKERS = ("address already in use", "eaddrinuse",
                          "failed to bind")
-
-
-@dataclass
-class GroupReport:
-    """What the launcher saw of one process group: ``self_failed`` exited
-    nonzero on their own, ``killed`` were killed in the fail-fast sweep
-    (consequences, not causes). The port's own copy of the JAX
-    ``resilience/elastic.py`` record, until item 14 ports that module."""
-
-    returncode: int
-    world_size: int | None = None
-    self_failed: tuple[int, ...] = ()
-    killed: tuple[int, ...] = ()
-    completed: tuple[int, ...] = ()
 
 
 def _free_port(attempts: int = 8) -> int:
@@ -129,6 +138,12 @@ def launch_local(argv: list[str], num_processes: int,
     return procs
 
 
+# Set by _forward_signals' handler: the launcher itself was told to stop.
+# The supervisor then stands down (the children saved and exited)
+# instead of restarting the job the infrastructure asked it to release.
+_launcher_signaled: bool = False
+
+
 @contextlib.contextmanager
 def _forward_signals(procs: list[LocalProcess],
                      signums=(signal.SIGTERM, signal.SIGINT)):
@@ -137,6 +152,8 @@ def _forward_signals(procs: list[LocalProcess],
     off the main thread (``signal.signal`` would raise there)."""
     def handler(signum, frame):
         del frame
+        global _launcher_signaled
+        _launcher_signaled = True
         logger.warning("launcher got %s: forwarding to %d child "
                        "process(es)", signal.Signals(signum).name,
                        len(procs))
@@ -246,18 +263,25 @@ def run_group(argv: list[str], num_processes: int,
               devices_per_process: int = 1, log_dir: str | None = None,
               env: dict[str, str] | None = None,
               timeout: float | None = None,
-              port_attempts: int = 3) -> GroupReport:
+              port_attempts: int = 3, on_procs=None) -> GroupReport:
     """Launch and wait, relaunching the whole group on a fresh port when
     the store's bind lost the ``_free_port`` race (at most
     ``port_attempts`` attempts). Every attempt exports
-    ``DTT_PORT_ATTEMPT``."""
+    ``DTT_PORT_ATTEMPT``. ``on_procs`` (procs -> optional cleanup
+    callable) attaches a watcher to the live group (the elastic grow
+    watcher)."""
     report = GroupReport(returncode=1, world_size=num_processes)
     for attempt in range(max(1, port_attempts)):
         attempt_env = dict(env or {})
         attempt_env[ENV_PORT_ATTEMPT] = str(attempt)
         procs = launch_local(argv, num_processes, devices_per_process,
                              log_dir=log_dir, env=attempt_env)
-        report = wait_report(procs, timeout)
+        cleanup = on_procs(procs) if on_procs is not None else None
+        try:
+            report = wait_report(procs, timeout)
+        finally:
+            if cleanup is not None:
+                cleanup()
         if report.returncode == 0:
             return report
         if (attempt + 1 >= max(1, port_attempts)
@@ -278,11 +302,30 @@ def main(argv: list[str] | None = None) -> int:
                    help="must be 1: a process drives one device")
     p.add_argument("--log-dir", default="outputs/local_launch")
     p.add_argument("--supervise", action="store_true",
-                   help="restart dead training processes (waits for "
-                        "ROADMAP.md queue A item 14)")
+                   help="restart dead training processes with backoff; a "
+                        "restart that commits a new checkpoint refunds the "
+                        "retry budget")
+    p.add_argument("--max-restarts", type=int, default=3,
+                   help="retry budget between checkpoint advances")
+    p.add_argument("--backoff-base-s", type=float, default=1.0,
+                   help="first restart delay; doubles per consecutive "
+                        "failure without progress (jittered, capped)")
+    p.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                   help="the run's train.snapshot_path, watched for "
+                        "checkpoint progress (without it every failure "
+                        "burns budget)")
     p.add_argument("--elastic", action="store_true",
-                   help="with --supervise: re-form at the surviving world "
-                        "size (waits for ROADMAP.md queue A item 14)")
+                   help="with --supervise: on a lost host, re-form at the "
+                        "surviving world size (resharded restore, per-shard "
+                        "batch from train.global_batch_size), then grow "
+                        "back at a checkpoint boundary")
+    p.add_argument("--elastic-min-world", type=int, default=1,
+                   help="never shrink below this many processes")
+    p.add_argument("--elastic-grow-after-ckpts", type=int, default=1,
+                   help="checkpoints a shrunken world must commit before "
+                        "growing back (doubles per flap)")
+    p.add_argument("--elastic-no-grow", action="store_true",
+                   help="stay at the shrunken size for the rest of the run")
     p.add_argument("cmd", nargs=argparse.REMAINDER,
                    help="-- followed by the python argv to run")
     args = p.parse_args(argv)
@@ -292,11 +335,114 @@ def main(argv: list[str] | None = None) -> int:
     if args.elastic and not args.supervise:
         p.error("--elastic requires --supervise")
     if args.supervise:
-        raise NotImplementedError(
-            "--supervise/--elastic: the restart supervisor waits for "
-            "ROADMAP.md queue A item 14")
+        return _supervised_main(args, cmd)
     return run_group(cmd, args.nproc, args.devices_per_proc,
                      log_dir=args.log_dir).returncode
+
+
+class _GrowWatcher:
+    """Signals a shrunken incarnation down at a checkpoint boundary so
+    the supervisor can re-form it at full size: once ``needed`` new
+    steps are committed since the incarnation started, SIGTERM goes to
+    the group (the preemption guard's save-and-exit path), the
+    incarnation exits "preempted", and the relaunch at full size
+    restores the step just saved. Never an in-band kill."""
+
+    def __init__(self, procs: list[LocalProcess], ckpt_dir: str,
+                 needed: int, poll_s: float = 0.3):
+        self.procs = procs
+        self.ckpt_dir = ckpt_dir
+        self.needed = max(1, needed)
+        self.poll_s = poll_s
+        self.triggered = False
+        self._baseline = set(checkpoint_steps_on_disk(ckpt_dir))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run,
+                                        name="elastic-grow", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            new = set(checkpoint_steps_on_disk(self.ckpt_dir)) - self._baseline
+            if len(new) >= self.needed:
+                if any(lp.proc.poll() is not None for lp in self.procs):
+                    # The group is already exiting (the dwell was met by
+                    # its final checkpoint, or a failure is tearing it
+                    # down): a signal now would relabel that exit.
+                    return
+                self.triggered = True
+                logger.warning("elastic: %d new checkpoint(s) at the "
+                               "reduced size; signalling the group down "
+                               "to grow back", len(new))
+                for lp in self.procs:
+                    if lp.proc.poll() is None:
+                        try:
+                            lp.proc.send_signal(signal.SIGTERM)
+                        except (ProcessLookupError, OSError):
+                            continue
+                return
+            self._stop.wait(self.poll_s)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+def _supervised_main(args, cmd: list[str]) -> int:
+    """``--supervise``: incarnations of the local group under the restart
+    supervisor (and, with ``--elastic``, the elastic policy)."""
+    from distributed_training_tpu_torch.telemetry.events import Telemetry
+    state_dir = os.path.join(args.log_dir, "supervisor")
+    tel = Telemetry(events_jsonl=os.path.join(state_dir, "events.jsonl"),
+                    fresh=False)
+    policy = None
+    if args.elastic:
+        policy = elastic_mod.ElasticPolicy(
+            base_world=args.nproc, min_world=args.elastic_min_world,
+            grow=not args.elastic_no_grow,
+            grow_after_ckpts=args.elastic_grow_after_ckpts)
+
+    def run_incarnation(extra_env: dict[str, str]):
+        attempt = extra_env.get(sup.ENV_RESTART_COUNT, "0")
+        nproc = int(extra_env.get(elastic_mod.ENV_WORLD) or args.nproc)
+        grow_after = extra_env.get(elastic_mod.ENV_GROW_AFTER_CKPTS)
+        watchers: list[_GrowWatcher] = []
+
+        def on_procs(procs):
+            if grow_after is None or not args.ckpt_dir:
+                return None
+            w = _GrowWatcher(procs, args.ckpt_dir, int(grow_after))
+            watchers.append(w)
+            return w.stop
+
+        report = run_group(
+            cmd, nproc, args.devices_per_proc,
+            log_dir=os.path.join(args.log_dir, f"attempt_{attempt}"),
+            env=extra_env, on_procs=on_procs)
+        if any(w.triggered for w in watchers):
+            report = dataclasses.replace(report, grow_requested=True)
+        return report
+
+    def on_incident(incident: sup.Incident) -> None:
+        # The outcome and topology beside the attempt's process logs.
+        d = os.path.join(args.log_dir, f"attempt_{incident.incarnation}")
+        os.makedirs(d, exist_ok=True)
+        tmp = os.path.join(d, "summary.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(dataclasses.asdict(incident), f, indent=1)
+        os.replace(tmp, os.path.join(d, "summary.json"))
+
+    try:
+        result = sup.supervise(
+            run_incarnation,
+            policy=sup.RestartPolicy(max_restarts=args.max_restarts,
+                                     backoff_base_s=args.backoff_base_s),
+            state_dir=state_dir, ckpt_dir=args.ckpt_dir, telemetry=tel,
+            should_stop=lambda: _launcher_signaled, elastic=policy,
+            on_incident=on_incident)
+    finally:
+        tel.close()
+    return result.returncode
 
 
 if __name__ == "__main__":

@@ -1,14 +1,19 @@
-"""Resilience (port): fault injection and the serving supervisor.
+"""Resilience (port): crash-restart-resume for training and serving.
 
-- ``faults.py`` — deterministic fault injection, a copy of the JAX
-  package's (framework-free) module: the plan grammar, ``Fault``,
-  ``FaultInjector`` with its one-shot ledger, and the hooks; the engine's
-  ``faults`` slot evaluates the serving kinds.
-- ``supervisor.py`` — ``RestartPolicy`` and ``supervise_serving``, which
-  restarts a crashed serving engine in-process and carries its work
-  across.
+- ``supervisor.py`` — ``supervise``, the restart supervisor that
+  ``launch/local.py --supervise`` drives (exit sentinels, a retry budget
+  refunded by checkpoint progress, backoff, the elastic hand-off), and
+  ``supervise_serving``, which restarts a crashed serving engine
+  in-process and carries its work across.
+- ``integrity.py`` — per-file sha256 manifests of checkpoint steps,
+  quarantine of a damaged step, and the step scan.
+- ``faults.py`` — deterministic fault injection
+  (``train.fault_plan="crash@40,sigterm@80,..."``), every trigger a pure
+  function of the global step, one-shot across restarts through a
+  ledger.
+- ``elastic.py`` — the shrink/grow world-size policy (``launch.local
+  --supervise --elastic``) and the per-shard batch arithmetic.
 
-The training supervisor, checkpoint integrity and the elastic policy
-wait for ROADMAP.md queue A item 14. Import-free, as the JAX package's
-``resilience/__init__.py`` is.
+Import-free, as the JAX package's ``resilience/__init__.py`` is: the
+supervisor runs in the launcher process.
 """

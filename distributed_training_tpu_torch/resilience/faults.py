@@ -1,12 +1,11 @@
 """Deterministic fault injection: the test harness for recovery (port).
 
 A copy of ``distributed_training_tpu/resilience/faults.py``, which is
-framework-free. The serving kinds drive the engine's ``faults`` slot
-(``serving/engine.py``) and ``resilience/supervisor.py::
-supervise_serving``. The trainer's hooks come along, but the port's
-trainer still refuses ``train.fault_plan`` until ROADMAP.md queue A item
-14 ('Resilience and exactly-once data'), which also brings the
-checkpoint manifests ``corrupt_ckpt`` needs.
+framework-free. The trainer calls ``on_step`` and ``step_delay``, the
+loaders ``on_data``, the streaming loader ``on_source`` and the
+checkpoint manager ``on_checkpoint_saved``; the serving kinds drive the
+engine's ``faults`` slot (``serving/engine.py``) and
+``resilience/supervisor.py::supervise_serving``.
 
 ``train.fault_plan`` is a comma-separated plan of scheduled faults,
 each a pure function of the global optimizer step — the straggler.py
@@ -112,9 +111,9 @@ from dataclasses import dataclass
 
 logger = logging.getLogger(__name__)
 
-# The exit code of a host that ``lose_host`` kills (the JAX package keeps
-# it in ``resilience/elastic.py``, which the port does not have yet).
-LOST_HOST_EXIT_CODE = 97
+from distributed_training_tpu_torch.resilience.elastic import (
+    LOST_HOST_EXIT_CODE,
+)
 
 # Serving kinds key on the ENGINE LAUNCH COUNT (the serving analogue
 # of the global step — one per non-idle ``Engine.step``): the engine's
@@ -514,15 +513,37 @@ class FaultInjector:
 
     def on_checkpoint_saved(self, step: int,
                             directory: str | None = None) -> None:
-        """Checkpoint manager, after a save at ``step`` is committed: a
-        ``corrupt_ckpt@N`` would fire at the first save with step >= N,
-        on a step that already has its checksum manifest. The port's
-        checkpoints have no manifest yet, so a due ``corrupt_ckpt``
-        raises."""
+        """Checkpoint manager, after a save at ``step`` is committed.
+        A ``corrupt_ckpt@N`` fires at the first save with step >= N
+        (saves land on a cadence; an exact-match step would usually
+        never fire). Called on the COORDINATOR only (the manager
+        gates it): on shared storage N hosts XOR-flipping the same
+        bytes would undo each other.
+
+        Only steps that already have a checksum manifest are eligible
+        victims: corrupting a not-yet-manifested step would let the
+        later manifest flush checksum the damaged bytes and BLESS the
+        corruption — the injected fault must be the one verification
+        catches, never one it hides. With async saves the newest step
+        is still unmanifested when this hook runs, so the previous
+        step takes the damage; the fault stays pending until a
+        manifested step exists."""
+        directory = directory or self.ckpt_dir
+        if directory is None:
+            return
+        from distributed_training_tpu_torch.resilience import integrity
         for f in self.plan:
-            if (f.kind == "corrupt_ckpt" and step >= f.step
-                    and (f.always or f.key not in self.fired)):
-                raise NotImplementedError(
-                    "corrupt_ckpt needs the checkpoint's integrity "
-                    "manifest, which waits for ROADMAP.md queue A item 14 "
-                    "('Resilience and exactly-once data')")
+            if (f.kind != "corrupt_ckpt" or step < f.step
+                    or (not f.always and f.key in self.fired)):
+                continue
+            target = next(
+                (s for s in reversed(
+                    integrity.checkpoint_steps_on_disk(directory))
+                 if os.path.exists(os.path.join(
+                     directory, str(s), integrity.MANIFEST_NAME))),
+                None)
+            if target is None:
+                continue
+            step_dir = os.path.join(directory, str(target))
+            damaged = corrupt_step_dir(step_dir)
+            self._record(f, target_step=target, damaged=damaged)

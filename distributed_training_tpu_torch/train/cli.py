@@ -22,9 +22,21 @@ this; only process 0 writes ``resolved_config.yaml``, ``metrics.jsonl``
 and ``events.jsonl``, and every process logs to its own file
 (``<log_file>.p<rank>`` beside process 0's). Checkpoints go to
 ``train.snapshot_path`` (sharded under a process group), and a rerun
-with the same settings resumes from the newest one. SIGTERM stops the
-run at a step every process agrees on, after a final save. The process
-group this CLI started is destroyed on every exit.
+with the same settings resumes from the newest one, on any mesh (a step
+saved under another world is re-cut). SIGTERM stops the run at a step
+every process agrees on, after a final save. The process group this CLI
+started is destroyed on every exit.
+
+Resilience: ``train.data_sources`` trains on the exactly-once streaming
+loader (``data/stream.py``; no held-out split), ``train.fault_plan``
+arms the fault injector (one-shot ledger ``faults_fired.json``), and
+``train.global_batch_size`` derives the per-shard batch from however
+many data shards this incarnation has (``elastic.per_shard_batch``).
+Under the restart supervisor (``launch --supervise``) a restarted
+incarnation appends to the run's event stream, its ``resume`` event
+carries the restored data position, and a clean exit writes the
+exit-status sentinel ("completed" or "preempted"). Every exit, a crash
+included, ends the stream with this process's ``kernel_launches``.
 """
 
 from __future__ import annotations
@@ -41,14 +53,19 @@ from distributed_training_tpu_torch.config import (
 )
 from distributed_training_tpu_torch.data import (
     ShardedDataLoader,
+    StreamingDataLoader,
     build_dataset,
+    build_stream_sources,
     train_eval_split,
 )
 from distributed_training_tpu_torch.models.registry import build_model
+from distributed_training_tpu_torch.ops import kernel_launches
 from distributed_training_tpu_torch.parallel import check_strategy
 from distributed_training_tpu_torch.parallel.planner import (
     apply_plan_to_config,
 )
+from distributed_training_tpu_torch.resilience import elastic, faults
+from distributed_training_tpu_torch.resilience import supervisor as sup
 from distributed_training_tpu_torch.runtime import (
     initialize_runtime,
     shutdown_runtime,
@@ -111,12 +128,20 @@ def _run(cfg, rt, guard, run_dir: str, plan=None) -> int:
         logger.info("sharding plan %s@%s: mesh derived %s", plan.name,
                     plan.fingerprint(), plan.mesh)
     if cfg.train.global_batch_size:
-        if cfg.train.global_batch_size % rt.data_shard_count:
-            raise ValueError(
-                f"train.global_batch_size {cfg.train.global_batch_size} "
-                f"does not split over {rt.data_shard_count} shard(s)")
-        cfg.train.batch_size = (cfg.train.global_batch_size
-                                // rt.data_shard_count)
+        # The global batch is world-size-invariant; a shrunken world
+        # gets a larger per-shard batch (an uneven split raises).
+        cfg.train.batch_size = elastic.per_shard_batch(
+            cfg.train.global_batch_size, rt.data_shard_count)
+        logger.info("global batch %d over %d shard(s) -> per-shard "
+                    "batch %d", cfg.train.global_batch_size,
+                    rt.data_shard_count, cfg.train.batch_size)
+    evicted_hosts = elastic.evicted_from_env()
+    # Per-process state (the fault ledger) lives under host_<i>/ in a
+    # world of several processes, and under an elastic supervisor even
+    # at world 1, so a shrunken run keeps each index's ledger.
+    elastic_incarnation = os.environ.get(elastic.ENV_WORLD) is not None
+    host_dir = (run_dir if rt.process_count == 1 and not elastic_incarnation
+                else os.path.join(run_dir, f"host_{rt.process_index}"))
     if not cfg.train.metrics_jsonl:
         cfg.train.metrics_jsonl = os.path.join(run_dir, "metrics.jsonl")
     if not cfg.train.events_jsonl:
@@ -125,37 +150,69 @@ def _run(cfg, rt, guard, run_dir: str, plan=None) -> int:
     if rt.is_coordinator:
         save_resolved(cfg, os.path.join(run_dir, "resolved_config.yaml"))
 
-    dataset = build_dataset(
-        cfg.train.dataset,
-        _defaults={"size": cfg.train.dataset_size, "seed": cfg.train.seed},
-        **cfg.train.dataset_kwargs)
+    fault_injector = None
+    if cfg.train.fault_plan:
+        fplan = faults.parse_fault_plan(cfg.train.fault_plan)
+        # Source-level kinds need the streaming loader's per-document
+        # hook: a drill that never fires must not pass as one.
+        faults.check_plan_hooks(fplan, bool(cfg.train.data_sources))
+        fault_injector = faults.FaultInjector(
+            fplan, ledger_path=os.path.join(host_dir, "faults_fired.json"),
+            ckpt_dir=cfg.train.snapshot_path, host=rt.process_index)
+
     eval_loader = None
-    if cfg.train.eval_fraction > 0:
-        # The held-out rows, rounded up to whole global batches so the
-        # loader never wrap-pads them: val_loss is an exact mean.
-        dataset, eval_ds = train_eval_split(
-            dataset, cfg.train.eval_fraction, seed=cfg.train.seed,
-            multiple_of=cfg.train.batch_size * rt.data_shard_count)
-        eval_loader = ShardedDataLoader(
-            eval_ds, rt, batch_size=cfg.train.batch_size, shuffle=False,
-            seed=cfg.train.seed, data_retries=cfg.train.data_retries)
-    loader = ShardedDataLoader(
-        dataset, rt, batch_size=cfg.train.batch_size,
-        shuffle=cfg.train.shuffle, seed=cfg.train.seed,
-        drop_last=cfg.train.drop_last,
-        max_steps_per_epoch=cfg.train.max_steps_per_epoch,
-        data_retries=cfg.train.data_retries)
+    if cfg.train.data_sources:
+        sources = build_stream_sources(
+            cfg.train.data_sources,
+            defaults={"size": cfg.train.dataset_size,
+                      "seed": cfg.train.seed})
+        loader = StreamingDataLoader(
+            sources, rt, batch_size=cfg.train.batch_size,
+            pack_len=cfg.train.pack_seq_len, shuffle=cfg.train.shuffle,
+            seed=cfg.train.seed,
+            steps_per_epoch=cfg.train.max_steps_per_epoch,
+            data_retries=cfg.train.data_retries,
+            fault_injector=fault_injector)
+    else:
+        dataset = build_dataset(
+            cfg.train.dataset,
+            _defaults={"size": cfg.train.dataset_size,
+                       "seed": cfg.train.seed},
+            **cfg.train.dataset_kwargs)
+        if cfg.train.eval_fraction > 0:
+            # The held-out rows, rounded up to whole global batches so
+            # the loader never wrap-pads them: val_loss is an exact mean.
+            dataset, eval_ds = train_eval_split(
+                dataset, cfg.train.eval_fraction, seed=cfg.train.seed,
+                multiple_of=cfg.train.batch_size * rt.data_shard_count)
+            eval_loader = ShardedDataLoader(
+                eval_ds, rt, batch_size=cfg.train.batch_size,
+                shuffle=False, seed=cfg.train.seed,
+                data_retries=cfg.train.data_retries)
+        loader = ShardedDataLoader(
+            dataset, rt, batch_size=cfg.train.batch_size,
+            shuffle=cfg.train.shuffle, seed=cfg.train.seed,
+            drop_last=cfg.train.drop_last,
+            max_steps_per_epoch=cfg.train.max_steps_per_epoch,
+            data_retries=cfg.train.data_retries,
+            fault_injector=fault_injector)
     model_kwargs = dict(cfg.model.kwargs)
     # A model-level dtype wins over the training compute dtype.
     model_dtype = model_kwargs.pop("dtype", cfg.train.dtype)
     model = build_model(cfg.model.name, loss=cfg.train.loss,
                         dtype=model_dtype, device=rt.device, **model_kwargs)
 
-    with Checkpointer(cfg.train.snapshot_path, runtime=rt) as checkpointer:
+    restart_count = int(os.environ.get(sup.ENV_RESTART_COUNT, "0") or 0)
+    with Checkpointer(cfg.train.snapshot_path, runtime=rt,
+                      fault_injector=fault_injector) as checkpointer:
         resumed = checkpointer.latest_step() is not None
+        # Truncate only on a first incarnation: a supervised restart
+        # that found no checkpoint still appends to the crashed one's
+        # events.
         tel = events.install(events.Telemetry(
             events_jsonl=(cfg.train.events_jsonl if rt.is_coordinator
-                          else None), fresh=not resumed))
+                          else None),
+            fresh=not (resumed or restart_count > 0)))
         try:
             tel.event("runtime", backend=rt.backend,
                       world=rt.process_count, rank=rt.process_index,
@@ -168,21 +225,55 @@ def _run(cfg, rt, guard, run_dir: str, plan=None) -> int:
                                  "ROADMAP.md queue A item 15")
             trainer = Trainer(cfg, rt, model, loader, checkpointer,
                               preemption_guard=guard,
-                              eval_loader=eval_loader)
-            if trainer.global_step > 0:
-                data_state = loader.state_dict()
+                              eval_loader=eval_loader,
+                              fault_injector=fault_injector)
+            if (trainer.epochs_run > 0 or trainer.global_step > 0
+                    or restart_count > 0):
                 tel.event("resume", step=trainer.global_step,
                           epoch=trainer.epochs_run,
-                          samples_consumed=data_state["samples_consumed"],
-                          global_batch=loader.global_batch)
+                          restarts=restart_count,
+                          world_size=rt.process_count,
+                          evicted_hosts=evicted_hosts,
+                          **_cursor_info(loader),
+                          **({"restore": checkpointer.last_restore}
+                             if checkpointer.last_restore else {}))
             summary = trainer.train()
         finally:
-            events.uninstall()
-            tel.close()
+            try:
+                # Drain a save in flight while the stream is open: its
+                # manifest may fire the injector's checkpoint hook.
+                checkpointer.wait()
+            finally:
+                # This process's kernel launches, on every exit (a
+                # crashed incarnation's count as the finished one's).
+                tel.event("kernel_launches", **kernel_launches())
+                events.uninstall()
+                tel.close()
     if rt.is_coordinator:
         logger.info("training done: %s%s", summary,
                     " (stopped by preemption)" if guard.should_stop else "")
+    # The supervisor's exit sentinel: a preempted run exits 0 after its
+    # final save as a completed one does; only this record tells them
+    # apart. A no-op when unsupervised.
+    sup.write_exit_status(
+        sup.PREEMPTED if guard.should_stop else sup.COMPLETED,
+        step=trainer.global_step, epochs_run=trainer.epochs_run)
     return 0
+
+
+def _cursor_info(loader) -> dict:
+    """The restored data position for the resume event: samples
+    consumed, the global batch, corrupt samples skipped, and (once
+    something was consumed) the realized and target mixtures."""
+    data_state = loader.state_dict()
+    out = {"samples_consumed": data_state.get("samples_consumed"),
+           "global_batch": loader.global_batch,
+           "data_skips": data_state.get("skipped", 0)}
+    if data_state.get("samples_consumed"):
+        for k in ("realized_mixture", "target_mixture"):
+            if data_state.get(k):
+                out[k] = data_state[k]
+    return out
 
 
 if __name__ == "__main__":

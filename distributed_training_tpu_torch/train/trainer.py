@@ -30,9 +30,19 @@ rank's blocks of the weights. tp ranks take the same batch: the data
 axes are (dp, fsdp), and MFU counts every card. Under
 ``train.sharding_plan`` the placements come from the plan's sharding
 map instead (``parallel/planner.py::PlannedStrategy``), and a runtime
-mesh other than the plan's raises ``PlanError`` here. The JAX
-trainer's other hooks are not ported yet and asking for one raises,
-naming its ROADMAP.md queue A item.
+mesh other than the plan's raises ``PlanError`` here.
+
+Resilience: the loader's ``state_dict()`` (the sharded loader's cursor,
+or the streaming loader's whole position) rides every checkpoint's meta
+and is restored before the first batch, so a resume continues
+mid-epoch exactly once; a checkpoint saved under another mesh is re-cut
+to this run's layout (``checkpoint/manager.py``). With a fault injector
+(``train.fault_plan``) the step loop calls ``step_delay`` inside the
+measured step and ``on_step`` after each step's bookkeeping, where the
+JAX trainer does. An async checkpoint's copy of the state is fenced
+before the next optimizer update. The JAX trainer's other hooks are not
+ported yet and asking for one raises, naming its ROADMAP.md queue A
+item.
 """
 
 from __future__ import annotations
@@ -69,8 +79,8 @@ logger = logging.getLogger(__name__)
 # TrainConfig fields whose feature is not ported yet: field → (the value
 # that leaves it off, what it is, its ROADMAP.md queue A item).
 _UNPORTED = {
-    "data_sources": ({}, "the streaming data pipeline", 14),
-    "fault_plan": ("", "fault injection", 14),
+    "straggler_evict_after": (0, "straggler eviction (the straggler "
+                              "detector)", 15),
     "watchdog_timeout_s": (0.0, "the hang watchdog", 15),
     "profile_dir": ("", "whole-run profiling", 15),
     "profile_at": ("", "in-run profile capture", 15),
@@ -99,13 +109,14 @@ def microbatches(batch: Mapping, a: int) -> list:
 
 def make_train_step(model, optimizer, nan_guard: bool = False,
                     grad_accum_steps: int = 1, layout: dict | None = None,
-                    runtime=None):
+                    runtime=None, before_update=None):
     """The train step ``(state, batch) -> metrics``, updating ``state``
     in place. With ``nan_guard``, a step whose loss or gradient norm is
     not finite leaves params and optimizer state as they were (one host
     sync per step to decide). ``layout``/``runtime``: the placements of
     the state's leaves over the runtime's mesh (None: one process,
-    whole leaves)."""
+    whole leaves). ``before_update``: called right before the in-place
+    update (the checkpointer's fence on an async save's copy)."""
     pls = (layout or {}).get("params", {})
     opt_pls = (layout or {}).get("opt", {})
     tp_partial = (layout or {}).get("tp_partial", ())
@@ -151,6 +162,8 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
             ok = bool(torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm))
             metrics["skipped_nonfinite"] = torch.tensor(float(not ok))
         if ok:
+            if before_update is not None:
+                before_update()
             with torch.no_grad():
                 views = {k: fsdp.local_view(p, sliced.get(k), runtime)
                          for k, p in flat.items()}
@@ -183,11 +196,12 @@ class Trainer:
 
     def __init__(self, cfg, runtime, model, loader, checkpointer=None,
                  preemption_guard=None, params: dict | None = None,
-                 eval_loader=None):
+                 eval_loader=None, fault_injector=None):
         """``params``: whole weights to start from instead of the
         seed's init (ignored when a checkpoint resumes).
         ``eval_loader``: the held-out rows, scored every ``eval_every``
-        epochs."""
+        epochs. ``fault_injector``: a ``resilience.faults.FaultInjector``
+        whose step hooks the loop calls."""
         self.cfg = cfg
         self.rt = runtime
         self.model = model
@@ -197,6 +211,7 @@ class Trainer:
         # Cooperative stop flag (SIGTERM → save + clean exit); see
         # utils/preemption.py. None → never stops early.
         self.preemption_guard = preemption_guard
+        self.faults = fault_injector
         self._stop_agreed = False
         self.telemetry = telemetry.current()
         self._steps_dispatched = 0
@@ -239,7 +254,8 @@ class Trainer:
         self._step_fn = make_train_step(
             model, self.optimizer, nan_guard=tcfg.nan_guard,
             grad_accum_steps=tcfg.grad_accum_steps,
-            layout=self.layout, runtime=runtime)
+            layout=self.layout, runtime=runtime,
+            before_update=getattr(checkpointer, "fence", None))
 
         self.epochs_run = 0
         restored = (checkpointer.restore_latest(model.device, self.layout)
@@ -434,6 +450,11 @@ class Trainer:
         # a span is host time up to the enqueue of the step's last launch.
         name = "compile" if self._steps_dispatched == 0 else "step"
         with self.telemetry.span(name, step=self.global_step + 1):
+            if self.faults is not None:
+                # slow_host: the stall lands inside the measured step.
+                delay_s = self.faults.step_delay(self.global_step + 1)
+                if delay_s:
+                    time.sleep(delay_s)
             host = None
             if self._offload:
                 host = self.state["opt_state"]
@@ -465,6 +486,10 @@ class Trainer:
                                    report["max_divergence"]}
                 self.metrics.record(self.global_step, metrics, epoch=epoch)
                 losses.append(metrics["loss"])
+                if self.faults is not None:
+                    # Before the stop poll: a sigterm fault raised here
+                    # is seen by _agreed_stop at the same step everywhere.
+                    self.faults.on_step(self.global_step)
                 if self._agreed_stop():
                     break
         finally:

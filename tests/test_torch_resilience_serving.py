@@ -32,6 +32,9 @@ from distributed_training_tpu_torch.models.transformer import (
 )
 from distributed_training_tpu_torch.resilience import faults as port_faults
 from distributed_training_tpu_torch.resilience import (
+    integrity as port_integrity,
+)
+from distributed_training_tpu_torch.resilience import (
     supervisor as port_supervisor,
 )
 from distributed_training_tpu_torch.serving import engine as port_engine
@@ -153,10 +156,18 @@ def test_injector_trainer_hooks_match_jax(tmp_path):
             inj.on_step(5)
         assert inj.fired == {"data_error@2", "data_stall@3", "crash@5"}
     assert port_faults.LOST_HOST_EXIT_CODE == 97
-    inj = port_faults.FaultInjector("corrupt_ckpt@3")
-    inj.on_checkpoint_saved(2, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        inj.on_checkpoint_saved(3, str(tmp_path))
+    for mod in (jax_faults, port_faults):
+        root = tmp_path / mod.__name__
+        step_dir = root / "3"
+        step_dir.mkdir(parents=True)
+        (step_dir / "state.bin").write_bytes(b"x" * 256)
+        port_integrity.write_manifest(str(step_dir))
+        inj = mod.FaultInjector("corrupt_ckpt@3")
+        inj.on_checkpoint_saved(2, str(root))
+        assert inj.fired == set()
+        inj.on_checkpoint_saved(3, str(root))
+        assert inj.fired == {"corrupt_ckpt@3"}
+        assert port_integrity.verify_manifest(str(step_dir))[1]
 
 
 def _supervised(side, plan, prompts, ledger, resident=1):

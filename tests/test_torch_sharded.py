@@ -336,7 +336,7 @@ def _check_resume(res: dict, ref: dict, world: int) -> None:
     steps = sorted(int(d) for d in os.listdir(res["ckpt"]) if d.isdigit())
     assert steps == [2, 5]
     files = sorted(os.listdir(os.path.join(res["ckpt"], "2")))
-    assert files == ["layout.json", "meta.json"] + [
+    assert files == ["layout.json", "manifest.dtt.json", "meta.json"] + [
         f"state.rank{r}.pt" for r in range(world)]
 
 

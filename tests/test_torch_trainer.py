@@ -164,8 +164,8 @@ def test_cli_refuses_unported_features(tmp_path):
                   "train.dataset_kwargs.vocab_size=64",
                   "model=gpt2_125m", "train=gpt2",
                   f"run.output_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["train.device=cpu", "train.fault_plan=crash@3",
+    with pytest.raises(NotImplementedError, match="item 15"):
+        cli.main(["train.device=cpu", "train.straggler_evict_after=2",
                   f"run.output_dir={tmp_path}"])
 
 
