@@ -75,11 +75,14 @@ class TrainConfig:
     metrics_jsonl: str = ""
     # Structured telemetry stream (spans, goodput windows, hbm samples
     # — see docs/observability.md). Empty → disabled; the CLI defaults
-    # it to <run_dir>/events.jsonl on the coordinator.
+    # it to <run_dir>/events.jsonl, or host_<i>/events.jsonl on each
+    # process of a world of several.
     events_jsonl: str = ""
-    # Hang watchdog: a step armed longer than this dumps a postmortem
-    # bundle (all-thread stacks, per-device memory_stats, last events)
-    # to <run_dir>/postmortem/. 0 disables. Set it to a generous
+    # Hang watchdog (telemetry/watchdog.py): a step armed longer than
+    # this (from before its batch is fetched) dumps a postmortem bundle
+    # (all-thread stacks, torch.cuda.memory_stats, last events) to
+    # <run_dir>/postmortem/ (host_<i>/postmortem/ per process in a
+    # world of several). 0 disables. Set it to a generous
     # multiple of the expected step time — compile is excluded (the
     # first step arms with a 10x allowance).
     watchdog_timeout_s: float = 0.0
@@ -87,12 +90,13 @@ class TrainConfig:
     # attended run may recover; unattended launchers want the abort so
     # a hung process doesn't hold the accelerator forever.
     watchdog_abort: bool = False
-    # Steps between hbm telemetry samples (device.memory_stats() into
-    # the event stream). 0 disables.
+    # Steps between hbm telemetry samples (telemetry/hbm.py: the card's
+    # torch.cuda.memory_stats beside the state's exact bytes, into the
+    # event stream). 0 disables.
     hbm_sample_every: int = 0
     # Cross-host straggler detector (telemetry/straggler.py): every N
-    # optimizer steps all hosts exchange their window step/data_wait
-    # means over a tiny host-level all-gather and flag hosts
+    # optimizer steps all processes exchange their window step/data_wait
+    # means over one all_gather of a small f32 tensor and flag processes
     # persistently above threshold x the cross-host median. Off the
     # critical path (one small f32 vector per window); auto-disabled
     # when process_count == 1. 0 disables the exchange entirely.
@@ -115,7 +119,9 @@ class TrainConfig:
     # `collectives` event (op counts + bytes/step per mesh axis) so
     # the summarizer can print a comms roofline next to MFU. Costs one
     # extra (cache-warm trace) compile on the coordinator; only runs
-    # when an event sink is installed.
+    # when an event sink is installed. The port reads the field and
+    # runs no audit: counting NCCL kernels from a trace is ROADMAP.md
+    # queue A item 17's.
     collectives_audit: bool = True
     dataset_size: int = 2048
     learning_rate: float = 1e-3
@@ -196,18 +202,21 @@ class TrainConfig:
     # below the preemption grace window (~30s on GCE); use 1 for steps
     # slower than a few seconds.
     stop_poll_every: int = 8
-    profile_dir: str = ""         # non-empty → jax.profiler traces here
+    # Non-empty → the coordinator traces the whole run with
+    # torch.profiler (utils/profiler.py) into <profile_dir>/trace.json.
+    profile_dir: str = ""
     # In-run profiler capture + step-time attribution (telemetry/
     # attribution.py): comma-separated global steps, e.g. "20" or
-    # "20,500". At each step the COORDINATOR captures a jax.profiler
-    # trace of profile_steps steps into <run_dir>/profiles/ and
-    # immediately emits an `attribution` event (compute / collective /
-    # host+data fractions + overlap %). One-shot across supervisor
-    # restarts. An already-running job is profiled on demand by
-    # dropping a file named `profile_now` in the run dir. Empty and no
-    # trigger file → off. Mutually exclusive in spirit with
-    # profile_dir (a whole-run trace); if both are live the capture
-    # declines to start.
+    # "20,500". At each step the COORDINATOR captures a torch.profiler
+    # trace (CPU and CUDA activities, a Chrome-trace JSON) of
+    # profile_steps steps into <run_dir>/profiles/ and immediately
+    # emits an `attribution` event (compute / collective / host+data
+    # fractions + overlap %, the busiest device ops). One-shot across
+    # supervisor restarts. An already-running job is profiled on demand
+    # by dropping a file named `profile_now` in the run dir. Empty and
+    # no trigger file → off. One profiler runs at a time: while
+    # profile_dir's whole-run trace is live the capture declines to
+    # start.
     profile_at: str = ""
     profile_steps: int = 2
     # Live metrics endpoint (telemetry/metrics_server.py): when > 0
@@ -227,7 +236,7 @@ class TrainConfig:
     # profile capture (drops `profile_now`, one-shot across restarts),
     # and incident bundles under <run_dir>/incidents/ on anomaly /
     # watchdog abort / preemption. Coordinator-only. Offline triage:
-    # `python -m distributed_training_tpu.telemetry <run_dir> --doctor`.
+    # `python -m distributed_training_tpu_torch.telemetry <run_dir> --doctor`.
     anomaly_detect: bool = True
     anomaly_window: int = 64      # rolling baseline window (samples)
     anomaly_min_samples: int = 16  # baseline warmup before verdicts

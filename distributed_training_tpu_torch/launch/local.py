@@ -31,9 +31,11 @@ re-forms the group at the surviving world size when a host is lost
 (``resilience/elastic.py``), never below ``--elastic-min-world``, and
 grows it back after ``--elastic-grow-after-ckpts`` new checkpoints at
 the smaller size (``_GrowWatcher`` signals the group down at that
-checkpoint boundary) unless ``--elastic-no-grow``. The JAX launcher's
-cross-host report (``--summarize``) and live metrics port
-(``--metrics-port``) come with ROADMAP.md queue A item 15.
+checkpoint boundary) unless ``--elastic-no-grow``. ``--metrics-port``
+appends ``train.metrics_port=PORT`` to the command (process 0 serves
+``/metrics`` there), and ``--summarize RUN_DIR`` prints the run dir's
+merged cross-host telemetry report after a clean exit (each process
+writes ``host_<i>/events.jsonl``).
 """
 
 from __future__ import annotations
@@ -301,6 +303,13 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--devices-per-proc", type=int, default=1,
                    help="must be 1: a process drives one device")
     p.add_argument("--log-dir", default="outputs/local_launch")
+    p.add_argument("--summarize", default=None, metavar="RUN_DIR",
+                   help="after a clean exit, print the run dir's merged "
+                        "cross-host telemetry report")
+    p.add_argument("--metrics-port", type=int, default=0, metavar="PORT",
+                   help="serve process 0's live Prometheus endpoint "
+                        "(/metrics, /healthz) on this port: appends "
+                        "train.metrics_port=PORT to the command")
     p.add_argument("--supervise", action="store_true",
                    help="restart dead training processes with backoff; a "
                         "restart that commits a new checkpoint refunds the "
@@ -332,12 +341,19 @@ def main(argv: list[str] | None = None) -> int:
     cmd = [c for c in args.cmd if c != "--"]
     if not cmd:
         cmd = ["-m", "distributed_training_tpu_torch.train"]
+    if args.metrics_port:
+        cmd = cmd + [f"train.metrics_port={args.metrics_port}"]
     if args.elastic and not args.supervise:
         p.error("--elastic requires --supervise")
     if args.supervise:
-        return _supervised_main(args, cmd)
-    return run_group(cmd, args.nproc, args.devices_per_proc,
-                     log_dir=args.log_dir).returncode
+        rc = _supervised_main(args, cmd)
+    else:
+        rc = run_group(cmd, args.nproc, args.devices_per_proc,
+                       log_dir=args.log_dir).returncode
+    if rc == 0 and args.summarize:
+        from distributed_training_tpu_torch.telemetry import summarize
+        summarize.main([args.summarize])
+    return rc
 
 
 class _GrowWatcher:

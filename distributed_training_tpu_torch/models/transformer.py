@@ -9,18 +9,33 @@ weight pytree as the JAX package: a nested dict of tensors with stacked
 loop over layers replaces ``lax.scan``.
 
 ``apply`` is the inference forward (the serving engine's dense
-reference); ``prefill``/``generate`` decode over a dense KV cache
+reference; under a tp binding it gathers the vocab-split logits, so it
+returns the whole vocab's f32 logits under any layout, as JAX's);
+``prefill``/``generate`` decode over a dense KV cache
 (``generate.py --decode fused``); ``loss`` is the training forward, differentiable by autograd
 through the stacked leaves (the tied ``tok_embed`` takes both the
-embedding-gather and the head gradient). Remat keeps the JAX policies'
-intent with ``torch.utils.checkpoint``, and never around attention: the
-flash kernel's residuals (q, k, v, out, lse) stay saved by its autograd
+embedding-gather and the head gradient). Remat recomputes what the JAX
+policies' allow-lists leave unsaved, and never attention: the flash
+kernel's residuals (q, k, v, out, lse) stay saved by its autograd
 Function, so its forward launches once per layer per step:
 
-- ``mlp``: recompute only the MLP sub-block ``gelu(h @ wi + bi) @ wo``;
-- ``mlp_pre``: also save the pre-gelu ``h @ wi + bi``;
+- ``mlp``: save the MLP's input; the backward recomputes the ``wi``
+  product and the gelu (``_RematMLP``), never the ``wo`` product;
+- ``mlp_pre``: also save the pre-gelu ``h @ wi + bi``; the backward
+  recomputes the gelu alone;
 - ``selective`` and ``full``: recompute everything in the block but
-  attention (in the JAX package ``full`` re-runs attention too).
+  attention (``torch.utils.checkpoint``; in the JAX package ``full``
+  re-runs attention too).
+
+Dropout (``cfg.dropout``, GPT-2's ``resid_pdrop``/``embd_pdrop``) is
+JAX's inverted ``_dropout`` on both residual branches and on the
+embedding, active when ``train`` and an ``rng`` seed are given (the
+trainer's: ``train.seed``, the step, the microbatch and the data
+shard). Each site draws its mask from a ``torch.Generator`` seeded with
+``fold_seed(rng, ...)`` of the global layer id and the site, so masks
+differ per site, layer, microbatch and step and repeat for the same
+seed. torch cannot replay JAX's ``jax.random`` stream: the tests feed
+both sides the same masks.
 
 Under FSDP the trainer stores the weights sharded and binds a gather
 (``bind_gather_for_compute``, ``parallel/fsdp.py``): the forward casts
@@ -41,9 +56,10 @@ vocab-parallel loss). When tp does not divide the kv heads (GQA), the
 strategy keeps ``wk``/``wv`` whole and each rank slices out the kv heads
 its query heads read before the product, so the flash kernels still run
 (the JAX model falls back to naive attention there). No collective runs
-inside a function that remat recomputes.
+inside a function that remat recomputes, and the tp ranks of a data
+shard draw the same dropout masks.
 
-Dropout, MoE, pipeline and sequence parallelism wait for later slices
+MoE, pipeline and sequence parallelism wait for later slices
 (ROADMAP.md queue A) and raise ``NotImplementedError`` when asked for.
 """
 
@@ -51,6 +67,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -268,6 +285,77 @@ def _checkpoint(fn, *args):
         fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
+def _mlp_pre(h, wi, bi):
+    """The MLP's pre-gelu ``h @ wi + bi``."""
+    return torch.einsum("bsd,df->bsf", h, wi) + bi
+
+
+def _mlp_post(pre, wo):
+    """``gelu(pre) @ wo``: the MLP's output before ``bo``."""
+    return torch.einsum("bsf,fd->bsd", F.gelu(pre, approximate="tanh"), wo)
+
+
+class _RematMLP(torch.autograd.Function):
+    """``_mlp_post(_mlp_pre(h, wi, bi), wo)`` that saves its input ``h``
+    (and, with ``keep_pre``, the pre-gelu tensor) and nothing F-wide
+    after the gelu: the backward recomputes the ``wi`` product (unless
+    kept) and the gelu, never the ``wo`` product. The recompute set of
+    JAX's ``mlp`` and ``mlp_pre`` allow-lists."""
+
+    @staticmethod
+    def forward(ctx, h, wi, bi, wo, keep_pre: bool):
+        pre = _mlp_pre(h, wi, bi)
+        ctx.save_for_backward(h, wi, bi, wo, pre if keep_pre else None)
+        return _mlp_post(pre, wo)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, wi, bi, wo, pre = ctx.saved_tensors
+        if pre is None:
+            pre = _mlp_pre(h, wi, bi)
+        u = F.gelu(pre, approximate="tanh")
+        g_wo = torch.einsum("bsf,bsd->fd", u, g)
+        g_pre = torch.ops.aten.gelu_backward(
+            torch.einsum("bsd,fd->bsf", g, wo), pre, approximate="tanh")
+        g_h = torch.einsum("bsf,df->bsd", g_pre, wi)
+        g_wi = torch.einsum("bsd,bsf->df", h, g_pre)
+        return g_h, g_wi, g_pre.sum((0, 1)), g_wo, None
+
+
+# The embedding's dropout key (JAX folds 1_000_003 into the step's rng
+# for ``embd_pdrop``) and the layers' (JAX's ``fold_in(rng, 7)``).
+_EMBED_KEY = 1_000_003
+_LAYER_KEY = 7
+
+
+def fold_seed(seed: int, *keys: int) -> int:
+    """A 63-bit seed mixed from ``seed`` and the non-negative ``keys``
+    (the port's ``jax.random.fold_in``): equal inputs give the same
+    seed, a change in any of them an unrelated one."""
+    state = np.random.SeedSequence([seed, *keys]).generate_state(
+        1, np.uint64)
+    return int(state[0]) >> 1
+
+
+def dropout_seed(rng: int, layer: int | None, site: int = 0) -> int:
+    """The seed of one dropout mask of the step seed ``rng``: the
+    embedding's (``layer=None``), or global layer ``layer``'s residual
+    branch ``site`` (0 attention, 1 MLP)."""
+    if layer is None:
+        return fold_seed(rng, _EMBED_KEY)
+    return fold_seed(rng, _LAYER_KEY, layer, site)
+
+
+def _dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Inverted dropout (JAX ``_dropout``): zero with probability
+    ``rate`` and scale what is kept by ``1 / (1 - rate)``, so the
+    expectation is unchanged; the mask comes from a ``torch.Generator``
+    on x's device seeded with ``seed``."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def _rope(q: torch.Tensor, k: torch.Tensor,
           positions: torch.Tensor) -> tuple:
     """Rotary position embedding (half-split rotation, base 10000) on
@@ -463,15 +551,19 @@ class Transformer:
 
     def _block(self, x: torch.Tensor, layer: dict,
                positions: torch.Tensor, remat: str | None = None,
-               return_kv: bool = False, attend=None):
+               return_kv: bool = False, attend=None, drop=None):
         """One decoder block. x: (B, S, D) in compute dtype. ``remat``:
         the remat policy to apply (None: save everything autograd
         needs). Under a tp binding the weights are this rank's blocks
         and the two ``reduce_from_tp`` stay outside every recomputed
         function. ``return_kv``: also return the post-rope (k, v), from
         which generation's prefill fills its cache. ``attend(q, k, v)``:
-        the attention (default: the model's, over these positions)."""
+        the attention (default: the model's, over these positions).
+        ``drop(y, site)``: dropout on the residual branches (site 0 the
+        attention's projection, 1 the MLP's output with ``bo``), outside
+        every recomputed function."""
         attend = attend or self._attention
+        drop = drop or (lambda y, site: y)
         c = self.cfg
         dt = x.dtype
         a, m = layer["attn"], layer["mlp"]
@@ -497,15 +589,10 @@ class Transformer:
             return copy(_layer_norm(x, layer["ln2"]["scale"],
                                     layer["ln2"]["bias"]))
 
-        def mlp_pre(h):
-            return (torch.einsum("bsd,df->bsf", h, m["wi"].to(dt))
-                    + m["bi"].to(dt))
-
-        def mlp_post(u):
+        def mlp(h):
             """This rank's part of the MLP's output, before ``bo``."""
-            return torch.einsum("bsf,fd->bsd",
-                                F.gelu(u, approximate="tanh"),
-                                m["wo"].to(dt))
+            return _mlp_post(_mlp_pre(h, m["wi"].to(dt), m["bi"].to(dt)),
+                             m["wo"].to(dt))
 
         def attn_out(attn):
             return reduce(torch.einsum("bshk,hkd->bsd", attn,
@@ -513,25 +600,25 @@ class Transformer:
 
         if remat in ("full", "selective"):
             q, k, v = _checkpoint(qkv, x)
-            x = x + attn_out(attend(q, k, v))
-            part = _checkpoint(lambda x: mlp_post(mlp_pre(mlp_in(x))), x)
+            x = x + drop(attn_out(attend(q, k, v)), 0)
+            part = _checkpoint(lambda x: mlp(mlp_in(x)), x)
         else:
             q, k, v = qkv(x)
-            x = x + attn_out(attend(q, k, v))
+            x = x + drop(attn_out(attend(q, k, v)), 0)
             h = mlp_in(x)
-            if remat == "mlp":
-                part = _checkpoint(lambda h: mlp_post(mlp_pre(h)), h)
-            elif remat == "mlp_pre":
-                part = _checkpoint(mlp_post, mlp_pre(h))
+            if remat in ("mlp", "mlp_pre"):
+                part = _RematMLP.apply(h, m["wi"].to(dt), m["bi"].to(dt),
+                                       m["wo"].to(dt), remat == "mlp_pre")
             else:
-                part = mlp_post(mlp_pre(h))
-        x = x + (reduce(part) + m["bo"].to(dt))
+                part = mlp(h)
+        x = x + drop(reduce(part) + m["bo"].to(dt), 1)
         return (x, (k, v)) if return_kv else x
 
     def _trunk(self, params: dict, tokens: torch.Tensor,
-               remat: str | None = None) -> tuple:
+               remat: str | None = None, rng: int | None = None) -> tuple:
         """tokens (B, S) → final-norm hidden states (B, S, D) in compute
-        dtype, plus the (zero) aux loss."""
+        dtype, plus the (zero) aux loss. ``rng``: the step's dropout
+        seed (None: no dropout)."""
         c = self.cfg
         dt = torch_dtype(c.dtype)
         S = tokens.shape[1]
@@ -542,10 +629,18 @@ class Transformer:
         positions = torch.arange(S, device=self.device)
         if c.pos_encoding == "learned":
             x = x + self._leaf(params, "pos_embed", dt)[:S]
-        for layer in _layers(params, c.n_layers):
+        dropping = rng is not None and c.dropout > 0.0
+        if dropping:
+            x = _dropout(x, c.dropout, dropout_seed(rng, None))
+        for lid, layer in enumerate(_layers(params, c.n_layers)):
             if self._gather is not None:
                 layer = self._gather.layer(_cast_layer(layer, dt))
-            x = self._block(x, layer, positions, remat)
+            drop = None
+            if dropping:
+                def drop(y, site, lid=lid):
+                    return _dropout(y, c.dropout,
+                                    dropout_seed(rng, lid, site))
+            x = self._block(x, layer, positions, remat, drop=drop)
         norm = params["final_norm"]
         if self._gather is not None:
             norm = {n: self._gather.leaf(f"final_norm/{n}", w)
@@ -563,21 +658,16 @@ class Transformer:
     @torch.no_grad()
     def apply(self, params: dict, tokens, rng=None,
               train: bool = False) -> tuple:
-        """tokens (B, S) int → logits (B, S, V) f32, aux loss scalar.
-        No gradients: training goes through ``loss``. Dropout in
-        training mode raises, as in ``loss``."""
-        del rng
-        if train and self.cfg.dropout > 0.0:
-            raise NotImplementedError(
-                "training-mode dropout waits for ROADMAP.md queue A item 3 "
-                "'Training main path' (the RoPE/GQA half)")
-        if self._tp is not None:
-            raise NotImplementedError(
-                "apply under a tp binding (logits split over the vocab): "
-                "tensor-parallel serving is ROADMAP.md queue A item 7")
+        """tokens (B, S) int → logits (B, S, V) f32 over the whole vocab
+        (under a tp binding each rank's vocab columns, gathered), aux
+        loss scalar. No gradients: training goes through ``loss``.
+        Dropout is active only when ``train`` and an ``rng`` seed are
+        given; inference is deterministic."""
         tokens = torch.as_tensor(tokens)
-        x, aux = self._trunk(params, tokens)
+        x, aux = self._trunk(params, tokens, rng=rng if train else None)
         logits = torch.einsum("bsd,dv->bsv", x, self._head(params, x.dtype))
+        if self._tp is not None:
+            logits = self._tp.gather(logits)
         return logits.float(), aux
 
     # -- training ------------------------------------------------------------
@@ -591,13 +681,9 @@ class Transformer:
         loss is the mean over real tokens. ``loss_impl="fused"`` takes the
         chunked head (ops/xent.py, no (B, S, V) residual); ``"dense"``
         the full logits. Remat (``cfg.remat``) applies when gradients are
-        being recorded."""
-        del rng
+        being recorded; dropout when ``train`` and an ``rng`` seed (the
+        trainer's step seed) are given."""
         c = self.cfg
-        if train and c.dropout > 0.0:
-            raise NotImplementedError(
-                "training-mode dropout waits for ROADMAP.md queue A item 3 "
-                "'Training main path' (the RoPE/GQA half)")
         tp = self._tp
         if c.loss_impl == "dense" and tp is not None:
             raise ValueError(
@@ -608,7 +694,8 @@ class Transformer:
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         remat = (c.remat_policy if c.remat and torch.is_grad_enabled()
                  else None)
-        x, _ = self._trunk(params, inputs, remat)
+        x, _ = self._trunk(params, inputs, remat,
+                           rng=rng if train else None)
         head = self._head(params, x.dtype)
         if c.loss_impl == "fused":
             if tp is not None:

@@ -30,9 +30,9 @@ time a shrink follows a grow, so a flapping host cannot thrash the run).
 
 An eviction is never an in-band kill: every host leaves its step loop at
 the same step, saves, and exits with a ``host_lost`` sentinel, and an
-eviction-request file (``write_eviction_request``) names the host for
-the supervisor. (The straggler detector that writes such requests in the
-JAX package is ROADMAP.md queue A item 15's.)
+eviction-request file (``write_eviction_request``, written by the
+straggler detector, ``telemetry/straggler.py``) names the host for the
+supervisor.
 
 Standard library only: this module runs in the launcher process next to
 the supervisor and is imported by the train CLI for the batch

@@ -55,6 +55,7 @@ from distributed_training_tpu_torch.resilience import elastic as elastic_mod
 from distributed_training_tpu_torch.resilience.integrity import (
     checkpoint_steps_on_disk,
 )
+from distributed_training_tpu_torch.telemetry.watchdog import EXIT_CODE
 
 logger = logging.getLogger(__name__)
 
@@ -70,10 +71,8 @@ HOST_LOST = "host_lost"
 WATCHDOG_ABORT = "watchdog_abort"
 CRASH = "crash"
 
-# The hang watchdog's abort exit code (the JAX package's
-# ``HangWatchdog.EXIT_CODE``; the port's watchdog waits for ROADMAP.md
-# queue A item 15, and the code is classified the same way meanwhile).
-WATCHDOG_EXIT_CODE = 42
+# The hang watchdog's abort exit code.
+WATCHDOG_EXIT_CODE = EXIT_CODE
 
 ENV_SENTINEL = "DTT_EXIT_SENTINEL"
 ENV_RESTART_COUNT = "DTT_RESTART_COUNT"

@@ -37,6 +37,7 @@ import itertools
 import logging
 import math
 import os
+import time
 from dataclasses import dataclass, field
 
 import torch
@@ -223,6 +224,11 @@ class Runtime:
     # Whether initialize_runtime started the group (and its owner should
     # destroy it) rather than adopting the caller's.
     owns_group: bool = False
+    # The wall clock read right after a barrier of the whole mesh at
+    # start-up (initialize_runtime): one instant every process shares,
+    # from which the telemetry aggregator aligns per-process clocks.
+    # None when there is no such reading.
+    clock_sync_unix: float | None = None
 
     @property
     def first_rank(self) -> int:
@@ -268,6 +274,15 @@ class Runtime:
     def barrier(self) -> None:
         if self.mesh is not None:
             dist.barrier(group=self.group(MESH_AXES))
+
+    def clock_sync_record(self) -> dict:
+        """Payload of this process's ``clock_sync`` telemetry event:
+        the barrier-anchored timestamp and the process's identity. The
+        aggregator trusts only a numeric ``t_sync``; a process without
+        one merges with no clock correction."""
+        return {"t_sync": self.clock_sync_unix,
+                "process_index": self.process_index,
+                "process_count": self.process_count}
 
     @property
     def device_kind(self) -> str:
@@ -346,6 +361,18 @@ def initialize_runtime(cfg, timeout: datetime.timedelta | None = None
             dist.destroy_process_group()
         raise
     rt.owns_group = owns
+    rt.clock_sync_unix = time.time()
+    if rt.process_count > 1:
+        # Every process leaves this barrier at (to collective latency)
+        # the same instant.
+        try:
+            rt.barrier()
+            rt.clock_sync_unix = time.time()
+        except RuntimeError as e:
+            rt.clock_sync_unix = None
+            logger.warning("telemetry clock-sync barrier failed (%s); "
+                           "merged timelines keep this process's raw "
+                           "clock", e)
     logger.info("runtime initialized: %s", rt.describe())
     return rt
 

@@ -165,7 +165,7 @@ MESH_AXIS_ITEMS = {
     "fsdp": "ROADMAP.md queue A item 17 (the planner's serving layouts)",
     "sp": "ROADMAP.md queue A item 16 (sequence parallelism)",
     "pp": "ROADMAP.md queue A item 16 (pipeline parallelism)"}
-TP_RESIDENT_ITEM = ("ROADMAP.md queue A item 7, left there: 'the resident "
+TP_RESIDENT_ITEM = ("ROADMAP.md queue A 'Left from done items': 'the resident "
                     "burst under tp > 1 on cards'")
 
 # The CUDA kernels each program launches (``compile_counts``).

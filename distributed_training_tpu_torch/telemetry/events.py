@@ -7,8 +7,8 @@ same record schema so the JAX package's offline readers parse both:
    "depth": 0, "parent": null, ...attrs}`` — emitted when a span
   closes (start time = ``t - dur_s``). Spans nest per thread.
 - ``{"kind": "<event name>", "t": ..., ...fields}`` — point events
-  (the serving engine's ``serving`` step records, ``serving_kv`` pool
-  occupancy, ``serving_request`` completions).
+  (hbm samples, goodput windows, watchdog firings, run_start, the
+  serving engine's ``serving`` step records, ...).
 
 Every ``span()`` also opens a ``torch.profiler.record_function`` range
 (the counterpart of ``jax.profiler.TraceAnnotation``), so the same
@@ -17,8 +17,9 @@ region names show up in a ``torch.profiler`` trace.
 Ambient use (the ``logging`` model): entry points ``install()`` one
 ``Telemetry``; library code calls the module-level ``span()`` /
 ``event()``, which no-op (except the profiler range) until something is
-installed. The goodput ledger the JAX trainer attaches waits for the
-training slices.
+installed. A ``GoodputLedger`` attached by the trainer
+(``attach_ledger``) takes every depth-0 span's duration into its
+buckets.
 """
 
 from __future__ import annotations
@@ -44,13 +45,22 @@ class Telemetry:
     ``events_jsonl=None`` or ``enabled=False`` keeps the full span API
     (including profiler ranges) but writes nothing — the default for
     library code running outside an instrumented entry point.
-    ``fresh=False`` appends, separated by a ``run_start`` marker."""
+    ``fresh=False`` appends, separated by a ``run_start`` marker.
+
+    ``host_id`` (the process index in a world of several processes, or
+    under an elastic supervisor) stamps a ``host`` field onto every
+    record, so per-host streams stay attributable once the aggregator
+    merges them (``telemetry/aggregate.py``); None keeps the
+    single-host schema."""
 
     def __init__(self, events_jsonl: str | None = None,
                  enabled: bool = True, fresh: bool = True,
-                 tail_events: int = 256):
+                 tail_events: int = 256, start_step: int = 0,
+                 host_id: int | None = None):
         self.enabled = enabled and events_jsonl is not None
         self.events_jsonl = events_jsonl if self.enabled else None
+        self.host_id = host_id
+        self.ledger = None  # GoodputLedger, attached by the trainer
         self._lock = threading.Lock()
         self._tls = threading.local()
         self._observers: list = []
@@ -64,8 +74,15 @@ class Telemetry:
             # durable on write for tail readers.
             self._fh = open(self.events_jsonl,
                             "w" if fresh else "a", buffering=1)
-            self._fh.write(json.dumps({"kind": "run_start",
-                                       "t": time.time()}) + "\n")
+            start: dict = {"kind": "run_start", "t": time.time(),
+                           "step": start_step}
+            if host_id is not None:
+                start["host"] = host_id
+            self._fh.write(json.dumps(start) + "\n")
+
+    def attach_ledger(self, ledger) -> None:
+        """Feed depth-0 span durations into a GoodputLedger."""
+        self.ledger = ledger
 
     def add_observer(self, fn) -> None:
         """Register a live consumer of every emitted record, called
@@ -78,6 +95,8 @@ class Telemetry:
     def _emit(self, rec: dict) -> None:
         if not self.enabled:  # cheap fast path; authoritative below
             return
+        if self.host_id is not None:
+            rec = {**rec, "host": self.host_id}
         safe = sanitize_for_json(rec)
         line = json.dumps(safe, allow_nan=False)
         with self._lock:
@@ -116,7 +135,8 @@ class Telemetry:
     @contextlib.contextmanager
     def span(self, name: str, **attrs):
         """Timed region: jsonl span record + profiler range. Nesting
-        is tracked per thread."""
+        is tracked per thread; only depth-0 spans feed the goodput
+        ledger, so a sub-operation never counts twice."""
         stack = getattr(self._tls, "stack", None)
         if stack is None:
             stack = self._tls.stack = []
@@ -129,9 +149,14 @@ class Telemetry:
         finally:
             dur = time.perf_counter() - t0
             stack.pop()
+            depth = len(stack)
+            if self.ledger is not None and depth == 0:
+                self.ledger.add(name, dur,
+                                steps=1 if name in ("step", "compile")
+                                else 0)
             self._emit({"kind": "span", "name": name,
                         "t": time.time(), "dur_s": round(dur, 6),
-                        "depth": len(stack), "parent": parent, **attrs})
+                        "depth": depth, "parent": parent, **attrs})
 
 
 # A permanently-disabled instance: the ambient default, so library

@@ -16,8 +16,20 @@ Atomicity: everything is written into ``<path>.tmp`` and published with
 one ``os.rename``; a crash mid-write leaves a ``.tmp`` directory, never
 a half bundle that would read as complete.
 
-The JAX module's ``IncidentRecorder`` and ``arm_autoprofile`` serve the
-training anomaly path and wait for ROADMAP.md queue A item 15.
+``IncidentRecorder``, a ``Telemetry.add_observer`` consumer (host-side
+only), writes such a bundle whenever the stream says something went
+wrong: an ``anomaly`` (``telemetry/anomaly.py``), a ``watchdog_fired``
+abort (the watchdog emits before ``os._exit``, so the bundle is on disk
+when the process dies), a ``supervisor_give_up``, or an explicit call
+(the train CLI records a ``preemption`` incident on a SIGTERM drain).
+The hang watchdog's postmortem (``telemetry/watchdog.py``) is a bundle
+of kind ``watchdog`` written by the same function.
+
+``arm_autoprofile`` is the closed-loop profiling action: record the
+decision in a write-before-action ledger (so a crash between ledger and
+action cannot re-fire it in every restarted incarnation), then drop the
+``profile_now`` file that ``ProfileCapture`` consumes. One-shot per key
+across supervisor restarts.
 """
 
 from __future__ import annotations
@@ -31,13 +43,11 @@ import sys
 import threading
 import time
 
+from distributed_training_tpu_torch.telemetry.attribution import TRIGGER_FILE
+
 logger = logging.getLogger(__name__)
 
 SCHEMA = 1
-
-# The drop file an in-run profile capture consumes (the JAX package's
-# ``telemetry/attribution.py::TRIGGER_FILE``).
-TRIGGER_FILE = "profile_now"
 
 # Bundle layout: core files always present, optional files present when
 # the corresponding evidence existed at capture.
@@ -49,6 +59,8 @@ BUNDLE_OPTIONAL_FILES = ("anomaly.json", "attribution.json",
 # Incident kinds the writers emit and the doctor understands.
 KINDS = ("anomaly", "watchdog", "preemption", "give_up", "manual",
          "engine_crash")
+
+AUTOPROFILE_LEDGER = "autoprofile_fired.json"
 
 # Monotonic per-process suffix: two bundles in the same second land in
 # distinct directories.
@@ -139,3 +151,144 @@ def is_incident_bundle(path: str) -> bool:
     """A directory is a bundle when it holds the core evidence pair."""
     return (os.path.isfile(os.path.join(path, "meta.json"))
             and os.path.isfile(os.path.join(path, "events_tail.jsonl")))
+
+
+def arm_autoprofile(run_dir: str, key: str,
+                    evidence: dict | None = None) -> bool:
+    """One-shot closed-loop profile trigger (module docstring).
+
+    Returns True when THIS call armed the capture; False when the
+    ledger says ``key`` already fired (this run or a previous
+    incarnation of it). Ledger write happens BEFORE the drop file.
+    """
+    inc_dir = os.path.join(run_dir, "incidents")
+    ledger = os.path.join(inc_dir, AUTOPROFILE_LEDGER)
+    fired: dict = {}
+    if os.path.exists(ledger):
+        try:
+            with open(ledger, encoding="utf-8") as f:
+                fired = json.load(f)
+        except (OSError, ValueError) as e:
+            logger.warning("autoprofile ledger unreadable (%s); "
+                           "refusing to re-arm", e)
+            return False
+    if key in fired:
+        return False
+    fired[key] = {"time_unix": time.time(),
+                  "evidence": evidence or {}}
+    try:
+        os.makedirs(inc_dir, exist_ok=True)
+        tmp = ledger + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(fired, f, indent=1)
+        os.replace(tmp, ledger)
+        # Ledger durable: now act. ProfileCapture consumes the drop
+        # file by os.remove at the next maybe_start().
+        with open(os.path.join(run_dir, TRIGGER_FILE), "w") as f:
+            f.write(json.dumps({"armed_by": "anomaly", "key": key}))
+    except OSError as e:
+        logger.warning("autoprofile arm failed: %s", e)
+        return False
+    logger.info("anomaly detector armed in-run profile capture "
+                "(%s)", key)
+    return True
+
+
+class IncidentRecorder:
+    """Observer that turns bad news on the event stream into bundles.
+
+    ``detector`` (an AnomalyDetector) contributes ``anomaly.json``;
+    ``serving_snapshot`` is a zero-device-touch callable returning the
+    ``/debug/requests`` payload (serving/server.py exposes one). The
+    recorder caches the latest ``attribution`` record it sees flow by,
+    so a bundle carries the most recent trace decomposition even when
+    it has scrolled out of the ring buffer. Per-kind cooldown keeps an
+    anomaly storm from writing hundreds of near-identical bundles;
+    ``max_bundles`` is the hard cap.
+    """
+
+    TRIGGER_KINDS = {"anomaly": "anomaly",
+                     "watchdog_fired": "watchdog",
+                     "supervisor_give_up": "give_up"}
+
+    def __init__(self, run_dir: str, telemetry=None, detector=None,
+                 serving_snapshot=None, enabled: bool = True,
+                 cooldown_s: float = 60.0, max_bundles: int = 32):
+        self.run_dir = run_dir
+        self.incidents_dir = os.path.join(run_dir, "incidents")
+        self._tel = telemetry
+        self._detector = detector
+        self._serving_snapshot = serving_snapshot
+        self.enabled = enabled
+        self.cooldown_s = float(cooldown_s)
+        self.max_bundles = int(max_bundles)
+        self.incidents_total = 0
+        self._lock = threading.Lock()
+        self._last_fire: dict[str, float] = {}
+        self._last_attribution: dict | None = None
+
+    def observe(self, rec: dict) -> None:
+        """Telemetry observer (sanitized record, post-write)."""
+        kind = rec.get("kind")
+        if kind in ("attribution",):
+            self._last_attribution = rec
+            return
+        trigger = self.TRIGGER_KINDS.get(kind)
+        if trigger is None:
+            return
+        reason = (rec.get("detail")
+                  or f"{trigger} event: "
+                     f"{rec.get('signal') or rec.get('reason') or kind}")
+        self.record(trigger, reason=reason, trigger=rec)
+
+    def record(self, kind: str, reason: str,
+               trigger: dict | None = None) -> str | None:
+        """Write one bundle now (cooldown/cap permitting); returns its
+        path or None. Safe to call from observer context and from the
+        CLI teardown path."""
+        if not self.enabled:
+            return None
+        now = time.monotonic()
+        with self._lock:
+            if self.incidents_total >= self.max_bundles:
+                return None
+            last = self._last_fire.get(kind)
+            if last is not None and now - last < self.cooldown_s:
+                return None
+            self._last_fire[kind] = now
+            self.incidents_total += 1
+            seq = self.incidents_total
+        tail = self._tel.tail() if self._tel is not None else []
+        anomaly = None
+        if self._detector is not None:
+            try:
+                anomaly = self._detector.verdict()
+            except Exception as e:  # noqa: BLE001 — evidence layers
+                # are each optional; a broken one must not stop the
+                # bundle.
+                logger.debug("anomaly verdict unavailable: %s", e)
+        serving = None
+        if self._serving_snapshot is not None:
+            try:
+                serving = self._serving_snapshot()
+            except Exception as e:  # noqa: BLE001 — see above.
+                logger.debug("serving snapshot unavailable: %s", e)
+        extra = {"incident_seq": seq}
+        if trigger is not None:
+            extra["trigger"] = {k: trigger.get(k) for k in
+                                ("kind", "signal", "value", "median",
+                                 "deviation", "step", "reason",
+                                 "postmortem", "outcome")
+                                if trigger.get(k) is not None}
+        path = write_incident_bundle(
+            self.incidents_dir, reason=reason, kind=kind,
+            events_tail=tail, extra=extra, anomaly=anomaly,
+            attribution=self._last_attribution, serving=serving)
+        if self._tel is not None:
+            # "incident_kind", not "kind": the sink uses "kind" as the
+            # record type and a kwarg would silently overwrite it (the
+            # faults.py "fault_kind" discipline).
+            self._tel.event("incident", schema=SCHEMA,
+                            incident_kind=kind, reason=reason, seq=seq,
+                            path=os.path.relpath(path, self.run_dir))
+        return path

@@ -18,9 +18,12 @@ held-out rows off the dataset, scored every ``train.eval_every`` epochs
 (``val_loss`` in ``metrics.jsonl``). It runs on
 the CUDA card (``cuda:LOCAL_RANK`` under torchrun, over NCCL) unless
 ``train.device=cpu`` is given (gloo). Under torchrun every process runs
-this; only process 0 writes ``resolved_config.yaml``, ``metrics.jsonl``
-and ``events.jsonl``, and every process logs to its own file
-(``<log_file>.p<rank>`` beside process 0's). Checkpoints go to
+this; only process 0 writes ``resolved_config.yaml`` and
+``metrics.jsonl``, every process logs to its own file
+(``<log_file>.p<rank>`` beside process 0's), and in a world of several
+processes (or under an elastic supervisor) each writes its own event
+stream, ``host_<i>/events.jsonl``, stamped with its ``host`` index, which
+``python -m distributed_training_tpu_torch.telemetry <run_dir>`` merges. Checkpoints go to
 ``train.snapshot_path`` (sharded under a process group), and a rerun
 with the same settings resumes from the newest one, on any mesh (a step
 saved under another world is re-cut). SIGTERM stops the run at a step
@@ -35,8 +38,21 @@ many data shards this incarnation has (``elastic.per_shard_batch``).
 Under the restart supervisor (``launch --supervise``) a restarted
 incarnation appends to the run's event stream, its ``resume`` event
 carries the restored data position, and a clean exit writes the
-exit-status sentinel ("completed" or "preempted"). Every exit, a crash
-included, ends the stream with this process's ``kernel_launches``.
+exit-status sentinel ("completed", "preempted", or "host_lost" after a
+straggler eviction). Every exit, a crash included, ends the stream with
+this process's ``kernel_launches``.
+
+Observability, as the JAX CLI wires it: each stream opens with a
+``clock_sync`` record; on process 0 the anomaly detector and the
+incident recorder observe the stream (``train.anomaly_detect``, their
+baselines replayed from the restored stream on a resume), the live
+metrics endpoint serves ``train.metrics_port`` (its port written to
+``<run_dir>/metrics.port``) and ``train.profile_at`` or a
+``<run_dir>/profile_now`` file captures a ``torch.profiler`` trace into
+``<run_dir>/profiles/``; ``train.watchdog_timeout_s`` arms the hang
+watchdog on every process (postmortems under ``host_dir/postmortem``,
+``train.watchdog_abort`` exits 42), and ``train.profile_dir`` traces the
+whole run.
 """
 
 from __future__ import annotations
@@ -71,10 +87,20 @@ from distributed_training_tpu_torch.runtime import (
     shutdown_runtime,
 )
 from distributed_training_tpu_torch.telemetry import events
-from distributed_training_tpu_torch.train.trainer import (
-    Trainer,
-    refuse_unported,
+from distributed_training_tpu_torch.telemetry.anomaly import AnomalyDetector
+from distributed_training_tpu_torch.telemetry.attribution import (
+    ProfileCapture,
 )
+from distributed_training_tpu_torch.telemetry.incident import (
+    IncidentRecorder,
+)
+from distributed_training_tpu_torch.telemetry.metrics_server import (
+    MetricsServer,
+)
+from distributed_training_tpu_torch.telemetry.summarize import load_jsonl
+from distributed_training_tpu_torch.telemetry.watchdog import HangWatchdog
+from distributed_training_tpu_torch.train.trainer import Trainer
+from distributed_training_tpu_torch.utils import profiler
 from distributed_training_tpu_torch.utils.logging import setup_logging
 from distributed_training_tpu_torch.utils.preemption import (
     PreemptionGuard,
@@ -103,7 +129,6 @@ def main(argv: list[str] | None = None) -> int:
         raise ValueError(
             "train.eval_fraction is not supported with train.data_sources "
             "(the stream has no held-out split); set eval_fraction=0")
-    refuse_unported(cfg.train)
     check_strategy(cfg.train.parallel_strategy)
     plan = None
     if cfg.train.sharding_plan:
@@ -136,16 +161,18 @@ def _run(cfg, rt, guard, run_dir: str, plan=None) -> int:
                     "batch %d", cfg.train.global_batch_size,
                     rt.data_shard_count, cfg.train.batch_size)
     evicted_hosts = elastic.evicted_from_env()
-    # Per-process state (the fault ledger) lives under host_<i>/ in a
-    # world of several processes, and under an elastic supervisor even
-    # at world 1, so a shrunken run keeps each index's ledger.
+    # Per-process state (the event stream, the fault ledger) lives under
+    # host_<i>/ in a world of several processes, and under an elastic
+    # supervisor even at world 1, so a shrunken run keeps appending to
+    # each index's stream and ledger.
     elastic_incarnation = os.environ.get(elastic.ENV_WORLD) is not None
-    host_dir = (run_dir if rt.process_count == 1 and not elastic_incarnation
-                else os.path.join(run_dir, f"host_{rt.process_index}"))
+    per_host = rt.process_count > 1 or elastic_incarnation
+    host_dir = (os.path.join(run_dir, f"host_{rt.process_index}")
+                if per_host else run_dir)
     if not cfg.train.metrics_jsonl:
         cfg.train.metrics_jsonl = os.path.join(run_dir, "metrics.jsonl")
     if not cfg.train.events_jsonl:
-        cfg.train.events_jsonl = os.path.join(run_dir, "events.jsonl")
+        cfg.train.events_jsonl = os.path.join(host_dir, "events.jsonl")
     logger.info("config loaded; %s", rt.describe())
     if rt.is_coordinator:
         save_resolved(cfg, os.path.join(run_dir, "resolved_config.yaml"))
@@ -206,27 +233,66 @@ def _run(cfg, rt, guard, run_dir: str, plan=None) -> int:
     with Checkpointer(cfg.train.snapshot_path, runtime=rt,
                       fault_injector=fault_injector) as checkpointer:
         resumed = checkpointer.latest_step() is not None
+        appending = resumed or restart_count > 0
+        # The restored stream, read before the Telemetry below opens it:
+        # the anomaly detector's baselines are replayed from it.
+        detect = cfg.train.anomaly_detect and rt.is_coordinator
+        restored_events = (load_jsonl(cfg.train.events_jsonl)
+                           if detect and appending else [])
         # Truncate only on a first incarnation: a supervised restart
         # that found no checkpoint still appends to the crashed one's
         # events.
         tel = events.install(events.Telemetry(
-            events_jsonl=(cfg.train.events_jsonl if rt.is_coordinator
-                          else None),
-            fresh=not (resumed or restart_count > 0)))
+            events_jsonl=cfg.train.events_jsonl, fresh=not appending,
+            start_step=checkpointer.latest_step() or 0,
+            host_id=rt.process_index if per_host else None))
+        watchdog = metrics_server = None
+        profile_capture = ProfileCapture(
+            run_dir, at_steps=cfg.train.profile_at,
+            n_steps=cfg.train.profile_steps, enabled=rt.is_coordinator)
+        incidents = None
         try:
+            # One barrier-anchored instant per process: the aggregator
+            # puts the per-host clocks on one axis from it.
+            tel.event("clock_sync", **rt.clock_sync_record())
             tel.event("runtime", backend=rt.backend,
                       world=rt.process_count, rank=rt.process_index,
                       mesh=rt.spec.as_dict(), device=str(rt.device),
                       device_kind=rt.device_kind,
                       strategy=cfg.train.parallel_strategy)
-            if cfg.train.anomaly_detect:
-                tel.event("anomaly_detect", running=False,
-                          reason="the anomaly detector waits for "
-                                 "ROADMAP.md queue A item 15")
+            if detect:
+                # Host-side observers of the stream: no device sync.
+                detector = AnomalyDetector(
+                    telemetry=tel, run_dir=run_dir,
+                    window=cfg.train.anomaly_window,
+                    min_samples=cfg.train.anomaly_min_samples,
+                    threshold=cfg.train.anomaly_threshold,
+                    sustain=cfg.train.anomaly_sustain,
+                    autoprofile=cfg.train.anomaly_autoprofile,
+                    host=rt.process_index)
+                if restored_events:
+                    n = detector.replay(restored_events)
+                    logger.info("anomaly baselines rebuilt from %d "
+                                "restored event(s)", n)
+                incidents = IncidentRecorder(
+                    run_dir, telemetry=tel, detector=detector,
+                    cooldown_s=cfg.train.incident_cooldown_s)
+                tel.add_observer(detector.observe)
+                tel.add_observer(incidents.observe)
+            if cfg.train.watchdog_timeout_s > 0:
+                watchdog = HangWatchdog(
+                    cfg.train.watchdog_timeout_s,
+                    os.path.join(host_dir, "postmortem"), telemetry=tel,
+                    abort=cfg.train.watchdog_abort)
+            if cfg.train.metrics_port > 0 and rt.is_coordinator:
+                metrics_server = _start_metrics_server(
+                    cfg, tel, loader, rt, restart_count, run_dir)
             trainer = Trainer(cfg, rt, model, loader, checkpointer,
                               preemption_guard=guard,
                               eval_loader=eval_loader,
-                              fault_injector=fault_injector)
+                              fault_injector=fault_injector,
+                              watchdog=watchdog,
+                              profile_capture=profile_capture)
             if (trainer.epochs_run > 0 or trainer.global_step > 0
                     or restart_count > 0):
                 tel.event("resume", step=trainer.global_step,
@@ -237,9 +303,26 @@ def _run(cfg, rt, guard, run_dir: str, plan=None) -> int:
                           **_cursor_info(loader),
                           **({"restore": checkpointer.last_restore}
                              if checkpointer.last_restore else {}))
-            summary = trainer.train()
+            if cfg.train.profile_dir:
+                with profiler.trace(cfg.train.profile_dir,
+                                    host_only_on_coordinator=True,
+                                    process_index=rt.process_index):
+                    summary = trainer.train()
+            else:
+                summary = trainer.train()
         finally:
             try:
+                if incidents is not None and guard.should_stop:
+                    # What the run looked like when the stop came.
+                    incidents.record(
+                        "preemption",
+                        reason="preemption/stop signal observed; "
+                               "stopping at a checkpoint boundary")
+                if watchdog is not None:
+                    watchdog.stop()
+                if metrics_server is not None:
+                    metrics_server.stop()
+                profile_capture.abort()  # the run ended mid-capture
                 # Drain a save in flight while the stream is open: its
                 # manifest may fire the injector's checkpoint hook.
                 checkpointer.wait()
@@ -253,12 +336,40 @@ def _run(cfg, rt, guard, run_dir: str, plan=None) -> int:
         logger.info("training done: %s%s", summary,
                     " (stopped by preemption)" if guard.should_stop else "")
     # The supervisor's exit sentinel: a preempted run exits 0 after its
-    # final save as a completed one does; only this record tells them
-    # apart. A no-op when unsupervised.
-    sup.write_exit_status(
-        sup.PREEMPTED if guard.should_stop else sup.COMPLETED,
-        step=trainer.global_step, epochs_run=trainer.epochs_run)
+    # final save as a completed one does, and so does a coordinated
+    # eviction, whose host_lost sentinel names the evictee; only this
+    # record tells them apart. A no-op when unsupervised.
+    evict = trainer.straggler.evict_request
+    if evict is not None:
+        sup.write_exit_status(
+            sup.HOST_LOST, step=trainer.global_step,
+            epochs_run=trainer.epochs_run, lost_host=evict["host"],
+            reason=evict.get("reason"))
+    else:
+        sup.write_exit_status(
+            sup.PREEMPTED if guard.should_stop else sup.COMPLETED,
+            step=trainer.global_step, epochs_run=trainer.epochs_run)
     return 0
+
+
+def _start_metrics_server(cfg, tel, loader, rt, restart_count: int,
+                          run_dir: str):
+    """The live Prometheus endpoint on ``train.metrics_port``, fed from
+    the run's sink; its bound port goes to ``<run_dir>/metrics.port``."""
+    ds = getattr(loader, "dataset", None)
+    tokens_per_sample = (getattr(ds, "seq_len", None)
+                         or cfg.train.pack_seq_len or 1)
+    server = MetricsServer(
+        cfg.train.metrics_port, telemetry=tel,
+        tokens_per_step=loader.global_batch * tokens_per_sample,
+        stall_timeout_s=cfg.train.watchdog_timeout_s,
+        info={"world_size": rt.process_count,
+              "incarnation": restart_count}).start()
+    if server is not None:
+        with open(os.path.join(run_dir, "metrics.port"), "w",
+                  encoding="utf-8") as f:
+            f.write(f"{server.port}\n")
+    return server
 
 
 def _cursor_info(loader) -> dict:

@@ -40,9 +40,23 @@ to this run's layout (``checkpoint/manager.py``). With a fault injector
 (``train.fault_plan``) the step loop calls ``step_delay`` inside the
 measured step and ``on_step`` after each step's bookkeeping, where the
 JAX trainer does. An async checkpoint's copy of the state is fenced
-before the next optimizer update. The JAX trainer's other hooks are not
-ported yet and asking for one raises, naming its ROADMAP.md queue A
-item.
+before the next optimizer update.
+
+Observability, wired as the JAX trainer wires it: a ``GoodputLedger``
+takes the depth-0 spans into its buckets and the loop emits ``goodput``
+window events every ``log_every`` steps and a run event at the end (MFU
+from the model's FLOPs against ``utils/metrics.py``'s peak for the
+card); an ``HBMSampler`` samples the card's allocator every
+``hbm_sample_every`` steps beside the state's exact bytes; the hang
+watchdog (``watchdog``, built by the CLI) is armed before each batch is
+fetched, with ten times the allowance on the first step; an in-run
+``ProfileCapture`` starts before the fetch and, once its steps are in,
+emits an ``attribution`` event; the ``StragglerDetector`` exchanges the
+window's step and data_wait times every ``straggler_every`` steps in a
+world of several processes, and a verdict that persists
+``straggler_evict_after`` windows stops every process at the same step
+for an elastic eviction. Dropout masks are seeded from ``train.seed``,
+the step, the microbatch and the data shard.
 """
 
 from __future__ import annotations
@@ -57,14 +71,21 @@ import torch
 import torch.distributed as dist
 
 from distributed_training_tpu_torch.models.base import count_params
+from distributed_training_tpu_torch.models.transformer import fold_seed
 from distributed_training_tpu_torch.parallel import fsdp, planner
 from distributed_training_tpu_torch.parallel.strategy import (
     get_strategy,
     layout as strategy_layout,
 )
 from distributed_training_tpu_torch.parallel.tensor import TPGroup
+from distributed_training_tpu_torch.resilience import elastic
 from distributed_training_tpu_torch.runtime import MESH_AXES
 from distributed_training_tpu_torch.telemetry import events as telemetry
+from distributed_training_tpu_torch.telemetry.goodput import GoodputLedger
+from distributed_training_tpu_torch.telemetry.hbm import HBMSampler
+from distributed_training_tpu_torch.telemetry.straggler import (
+    StragglerDetector,
+)
 from distributed_training_tpu_torch.train import state as state_lib
 from distributed_training_tpu_torch.train.optimizer import (
     build_optimizer,
@@ -72,32 +93,15 @@ from distributed_training_tpu_torch.train.optimizer import (
     global_norm,
 )
 from distributed_training_tpu_torch.utils import diagnostics
-from distributed_training_tpu_torch.utils.metrics import MetricsLogger
+from distributed_training_tpu_torch.utils.memory import (
+    state_bytes_per_device,
+)
+from distributed_training_tpu_torch.utils.metrics import (
+    MetricsLogger,
+    peak_flops_per_chip,
+)
 
 logger = logging.getLogger(__name__)
-
-# TrainConfig fields whose feature is not ported yet: field → (the value
-# that leaves it off, what it is, its ROADMAP.md queue A item).
-_UNPORTED = {
-    "straggler_evict_after": (0, "straggler eviction (the straggler "
-                              "detector)", 15),
-    "watchdog_timeout_s": (0.0, "the hang watchdog", 15),
-    "profile_dir": ("", "whole-run profiling", 15),
-    "profile_at": ("", "in-run profile capture", 15),
-    "metrics_port": (0, "the live metrics endpoint", 15),
-    "hbm_sample_every": (0, "HBM sampling", 15),
-}
-
-
-def refuse_unported(tcfg) -> None:
-    """Raise for a TrainConfig that asks for a feature this port does
-    not run."""
-    for name, (off, what, item) in _UNPORTED.items():
-        if getattr(tcfg, name) not in (off, None):
-            raise NotImplementedError(
-                f"train.{name}={getattr(tcfg, name)!r}: {what} waits for "
-                f"ROADMAP.md queue A item {item}")
-
 
 def microbatches(batch: Mapping, a: int) -> list:
     """The strided split of the JAX step: microbatch ``i`` holds rows
@@ -109,14 +113,21 @@ def microbatches(batch: Mapping, a: int) -> list:
 
 def make_train_step(model, optimizer, nan_guard: bool = False,
                     grad_accum_steps: int = 1, layout: dict | None = None,
-                    runtime=None, before_update=None):
+                    runtime=None, before_update=None,
+                    dropout_seed: int | None = None):
     """The train step ``(state, batch) -> metrics``, updating ``state``
     in place. With ``nan_guard``, a step whose loss or gradient norm is
     not finite leaves params and optimizer state as they were (one host
     sync per step to decide). ``layout``/``runtime``: the placements of
     the state's leaves over the runtime's mesh (None: one process,
     whole leaves). ``before_update``: called right before the in-place
-    update (the checkpointer's fence on an async save's copy)."""
+    update (the checkpointer's fence on an async save's copy). The
+    step's ``sync_s`` attribute holds the host seconds its last call
+    spent in the gradient synchronisation (0 without a process group).
+    ``dropout_seed``: the run's seed, from which each microbatch's
+    dropout seed is folded with the step, the microbatch index and this
+    process's data shard (None: the model draws no masks)."""
+    shard = runtime.data_shard_index if runtime is not None else 0
     pls = (layout or {}).get("params", {})
     opt_pls = (layout or {}).get("opt", {})
     tp_partial = (layout or {}).get("tp_partial", ())
@@ -136,8 +147,10 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
         leaves = list(flat.values())
         grads, metrics = None, {}
         micro = microbatches(batch, grad_accum_steps)
-        for mb in micro:
-            loss, m = model.loss(params, mb, train=True)
+        for i, mb in enumerate(micro):
+            rng = (None if dropout_seed is None else
+                   fold_seed(dropout_seed, state["step"] + 1, i, shard))
+            loss, m = model.loss(params, mb, rng=rng, train=True)
             g = torch.autograd.grad(loss, leaves)
             grads = list(g) if grads is None else [
                 a + b for a, b in zip(grads, g)]
@@ -147,6 +160,7 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
         if len(micro) > 1:
             grads = {k: g / len(micro) for k, g in grads.items()}
             metrics = {k: v / len(micro) for k, v in metrics.items()}
+        t_sync = time.perf_counter()
         if sharded:
             fsdp.average_grads(grads, pls, runtime, tp_partial)
             metrics = fsdp.mean_over_data(metrics, runtime)
@@ -157,6 +171,9 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
         gnorm = global_norm(grads.values(),
                             [norm_groups.get(k) for k in grads])
         metrics["grad_norm"] = gnorm
+        # Host seconds in the gradient synchronisation: on a blocking
+        # backend (gloo) they are the wait for the slowest process.
+        train_step.sync_s = time.perf_counter() - t_sync if sharded else 0.0
         ok = True
         if nan_guard:
             ok = bool(torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm))
@@ -181,6 +198,7 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
         state["step"] += 1
         return metrics
 
+    train_step.sync_s = 0.0
     return train_step
 
 
@@ -196,12 +214,16 @@ class Trainer:
 
     def __init__(self, cfg, runtime, model, loader, checkpointer=None,
                  preemption_guard=None, params: dict | None = None,
-                 eval_loader=None, fault_injector=None):
+                 eval_loader=None, fault_injector=None, watchdog=None,
+                 profile_capture=None):
         """``params``: whole weights to start from instead of the
         seed's init (ignored when a checkpoint resumes).
         ``eval_loader``: the held-out rows, scored every ``eval_every``
         epochs. ``fault_injector``: a ``resilience.faults.FaultInjector``
-        whose step hooks the loop calls."""
+        whose step hooks the loop calls. ``watchdog``: a
+        ``telemetry.watchdog.HangWatchdog`` armed around each step
+        (owned by the caller). ``profile_capture``: a
+        ``telemetry.attribution.ProfileCapture`` (None: no capture)."""
         self.cfg = cfg
         self.rt = runtime
         self.model = model
@@ -212,11 +234,22 @@ class Trainer:
         # utils/preemption.py. None → never stops early.
         self.preemption_guard = preemption_guard
         self.faults = fault_injector
+        self.watchdog = watchdog
+        self.profiles = profile_capture
+        self.ledger = None
+        self.hbm = None
         self._stop_agreed = False
         self.telemetry = telemetry.current()
         self._steps_dispatched = 0
+        self._div_check_done = False
         tcfg = cfg.train
-        refuse_unported(tcfg)
+        # A no-op in a world of one process or with straggler_every=0.
+        self.straggler = StragglerDetector(
+            runtime, every=tcfg.straggler_every,
+            threshold=tcfg.straggler_threshold,
+            persist=tcfg.straggler_persist,
+            evict_after=tcfg.straggler_evict_after,
+            elastic_dir=os.environ.get(elastic.ENV_ELASTIC_DIR))
         if runtime.process_count > 1 and runtime.mesh is None:
             raise RuntimeError(
                 f"a world of {runtime.process_count} processes without a "
@@ -255,7 +288,10 @@ class Trainer:
             model, self.optimizer, nan_guard=tcfg.nan_guard,
             grad_accum_steps=tcfg.grad_accum_steps,
             layout=self.layout, runtime=runtime,
-            before_update=getattr(checkpointer, "fence", None))
+            before_update=getattr(checkpointer, "fence", None),
+            dropout_seed=(tcfg.seed if getattr(getattr(model, "cfg", None),
+                                               "dropout", 0.0) > 0.0
+                          else None))
 
         self.epochs_run = 0
         restored = (checkpointer.restore_latest(model.device, self.layout)
@@ -292,6 +328,36 @@ class Trainer:
             start_step=self.global_step,
             on_entry=lambda entry: self.telemetry.event("train_metrics",
                                                         **entry))
+        # The HBM samples' cross-check: this process's state bytes on
+        # its device (moments offloaded to the host count zero).
+        self._state_bytes_est = (
+            state_bytes_per_device(self.state["params"], device=model.device)
+            + state_bytes_per_device(self.state["opt_state"],
+                                     device=model.device))
+        self._flops_per_step = flops_per_sample * loader.global_batch
+        self._bind_telemetry()
+
+    def _bind_telemetry(self) -> None:
+        """(Re)resolve the ambient Telemetry and build the goodput ledger
+        and the HBM sampler against it: at construction and at the top of
+        ``train``, so a sink installed after the Trainer was built still
+        gets the trainer's spans."""
+        tel = telemetry.current()
+        if tel is self.telemetry and (self.ledger is not None
+                                      or not tel.enabled):
+            return
+        self.telemetry = tel
+        if not tel.enabled:
+            self.ledger = self.hbm = None
+            return
+        self.ledger = GoodputLedger(
+            flops_per_step=self._flops_per_step,
+            num_devices=self.rt.num_devices,
+            peak_flops=peak_flops_per_chip(self.rt.device_kind) or 0.0)
+        tel.attach_ledger(self.ledger)
+        self.hbm = HBMSampler(tel, every=self.cfg.train.hbm_sample_every,
+                              estimate_bytes=self._state_bytes_est,
+                              device=self.model.device)
 
     # -- layout ------------------------------------------------------------
 
@@ -401,6 +467,14 @@ class Trainer:
 
     # -- cooperative stop / health ----------------------------------------
 
+    @property
+    def _stopping_early(self) -> bool:
+        """Leaving the run before its epochs are done: preemption
+        (agreed by every process) or a coordinated eviction stop. Both
+        force a final save; the CLI's exit sentinel says which."""
+        return (self._stop_agreed
+                or self.straggler.evict_request is not None)
+
     def _agreed_stop(self) -> bool:
         """Whether to break the step loop, agreed by every process: a
         process that breaks while the others run the next step would
@@ -467,24 +541,100 @@ class Trainer:
         self.global_step += 1
         return metrics
 
+    def _sync(self) -> None:
+        """Wait for the card's queued work (nothing on the CPU)."""
+        if self.model.device.type == "cuda":
+            torch.cuda.synchronize(self.model.device)
+
     def _run_epoch(self, epoch: int) -> dict:
         losses = []
-        div_every = self.cfg.train.divergence_check_every
+        tcfg = self.cfg.train
+        div_every, log_every = tcfg.divergence_check_every, tcfg.log_every
         it = iter(self.loader.epoch(epoch))
         try:
             while True:
+                if self.watchdog is not None:
+                    # Armed before the fetch: a stalled loader is inside
+                    # the window. The first step builds the kernels, so
+                    # it gets ten times the allowance.
+                    self.watchdog.arm(
+                        step=self.global_step + 1, epoch=epoch,
+                        timeout_s=(self.watchdog.timeout_s * 10
+                                   if self._steps_dispatched == 0
+                                   else None))
+                if self.profiles is not None:
+                    # Started before the fetch, so the captured window
+                    # holds the step's data wait.
+                    self.profiles.maybe_start(self.global_step + 1)
+                t_wait0 = time.perf_counter()
                 with self.telemetry.span("data_wait",
                                          step=self.global_step + 1):
                     batch = next(it, None)
+                data_wait_s = time.perf_counter() - t_wait0
                 if batch is None:
+                    if self.watchdog is not None:
+                        self.watchdog.disarm()
                     break
+                t_step0 = time.perf_counter()
                 metrics = self.train_step(batch)
+                if self.straggler.enabled:
+                    # The step's own host time: without the wait for the
+                    # slowest process inside a blocking gradient sync,
+                    # which would make every process look as slow.
+                    self.straggler.record_step(
+                        time.perf_counter() - t_step0
+                        - self._step_fn.sync_s, data_wait_s)
+                    # A collective on a cadence of global_step: every
+                    # process enters it at the same loop point.
+                    if (self.straggler.maybe_exchange(self.global_step)
+                            is not None and self.watchdog is not None):
+                        self.watchdog.set_context(
+                            self.straggler.watchdog_info())
+                if self.straggler.evict_request is not None:
+                    # Every process sees the request at this exchange
+                    # step: all leave together, save and exit.
+                    if self.watchdog is not None:
+                        self.watchdog.disarm()
+                    logger.warning(
+                        "stopping for elastic eviction of host %s "
+                        "(requested at step %s)",
+                        self.straggler.evict_request.get("host"),
+                        self.straggler.evict_request.get("step"))
+                    self.metrics.record(self.global_step, metrics,
+                                        epoch=epoch)
+                    losses.append(metrics["loss"])
+                    break
                 if div_every and self.global_step % div_every == 0:
+                    if (self.watchdog is not None
+                            and not self._div_check_done):
+                        # The first check's collectives run inside the
+                        # armed window: the first step's allowance.
+                        self.watchdog.arm(
+                            step=self.global_step, epoch=epoch,
+                            timeout_s=self.watchdog.timeout_s * 10)
+                    self._div_check_done = True
                     report = self._check_divergence()
                     if report is not None:
                         metrics = {**metrics, "replica_divergence":
                                    report["max_divergence"]}
                 self.metrics.record(self.global_step, metrics, epoch=epoch)
+                if self.hbm is not None:
+                    self.hbm.maybe_sample(self.global_step)
+                if (self.ledger is not None and log_every > 0
+                        and self.global_step % log_every == 0):
+                    self.telemetry.event(
+                        "goodput", scope="window", step=self.global_step,
+                        **self.ledger.window_report())
+                if self.watchdog is not None:
+                    self.watchdog.disarm()
+                if self.profiles is not None:
+                    # The capture's last step: the sync puts its device
+                    # work in the trace, after the step span closed (it
+                    # books to idle, not to the step bucket).
+                    rep = self.profiles.maybe_stop(self.global_step,
+                                                   sync=self._sync)
+                    if rep is not None:
+                        self.telemetry.event("attribution", **rep)
                 losses.append(metrics["loss"])
                 if self.faults is not None:
                     # Before the stop poll: a sigterm fault raised here
@@ -507,7 +657,12 @@ class Trainer:
         max_epochs = max_epochs or self.cfg.train.total_epochs
         summary: dict = {}
         t0 = time.perf_counter()
-        self.telemetry = telemetry.current()
+        self._bind_telemetry()
+        if self.ledger is not None:
+            # The ledger's wall clock starts at the loop, not at the
+            # trainer's construction (init and restore are in the
+            # stream, not in this run's goodput).
+            self.ledger.reset()
         for epoch in range(self.epochs_run, max_epochs):
             summary = self._run_epoch(epoch)
             if self.rt.is_coordinator:
@@ -516,13 +671,13 @@ class Trainer:
             eval_every = self.cfg.train.eval_every
             if (self.eval_loader is not None and eval_every
                     and (epoch + 1) % eval_every == 0
-                    and not self._stop_agreed):
+                    and not self._stopping_early):
                 summary["val_loss"] = self.evaluate(
                     self.eval_loader.epoch(epoch))
                 # Unthrottled: never dropped by the log_every window.
                 self.metrics.record_scalar(self.global_step, "val_loss",
                                            summary["val_loss"], epoch=epoch)
-            preempted = self._stop_agreed
+            preempted = self._stopping_early
             save_every = self.cfg.train.save_every
             if self.checkpointer is not None and (
                     preempted or (save_every > 0
@@ -532,13 +687,24 @@ class Trainer:
                 # rides the meta, so the resume continues the epoch.
                 self._save(epoch, force=preempted)
             if preempted:
-                logger.warning("stopping at epoch %d due to preemption",
-                               epoch)
+                logger.warning("stopping at epoch %d due to %s", epoch,
+                               "preemption" if self._stop_agreed
+                               else "elastic eviction")
                 break
             self.epochs_run = epoch + 1
         if self.checkpointer is not None:
             self.checkpointer.wait()
         summary["wall_time_s"] = time.perf_counter() - t0
+        if self.ledger is not None:
+            rep = self.ledger.report()
+            self.telemetry.event("goodput", scope="run",
+                                 step=self.global_step, **rep)
+            summary["goodput"] = rep
+            if self.rt.is_coordinator:
+                logger.info(
+                    "goodput %.1f%% over %.1fs wall (%d steps): %s",
+                    100 * rep["goodput"], rep["wall_s"], rep["steps"],
+                    rep["buckets"])
         return summary
 
     def evaluate(self, batches) -> float:

@@ -70,10 +70,13 @@ def test_two_process_mlp_cli(tmp_path):
     logs = "".join(p.read_text() for p in (tmp_path / "logs").iterdir())
     assert report.returncode == 0, logs[-3000:]
     assert report.completed == (0, 1) and report.world_size == 2
-    events = [json.loads(line) for line in
-              open(out / "default" / "events.jsonl")]
-    rt = next(e for e in events if e.get("kind") == "runtime")
-    assert rt["world"] == 2 and rt["backend"] == "gloo"
+    # Each process writes its own stream, stamped with its host index.
+    for host in (0, 1):
+        events = [json.loads(line) for line in open(
+            out / "default" / f"host_{host}" / "events.jsonl")]
+        rt = next(e for e in events if e.get("kind") == "runtime")
+        assert rt["world"] == 2 and rt["backend"] == "gloo"
+        assert rt["rank"] == rt["host"] == host
     assert os.path.exists(out / "ckpt" / "4" / "layout.json")
     # One process over the same global batches (2 shards x 8 rows).
     one = tmp_path / "one"
@@ -128,10 +131,17 @@ def test_exit_codes_aggregate(tmp_path):
 
 
 def test_port_retry(tmp_path):
-    script = ("import os, sys; a = os.environ['DTT_PORT_ATTEMPT']; "
+    # Rank 0 of the first attempt fails as a bind failure does, once
+    # rank 1 has written its port: the group is killed at the first
+    # failure, so a rank 1 slow to start under load would otherwise die
+    # before writing it.
+    script = ("import os, sys, time; a = os.environ['DTT_PORT_ATTEMPT']; "
               "open(os.path.join(sys.argv[1], 'port' + a + '_' + "
               "os.environ['RANK']), 'w').write(os.environ['MASTER_PORT']); "
               "r = os.environ['RANK']; "
+              "[time.sleep(0.05) for _ in range(600) if (a, r) == "
+              "('0', '0') and not os.path.exists(os.path.join("
+              "sys.argv[1], 'port0_1'))]; "
               "print('EADDRINUSE: address already in use', flush=True) "
               "if (a, r) == ('0', '0') else None; "
               "sys.exit(1 if (a, r) == ('0', '0') else 0)")

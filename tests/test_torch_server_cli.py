@@ -98,10 +98,12 @@ def test_engine_config_from_yaml_matches_jax(name, block):
 
 def test_no_deferral_names_left_in_the_port():
     """No deferral that a landed slice made untrue is left: items 12 and
-    13's names, and any mention of item 14 (resilience and exactly-once
-    data)."""
+    13's names, and any mention of items 14 (resilience and exactly-once
+    data) and 15 (telemetry and utils), of item 3 (the remat and dropout
+    refusals named its RoPE/GQA half) and of item 7 (serving on a mesh,
+    which the ``apply`` refusal under tp named)."""
     names = ("OPS_ITEM", "CLI_ITEM", "MESH_ITEM", "INCIDENTS_ITEM")
-    item14 = re.compile(r"item\s+14\b|items\s+14\b")
+    item14 = re.compile(r"items?\s+(?:14|15|3|7)\b")
     pkg = os.path.join(REPO, "distributed_training_tpu_torch")
     found = []
     for root, _dirs, files in os.walk(pkg):

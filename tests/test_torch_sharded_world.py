@@ -35,6 +35,10 @@ from distributed_training_tpu_torch.models import transformer as port_tf
 from distributed_training_tpu_torch.ops.xent import lm_cross_entropy
 from distributed_training_tpu_torch.parallel import fsdp
 from distributed_training_tpu_torch.parallel import tensor as tp_lib
+from distributed_training_tpu_torch.parallel.strategy import (
+    get_strategy,
+    layout as strategy_layout,
+)
 from distributed_training_tpu_torch.runtime import initialize_runtime
 from distributed_training_tpu_torch.train.optimizer import (
     flatten,
@@ -93,12 +97,25 @@ def tp_ops_inputs(seed: int = 3) -> dict:
             "scale": rng.standard_normal(D).astype(f32)}
 
 
+# The model ``Transformer.apply`` runs under the tp binding in a
+# ``tp_ops`` run (tp 2 splits its heads, MLP width and vocab), and the
+# tokens it reads.
+TP_APPLY_MODEL = dict(vocab_size=64, d_model=16, n_layers=2, n_heads=2,
+                      max_seq_len=12, dtype="float32")
+
+
+def tp_apply_tokens(seed: int = 5) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 64, (2, 12))
+
+
 def _tp_ops(job: dict, run: dict) -> dict:
     """The vocab-parallel cross-entropy and embedding on this rank's
     columns and rows of ``tp_ops_inputs``, and ``copy_to_tp`` /
     ``reduce_from_tp`` on rank-weighted inputs, over the tp group of
     ``run["mesh"]``; their whole results (gathered over the group) and
-    the all-reduces each launched."""
+    the all-reduces each launched. Then ``Transformer.apply`` of
+    ``TP_APPLY_MODEL`` (weights from seed 0) on this rank's blocks of
+    the weights: its logits over the whole vocab."""
     cfg = port_config.Config()
     cfg.train.device = "cpu"
     for k, v in run["mesh"].items():
@@ -133,11 +150,21 @@ def _tp_ops(job: dict, run: dict) -> dict:
     (reduced * inp["scale"]).sum().backward()
     z = inp["x"].clone().requires_grad_(True)
     (tp.copy(z) * inp["scale"] * (tp.rank + 1)).sum().backward()
-    return {"tp": tp.size, "nll": nll.detach(), "dx": x.grad,
-            "dhead": whole(head.grad, 1), "emb": emb.detach(),
-            "dtable": whole(table.grad, 0), "reduced": reduced.detach(),
-            "dy": y.grad, "dz": z.grad,
-            "all_reduces": dict(tp_lib.ALL_REDUCES)}
+    out = {"tp": tp.size, "nll": nll.detach(), "dx": x.grad,
+           "dhead": whole(head.grad, 1), "emb": emb.detach(),
+           "dtable": whole(table.grad, 0), "reduced": reduced.detach(),
+           "dy": y.grad, "dz": z.grad,
+           "all_reduces": dict(tp_lib.ALL_REDUCES)}
+    model = port_tf.Transformer(port_tf.TransformerConfig(**TP_APPLY_MODEL),
+                                device="cpu")
+    lay = strategy_layout(get_strategy("tp", rt.spec, min_shard_elems=0),
+                          flatten(model.param_shapes()),
+                          flatten(model.logical_axes()))
+    local = unflatten({k: fsdp.shard(w, lay["params"][k], rt)
+                       for k, w in flatten(model.init(0)).items()})
+    model.bind_tensor_parallel(tp)
+    out["apply"] = model.apply(local, tp_apply_tokens())[0]
+    return out
 
 
 def _run(job: dict, run: dict, rank: int) -> dict:

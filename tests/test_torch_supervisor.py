@@ -284,7 +284,12 @@ def _tail(log_dir) -> str:
 
 
 def run_events(root) -> list:
-    return _read_jsonl(os.path.join(root, "out", "default", "events.jsonl"))
+    """Process 0's event stream (``host_0/`` in a world of several
+    processes or under an elastic supervisor)."""
+    run = os.path.join(root, "out", "default")
+    flat = os.path.join(run, "events.jsonl")
+    return _read_jsonl(flat if os.path.exists(flat)
+                       else os.path.join(run, "host_0", "events.jsonl"))
 
 
 def losses_by_step(root) -> dict:

@@ -13,7 +13,10 @@ In the 2-process gloo world that ``tests/test_torch_sharded.py`` spawns
   against plain indexing, its values bit for bit and its gradient;
 - ``reduce_from_tp`` (forward sum, gradient passed through) and
   ``copy_to_tp`` (gradient summed) on rank-weighted inputs, and the
-  all-reduces each launched.
+  all-reduces each launched;
+- ``Transformer.apply`` under the tp binding (each rank's blocks of the
+  weights) against the unbound ``apply`` in this process: the whole
+  vocab's f32 logits, within 1e-5.
 
 In this process, in a gloo group of one: the block bound to a tp group
 of one gives the unbound block's loss and gradients bit for bit under
@@ -37,7 +40,11 @@ from distributed_training_tpu_torch.parallel import tensor as tp_lib
 from distributed_training_tpu_torch.train import cli as port_cli
 from distributed_training_tpu_torch.train.optimizer import flatten
 from test_torch_sharded import spawned
-from test_torch_sharded_world import tp_ops_inputs
+from test_torch_sharded_world import (
+    TP_APPLY_MODEL,
+    tp_apply_tokens,
+    tp_ops_inputs,
+)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -105,6 +112,17 @@ def test_kv_heads_of_rank_feed_each_query_head_its_kv_head(n_heads,
             (rank * per + j) // group for j in range(per)]
 
 
+def test_apply_under_tp_gives_the_whole_vocab_logits(tp_ops):
+    model = port_tf.Transformer(port_tf.TransformerConfig(**TP_APPLY_MODEL),
+                                device="cpu")
+    want, _ = model.apply(model.init(0), tp_apply_tokens())
+    got = tp_ops["apply"]
+    assert got.shape == want.shape == (2, 12, TP_APPLY_MODEL["vocab_size"])
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_bind_refuses_splits_tp_does_not_divide():
     model = port_tf.Transformer(port_tf.TransformerConfig(
         vocab_size=64, d_model=48, n_layers=1, n_heads=6, dtype="float32"),
@@ -112,8 +130,6 @@ def test_bind_refuses_splits_tp_does_not_divide():
     with pytest.raises(ValueError, match="n_heads=6 does not split over tp=4"):
         model.bind_tensor_parallel(SimpleNamespace(size=4, rank=0))
     model.bind_tensor_parallel(SimpleNamespace(size=2, rank=1, group=None))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model.apply({}, np.zeros((1, 4), np.int64))
     model.cfg.loss_impl = "dense"
     with pytest.raises(ValueError, match="loss_impl='fused'"):
         model.loss(model.init(0), {"tokens": np.zeros((1, 5), np.int64)})

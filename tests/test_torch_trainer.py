@@ -145,8 +145,9 @@ def test_cli_save_stop_resume_matches_uninterrupted(tmp_path):
 def test_cli_refuses_unported_features(tmp_path):
     """Tensor parallelism runs: ``mesh.tp=2`` in a world of one is the
     mesh error, as any axis that needs more processes; sequence and
-    pipeline parallelism name ROADMAP item 16, and a field still
-    unported names its item."""
+    pipeline parallelism name ROADMAP item 16. No train field is refused
+    any more: straggler eviction runs, and in a world of one its detector
+    is a no-op."""
     with pytest.raises(MeshSpecError, match="needs 2 devices"):
         cli.main(["train.device=cpu", "train.parallel_strategy=tp",
                   "mesh.dp=1", "mesh.tp=2", "model=gpt2_125m", "train=gpt2",
@@ -164,9 +165,10 @@ def test_cli_refuses_unported_features(tmp_path):
                   "train.dataset_kwargs.vocab_size=64",
                   "model=gpt2_125m", "train=gpt2",
                   f"run.output_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli.main(["train.device=cpu", "train.straggler_evict_after=2",
-                  f"run.output_dir={tmp_path}"])
+    assert cli.main(["train.device=cpu", "train.straggler_evict_after=2",
+                     "train.straggler_every=1", "train.dataset_size=8",
+                     "train.batch_size=4", f"run.output_dir={tmp_path}",
+                     f"train.snapshot_path={tmp_path}/ckpt"]) == 0
 
 
 def test_sigterm_mid_run_saves_a_checkpoint_that_resumes(tmp_path,
@@ -174,7 +176,8 @@ def test_sigterm_mid_run_saves_a_checkpoint_that_resumes(tmp_path,
     """SIGTERM after step 4 of 6 (2 epochs of 3): the CLI's PreemptionGuard stops the
     run after that step with a mid-epoch save; rerunning resumes there
     and ends identical to an uninterrupted run. The event stream says
-    which runtime ran and that the anomaly detector does not."""
+    which runtime ran, opens with its clock-sync record and ends the run
+    with the goodput ledger's report."""
     import signal
 
     step = Trainer.train_step
@@ -201,7 +204,11 @@ def test_sigterm_mid_run_saves_a_checkpoint_that_resumes(tmp_path,
     kinds = {e["kind"]: e for e in events}
     assert kinds["runtime"]["backend"] is None
     assert kinds["runtime"]["world"] == 1
-    assert kinds["anomaly_detect"]["running"] is False
+    assert kinds["clock_sync"]["process_count"] == 1
+    assert isinstance(kinds["clock_sync"]["t_sync"], float)
+    assert kinds["goodput"]["scope"] == "run"
+    assert kinds["goodput"]["steps"] == 3  # steps 2-4; step 1 compiles
+    assert "anomaly_detect" not in kinds
     assert _cli(tmp_path / "a", 2) == 0
     assert _cli(tmp_path / "b", 2) == 0
     step_a, a = _final_params(tmp_path / "a")
