@@ -126,7 +126,20 @@ a seed:
   stacks and an incident bundle the doctor reads (``train_watchdog``);
   and GPT-2's dropout, a fused run and two split reruns equal bit for
   bit, the fused run with a planted slow host that the anomaly detector
-  must flag (``train_dropout``).
+  must flag (``train_dropout``);
+- sequence parallelism at sp 2, gpt2_125m at full width (batch 8,
+  sequence 1024, conf/train/gpt2.yaml) in two processes on ``cuda:0``
+  over gloo, each holding 512 positions of every row, against world 1 on
+  the same batches with a planted fault (gradients left unsummed over
+  sp) that must fall outside the limits: ring attention, its blocks on
+  B1 (the diagonal causal, the past block non-causal, f32 out) and the
+  split backward B3a/B3b, with a rerun that repeats its bits
+  (``train_sp2_ring``); Ulysses, its local attention on B1 and B2 over 6
+  heads and the whole sequence (``train_sp2_ulysses``); and the ring
+  under a window of 256, the diagonal block's band on the kernels and
+  the offset block on the plain path (``train_sp2_ring_window``). The
+  kernel phase holds the ring's blocks at that shard (B 8, H 12, S 512)
+  against their plain versions.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -223,6 +236,22 @@ TRAIN_1B_STEPS = 10
 TRAIN_TP2_STEPS = 5
 TP_LOSS_RTOL = 1e-4
 TP_GRAD_NORM_RTOL = 3e-3
+# Sequence parallelism at sp 2 (train_sp2_ring, train_sp2_ulysses,
+# train_sp2_ring_window): gpt2_125m in two processes on cuda:0 over gloo,
+# each holding 512 of the 1024 positions of every row. The sound run
+# takes TRAIN_SP2_STEPS steps and is held over its first SP2_HELD_STEPS
+# against one process with the single-process flash attention on the
+# same batches, at the tp 2 limits; a ring rerun repeats the sound run's
+# losses and gradient norms bit for bit over SP2_HELD_STEPS steps; the
+# planted fault (each process's gradients left unsummed over sp) runs
+# SP2_HELD_STEPS steps and must fall outside the limits. The windowed
+# ring takes SP2_WINDOW_STEPS steps at window SP2_WINDOW.
+TRAIN_SP2_STEPS = 10
+SP2_HELD_STEPS = 5
+SP2_WINDOW = 256
+SP2_WINDOW_STEPS = 4
+SP_LOSS_RTOL = TP_LOSS_RTOL
+SP_GRAD_NORM_RTOL = TP_GRAD_NORM_RTOL
 # Serving on a mesh (serving_dp2, serving_tp2): two processes on cuda:0
 # over gloo, each one mesh rank. At float32 the logits of the first
 # decoded position of every request, mesh engine against one process,
@@ -397,14 +426,14 @@ def _design_taken(fn, before: dict) -> str:
 
 
 def _flash_case(timer, B, H, Hkv, S, D, dtype, window=0, out_dtype=None,
-                block_k=0, library=False) -> dict:
+                block_k=0, library=False, causal=True) -> dict:
     from distributed_training_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     q = torch.randn(B, H, S, D, generator=g, device="cuda").to(dtype)
     k = torch.randn(B, Hkv, S, D, generator=g, device="cuda").to(dtype)
     v = torch.randn(B, Hkv, S, D, generator=g, device="cuda").to(dtype)
-    kw = dict(causal=True, window=window, out_dtype=out_dtype)
+    kw = dict(causal=causal, window=window, out_dtype=out_dtype)
     before = dict(fa.flash_fwd.launches_by_design)
     o, lse = fa.flash_fwd(q, k, v, block_k=block_k, **kw)
     torch.cuda.synchronize()
@@ -415,22 +444,18 @@ def _flash_case(timer, B, H, Hkv, S, D, dtype, window=0, out_dtype=None,
     # The plain version rounds the softmax weights to the input type.
     tol = TOL[dtype]
     check(torch.allclose(o.float(), ro.float(), rtol=tol, atol=tol),
-          f"flash_fwd {B}x{H}/{Hkv}x{S}x{D} {dtype} w={window}: max err "
-          f"{err} > {tol}")
+          f"flash_fwd {B}x{H}/{Hkv}x{S}x{D} {dtype} w={window} "
+          f"causal={causal}: max err {err} > {tol}")
     check(err_lse <= LSE_TOL, f"flash_fwd lse max err {err_lse}")
     # Live (query, key) pairs of this mask: what the work needs.
-    rows = torch.arange(S, device="cuda")[:, None]
-    cols = torch.arange(S, device="cuda")[None, :]
-    live = cols <= rows
-    if window:
-        live &= cols >= rows - (window - 1)
-    pairs = int(live.sum()) * B * H
+    live = fa._live_mask(S, S, causal, window, "cuda")
+    pairs = (int(live.sum()) if live is not None else S * S) * B * H
     out_size = torch.empty((), dtype=out_dtype or dtype).element_size()
     nbytes = (q.numel() + k.numel() + v.numel()) * q.element_size() \
         + o.numel() * out_size + lse.numel() * 4
     bound_ms, bound_by = bound(4.0 * pairs * D, nbytes, dtype)
     res = {"shape": [B, H, Hkv, S, D], "dtype": str(dtype).split(".")[1],
-           "design": design, "window": window,
+           "design": design, "window": window, "causal": causal,
            "out_dtype": str(out_dtype or dtype).split(".")[1],
            "block_k": block_k or fa.DEFAULT_BLOCK_K,
            "max_abs_err": err, "max_abs_err_lse": err_lse,
@@ -442,7 +467,7 @@ def _flash_case(timer, B, H, Hkv, S, D, dtype, window=0, out_dtype=None,
     if library:
         # Yardstick only: the port never calls SDPA.
         res["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=Hkv != H))
+            q, k, v, is_causal=causal, enable_gqa=Hkv != H))
     return res
 
 
@@ -578,7 +603,7 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def _bwd_case(timer, B, H, Hkv, S, D, dtype, split, window=0,
-              grads_dtype=None, library=False) -> dict:
+              grads_dtype=None, library=False, causal=True) -> dict:
     """The backward kernels on one shape: fused (B2) or the split pair
     (B3a dq, B3b dk/dv), each held against flash_bwd_reference, with the
     design each launch took. Where the limit is GRADS_F32_OF_BF16_TOL,
@@ -592,7 +617,7 @@ def _bwd_case(timer, B, H, Hkv, S, D, dtype, split, window=0,
     q, k, v = (torch.randn(B, h, S, D, generator=g, device="cuda").to(dtype)
                for h in (H, Hkv, Hkv))
     do = torch.randn(B, H, S, D, generator=g, device="cuda").to(dtype)
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = (do.float() * out.float()).sum(-1, keepdim=True)
     args = (q, k, v, do, lse, delta)
@@ -609,13 +634,13 @@ def _bwd_case(timer, B, H, Hkv, S, D, dtype, split, window=0,
         runs = {"flash_bwd_fused": (fa.flash_bwd_fused,
                                     lambda: fa.flash_bwd_fused(*args, **kw),
                                     ref, 10)}
-    live = fa._live_mask(S, S, True, window, "cuda")
-    pairs = int(live.sum()) * B * H
+    live = fa._live_mask(S, S, causal, window, "cuda")
+    pairs = (int(live.sum()) if live is not None else S * S) * B * H
     in_bytes = sum(t.numel() * t.element_size() for t in args)
     gsize = torch.empty((), dtype=grads_dtype or dtype).element_size()
     res = {"shape": [B, H, Hkv, S, D], "dtype": str(dtype).split(".")[1],
-           "window": window, "grads_dtype": str(grads_dtype or dtype)
-           .split(".")[1]}
+           "window": window, "causal": causal,
+           "grads_dtype": str(grads_dtype or dtype).split(".")[1]}
     for name, (wrapper, fn, want, flops_per_dim) in runs.items():
         before = dict(wrapper.launches_by_design)
         got = fn()
@@ -636,8 +661,9 @@ def _bwd_case(timer, B, H, Hkv, S, D, dtype, split, window=0,
             entry["bf16_rounded_control_rel_err"] = ctrl
         errs = [_rel_err(a, b) for a, b in zip(got, want)]
         check(max(errs) <= tol,
-              f"{name} {B}x{H}/{Hkv}x{S}x{D} {dtype} w={window}: error "
-              f"{max(errs)} of the largest gradient > {tol}")
+              f"{name} {B}x{H}/{Hkv}x{S}x{D} {dtype} w={window} "
+              f"causal={causal}: error {max(errs)} of the largest "
+              f"gradient > {tol}")
         if split:
             again = fn()
             torch.cuda.synchronize()
@@ -663,7 +689,7 @@ def _bwd_case(timer, B, H, Hkv, S, D, dtype, split, window=0,
         # Yardstick only: the backward of one SDPA call at the same
         # shape (the port never calls SDPA).
         xs = [t.detach().requires_grad_() for t in (q, k, v)]
-        o = F.scaled_dot_product_attention(*xs, is_causal=True,
+        o = F.scaled_dot_product_attention(*xs, is_causal=causal,
                                            enable_gqa=Hkv != H)
 
         def lib_bwd():
@@ -707,6 +733,15 @@ def phase_kernels() -> dict:
     # byte_lm's attention (train_bytes_lm, eval.py): B 16, H 8, S 512.
     flash["byte_lm"] = _flash_case(timer, 16, 8, 8, 512, 64, bf16,
                                    library=True)
+    # Ring attention's blocks at gpt2_125m's sp 2 shard (train_sp2_ring):
+    # B 8, H 12, S_local 512, f32 out; the past block non-causal, the
+    # diagonal causal. Ulysses' local attention (B 8, H 6, S 1024) is the
+    # tp2 case's shape.
+    flash["ring_past"] = _flash_case(timer, 8, 12, 12, 512, 64, bf16,
+                                     out_dtype=f32, causal=False,
+                                     library=True)
+    flash["ring_diag"] = _flash_case(timer, 8, 12, 12, 512, 64, bf16,
+                                     out_dtype=f32, library=True)
     # generate.py --decode fused on byte_lm: its prompt's prefill.
     flash["generate"] = _flash_case(timer, 1, 8, 8, GEN_PROMPT_BYTES, 64,
                                     bf16, library=True)
@@ -759,6 +794,12 @@ def phase_kernels() -> dict:
         bwd[f"{tag}_d128_gqa_window_grads_f32"] = _bwd_case(
             timer, 2, 16, 4, 2048, 128, bf16, split, window=512,
             grads_dtype=f32)
+    # The ring's reverse pass at its sp 2 shard: the split pair with the
+    # final delta and f32 gradients, past block (non-causal) and diagonal.
+    for tag, causal in (("past", False), ("diag", True)):
+        bwd[f"split_ring_{tag}"] = _bwd_case(
+            timer, 8, 12, 12, 512, 64, bf16, True, grads_dtype=f32,
+            causal=causal, library=True)
     # gpt2_125m under tp 2 (train_tp2, the fused backward): each rank's 6
     # heads.
     bwd["fused_tp2"] = _bwd_case(timer, 8, 6, 6, 1024, 64, bf16, False,
@@ -792,7 +833,12 @@ def phase_kernels() -> dict:
             "flash_bwd_byte_lm_library_fixed_sleep":
                 bwd["fused_byte_lm"]["library_ms_fixed_sleep"],
             "flash_bwd_dq": bwd["split_train"]["flash_bwd_dq"],
-            "flash_bwd_dkv": bwd["split_train"]["flash_bwd_dkv"]}
+            "flash_bwd_dkv": bwd["split_train"]["flash_bwd_dkv"],
+            **{f"flash_fwd_ring_{tag}": flash[f"ring_{tag}"]
+               for tag in ("past", "diag")},
+            **{f"{k}_ring_{tag}": bwd[f"split_ring_{tag}"][k]
+               for k in ("flash_bwd_dq", "flash_bwd_dkv")
+               for tag in ("past", "diag")}}
 
 
 def _xent_widened(x, head, t) -> tuple:
@@ -3054,26 +3100,23 @@ def phase_train_tp_1b(tmp: str, rows_1b: list) -> tuple:
     return launches, designs
 
 
-def _tp2_trainer(rt, strategy: str, fault: bool = False):
-    """A Trainer on gpt2_125m / conf/train/gpt2.yaml for TRAIN_TP2_STEPS
-    steps of batch 8 under ``strategy`` over ``rt``, and its loader.
-    ``fault``: the tp group's first ``reduce`` of each forward (layer 0's
-    attention output) skips its all-reduce."""
+def _gpt2_trainer(rt, overrides: list, steps: int, total: int):
+    """A Trainer on gpt2_125m / conf/train/gpt2.yaml over ``rt`` for the
+    first ``steps`` of ``total`` steps of batch 8 (the data and the
+    learning rates of ``total``), with ``overrides``, and its loader."""
     from distributed_training_tpu_torch.config import load_config
     from distributed_training_tpu_torch.data import (
         ShardedDataLoader,
         build_dataset,
     )
     from distributed_training_tpu_torch.models.registry import build_model
-    from distributed_training_tpu_torch.parallel.tensor import TPGroup
     from distributed_training_tpu_torch.train.trainer import Trainer
 
     batch = 8
     cfg = load_config(overrides=[
-        "model=gpt2_125m", "train=gpt2",
-        f"train.parallel_strategy={strategy}", f"train.batch_size={batch}",
-        f"train.dataset_size={TRAIN_TP2_STEPS * batch}",
-        "train.total_epochs=1", "train.log_every=0"])
+        "model=gpt2_125m", "train=gpt2", f"train.batch_size={batch}",
+        f"train.dataset_size={total * batch}", f"train.total_steps={total}",
+        "train.total_epochs=1", "train.log_every=0", *overrides])
     kwargs = dict(cfg.model.kwargs)
     dtype = kwargs.pop("dtype", cfg.train.dtype)
     model = build_model(cfg.model.name, loss=cfg.train.loss, dtype=dtype,
@@ -3084,8 +3127,21 @@ def _tp2_trainer(rt, strategy: str, fault: bool = False):
                                  "seed": cfg.train.seed},
                       **cfg.train.dataset_kwargs),
         rt, batch_size=batch, shuffle=cfg.train.shuffle,
-        seed=cfg.train.seed)
-    trainer = Trainer(cfg, rt, model, loader)
+        seed=cfg.train.seed, max_steps_per_epoch=steps)
+    return Trainer(cfg, rt, model, loader), loader
+
+
+def _tp2_trainer(rt, strategy: str, fault: bool = False):
+    """A Trainer on gpt2_125m / conf/train/gpt2.yaml for TRAIN_TP2_STEPS
+    steps of batch 8 under ``strategy`` over ``rt``, and its loader.
+    ``fault``: the tp group's first ``reduce`` of each forward (layer 0's
+    attention output) skips its all-reduce."""
+    from distributed_training_tpu_torch.parallel.tensor import TPGroup
+
+    trainer, loader = _gpt2_trainer(
+        rt, [f"train.parallel_strategy={strategy}"], TRAIN_TP2_STEPS,
+        TRAIN_TP2_STEPS)
+    model = trainer.model
     if fault:
         layers = model.cfg.n_layers
 
@@ -3105,8 +3161,9 @@ def _tp2_trainer(rt, strategy: str, fault: bool = False):
 
 def _tp2_steps(trainer, loader) -> dict:
     """Every step of the loader's epoch 0, each synchronised: losses,
-    gradient norms and step wall times."""
-    out = {"losses": [], "grad_norms": [], "step_s": []}
+    gradient norms, step wall times and the step's host seconds in its
+    synchronisation (``sync_s``)."""
+    out = {"losses": [], "grad_norms": [], "step_s": [], "sync_s": []}
     for batch in loader.epoch(0):
         t0 = time.perf_counter()
         m = trainer.train_step(batch)
@@ -3114,6 +3171,7 @@ def _tp2_steps(trainer, loader) -> dict:
         out["step_s"].append(time.perf_counter() - t0)
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
+        out["sync_s"].append(trainer._step_fn.sync_s)
     return out
 
 
@@ -3269,6 +3327,225 @@ def phase_train_tp2(tmp: str) -> tuple:
     designs = {k: {d: sum(r["launches_by_design"][k][d] for r in per_rank)
                    for d in per_rank[0]["launches_by_design"][k]}
                for k in per_rank[0]["launches_by_design"]}
+    return launches, designs
+
+
+def _sp_trainer(rt, impl: str, steps: int, window: int = 0):
+    """A Trainer on gpt2_125m / conf/train/gpt2.yaml for the first
+    ``steps`` of TRAIN_SP2_STEPS steps of batch 8 (every run sees the
+    same batches and learning rates) under ``ddp`` over ``rt`` with
+    ``attention_impl=impl`` (and ``attention_window=window``), and its
+    loader."""
+    return _gpt2_trainer(rt, [
+        "train.parallel_strategy=ddp", f"+model.attention_impl={impl}",
+        f"+model.attention_window={window}"], steps, TRAIN_SP2_STEPS)
+
+
+def _sp_runs(impl: str, window: int) -> list:
+    """(name, steps, fault) of one train_sp2 phase's runs in each
+    process."""
+    if window:
+        return [("sound", SP2_WINDOW_STEPS, False)]
+    runs = [("sound", TRAIN_SP2_STEPS, False)]
+    if impl == "ring":
+        runs.append(("rerun", SP2_HELD_STEPS, False))
+    return runs + [("fault", SP2_HELD_STEPS, True)]
+
+
+def train_sp2_rank(rank: int, port: int, out_path: str, impl: str,
+                   window: int) -> int:
+    """One of a train_sp2 phase's two processes: on ``cuda:0``, in a
+    gloo group of 2 over ``127.0.0.1:port``, a runtime over the mesh sp
+    2 built here (the CLI's runtime would ask for NCCL on a card), each
+    run of ``_sp_runs``; writes its readings to ``out_path``. The fault
+    run leaves each process's gradients unsummed over sp."""
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.parallel import fsdp
+    from distributed_training_tpu_torch.parallel.ring_attention import (
+        EXCHANGES,
+    )
+    from distributed_training_tpu_torch.runtime import MeshSpec, slice_runtime
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    replica_axes = fsdp.replica_axes
+    try:
+        rt = slice_runtime([MeshSpec(sp=2)], torch.device("cuda", 0))
+        result = {"rank": rank, "describe": rt.describe()}
+        for run, steps, fault in _sp_runs(impl, window):
+            trainer, loader = _sp_trainer(rt, impl, steps, window)
+            _free_memory()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            EXCHANGES.clear()
+            if fault:
+                fsdp.replica_axes = (lambda pl: tuple(
+                    a for a in replica_axes(pl) if a != "sp"))
+            try:
+                got = _tp2_steps(trainer, loader)
+            finally:
+                fsdp.replica_axes = replica_axes
+            result[run] = {**got, "exchanges": dict(EXCHANGES),
+                           "launches": _read_counts(),
+                           "launches_by_design": _read_designs(),
+                           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            del trainer, loader
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_train_sp2(tmp: str, impl: str, window: int = 0) -> tuple:
+    """gpt2_125m at full width under sequence parallelism at sp 2 on the
+    one card (``attention_impl=impl``; ring or Ulysses): two processes
+    on ``cuda:0`` in a gloo group, each holding 512 of every row's 1024
+    positions, against the same batches in this process at world 1 with
+    the single-process flash attention. The ring's blocks run B1 (the
+    diagonal causal, the past block non-causal, f32 out) and the split
+    backward B3a/B3b; Ulysses' local attention runs B1 and the fused B2
+    on each process's 6 of the 12 heads over all 1024 positions. Step
+    times are gloo's, every exchange and the gradient sum staged through
+    the host: a correctness reading."""
+    from distributed_training_tpu_torch.models.transformer import PRESETS
+    from distributed_training_tpu_torch.runtime import Runtime
+
+    name = f"train_sp2_{impl}" + ("_window" if window else "")
+    runs = {r: (steps, fault) for r, steps, fault in _sp_runs(impl, window)}
+    steps = runs["sound"][0]
+    _free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, loader = _sp_trainer(Runtime(device=torch.device("cuda", 0)),
+                                  "auto", steps, window)
+    want = _tp2_steps(trainer, loader)
+    want_peak = torch.cuda.max_memory_allocated()
+    del trainer, loader
+    _free_memory()
+    port = _free_port()
+    outs = [os.path.join(tmp, f"{name}.rank{r}.json") for r in range(2)]
+    logs = [open(os.path.join(tmp, f"{name}.rank{r}.log"), "w")
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-sp2-rank",
+         str(r), str(port), outs[r], impl, str(window)], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    if codes != [0, 0]:
+        for r in range(2):
+            with open(logs[r].name) as f:
+                print(f"{name} rank {r}:\n{f.read()[-4000:]}",
+                      file=sys.stderr)
+    check(codes == [0, 0], f"{name}: ranks exited {codes}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    held = min(SP2_HELD_STEPS, steps)
+    readings = {}
+    for run in runs:
+        if run == "rerun":
+            continue
+        got = ranks[0][run]
+        check(len(got["losses"]) == runs[run][0],
+              f"{name} {run}: {got['losses']}")
+        readings[run] = {
+            "loss_rel_diff": _rel_diffs(got["losses"][:held],
+                                        want["losses"][:held]),
+            "grad_norm_rel_diff": _rel_diffs(got["grad_norms"][:held],
+                                             want["grad_norms"][:held])}
+        readings[run]["within"] = (
+            readings[run]["loss_rel_diff"] <= SP_LOSS_RTOL
+            and readings[run]["grad_norm_rel_diff"] <= SP_GRAD_NORM_RTOL)
+    L = PRESETS["gpt2_125m"]["n_layers"]
+    per_rank = []
+    for r in ranks:
+        sound = r["sound"]
+        per_rank.append({
+            "rank": r["rank"], "describe": r["describe"],
+            "losses": sound["losses"], "grad_norms": sound["grad_norms"],
+            "median_step_s": float(np.median(sound["step_s"][1:])),
+            "step_s": sound["step_s"],
+            "median_sync_s": float(np.median(sound["sync_s"][1:])),
+            "peak_mem_bytes": sound["peak_mem_bytes"],
+            "exchanges_per_step": {k: v / steps for k, v in
+                                   sound["exchanges"].items()},
+            "launches": sound["launches"],
+            "launches_by_design": sound["launches_by_design"],
+            **({"rerun_losses": r["rerun"]["losses"],
+                "rerun_grad_norms": r["rerun"]["grad_norms"]}
+               if "rerun" in r else {}),
+            **({"fault_losses": r["fault"]["losses"],
+                "fault_grad_norms": r["fault"]["grad_norms"]}
+               if "fault" in r else {})})
+    median_s = max(p["median_step_s"] for p in per_rank)
+    emit({"phase": name, "model": "gpt2_125m", "strategy": "ddp",
+          "attention_impl": impl, "window": window, "mesh": {"sp": 2},
+          "backend": "gloo", "processes_on_card": 2, "batch": 8,
+          "seq": 1024, "steps": steps, "held_steps": held, "wall_s": wall,
+          "world1_losses": want["losses"],
+          "world1_grad_norms": want["grad_norms"],
+          "world1_median_step_s": float(np.median(want["step_s"][1:])),
+          "world1_peak_mem_bytes": want_peak,
+          "median_step_s": median_s,
+          # Both processes share the one card and the host (gloo).
+          "tokens_per_s_two_processes_one_card_gloo": 8 * 1024 / median_s,
+          "loss_rtol": SP_LOSS_RTOL, "grad_norm_rtol": SP_GRAD_NORM_RTOL,
+          "fault": ("each process's gradients left unsummed over sp"
+                    if "fault" in runs else None),
+          "readings": readings, "ranks": per_rank})
+    sound0 = per_rank[0]
+    for r in per_rank:
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"{name}: non-finite {r['losses']}")
+        check(r["losses"] == sound0["losses"]
+              and r["grad_norms"] == sound0["grad_norms"],
+              f"{name}: the two processes report different metrics")
+        check(r["exchanges_per_step"].get("staged_bytes", 0) > 0,
+              f"{name}: rank {r['rank']} staged no exchange")
+        if "rerun_losses" in r:
+            n = len(r["rerun_losses"])
+            check(r["rerun_losses"] == r["losses"][:n]
+                  and r["rerun_grad_norms"] == r["grad_norms"][:n],
+                  f"{name}: the rerun's bits differ: {r['rerun_losses']} "
+                  f"vs {r['losses'][:n]}")
+    # Both processes' launches are the card's: per step the ring runs
+    # 3L forward blocks (process 0 its diagonal, process 1 its diagonal
+    # and its past block) and as many of each split backward kernel, or
+    # 2L under the window (process 1's past block on the plain path);
+    # Ulysses runs one B1 and one B2 a layer on each process.
+    launches = {k: sum(r["launches"][k] for r in per_rank)
+                for k in sound0["launches"]}
+    designs = {k: {d: sum(r["launches_by_design"][k][d] for r in per_rank)
+                   for d in sound0["launches_by_design"][k]}
+               for k in sound0["launches_by_design"]}
+    blocks = (2 if window else 3) * L * steps
+    want_launches = ({"flash_fwd": blocks, "flash_bwd_dq": blocks,
+                      "flash_bwd_dkv": blocks, "flash_bwd_fused": 0}
+                     if impl == "ring" else
+                     {"flash_fwd": 2 * L * steps, "flash_bwd_fused": 2 * L * steps,
+                      "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    for k, n in want_launches.items():
+        check(launches[k] == designs[k]["wgmma"] == n,
+              f"{name}: {k} launches {designs[k]}, want {n} on wgmma")
+    check(readings["sound"]["within"],
+          f"{name}: sp 2 against world 1 outside the limits: {readings}")
+    if "fault" in readings:
+        check(not readings["fault"]["within"],
+              f"{name}: the planted fault passed the limits: {readings}")
     return launches, designs
 
 
@@ -4970,6 +5247,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--train-tp2-rank"]:
         return train_tp2_rank(int(sys.argv[2]), int(sys.argv[3]),
                               sys.argv[4])
+    if sys.argv[1:2] == ["--train-sp2-rank"]:
+        return train_sp2_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4], sys.argv[5], int(sys.argv[6]))
     if sys.argv[1:2] == ["--train-elastic-rank"]:
         return train_elastic_rank(int(sys.argv[2]), int(sys.argv[3]),
                                   sys.argv[4], sys.argv[5],
@@ -5026,6 +5306,10 @@ def main() -> int:
         slice15["train_preempt_stream"], ref = phase_train_preempt_stream(
             tmp, corpus)
         slice15["train_elastic"] = phase_train_elastic(tmp, corpus, ref)
+        slice17 = {"train_sp2_ring": phase_train_sp2(tmp, "ring"),
+                   "train_sp2_ulysses": phase_train_sp2(tmp, "ulysses"),
+                   "train_sp2_ring_window": phase_train_sp2(
+                       tmp, "ring", window=SP2_WINDOW)}
     phase_train_trace()
     phase_train_trace(split=True)
     phase_train_1b_trace()
@@ -5058,13 +5342,16 @@ def main() -> int:
     # runs, each in its process, and gpt2_125m under Adafactor; then the
     # resilience paths: the supervised crash-restart, the preempted
     # stream under each backward and the elastic resize; then the observability paths: the
-    # telemetry run and the three dropout runs).
+    # telemetry run and the three dropout runs; then sequence parallelism
+    # at sp 2: the ring, Ulysses and the windowed ring, both processes'
+    # sound runs).
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
              int8_launches, swap_launches, recovery_launches, disagg_launches,
              cli_launches,
              *mesh_launches.values(), train_launches, split_launches,
              train_1b_launches, tp_1b_launches, tp2_launches,
-             *slice14.values(), *slice15.values(), *slice16.values())
+             *slice14.values(), *slice15.values(), *slice16.values(),
+             *slice17.values())
     kernels = []
     for name in KERNELS:
         src, replaces = sources[name]
@@ -5120,6 +5407,17 @@ def main() -> int:
         # its fused run and both split reruns).
         kernels[-1]["observability_launches"] = {
             path: counts[name] for path, (counts, _) in slice16.items()}
+        # And on the sequence-parallel paths (both processes' sound run).
+        kernels[-1]["sequence_parallel_launches"] = {
+            path: counts[name] for path, (counts, _) in slice17.items()}
+        if name.startswith("flash_") and name != "flash_bwd_fused":
+            # The ring's blocks at the sp 2 shard: the past block
+            # (non-causal) and the diagonal, f32 out or f32 gradients.
+            for tag in ("past", "diag"):
+                kernels[-1][f"ring_{tag}_case"] = {
+                    k: measured[f"{name}_ring_{tag}"][k]
+                    for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}
         if name == "paged_decode":
             # The same kernel at the decode chain's geometry (32 rows),
             # the case speculative and resident decode launch.

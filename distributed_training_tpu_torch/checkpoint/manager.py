@@ -10,7 +10,8 @@ never sees a half-written step:
   position, the architecture);
 - with one (any world under torch.distributed): every process writes its
   local shards to ``state.rank<r>.pt``, and process 0 writes
-  ``meta.json`` and ``layout.json`` (the mesh and each leaf's placement)
+  ``meta.json`` and ``layout.json`` (the mesh and each leaf's placement;
+  ``replica_axes`` names ``sp`` when the mesh has it)
   and renames the directory once every process has written.
 
 Every committed step gets ``manifest.dtt.json`` (``resilience/
@@ -83,6 +84,10 @@ def layout_manifest(layout: dict, runtime) -> dict:
     out = {"world": runtime.process_count,
            "mesh": runtime.spec.as_dict(),
            "params": enc(layout["params"]), "opt": enc(layout["opt"])}
+    if runtime.spec.sp > 1:
+        # Every leaf is whole over sp: its members' files hold replicas,
+        # and a restore at another sp re-cuts the state from any one.
+        out["replica_axes"] = ["sp"]
     if layout.get("factored"):
         # Adafactor's factored moments (train/optimizer.py).
         out["factored"] = {name: enc(pls)

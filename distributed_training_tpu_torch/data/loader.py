@@ -12,7 +12,10 @@ runtime's device: gathered on the host, pinned, and copied with
 Each process assembles only its own data shard's rows: shard ``s``
 (dp-major over (dp, fsdp), ``runtime.data_shard_index``) takes rows
 ``[s*b, (s+1)*b)`` of the global batch of ``b * num_shards`` rows, the
-JAX loader's layout, and the index stream is the JAX one. A batch whose
+JAX loader's layout, and the index stream is the JAX one. Under
+sequence parallelism the ``sp`` members of a data shard read the same
+rows, and each keeps its slice of every token row (``sequence_slice``:
+its S/sp inputs and their shifted targets). A batch whose
 assembly raises a transient IO error (``OSError``: a network file
 system's blip under ``memmap_tokens``/``bytes``) is retried
 ``data_retries`` times with a short exponential backoff, one
@@ -77,6 +80,26 @@ def retry_transient(assemble, *, retries: int, rollback=None,
             time.sleep(delay)
 
 
+def sequence_slice(tokens: np.ndarray, index: int, count: int) -> np.ndarray:
+    """Slice ``index`` of ``count`` of next-token rows (B, S + 1): the
+    slice's S/count inputs and their targets, columns ``[index·S/count,
+    (index + 1)·S/count + 1)`` (the JAX layout shards the inputs and the
+    shifted targets over ``sp`` alike)."""
+    if count == 1:
+        return tokens
+    S = tokens.shape[1] - 1
+    if S % count:
+        raise ValueError(f"sequence length {S} does not split over "
+                         f"sp={count}")
+    n = S // count
+    return tokens[:, index * n:(index + 1) * n + 1]
+
+
+def seq_shard(runtime) -> tuple[int, int]:
+    """(index, count) of this process's sequence slice."""
+    return runtime.seq_shard_index, runtime.seq_shard_count
+
+
 class ShardedDataLoader:
     """Epoch-based loader yielding dicts of tensors on the runtime's
     device: this process's data shard of each global batch.
@@ -96,6 +119,7 @@ class ShardedDataLoader:
         self.num_shards = runtime.data_shard_count
         self.shard_index = runtime.data_shard_index
         self.global_batch = batch_size * self.num_shards
+        self.seq_index, self.seq_count = seq_shard(runtime)
         self.data_retries = data_retries
         self._faults = fault_injector
         self.sampler = DistributedShardSampler(
@@ -192,6 +216,9 @@ class ShardedDataLoader:
     def _assemble(self, rows_by_shard: np.ndarray) -> dict:
         """The given shards' rows (shard-major) as device tensors."""
         host = self.dataset.batch(rows_by_shard.reshape(-1))
+        if self.seq_count > 1:
+            host = dict(host, tokens=sequence_slice(
+                host["tokens"], self.seq_index, self.seq_count))
         out = {}
         for name, col in host.items():
             t = torch.from_numpy(np.ascontiguousarray(col))

@@ -19,7 +19,9 @@ loader's token for token for the same sources, seed and world history:
   consumed prefix.
 - **Sharding**: packed sample ``s`` is row ``s % global_batch`` of step
   ``s // global_batch``; data shard ``k`` takes rows ``[k*b, (k+1)*b)``
-  of each step, a pure function of ``(state, world_size)``. With a
+  of each step, a pure function of ``(state, world_size)``; under
+  sequence parallelism each ``sp`` member keeps its slice of those rows
+  (``loader.sequence_slice``). With a
   world-size-invariant global batch (``train.global_batch_size``) an
   elastic resize re-deals only the rows not yet consumed.
 
@@ -54,6 +56,8 @@ import torch
 from distributed_training_tpu_torch.data.loader import (
     _prefetch,
     retry_transient,
+    seq_shard,
+    sequence_slice,
 )
 from distributed_training_tpu_torch.data.sampler import epoch_permutation
 from distributed_training_tpu_torch.telemetry import events as telemetry
@@ -625,8 +629,9 @@ class StreamingDataLoader:
         work.samples += self.global_batch
         work.step += 1
         b = self.batch_size
-        t = torch.from_numpy(np.ascontiguousarray(
-            rows[self.shard_index * b:(self.shard_index + 1) * b]))
+        t = torch.from_numpy(np.ascontiguousarray(sequence_slice(
+            rows[self.shard_index * b:(self.shard_index + 1) * b],
+            *seq_shard(self.runtime))))
         if self.device.type == "cuda":
             t = t.pin_memory().to(self.device, non_blocking=True)
         digest = hashlib.sha256(rows.tobytes()).hexdigest()

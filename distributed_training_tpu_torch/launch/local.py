@@ -140,22 +140,21 @@ def launch_local(argv: list[str], num_processes: int,
     return procs
 
 
-# Set by _forward_signals' handler: the launcher itself was told to stop.
-# The supervisor then stands down (the children saved and exited)
-# instead of restarting the job the infrastructure asked it to release.
-_launcher_signaled: bool = False
-
-
 @contextlib.contextmanager
 def _forward_signals(procs: list[LocalProcess],
+                     signaled: threading.Event | None = None,
                      signums=(signal.SIGTERM, signal.SIGINT)):
     """While waiting, forward SIGTERM/SIGINT to the children instead of
-    dying around them, so their preemption guard still saves. A no-op
+    dying around them, so their preemption guard still saves, and set
+    ``signaled`` (the launcher itself was told to stop: a supervisor then
+    stands down instead of restarting the job the infrastructure asked
+    it to release). The flag belongs to the caller's run, so a signal
+    taken by one launch in a process never stops a later one. A no-op
     off the main thread (``signal.signal`` would raise there)."""
     def handler(signum, frame):
         del frame
-        global _launcher_signaled
-        _launcher_signaled = True
+        if signaled is not None:
+            signaled.set()
         logger.warning("launcher got %s: forwarding to %d child "
                        "process(es)", signal.Signals(signum).name,
                        len(procs))
@@ -187,10 +186,12 @@ def wait(procs: list[LocalProcess], timeout: float | None = None) -> int:
 
 
 def wait_report(procs: list[LocalProcess],
-                timeout: float | None = None) -> GroupReport:
+                timeout: float | None = None,
+                signaled: threading.Event | None = None) -> GroupReport:
     """``wait``, returning the whole ``GroupReport``. SIGTERM/SIGINT
-    delivered to the launcher meanwhile are forwarded to the children."""
-    with _forward_signals(procs):
+    delivered to the launcher meanwhile are forwarded to the children
+    (and set ``signaled`` when given)."""
+    with _forward_signals(procs, signaled):
         return _wait_inner(procs, timeout)
 
 
@@ -265,13 +266,15 @@ def run_group(argv: list[str], num_processes: int,
               devices_per_process: int = 1, log_dir: str | None = None,
               env: dict[str, str] | None = None,
               timeout: float | None = None,
-              port_attempts: int = 3, on_procs=None) -> GroupReport:
+              port_attempts: int = 3, on_procs=None,
+              signaled: threading.Event | None = None) -> GroupReport:
     """Launch and wait, relaunching the whole group on a fresh port when
     the store's bind lost the ``_free_port`` race (at most
     ``port_attempts`` attempts). Every attempt exports
     ``DTT_PORT_ATTEMPT``. ``on_procs`` (procs -> optional cleanup
     callable) attaches a watcher to the live group (the elastic grow
-    watcher)."""
+    watcher). ``signaled``: set when the launcher is signaled while it
+    waits (``wait_report``)."""
     report = GroupReport(returncode=1, world_size=num_processes)
     for attempt in range(max(1, port_attempts)):
         attempt_env = dict(env or {})
@@ -280,7 +283,7 @@ def run_group(argv: list[str], num_processes: int,
                              log_dir=log_dir, env=attempt_env)
         cleanup = on_procs(procs) if on_procs is not None else None
         try:
-            report = wait_report(procs, timeout)
+            report = wait_report(procs, timeout, signaled)
         finally:
             if cleanup is not None:
                 cleanup()
@@ -409,6 +412,9 @@ def _supervised_main(args, cmd: list[str]) -> int:
     supervisor (and, with ``--elastic``, the elastic policy)."""
     from distributed_training_tpu_torch.telemetry.events import Telemetry
     state_dir = os.path.join(args.log_dir, "supervisor")
+    # This supervised run's own stop flag: set when the launcher is
+    # signaled while an incarnation runs.
+    signaled = threading.Event()
     tel = Telemetry(events_jsonl=os.path.join(state_dir, "events.jsonl"),
                     fresh=False)
     policy = None
@@ -434,7 +440,7 @@ def _supervised_main(args, cmd: list[str]) -> int:
         report = run_group(
             cmd, nproc, args.devices_per_proc,
             log_dir=os.path.join(args.log_dir, f"attempt_{attempt}"),
-            env=extra_env, on_procs=on_procs)
+            env=extra_env, on_procs=on_procs, signaled=signaled)
         if any(w.triggered for w in watchers):
             report = dataclasses.replace(report, grow_requested=True)
         return report
@@ -454,7 +460,7 @@ def _supervised_main(args, cmd: list[str]) -> int:
             policy=sup.RestartPolicy(max_restarts=args.max_restarts,
                                      backoff_base_s=args.backoff_base_s),
             state_dir=state_dir, ckpt_dir=args.ckpt_dir, telemetry=tel,
-            should_stop=lambda: _launcher_signaled, elastic=policy,
+            should_stop=signaled.is_set, elastic=policy,
             on_incident=on_incident)
     finally:
         tel.close()

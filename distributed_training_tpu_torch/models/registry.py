@@ -15,7 +15,7 @@ def build_model(name: str, loss: str = "auto", dtype: str = "float32",
     (``loss="auto"`` keeps the family's default: mse for the MLP,
     next-token xent for a transformer). ``device`` as ``Transformer``
     (None = the CUDA card). ResNet waits for ROADMAP.md queue A item
-    16."""
+    16d."""
     name = name.lower()
     if name == "mlp":
         from distributed_training_tpu_torch.models.mlp import MLP, MLPConfig
@@ -29,5 +29,6 @@ def build_model(name: str, loss: str = "auto", dtype: str = "float32",
                                  device=device, **kwargs)
     if name in ("resnet", "resnet18"):
         raise NotImplementedError(
-            f"model '{name}' waits for ROADMAP.md queue A item 16")
+            f"model '{name}' waits for ROADMAP.md queue A item 16d "
+            "(ResNet)")
     raise ValueError(f"unknown model '{name}'")

@@ -59,8 +59,24 @@ its query heads read before the product, so the flash kernels still run
 inside a function that remat recomputes, and the tp ranks of a data
 shard draw the same dropout masks.
 
-MoE, pipeline and sequence parallelism wait for later slices
-(ROADMAP.md queue A) and raise ``NotImplementedError`` when asked for.
+Under sequence parallelism (``attention_impl`` "ring" or "ulysses" on a
+mesh with ``sp``) the trainer binds the sp group
+(``bind_sequence_parallel``): each process holds its slice of every
+row's sequence, its positions (learned and RoPE) offset by its slice's
+start, and attention crosses the slices over the group, as JAX's
+``_attention`` dispatches (``parallel/ring_attention.py``,
+``parallel/ulysses.py``); under tp each rank's heads ride the ring or
+the all-to-all. A window is compared with the global length. The loss
+sums the negative log-likelihood and the count of live targets over the
+group (a sum whose gradient is the identity), so every member's loss is
+its data shard's mean over real tokens, and each member's gradients are
+its part of that loss's, which the trainer sums over ``sp``. Dropout
+masks are drawn over the global sequence and sliced, so they equal the
+masks of a run at sp 1.
+
+MoE (item 16c) and pipeline parallelism (item 16b) wait for later
+slices (ROADMAP.md queue A) and raise ``NotImplementedError`` when asked
+for.
 """
 
 from __future__ import annotations
@@ -74,6 +90,12 @@ import torch.utils.checkpoint
 
 from distributed_training_tpu_torch.ops.attention import dot_product_attention
 from distributed_training_tpu_torch.ops.xent import lm_cross_entropy
+from distributed_training_tpu_torch.parallel.ring_attention import (
+    SPGroup,
+    ring_attention,
+    sum_over_sp,
+)
+from distributed_training_tpu_torch.parallel.ulysses import ulysses_attention
 from distributed_training_tpu_torch.runtime import make_generator, resolve_device
 
 
@@ -346,13 +368,19 @@ def dropout_seed(rng: int, layer: int | None, site: int = 0) -> int:
     return fold_seed(rng, _LAYER_KEY, layer, site)
 
 
-def _dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, seed: int,
+             seq: tuple[int, int] | None = None) -> torch.Tensor:
     """Inverted dropout (JAX ``_dropout``): zero with probability
     ``rate`` and scale what is kept by ``1 / (1 - rate)``, so the
     expectation is unchanged; the mask comes from a ``torch.Generator``
-    on x's device seeded with ``seed``."""
+    on x's device seeded with ``seed``. ``seq=(start, total)``: x (B, S,
+    …) is the slice at ``start`` of a sequence of ``total`` positions;
+    the mask is drawn over the whole sequence and sliced."""
     gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    shape = x.shape if seq is None else (x.shape[0], seq[1], *x.shape[2:])
+    keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - rate
+    if seq is not None:
+        keep = keep[:, seq[0]:seq[0] + x.shape[1]]
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -424,13 +452,14 @@ class Transformer:
     def __init__(self, cfg: TransformerConfig, device=None):
         if cfg.moe_num_experts > 0:
             raise NotImplementedError(
-                "MoE layers wait for ROADMAP.md queue A 'Remaining "
-                "parallelism and models'")
+                "MoE layers wait for ROADMAP.md queue A item 16c (MoE and "
+                "expert parallelism)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._gather = None
         self._tp = None
         self._kv_index = None
+        self._sp = None
 
     def param_shapes(self) -> dict:
         return param_shapes(self.cfg)
@@ -487,6 +516,29 @@ class Transformer:
                 kv_heads_of_rank(c.n_heads, c.n_kv_heads, tp.size, tp.rank),
                 device=self.device)
 
+    def bind_sequence_parallel(self, sp: SPGroup | None) -> None:
+        """Train with each row's sequence split over the sp group
+        (``sp``: a ``parallel.ring_attention.SPGroup``): this process
+        holds slice ``sp.rank`` of ``sp.size``, attention crosses the
+        slices (``attention_impl`` "ring" or "ulysses"), and the loss is
+        summed over the group. ``None`` unbinds (a group of one). Raises
+        for a group larger than 1 under another attention."""
+        if (sp is not None and sp.size > 1
+                and self.cfg.attention_impl not in ("ring", "ulysses")):
+            raise ValueError(
+                f"sequence parallelism (sp={sp.size}) needs "
+                "attention_impl 'ring' or 'ulysses', not "
+                f"'{self.cfg.attention_impl}'")
+        self._sp = sp
+
+    def _seq_slice(self, s_local: int) -> tuple[int, int] | None:
+        """(start, global length) of this process's sequence slice, or
+        None without a bound sp group larger than 1."""
+        sp = self._sp
+        if sp is None or sp.size == 1:
+            return None
+        return sp.rank * s_local, sp.size * s_local
+
     def _leaf(self, params: dict, name: str, dt=None) -> torch.Tensor:
         """A top-level leaf, cast to ``dt`` and gathered when bound."""
         w = params[name] if dt is None else params[name].to(dt)
@@ -540,9 +592,24 @@ class Transformer:
 
     def _attention(self, q, k, v):
         c = self.cfg
+        sp = self._sp or SPGroup()
+        # A window covering the whole sequence is plain causal. The
+        # comparison is with the GLOBAL length: under sp, q holds the
+        # local slice.
         S = q.shape[1]
-        # A window covering the whole sequence is plain causal.
+        if c.attention_impl in ("ring", "ulysses"):
+            S *= sp.size
         window = c.attention_window if 0 < c.attention_window < S else 0
+        if c.attention_impl == "ulysses":
+            # Under tp, q/k/v hold this rank's heads: ulysses_attention
+            # refuses counts that do not divide by sp.
+            return ulysses_attention(q, k, v, sp, causal=True,
+                                     block_q=c.flash_block_q,
+                                     block_k=c.flash_block_k, window=window)
+        if c.attention_impl == "ring":
+            return ring_attention(q, k, v, sp, causal=True,
+                                  block_q=c.flash_block_q,
+                                  block_k=c.flash_block_k, window=window)
         return dot_product_attention(q, k, v, causal=True,
                                      impl=c.attention_impl,
                                      block_q=c.flash_block_q,
@@ -626,12 +693,17 @@ class Transformer:
         table = self._leaf(params, "tok_embed", dt)
         x = table[tokens] if self._tp is None else self._tp.embed(table,
                                                                  tokens)
-        positions = torch.arange(S, device=self.device)
+        # Under sp, this slice's global positions; its dropout masks are
+        # slices of the whole sequence's (``_dropout``'s ``seq``).
+        seq = self._seq_slice(S)
+        start = seq[0] if seq else 0
+        in_seq = (seq,) if seq else ()
+        positions = torch.arange(start, start + S, device=self.device)
         if c.pos_encoding == "learned":
-            x = x + self._leaf(params, "pos_embed", dt)[:S]
+            x = x + self._leaf(params, "pos_embed", dt)[start:start + S]
         dropping = rng is not None and c.dropout > 0.0
         if dropping:
-            x = _dropout(x, c.dropout, dropout_seed(rng, None))
+            x = _dropout(x, c.dropout, dropout_seed(rng, None), *in_seq)
         for lid, layer in enumerate(_layers(params, c.n_layers)):
             if self._gather is not None:
                 layer = self._gather.layer(_cast_layer(layer, dt))
@@ -639,7 +711,7 @@ class Transformer:
             if dropping:
                 def drop(y, site, lid=lid):
                     return _dropout(y, c.dropout,
-                                    dropout_seed(rng, lid, site))
+                                    dropout_seed(rng, lid, site), *in_seq)
             x = self._block(x, layer, positions, remat, drop=drop)
         norm = params["final_norm"]
         if self._gather is not None:
@@ -682,7 +754,9 @@ class Transformer:
         chunked head (ops/xent.py, no (B, S, V) residual); ``"dense"``
         the full logits. Remat (``cfg.remat``) applies when gradients are
         being recorded; dropout when ``train`` and an ``rng`` seed (the
-        trainer's step seed) are given."""
+        trainer's step seed) are given. Under a bound sp group the batch
+        holds this process's slice (B, S/sp + 1) and the loss is the data
+        shard's mean over the group's real tokens."""
         c = self.cfg
         tp = self._tp
         if c.loss_impl == "dense" and tp is not None:
@@ -710,8 +784,15 @@ class Transformer:
             nll = -torch.gather(logp, -1,
                                 targets.clamp(min=0)[..., None])[..., 0]
             nll = torch.where(targets >= 0, nll, 0.0)
-        valid = (targets >= 0).sum().clamp(min=1)
-        loss = nll.sum() / valid
+        if self._seq_slice(targets.shape[1]) is not None:
+            # The data shard's mean over real tokens: the sum and the
+            # count of live targets over the sp group's slices.
+            tot = sum_over_sp(torch.stack(
+                [nll.sum(), (targets >= 0).sum().to(nll.dtype)]), self._sp)
+            loss = tot[0] / tot[1].clamp(min=1)
+        else:
+            valid = (targets >= 0).sum().clamp(min=1)
+            loss = nll.sum() / valid
         metrics = {"loss": loss.detach(),
                    "perplexity": torch.exp(loss.detach())}
         return loss, metrics
@@ -899,8 +980,8 @@ def build_transformer(name: str, loss: str = "auto",
     as the JAX ``build_transformer``; ``device`` as ``Transformer``."""
     if name == "moe_transformer":
         raise NotImplementedError(
-            "MoE layers wait for ROADMAP.md queue A 'Remaining "
-            "parallelism and models'")
+            "MoE layers wait for ROADMAP.md queue A item 16c (MoE and "
+            "expert parallelism)")
     preset = dict(PRESETS.get(name, {}))
     preset.update(kwargs)
     preset.setdefault("dtype", dtype)

@@ -9,8 +9,10 @@
 
 Both carry gradients: naive through autograd over its torch ops, flash
 through the backward kernels.
-- ``ring``/``ulysses``: sequence-parallel attention waits for ROADMAP.md
-  queue A item 16.
+- ``ring``/``ulysses``: sequence-parallel attention over the ``sp``
+  group, reached from the model (``models/transformer.py``), as in the
+  JAX package: ``parallel/ring_attention.py``, ``parallel/ulysses.py``.
+  This dispatcher, like the JAX one, does not take them.
 """
 
 from __future__ import annotations
@@ -73,10 +75,6 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
     ``block_q``/``block_k`` override the flash kernel's tiles (None →
     its defaults); ignored by the naive path. ``layout="bhsd"``: inputs
     and output are in the kernel's (B, H, S, D) layout."""
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl='{impl}' is sequence-parallel attention, "
-            "which waits for ROADMAP.md queue A item 16")
     if impl in ("auto", "flash"):
         from distributed_training_tpu_torch.ops import flash_attention as fa
         if fa.supported(q, k, v, block_q=block_q or 0,

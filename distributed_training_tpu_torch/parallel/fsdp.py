@@ -18,7 +18,10 @@ are explicit ``torch.distributed`` calls over the mesh's groups:
 - ``average_grads`` sums every gradient over the data processes and
   divides by their count: an all-reduce over (dp, fsdp) for replicated
   leaves, over the axes a sharded leaf is replicated on (dp) for the
-  shards the reduce-scatter left.
+  shards the reduce-scatter left. Under sequence parallelism each sp
+  member's gradient is its slice's part of its data shard's: the sum
+  runs over ``sp`` too (every leaf is replicated over it), and the count
+  stays the data shards'.
 - ``local_view``/``shard``/``all_gather_dims``/``gather_full`` cut and
   rebuild whole leaves (the init, ZeRO-1's param slices, the
   consolidated export), one split after another.
@@ -236,9 +239,11 @@ def _all_reduce_flat(tensors: list, group) -> None:
 
 
 def replica_axes(pl) -> tuple:
-    """The data axes a leaf under placement ``pl`` is replicated on."""
+    """The axes a leaf under placement ``pl`` is replicated on whose
+    processes hold parts of one gradient: the data axes it is not split
+    over, and ``sp`` (no leaf is split over it)."""
     used = () if pl is None else pl.axes
-    return tuple(a for a in BATCH_AXES if a not in used)
+    return tuple(a for a in (*BATCH_AXES, "sp") if a not in used)
 
 
 def average_grads(grads: dict, placements: dict, runtime,
@@ -248,9 +253,9 @@ def average_grads(grads: dict, placements: dict, runtime,
     summed over their shard group (the gather's reduce-scatter); the
     leaves of ``tp_partial`` are also summed over tp (module docstring).
 
-    Every process's loss is a mean over the same number of tokens (the
-    loader's batches have one shape and ``synthetic_lm`` masks no
-    target), so the mean of the per-process means is the global mean."""
+    Each data shard's loss arrives weighted by its share of the global
+    batch's real tokens (``make_train_step``), so the mean over the data
+    shards is the global mean."""
     sizes = runtime.spec.as_dict()
     by_axes: dict = {}
     for k, g in grads.items():

@@ -19,6 +19,12 @@ entries dropped as ``jax.sharding.PartitionSpec`` prints them.
   ``kv`` dims split over ``tp``, ``embed`` over ``fsdp``, so a leaf may
   be split on two dims.
 
+Every strategy lays its leaves out the same with ``sp`` in the mesh: no
+rule names ``sp``, so no leaf is split over it, and the data axes
+(ZeRO-1's moments, the batch) stay (dp, fsdp); the sp members of a data
+shard hold the same leaves and sum their gradients
+(``fsdp.average_grads``).
+
 Where XLA compiles the collectives from these specs in the JAX package,
 the port runs them itself: ``placement`` turns a spec into the dims and
 the mesh axes each is split over, ``parallel/fsdp.py`` gathers,

@@ -26,8 +26,13 @@ axis of the mesh is the slice's, not the world's. Every process creates
 every group of every slice, in one order, as
 ``torch.distributed.new_group`` requires.
 
-Sequence and pipeline parallelism (``sp``, ``pp``) wait for ROADMAP.md
-queue A item 16.
+Sequence parallelism shards each row of a data shard's batch over
+``sp``: the ``sp`` members of one data shard read the same rows
+(``data_shard_count``/``data_shard_index`` stay over ``BATCH_AXES``), each
+takes its slice of the sequence (``seq_shard_index``), and attention
+crosses the slices over the ``sp`` group (``parallel/ring_attention.py``,
+``parallel/ulysses.py``). Pipeline parallelism (``pp``) waits for
+ROADMAP.md queue A item 16b.
 """
 
 from __future__ import annotations
@@ -50,8 +55,7 @@ MESH_AXES = ("pp", "dp", "fsdp", "sp", "tp")
 # dp-major (the JAX package's BATCH_AXES).
 BATCH_AXES = ("dp", "fsdp")
 # Mesh axes this port does not shard over yet → their ROADMAP.md item.
-_UNPORTED_AXES = {"sp": "16 (sequence parallelism)",
-                  "pp": "16 (pipeline parallelism)"}
+_UNPORTED_AXES = {"pp": "16b (pipeline parallelism)"}
 
 
 class MeshSpecError(ValueError):
@@ -261,6 +265,18 @@ class Runtime:
         return (self.mesh.get_local_rank("dp") * self.spec.fsdp
                 + self.mesh.get_local_rank("fsdp"))
 
+    @property
+    def seq_shard_count(self) -> int:
+        """The slices each row's sequence is split into (``sp``)."""
+        return self.spec.sp
+
+    @property
+    def seq_shard_index(self) -> int:
+        """This process's slice of each row's sequence: its coordinate
+        on ``sp`` (the JAX layout shards the sequence over ``sp`` in
+        axis order)."""
+        return 0 if self.mesh is None else self.mesh.get_local_rank("sp")
+
     def group(self, axes: tuple[str, ...]):
         """The process group over mesh ``axes`` (this process's part of
         it): the mesh's whole group when they span it (``WORLD`` for a
@@ -319,7 +335,7 @@ def initialize_runtime(cfg, timeout: datetime.timedelta | None = None
     from torchrun's environment when ``RANK`` and ``WORLD_SIZE`` are
     set; otherwise the world is this one process. The mesh
     (``MeshSpec.resolve``, at most one ``-1`` axis) must cover the world
-    exactly; ``sp`` or ``pp`` above 1 raises. ``timeout`` bounds each
+    exactly; ``pp`` above 1 raises. ``timeout`` bounds each
     collective of a group started here (torch's default when None)."""
     pref = cfg.train.device
     if pref not in ("auto", "", "cuda", "gpu", "cpu"):

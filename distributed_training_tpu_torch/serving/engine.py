@@ -163,8 +163,8 @@ logger = logging.getLogger(__name__)
 # ROADMAP.md queue A items the deferred features name.
 MESH_AXIS_ITEMS = {
     "fsdp": "ROADMAP.md queue A item 17 (the planner's serving layouts)",
-    "sp": "ROADMAP.md queue A item 16 (sequence parallelism)",
-    "pp": "ROADMAP.md queue A item 16 (pipeline parallelism)"}
+    "sp": "ROADMAP.md queue A item 16a's remainder (serving over sp)",
+    "pp": "ROADMAP.md queue A item 16b (pipeline parallelism)"}
 TP_RESIDENT_ITEM = ("ROADMAP.md queue A 'Left from done items': 'the resident "
                     "burst under tp > 1 on cards'")
 

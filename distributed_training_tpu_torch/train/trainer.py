@@ -27,7 +27,12 @@ keeps each process's slice of the Adam moments, updates its slice of the
 params and all-gathers them; tensor parallelism binds the tp group to
 the model (``parallel/tensor.py``), whose block then computes on this
 rank's blocks of the weights. tp ranks take the same batch: the data
-axes are (dp, fsdp), and MFU counts every card. Under
+axes are (dp, fsdp), and MFU counts every card. Under sequence
+parallelism (``sp``) the sp members of a data shard take the same rows,
+each its slice of the sequence (the loader cuts it), the model's
+attention crosses the slices (``bind_sequence_parallel``), gradients
+are summed over ``sp``, and tokens/s and MFU count each token once (the
+global batch's rows at the global length). Under
 ``train.sharding_plan`` the placements come from the plan's sharding
 map instead (``parallel/planner.py::PlannedStrategy``), and a runtime
 mesh other than the plan's raises ``PlanError`` here.
@@ -73,13 +78,17 @@ import torch.distributed as dist
 from distributed_training_tpu_torch.models.base import count_params
 from distributed_training_tpu_torch.models.transformer import fold_seed
 from distributed_training_tpu_torch.parallel import fsdp, planner
+from distributed_training_tpu_torch.parallel.ring_attention import (
+    EXCHANGES,
+    SPGroup,
+)
 from distributed_training_tpu_torch.parallel.strategy import (
     get_strategy,
     layout as strategy_layout,
 )
 from distributed_training_tpu_torch.parallel.tensor import TPGroup
 from distributed_training_tpu_torch.resilience import elastic
-from distributed_training_tpu_torch.runtime import MESH_AXES
+from distributed_training_tpu_torch.runtime import BATCH_AXES, MESH_AXES
 from distributed_training_tpu_torch.telemetry import events as telemetry
 from distributed_training_tpu_torch.telemetry.goodput import GoodputLedger
 from distributed_training_tpu_torch.telemetry.hbm import HBMSampler
@@ -111,6 +120,20 @@ def microbatches(batch: Mapping, a: int) -> list:
     return [{k: v[i::a] for k, v in batch.items()} for i in range(a)]
 
 
+def _live_targets(micro: list, runtime) -> torch.Tensor:
+    """The live targets (the loss's denominator) of each data shard in
+    each microbatch, (data shards, microbatches) f32: this process
+    counts its slice's, and one all-reduce over the data shards and
+    ``sp`` sums the slices and fills in the other shards."""
+    counts = torch.zeros((runtime.data_shard_count, len(micro)),
+                         device=runtime.device)
+    counts[runtime.data_shard_index] = torch.stack(
+        [(torch.as_tensor(mb["tokens"])[:, 1:] >= 0).sum()
+         for mb in micro]).to(counts)
+    dist.all_reduce(counts, group=runtime.group(BATCH_AXES + ("sp",)))
+    return counts
+
+
 def make_train_step(model, optimizer, nan_guard: bool = False,
                     grad_accum_steps: int = 1, layout: dict | None = None,
                     runtime=None, before_update=None,
@@ -126,7 +149,13 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
     spent in the gradient synchronisation (0 without a process group).
     ``dropout_seed``: the run's seed, from which each microbatch's
     dropout seed is folded with the step, the microbatch index and this
-    process's data shard (None: the model draws no masks)."""
+    process's data shard (None: the model draws no masks).
+
+    Across data shards the loss is the global batch's mean over real
+    tokens, as the JAX step's is: with several shards and a token batch,
+    each shard's loss is weighted by its share of the live targets (one
+    all-reduce of the counts per step, ``_live_targets``), a weight of
+    exactly 1 when the shards hold equal counts."""
     shard = runtime.data_shard_index if runtime is not None else 0
     pls = (layout or {}).get("params", {})
     opt_pls = (layout or {}).get("opt", {})
@@ -140,6 +169,7 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
                   for pl in pls.values() if pl is not None}
     norm_groups = {k: split_over[pl.axes] for k, pl in pls.items()
                    if pl is not None}
+    weigh = sharded and runtime.data_shard_count > 1
 
     def train_step(state: dict, batch: Mapping[str, torch.Tensor]) -> dict:
         params = state["params"]
@@ -147,10 +177,21 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
         leaves = list(flat.values())
         grads, metrics = None, {}
         micro = microbatches(batch, grad_accum_steps)
+        wait0 = EXCHANGES["wait_s"]
+        t_counts = time.perf_counter()
+        weighted = weigh and "tokens" in batch
+        if weighted:
+            counts = _live_targets(micro, runtime)
+            weights = (counts[shard] * runtime.data_shard_count
+                       / counts.sum(0).clamp(min=1))
+        counts_s = time.perf_counter() - t_counts
         for i, mb in enumerate(micro):
             rng = (None if dropout_seed is None else
                    fold_seed(dropout_seed, state["step"] + 1, i, shard))
             loss, m = model.loss(params, mb, rng=rng, train=True)
+            if weighted:
+                loss = loss * weights[i]
+                m = {**m, "loss": m["loss"] * weights[i]}
             g = torch.autograd.grad(loss, leaves)
             grads = list(g) if grads is None else [
                 a + b for a, b in zip(grads, g)]
@@ -171,9 +212,13 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
         gnorm = global_norm(grads.values(),
                             [norm_groups.get(k) for k in grads])
         metrics["grad_norm"] = gnorm
-        # Host seconds in the gradient synchronisation: on a blocking
-        # backend (gloo) they are the wait for the slowest process.
-        train_step.sync_s = time.perf_counter() - t_sync if sharded else 0.0
+        # Host seconds in the step's collectives (the gradient
+        # synchronisation, the sequence-parallel exchanges, the count of
+        # live targets): on a blocking backend (gloo) they are the wait
+        # for the slowest process.
+        train_step.sync_s = (time.perf_counter() - t_sync + counts_s
+                             + EXCHANGES["wait_s"] - wait0
+                             if sharded else 0.0)
         ok = True
         if nan_guard:
             ok = bool(torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm))
@@ -280,6 +325,7 @@ class Trainer:
         self.layout = self._layout()
         self._bind_gather()
         self._bind_tensor_parallel()
+        self._bind_sequence_parallel()
         self._check_dataset()
         self.optimizer.bind_layout(
             flatten(model.param_shapes()),
@@ -397,6 +443,20 @@ class Trainer:
         if self.layout is not None and self.strategy.family == "tp":
             tp = TPGroup(self.rt.group(("tp",)))
         self.model.bind_tensor_parallel(tp)
+
+    def _bind_sequence_parallel(self) -> None:
+        """With ``sp`` > 1, bind this process's sp group to the model:
+        each process holds its slice of every row's sequence, and the
+        model's attention crosses the slices (a model without a sequence
+        raises)."""
+        n = self.rt.spec.sp
+        bind = getattr(self.model, "bind_sequence_parallel", None)
+        if n > 1 and bind is None:
+            raise ValueError(
+                f"mesh.sp={n}: {type(self.model).__name__} has no "
+                "sequence to split over sp")
+        if bind is not None:
+            bind(SPGroup(self.rt.group(("sp",))) if n > 1 else None)
 
     def offload_opt_state(self) -> None:
         """Move the optimizer moments to host memory (pinned when the

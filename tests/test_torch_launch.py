@@ -10,7 +10,9 @@ Launcher:
   one-process CLI's over the same global batches;
 - signal forwarding: SIGTERM to the launcher's process reaches both
   children (the launcher itself survives it), their preemption guard
-  saves mid-run, and every exit code is 0;
+  saves mid-run, and every exit code is 0; the stop flag it sets belongs
+  to that launch, so a supervised run started later in the process
+  still restarts a crashed incarnation;
 - exit-code aggregation: the first failure's code, the sibling killed
   (``GroupReport``), a signal death reported as 128 + signal;
 - the port retry: a first attempt whose process 0 reports
@@ -114,6 +116,39 @@ def test_sigterm_is_forwarded(tmp_path):
     meta = json.loads((out / "ckpt" / max(saved, key=int) /
                        "meta.json").read_text())
     assert meta["epoch"] < 100000
+
+
+def test_a_signal_to_one_launch_does_not_stop_a_later_supervisor(tmp_path):
+    """The stop flag a signal sets belongs to the launch that took it: a
+    supervised run started later in the same process still restarts its
+    crashed incarnation (a process-wide flag made it stand down)."""
+    procs = launch.launch_local(["-c", "import time; time.sleep(60)"], 1,
+                                log_dir=str(tmp_path / "sleep"), env=_env())
+
+    def stop_when_running():
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and procs[0].proc.poll() is None:
+            if os.path.exists(procs[0].log_path):
+                break
+            time.sleep(0.05)
+        time.sleep(0.5)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    t = threading.Thread(target=stop_when_running, daemon=True)
+    t.start()
+    signaled = threading.Event()
+    launch.wait_report(procs, timeout=60, signaled=signaled)
+    t.join(timeout=65)
+    assert signaled.is_set()
+    crash_once = ("import os, sys; "
+                  "sys.exit(1 if os.environ['DTT_RESTART_COUNT'] == '0' "
+                  "else 0)")
+    rc = launch.main(["--nproc", "1", "--log-dir", str(tmp_path / "sup"),
+                      "--supervise", "--max-restarts", "1",
+                      "--backoff-base-s", "0.01", "--", "-c", crash_once])
+    assert rc == 0
+    assert sorted(os.listdir(tmp_path / "sup")) == [
+        "attempt_0", "attempt_1", "supervisor"]
 
 
 def test_exit_codes_aggregate(tmp_path):

@@ -132,7 +132,9 @@ def test_dot_product_attention_on_cpu_never_launches_a_kernel():
         np.testing.assert_allclose(
             out.numpy(), port_attn._naive_attention(q, k, v).numpy(), **TOL)
     assert port_fa.flash_fwd.launches == before
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # Sequence-parallel attention is the model's (parallel/), not this
+    # dispatcher's: it refuses "ring" as the JAX one does.
+    with pytest.raises(ValueError, match="unknown attention impl 'ring'"):
         port_attn.dot_product_attention(q, k, v, impl="ring")
 
 

@@ -9,8 +9,8 @@ held against the JAX package.
   leaf on each serving plan's model, and its specs equal the plan's
   entries; an unknown path and the path-less ``param_spec`` raise.
 - ``apply_plan_to_config`` and ``check_plan_runtime`` as JAX's
-  ``tests/test_planner.py`` checks them; a plan whose model names ring
-  attention builds and then fails at attention, naming item 16.
+  ``tests/test_planner.py`` checks them (the committed plans whose model
+  names ring attention run: ``tests/test_torch_ring.py``).
 - ``checkpoint/export.py``'s stamp (``--plan``, auto-detected from the
   run's ``resolved_config.yaml``, or ``none``) equals JAX's
   ``_plan_provenance``, and an export carries it into the artifact.
@@ -22,8 +22,10 @@ held against the JAX package.
   under ``train.sharding_plan`` give the losses of the CLI's unplanned
   ``tp_fsdp`` run within 1e-6, and those of JAX's trainer under the
   same plan, config and init (the port CLI's, from ``train.seed``) on 4
-  CPU devices within 1e-5. A plan whose mesh is not the runtime's
-  raises at trainer construction.
+  CPU devices within 1e-5. In the same world a plan of the candidate
+  fsdp 2 x sp 2 whose model names ring attention trains through the CLI
+  to the losses of JAX's trainer under it within 1e-5. A plan whose mesh
+  is not the runtime's raises at trainer construction.
 """
 
 import copy
@@ -47,9 +49,6 @@ from distributed_training_tpu_torch.data.datasets import SyntheticLMDataset
 from distributed_training_tpu_torch.models import transformer as port_tf
 from distributed_training_tpu_torch.models.registry import (
     build_model as port_build,
-)
-from distributed_training_tpu_torch.ops.attention import (
-    dot_product_attention,
 )
 from distributed_training_tpu_torch.parallel import planner as port_planner
 from distributed_training_tpu_torch.parallel.strategy import (
@@ -83,6 +82,9 @@ E2E_MODEL = dict(vocab_size=64, d_model=32, n_heads=2, n_kv_heads=2,
                  n_layers=2, max_seq_len=16, dtype="float32",
                  attention_impl="naive")
 E2E_MESH = {"dp": 1, "fsdp": 2, "tp": 2}
+# The same model under ring attention, planned on fsdp 2 x sp 2.
+E2E_RING_MODEL = dict(E2E_MODEL, attention_impl="ring")
+E2E_RING_MESH = {"dp": 1, "fsdp": 2, "sp": 2}
 
 
 # -- plan files ----------------------------------------------------------------
@@ -212,16 +214,6 @@ def test_check_plan_runtime_mesh_mismatch(monkeypatch):
         port_planner.check_plan_runtime(plan, shrunk)
 
 
-@pytest.mark.parametrize("name", ["multichip_8dev", "multichip_8dev_cpu"])
-def test_ring_attention_plan_fails_naming_item_16(name):
-    plan = port_planner.load_plan(name)
-    model = port_planner.model_for_plan(plan, device="cpu")
-    assert model.cfg.attention_impl == "ring" and not model.cfg.remat
-    q = torch.zeros(1, 4, model.cfg.n_heads, model.cfg.head_dim)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        dot_product_attention(q, q, q, impl=model.cfg.attention_impl)
-
-
 def test_model_kwargs_for_matches_jax():
     for name in PLANS:
         assert port_planner.model_kwargs_for(port_planner.load_plan(name)) \
@@ -264,14 +256,17 @@ def test_export_stamps_what_jax_stamps(tmp_path):
 # -- training under a plan -----------------------------------------------------
 
 
-def _e2e_plan(tmp_path) -> str:
+def _e2e_plan(tmp_path, name: str = "e2e_tiny", model=None,
+              mesh=None) -> str:
+    model, mesh = model or E2E_MODEL, mesh or E2E_MESH
     target = jax_planner.PlanTarget(
-        name="e2e_tiny", devices=4, model_kwargs=E2E_MODEL, seq_len=16,
+        name=name, devices=4, model_kwargs=model, seq_len=16,
         optimizer="adamw", batch_candidates=(2,),
         remat_candidates=("none",))
-    plan = jax_planner.build_plan(
-        target, jax_planner.Candidate(1, 1, 2, 1, 2, "none", 2))
-    return jax_planner.save_plan(plan, str(tmp_path / "e2e_tiny.json"))
+    plan = jax_planner.build_plan(target, jax_planner.Candidate(
+        1, mesh.get("dp", 1), mesh.get("fsdp", 1), mesh.get("sp", 1),
+        mesh.get("tp", 1), "none", 2))
+    return jax_planner.save_plan(plan, str(tmp_path / f"{name}.json"))
 
 
 def _port_cli_init(overrides: list) -> dict:
@@ -286,13 +281,15 @@ def _port_cli_init(overrides: list) -> dict:
             flatten(model.init(cfg.train.seed)).items()}
 
 
-def _jax_cli_planned(overrides: list, init: dict) -> list:
+def _jax_cli_planned(overrides: list, init: dict, mesh: dict) -> list:
     """JAX's trainer as its CLI builds it from ``overrides`` (the plan
-    applied to the config, the dataset, the loader, the model) on 4 CPU
-    devices, started from ``init``: the losses of its metric rows."""
+    applied to the config, the dataset, the loader, the model) on the 4
+    CPU devices of ``mesh``, started from ``init``: the losses of its
+    metric rows."""
     cfg = jax_config.load_config(overrides=overrides)
     jax_planner.apply_plan_to_config(cfg)
-    rt = jax_runtime.fake_cpu_runtime(4, fsdp=2, tp=2)
+    rt = jax_runtime.fake_cpu_runtime(
+        4, **{a: n for a, n in mesh.items() if a != "dp"})
     loader = JaxLoader(
         jax_build_dataset(cfg.train.dataset,
                           _defaults={"size": cfg.train.dataset_size,
@@ -318,9 +315,15 @@ def world(tmp_path_factory):
     out = tmp_path_factory.mktemp("plan_world")
     plan = _e2e_plan(out)
     planned = cli_overrides(E2E_MODEL) + [f"train.sharding_plan={plan}"]
-    jax_losses = _jax_cli_planned(planned, _port_cli_init(planned))
+    jax_losses = _jax_cli_planned(planned, _port_cli_init(planned),
+                                  E2E_MESH)
+    ring_plan = _e2e_plan(out, "e2e_ring", E2E_RING_MODEL, E2E_RING_MESH)
+    ring = cli_overrides(E2E_RING_MODEL) + [
+        f"train.sharding_plan={ring_plan}"]
+    jax_ring = _jax_cli_planned(ring, _port_cli_init(ring), E2E_RING_MESH)
     job = {"rdzv": str(out / "rdzv"), "out": str(out), "plan": plan,
-           "model": E2E_MODEL, "mesh": E2E_MESH}
+           "model": E2E_MODEL, "mesh": E2E_MESH, "ring_plan": ring_plan,
+           "ring_model": E2E_RING_MODEL}
     with open(out / "job.json", "w") as f:
         json.dump(job, f)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
@@ -345,7 +348,9 @@ def world(tmp_path_factory):
             return [r["loss"] for r in map(json.loads, f) if "loss" in r]
     return {"planned": cli_losses("planned"),
             "unplanned": cli_losses("unplanned"),
-            "jax_planned": jax_losses, "plan": plan}
+            "jax_planned": jax_losses, "plan": plan,
+            "ring_planned": cli_losses("ring_planned"),
+            "jax_ring_planned": jax_ring}
 
 
 def test_cli_under_a_plan_matches_the_unplanned_layout(world):
@@ -360,6 +365,15 @@ def test_cli_under_a_plan_matches_jax_under_the_plan(world):
     assert len(world["jax_planned"]) == STEPS
     np.testing.assert_allclose(world["planned"], world["jax_planned"],
                                rtol=1e-5, atol=1e-5)
+
+
+def test_cli_under_a_ring_plan_matches_jax_under_the_plan(world):
+    """A plan of fsdp 2 x sp 2 whose model names ring attention: the
+    port's CLI under it gives the losses of JAX's trainer under it."""
+    assert len(world["ring_planned"]) == STEPS
+    np.testing.assert_allclose(world["ring_planned"],
+                               world["jax_ring_planned"], rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_trainer_rejects_plan_mesh_mismatch(world):

@@ -5,7 +5,8 @@
 
 Every process runs, in one world, the port's training CLI for three
 steps under ``train.sharding_plan=<the job's plan>`` (fsdp 2 x tp 2),
-then the same CLI under ``tp_fsdp`` on the same mesh with no plan; each
+then the same CLI under ``tp_fsdp`` on the same mesh with no plan, then
+the CLI under the job's ring plan (fsdp 2 x sp 2, ring attention); each
 run writes its ``metrics.jsonl`` under ``<out>/<run>/default``. It
 imports only the port (and torch), never JAX. The file holds no tests.
 """
@@ -53,6 +54,9 @@ def main(job_path: str, rank: int) -> int:
                                 "train.batch_size=2"]
                         + [f"mesh.{k}={v}" for k, v in job["mesh"].items()]
                         + [f"run.output_dir={out}/unplanned"]) == 0
+        assert cli.main(cli_overrides(job["ring_model"])
+                        + [f"train.sharding_plan={job['ring_plan']}",
+                           f"run.output_dir={out}/ring_planned"]) == 0
         dist.barrier()
     finally:
         dist.destroy_process_group()

@@ -100,10 +100,13 @@ def test_no_deferral_names_left_in_the_port():
     """No deferral that a landed slice made untrue is left: items 12 and
     13's names, and any mention of items 14 (resilience and exactly-once
     data) and 15 (telemetry and utils), of item 3 (the remat and dropout
-    refusals named its RoPE/GQA half) and of item 7 (serving on a mesh,
-    which the ``apply`` refusal under tp named)."""
-    names = ("OPS_ITEM", "CLI_ITEM", "MESH_ITEM", "INCIDENTS_ITEM")
-    item14 = re.compile(r"items?\s+(?:14|15|3|7)\b")
+    refusals named its RoPE/GQA half), of item 7 (serving on a mesh,
+    which the ``apply`` refusal under tp named) and of item 16 undivided
+    (its refusals now name 16a-16d), and no refusal of sequence
+    parallelism (the ``sp`` axis, ring and Ulysses attention)."""
+    names = ("OPS_ITEM", "CLI_ITEM", "MESH_ITEM", "INCIDENTS_ITEM",
+             '"sp": "16', "is sequence-parallel attention, which waits")
+    item14 = re.compile(r"items?\s+(?:14|15|16|3|7)\b")
     pkg = os.path.join(REPO, "distributed_training_tpu_torch")
     found = []
     for root, _dirs, files in os.walk(pkg):

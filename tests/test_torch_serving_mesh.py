@@ -298,8 +298,8 @@ def test_pool_shard_rules_follow_jax():
     with pytest.raises(ValueError, match="cannot shard 2 kv heads"):
         port_engine.Engine(pm, params, cfg, device="cpu", mesh=Runtime(
             device=torch.device("cpu"), spec=MeshSpec(tp=4)))
-    for axis, item in (("fsdp", "item 17"), ("sp", "item 16"),
-                       ("pp", "item 16")):
+    for axis, item in (("fsdp", "item 17"), ("sp", "item 16a"),
+                       ("pp", "item 16b")):
         with pytest.raises(NotImplementedError, match=item):
             port_engine.Engine(pm, params, cfg, device="cpu", mesh=Runtime(
                 device=torch.device("cpu"), spec=MeshSpec(**{axis: 2})))

@@ -68,7 +68,8 @@ def _port_world(world, global_batch, **kw):
     for k in range(world):
         rt = types.SimpleNamespace(device=torch.device("cpu"),
                                    data_shard_count=world,
-                                   data_shard_index=k)
+                                   data_shard_index=k,
+                                   seq_shard_count=1, seq_shard_index=0)
         out.append(port_stream.StreamingDataLoader(
             _sources("port"), rt, batch_size=global_batch // world,
             pack_len=16, seed=7, **kw))
@@ -234,7 +235,8 @@ def test_build_stream_sources_and_probe():
                                           jax_stream._doc_tokens(w.dataset, i))
     ld = port_stream.StreamingDataLoader(
         got, types.SimpleNamespace(device=torch.device("cpu"),
-                                   data_shard_count=1, data_shard_index=0),
+                                   data_shard_count=1, data_shard_index=0,
+                                   seq_shard_count=1, seq_shard_index=0),
         batch_size=2, pack_len=16)
     assert ld.dataset.vocab_size == 256 and ld.dataset.seq_len == 16
     assert ld.dataset.batch(np.array([0]))["tokens"].shape == (1, 17)

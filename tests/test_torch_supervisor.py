@@ -269,15 +269,17 @@ def runs(tmp_path_factory) -> dict:
                 "0.05", "--ckpt-dir", str(faulty / "ckpt"), "--",
                 *train_args(str(faulty / "out"), str(faulty / "ckpt"),
                             "train.fault_plan=crash@6")])
-        assert rc == 0, _tail(faulty / "logs" / "attempt_0")
+        assert rc == 0, "".join(
+            _tail(faulty / "logs" / d)
+            for d in sorted(os.listdir(faulty / "logs")))
         _RUNS.update(clean=clean, faulty=faulty)
     return _RUNS
 
 
 def _tail(log_dir) -> str:
-    text = ""
+    text = f"== {log_dir}\n"
     for p in sorted(os.listdir(log_dir)):
-        if p.endswith(".log"):
+        if p.endswith((".log", ".jsonl", ".json")):
             with open(os.path.join(log_dir, p)) as f:
                 text += f.read()[-3000:]
     return text

@@ -143,28 +143,29 @@ def test_cli_save_stop_resume_matches_uninterrupted(tmp_path):
 
 
 def test_cli_refuses_unported_features(tmp_path):
-    """Tensor parallelism runs: ``mesh.tp=2`` in a world of one is the
-    mesh error, as any axis that needs more processes; sequence and
-    pipeline parallelism name ROADMAP item 16. No train field is refused
-    any more: straggler eviction runs, and in a world of one its detector
-    is a no-op."""
-    with pytest.raises(MeshSpecError, match="needs 2 devices"):
-        cli.main(["train.device=cpu", "train.parallel_strategy=tp",
-                  "mesh.dp=1", "mesh.tp=2", "model=gpt2_125m", "train=gpt2",
+    """Tensor and sequence parallelism run: ``mesh.tp=2`` or
+    ``mesh.sp=2`` in a world of one is the mesh error, as any axis that
+    needs more processes, and ring attention trains at sp 1; pipeline
+    parallelism names ROADMAP item 16b. No train field is refused any
+    more: straggler eviction runs, and in a world of one its detector is
+    a no-op."""
+    for axis in ("tp", "sp"):
+        with pytest.raises(MeshSpecError, match="needs 2 devices"):
+            cli.main(["train.device=cpu", "train.parallel_strategy=tp",
+                      "mesh.dp=1", f"mesh.{axis}=2", "model=gpt2_125m",
+                      "train=gpt2", f"run.output_dir={tmp_path}"])
+    with pytest.raises(NotImplementedError, match="item 16b"):
+        cli.main(["train.device=cpu", "mesh.pp=2",
                   f"run.output_dir={tmp_path}"])
-    for axis in ("sp", "pp"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            cli.main(["train.device=cpu", f"mesh.{axis}=2",
-                      f"run.output_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        cli.main(["train.device=cpu", "+model.attention_impl=ring",
+    assert cli.main(["train.device=cpu", "+model.attention_impl=ring",
                   "train.dataset_size=4", "train.batch_size=2",
                   "+model.n_layers=1", "+model.d_model=32",
                   "+model.n_heads=2", "+model.vocab_size=64",
                   "+model.max_seq_len=16", "train.dataset_kwargs.seq_len=16",
                   "train.dataset_kwargs.vocab_size=64",
                   "model=gpt2_125m", "train=gpt2",
-                  f"run.output_dir={tmp_path}"])
+                  f"run.output_dir={tmp_path}/ring",
+                  f"train.snapshot_path={tmp_path}/ring/ckpt"]) == 0
     assert cli.main(["train.device=cpu", "train.straggler_evict_after=2",
                      "train.straggler_every=1", "train.dataset_size=8",
                      "train.batch_size=4", f"run.output_dir={tmp_path}",

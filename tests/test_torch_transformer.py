@@ -89,11 +89,16 @@ def test_deferred_model_features_raise():
                                     n_heads=2, dtype="float32")
     params = port_tf.Transformer(cfg, device="cpu").init(0)
     tokens = torch.zeros((1, 4), dtype=torch.long)
+    # Ring attention runs (item 16a): without an sp group it is the
+    # degenerate ring, the full attention of one process.
     ring = port_tf.Transformer(port_tf.TransformerConfig(
         vocab_size=64, d_model=32, n_layers=1, n_heads=2, dtype="float32",
         attention_impl="ring"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ring.apply(params, tokens)
+    np.testing.assert_allclose(
+        ring.apply(params, tokens)[0].numpy(),
+        port_tf.Transformer(cfg, device="cpu").apply(params,
+                                                     tokens)[0].numpy(),
+        rtol=1e-5, atol=1e-6)
 
 
 def _flat(tree, prefix=""):
