@@ -139,7 +139,18 @@ a seed:
   under a window of 256, the diagonal block's band on the kernels and
   the offset block on the plain path (``train_sp2_ring_window``). The
   kernel phase holds the ring's blocks at that shard (B 8, H 12, S 512)
-  against their plain versions.
+  against their plain versions;
+- pipeline parallelism at pp 2, gpt2_125m at full width (batch 8,
+  sequence 1024, conf/train/gpt2.yaml, 4 microbatches of 2 rows) in two
+  processes on ``cuda:0`` over gloo, each a stage of 6 layers, under the
+  GPipe schedule (``train_pp2_gpipe``) and the interleaved one with two
+  chunks of 3 layers a stage (``train_pp2_interleaved``): each against
+  world 1 on the same batches, with a planted fault (the tied
+  embedding's gradient left unsummed over pp) that must fall outside the
+  limits, and two runs under the split backward that repeat their bits.
+  Each stage's attention runs B1 twice a layer and microbatch (the
+  forward and the backward's recompute) and B2 (or B3a/B3b); the kernel
+  phase holds them at the microbatch shape (B 2, H 12, S 1024).
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -252,6 +263,22 @@ SP2_WINDOW = 256
 SP2_WINDOW_STEPS = 4
 SP_LOSS_RTOL = TP_LOSS_RTOL
 SP_GRAD_NORM_RTOL = TP_GRAD_NORM_RTOL
+# Pipeline parallelism at pp 2 (train_pp2_gpipe, train_pp2_interleaved):
+# gpt2_125m in two processes on cuda:0 over gloo, each a stage of 6 of
+# the 12 layers (interleaved: two chunks of 3), PP2_MICROBATCHES
+# microbatches of 2 rows. The sound run (fused backward) takes
+# TRAIN_PP2_STEPS steps and is held over its first PP2_HELD_STEPS against
+# one process on the same batches at the tp 2 limits; the planted fault
+# (the tied embedding's gradient left unsummed over pp: stage 0 keeps
+# the lookup's part, the last stage the head's) runs PP2_HELD_STEPS steps
+# and must fall outside them; two runs under the split backward repeat
+# their losses bit for bit over PP2_HELD_STEPS steps.
+TRAIN_PP2_STEPS = 10
+PP2_HELD_STEPS = 5
+PP2_MICROBATCHES = 4
+PP2_VIRTUAL_STAGES = 2
+PP_LOSS_RTOL = TP_LOSS_RTOL
+PP_GRAD_NORM_RTOL = TP_GRAD_NORM_RTOL
 # Serving on a mesh (serving_dp2, serving_tp2): two processes on cuda:0
 # over gloo, each one mesh rank. At float32 the logits of the first
 # decoded position of every request, mesh engine against one process,
@@ -742,6 +769,9 @@ def phase_kernels() -> dict:
                                      library=True)
     flash["ring_diag"] = _flash_case(timer, 8, 12, 12, 512, 64, bf16,
                                      out_dtype=f32, library=True)
+    # One pipeline microbatch of gpt2_125m (train_pp2_*): B 2 of 8.
+    flash["pp_microbatch"] = _flash_case(timer, 2, 12, 12, 1024, 64, bf16,
+                                         library=True)
     # generate.py --decode fused on byte_lm: its prompt's prefill.
     flash["generate"] = _flash_case(timer, 1, 8, 8, GEN_PROMPT_BYTES, 64,
                                     bf16, library=True)
@@ -800,6 +830,12 @@ def phase_kernels() -> dict:
         bwd[f"split_ring_{tag}"] = _bwd_case(
             timer, 8, 12, 12, 512, 64, bf16, True, grads_dtype=f32,
             causal=causal, library=True)
+    # One pipeline microbatch (train_pp2_*): the fused backward and the
+    # split pair, B 2.
+    for split in (False, True):
+        tag = "split" if split else "fused"
+        bwd[f"{tag}_pp_microbatch"] = _bwd_case(
+            timer, 2, 12, 12, 1024, 64, bf16, split, library=True)
     # gpt2_125m under tp 2 (train_tp2, the fused backward): each rank's 6
     # heads.
     bwd["fused_tp2"] = _bwd_case(timer, 8, 6, 6, 1024, 64, bf16, False,
@@ -836,6 +872,10 @@ def phase_kernels() -> dict:
             "flash_bwd_dkv": bwd["split_train"]["flash_bwd_dkv"],
             **{f"flash_fwd_ring_{tag}": flash[f"ring_{tag}"]
                for tag in ("past", "diag")},
+            "flash_fwd_pp": flash["pp_microbatch"],
+            "flash_bwd_fused_pp": bwd["fused_pp_microbatch"]["flash_bwd_fused"],
+            "flash_bwd_dq_pp": bwd["split_pp_microbatch"]["flash_bwd_dq"],
+            "flash_bwd_dkv_pp": bwd["split_pp_microbatch"]["flash_bwd_dkv"],
             **{f"{k}_ring_{tag}": bwd[f"split_ring_{tag}"][k]
                for k in ("flash_bwd_dq", "flash_bwd_dkv")
                for tag in ("past", "diag")}}
@@ -3549,6 +3589,237 @@ def phase_train_sp2(tmp: str, impl: str, window: int = 0) -> tuple:
     return launches, designs
 
 
+def _pp_trainer(rt, schedule: str, steps: int):
+    """A Trainer on gpt2_125m / conf/train/gpt2.yaml for the first
+    ``steps`` of TRAIN_PP2_STEPS steps of batch 8 under ``ddp`` over
+    ``rt``, pipelined by ``schedule`` over the runtime's pp (a world of
+    one ignores the pp fields), and its loader."""
+    return _gpt2_trainer(rt, [
+        "train.parallel_strategy=ddp",
+        f"+model.pp_microbatches={PP2_MICROBATCHES}",
+        f"+model.pp_schedule={schedule}",
+        f"+model.pp_virtual_stages={PP2_VIRTUAL_STAGES}"], steps,
+        TRAIN_PP2_STEPS)
+
+
+# (name, steps, split backward, planted fault) of one train_pp2 phase's
+# runs in each process.
+PP2_RUNS = (("sound", TRAIN_PP2_STEPS, False, False),
+            ("fault", PP2_HELD_STEPS, False, True),
+            ("split_a", PP2_HELD_STEPS, True, False),
+            ("split_b", PP2_HELD_STEPS, True, False))
+
+
+def train_pp2_rank(rank: int, port: int, out_path: str,
+                   schedule: str) -> int:
+    """One of a train_pp2 phase's two processes: on ``cuda:0``, in a
+    gloo group of 2 over ``127.0.0.1:port``, a runtime over the mesh pp
+    2 built here (the CLI's runtime would ask for NCCL on a card), each
+    run of PP2_RUNS; writes its readings to ``out_path``. The fault run
+    leaves each stage's part of the tied embedding's gradient unsummed
+    over pp."""
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.parallel import fsdp
+    from distributed_training_tpu_torch.parallel import pipeline
+    from distributed_training_tpu_torch.runtime import MeshSpec, slice_runtime
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    average_grads = fsdp.average_grads
+
+    def embedding_unsummed(grads, placements, runtime, tp_partial=()):
+        own = grads["tok_embed"].clone()
+        average_grads(grads, placements, runtime, tp_partial)
+        grads["tok_embed"].copy_(own / runtime.data_shard_count)
+        return grads
+
+    try:
+        rt = slice_runtime([MeshSpec(pp=2)], torch.device("cuda", 0))
+        result = {"rank": rank, "describe": rt.describe()}
+        for run, steps, split, fault in PP2_RUNS:
+            trainer, loader = _pp_trainer(rt, schedule, steps)
+            _free_memory()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            pipeline.EXCHANGES.clear()
+            fa.FORCE_SPLIT_BWD = split
+            if fault:
+                fsdp.average_grads = embedding_unsummed
+            try:
+                got = _tp2_steps(trainer, loader)
+            finally:
+                fsdp.average_grads = average_grads
+                fa.FORCE_SPLIT_BWD = False
+            result[run] = {**got, "exchanges": dict(pipeline.EXCHANGES),
+                           "launches": _read_counts(),
+                           "launches_by_design": _read_designs(),
+                           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            del trainer, loader
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_train_pp2(tmp: str, schedule: str, want: dict) -> tuple:
+    """gpt2_125m at full width under pipeline parallelism at pp 2 on the
+    one card (``pp_schedule=schedule``): two processes on ``cuda:0`` in
+    a gloo group, stage 0 embedding the batch and the last stage holding
+    the final norm, the head and the loss, PP2_MICROBATCHES microbatches
+    of 2 rows, against ``want`` (world 1 on the same batches,
+    ``_pp_world1``). Each stage's attention runs B1 twice a layer and
+    microbatch (the forward and the backward's recompute) and B2, or
+    under the split backward B3a/B3b, at B 2, H 12, S 1024. Step times
+    are gloo's, the activations, their gradients and the gradient sum
+    staged through the host: a correctness reading."""
+    from distributed_training_tpu_torch.models.transformer import PRESETS
+    from distributed_training_tpu_torch.parallel.pipeline import (
+        schedule_stats,
+    )
+
+    name = f"train_pp2_{schedule}"
+    port = _free_port()
+    outs = [os.path.join(tmp, f"{name}.rank{r}.json") for r in range(2)]
+    logs = [open(os.path.join(tmp, f"{name}.rank{r}.log"), "w")
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-pp2-rank",
+         str(r), str(port), outs[r], schedule], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    if codes != [0, 0]:
+        for r in range(2):
+            with open(logs[r].name) as f:
+                print(f"{name} rank {r}:\n{f.read()[-4000:]}",
+                      file=sys.stderr)
+    check(codes == [0, 0], f"{name}: ranks exited {codes}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    held = PP2_HELD_STEPS
+    readings = {}
+    for run in ("sound", "fault"):
+        got = ranks[0][run]
+        readings[run] = {
+            "loss_rel_diff": _rel_diffs(got["losses"][:held],
+                                        want["losses"][:held]),
+            "grad_norm_rel_diff": _rel_diffs(got["grad_norms"][:held],
+                                             want["grad_norms"][:held])}
+        readings[run]["within"] = (
+            readings[run]["loss_rel_diff"] <= PP_LOSS_RTOL
+            and readings[run]["grad_norm_rel_diff"] <= PP_GRAD_NORM_RTOL)
+    L = PRESETS["gpt2_125m"]["n_layers"]
+    M, steps = PP2_MICROBATCHES, TRAIN_PP2_STEPS
+    per_rank = []
+    for r in ranks:
+        sound = r["sound"]
+        per_rank.append({
+            "rank": r["rank"], "describe": r["describe"],
+            "losses": sound["losses"], "grad_norms": sound["grad_norms"],
+            "median_step_s": float(np.median(sound["step_s"][1:])),
+            "step_s": sound["step_s"],
+            "median_sync_s": float(np.median(sound["sync_s"][1:])),
+            "peak_mem_bytes": sound["peak_mem_bytes"],
+            "peak_mem_of_world1": sound["peak_mem_bytes"] / want["peak"],
+            "exchanges_per_step": {k: v / steps for k, v in
+                                   sound["exchanges"].items()},
+            "launches": sound["launches"],
+            "launches_by_design": sound["launches_by_design"],
+            "split_launches": {k: r["split_a"]["launches"][k]
+                               + r["split_b"]["launches"][k]
+                               for k in sound["launches"]},
+            "split_losses": [r["split_a"]["losses"], r["split_b"]["losses"]],
+            "split_grad_norms": [r["split_a"]["grad_norms"],
+                                 r["split_b"]["grad_norms"]],
+            "fault_losses": r["fault"]["losses"],
+            "fault_grad_norms": r["fault"]["grad_norms"]})
+    median_s = max(p["median_step_s"] for p in per_rank)
+    stats = schedule_stats(2, M, schedule, PP2_VIRTUAL_STAGES)
+    emit({"phase": name, "model": "gpt2_125m", "strategy": "ddp",
+          "schedule": schedule, "mesh": {"pp": 2}, "microbatches": M,
+          "virtual_stages": PP2_VIRTUAL_STAGES, "backend": "gloo",
+          "processes_on_card": 2, "batch": 8, "seq": 1024, "steps": steps,
+          "held_steps": held, "wall_s": wall,
+          "schedule_stats": stats,
+          "world1_losses": want["losses"],
+          "world1_grad_norms": want["grad_norms"],
+          "world1_median_step_s": want["median_step_s"],
+          "world1_peak_mem_bytes": want["peak"],
+          "median_step_s": median_s,
+          # Both processes share the one card and the host (gloo).
+          "tokens_per_s_two_processes_one_card_gloo": 8 * 1024 / median_s,
+          "loss_rtol": PP_LOSS_RTOL, "grad_norm_rtol": PP_GRAD_NORM_RTOL,
+          "fault": "the tied embedding's gradient left unsummed over pp",
+          "readings": readings, "ranks": per_rank})
+    sound0 = per_rank[0]
+    for r in per_rank:
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"{name}: non-finite {r['losses']}")
+        check(r["losses"] == sound0["losses"]
+              and r["grad_norms"] == sound0["grad_norms"],
+              f"{name}: the two stages report different metrics")
+        check(r["exchanges_per_step"].get("staged_bytes", 0) > 0,
+              f"{name}: rank {r['rank']} staged no exchange")
+        check(r["split_losses"][0] == r["split_losses"][1]
+              and r["split_grad_norms"][0] == r["split_grad_norms"][1],
+              f"{name}: the split reruns' bits differ: {r['split_losses']}")
+    # Both processes' launches are the card's: per step each stage runs
+    # B1 twice per layer and microbatch (forward, recompute) over its 6
+    # layers, and one backward per layer and microbatch.
+    runs = [(run["launches"], run["launches_by_design"]) for rk in ranks
+            for run in (rk["sound"], rk["split_a"], rk["split_b"])]
+    launches = {k: sum(c[k] for c, _ in runs) for k in runs[0][0]}
+    designs = {k: {d: sum(ds[k][d] for _, ds in runs)
+                   for d in runs[0][1][k]} for k in runs[0][1]}
+    split_steps = 2 * PP2_HELD_STEPS
+    want_launches = {"flash_fwd": 2 * L * M * (steps + split_steps),
+                     "flash_bwd_fused": L * M * steps,
+                     "flash_bwd_dq": L * M * split_steps,
+                     "flash_bwd_dkv": L * M * split_steps}
+    for k, n in want_launches.items():
+        check(launches[k] == designs[k]["wgmma"] == n,
+              f"{name}: {k} launches {designs[k]}, want {n} on wgmma")
+    check(readings["sound"]["within"],
+          f"{name}: pp 2 against world 1 outside the limits: {readings}")
+    check(not readings["fault"]["within"],
+          f"{name}: the planted fault passed the limits: {readings}")
+    return launches, designs
+
+
+def _pp_world1() -> dict:
+    """The train_pp2 phases' reference: TRAIN_PP2_STEPS steps at world 1
+    in this process on their batches, with its median step and peak
+    memory."""
+    from distributed_training_tpu_torch.runtime import Runtime
+
+    _free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, loader = _pp_trainer(Runtime(device=torch.device("cuda", 0)),
+                                  "gpipe", TRAIN_PP2_STEPS)
+    want = _tp2_steps(trainer, loader)
+    want["peak"] = torch.cuda.max_memory_allocated()
+    want["median_step_s"] = float(np.median(want["step_s"][1:]))
+    del trainer, loader
+    _free_memory()
+    return want
+
+
 def phase_train_1b_trace() -> None:
     """Where a transformer_1b fsdp step's time goes: 2 steps under
     ``torch.profiler`` after 2 unprofiled ones, through the Trainer in
@@ -5250,6 +5521,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--train-sp2-rank"]:
         return train_sp2_rank(int(sys.argv[2]), int(sys.argv[3]),
                               sys.argv[4], sys.argv[5], int(sys.argv[6]))
+    if sys.argv[1:2] == ["--train-pp2-rank"]:
+        return train_pp2_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4], sys.argv[5])
     if sys.argv[1:2] == ["--train-elastic-rank"]:
         return train_elastic_rank(int(sys.argv[2]), int(sys.argv[3]),
                                   sys.argv[4], sys.argv[5],
@@ -5310,6 +5584,9 @@ def main() -> int:
                    "train_sp2_ulysses": phase_train_sp2(tmp, "ulysses"),
                    "train_sp2_ring_window": phase_train_sp2(
                        tmp, "ring", window=SP2_WINDOW)}
+        world1 = _pp_world1()
+        slice18 = {f"train_pp2_{s}": phase_train_pp2(tmp, s, world1)
+                   for s in ("gpipe", "interleaved")}
     phase_train_trace()
     phase_train_trace(split=True)
     phase_train_1b_trace()
@@ -5344,14 +5621,15 @@ def main() -> int:
     # stream under each backward and the elastic resize; then the observability paths: the
     # telemetry run and the three dropout runs; then sequence parallelism
     # at sp 2: the ring, Ulysses and the windowed ring, both processes'
-    # sound runs).
+    # sound runs; then pipeline parallelism at pp 2 under each schedule,
+    # both processes' sound and split runs).
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
              int8_launches, swap_launches, recovery_launches, disagg_launches,
              cli_launches,
              *mesh_launches.values(), train_launches, split_launches,
              train_1b_launches, tp_1b_launches, tp2_launches,
              *slice14.values(), *slice15.values(), *slice16.values(),
-             *slice17.values())
+             *slice17.values(), *slice18.values())
     kernels = []
     for name in KERNELS:
         src, replaces = sources[name]
@@ -5410,6 +5688,17 @@ def main() -> int:
         # And on the sequence-parallel paths (both processes' sound run).
         kernels[-1]["sequence_parallel_launches"] = {
             path: counts[name] for path, (counts, _) in slice17.items()}
+        # And on the pipeline paths (both processes' sound run and both
+        # split runs).
+        kernels[-1]["pipeline_launches"] = {
+            path: counts[name] for path, (counts, _) in slice18.items()}
+        if name.startswith("flash_"):
+            # The same kernel at the pipeline's microbatch shape (B 2, H
+            # 12, S 1024, D 64).
+            kernels[-1]["pp_microbatch_case"] = {
+                k: measured[f"{name}_pp"][k]
+                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms")}
         if name.startswith("flash_") and name != "flash_bwd_fused":
             # The ring's blocks at the sp 2 shard: the past block
             # (non-causal) and the diagonal, f32 out or f32 gradients.

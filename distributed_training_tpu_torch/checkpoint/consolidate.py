@@ -29,6 +29,7 @@ from distributed_training_tpu_torch.checkpoint.manager import (
     WHOLE_FILE,
     placements_of,
     rank_file,
+    written_ranks,
 )
 from distributed_training_tpu_torch.parallel import fsdp
 from distributed_training_tpu_torch.runtime import MESH_AXES
@@ -130,8 +131,9 @@ def _join(local: list, pls: dict, coords: list, sizes: dict) -> dict:
 
 def whole_state_of(step_dir: str) -> dict:
     """A committed step's whole state on the host, whatever mesh wrote
-    it: ``state.pt`` as saved, or every process's ``state.rank<r>.pt``
-    joined by ``layout.json``. One process, no process group; it holds
+    it: ``state.pt`` as saved, or the ``state.rank<r>.pt`` of every
+    process that wrote one (under ``pp``, the first stages) joined by
+    ``layout.json``. One process, no process group; it holds
     every rank file in memory at once."""
     whole = os.path.join(step_dir, WHOLE_FILE)
     if os.path.exists(whole):
@@ -140,11 +142,12 @@ def whole_state_of(step_dir: str) -> dict:
         manifest = json.load(f)
     sizes = manifest["mesh"]
     shape = [sizes[a] for a in MESH_AXES]
+    ranks = written_ranks(manifest)
     coords = [dict(zip(MESH_AXES, np.unravel_index(r, shape)))
-              for r in range(manifest["world"])]
+              for r in ranks]
     local = [torch.load(os.path.join(step_dir, rank_file(r)),
                         map_location="cpu", weights_only=True)
-             for r in range(manifest["world"])]
+             for r in ranks]
     state = dict(local[0])
     state["params"] = unflatten(_join(
         [flatten(s["params"]) for s in local],

@@ -11,8 +11,11 @@ never sees a half-written step:
 - with one (any world under torch.distributed): every process writes its
   local shards to ``state.rank<r>.pt``, and process 0 writes
   ``meta.json`` and ``layout.json`` (the mesh and each leaf's placement;
-  ``replica_axes`` names ``sp`` when the mesh has it)
-  and renames the directory once every process has written.
+  ``replica_axes`` names ``pp`` and ``sp`` when the mesh has them)
+  and renames the directory once every process has written. Under
+  ``pp`` only the first stage of each data shard (and sp slice and tp
+  block) writes: the other stages hold the same state, and read the
+  first stage's file back (``writer_rank``).
 
 Every committed step gets ``manifest.dtt.json`` (``resilience/
 integrity.py``: the sha256 and size of every file, the rank files,
@@ -53,6 +56,7 @@ import threading
 import time
 from typing import Any
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -84,15 +88,33 @@ def layout_manifest(layout: dict, runtime) -> dict:
     out = {"world": runtime.process_count,
            "mesh": runtime.spec.as_dict(),
            "params": enc(layout["params"]), "opt": enc(layout["opt"])}
-    if runtime.spec.sp > 1:
-        # Every leaf is whole over sp: its members' files hold replicas,
-        # and a restore at another sp re-cuts the state from any one.
-        out["replica_axes"] = ["sp"]
+    replicas = [a for a in ("pp", "sp") if getattr(runtime.spec, a) > 1]
+    if replicas:
+        # Every leaf is whole over pp and sp: the sp members' files hold
+        # replicas (the pp stages' are not written), and a restore on
+        # another mesh re-cuts the state from any one.
+        out["replica_axes"] = replicas
     if layout.get("factored"):
         # Adafactor's factored moments (train/optimizer.py).
         out["factored"] = {name: enc(pls)
                            for name, pls in layout["factored"].items()}
     return out
+
+
+def writer_rank(runtime) -> int:
+    """The process whose rank file holds this process's state: itself,
+    or under ``pp`` the first stage of its pipeline."""
+    if runtime.mesh is None or runtime.spec.pp == 1:
+        return runtime.process_index
+    return runtime.mesh.members(("pp",))[0] - runtime.first_rank
+
+
+def written_ranks(manifest: dict) -> list:
+    """The processes of a sharded save that wrote a rank file: every one,
+    or under ``pp`` the first stage of each pipeline."""
+    shape = [manifest["mesh"][a] for a in MESH_AXES]
+    return [r for r in range(manifest["world"])
+            if np.unravel_index(r, shape)[MESH_AXES.index("pp")] == 0]
 
 
 def placements_of(manifest: dict, kind: str) -> dict:
@@ -240,8 +262,11 @@ class Checkpointer:
                       "meta": meta or {},
                       "layout": (layout_manifest(layout, self.rt)
                                  if self.sharded else None)}
+            writes = (not self.sharded
+                      or writer_rank(self.rt) == self.rt.process_index)
             if self._snap is None:
-                torch.save(_detached(state), os.path.join(tmp, fname))
+                if writes:
+                    torch.save(_detached(state), os.path.join(tmp, fname))
                 self._commit(commit)
             else:
                 host = self._snap.take(state)
@@ -252,7 +277,8 @@ class Checkpointer:
                     try:
                         if event is not None:
                             event.synchronize()
-                        torch.save(host, os.path.join(tmp, fname))
+                        if writes:
+                            torch.save(host, os.path.join(tmp, fname))
                         if self.sharded:
                             dist.barrier(group=self._commit_group)
                         if self.coordinator:
@@ -380,7 +406,7 @@ class Checkpointer:
                     if self.sharded and saved is not None
                     else whole and not self.sharded)
             if same:
-                name = (rank_file(self.rt.process_index) if self.sharded
+                name = (rank_file(writer_rank(self.rt)) if self.sharded
                         else WHOLE_FILE)
                 files = [name]
                 state = torch.load(os.path.join(step_dir, name),
@@ -390,7 +416,7 @@ class Checkpointer:
                     consolidate,
                 )
                 files = ([WHOLE_FILE] if whole else
-                         [rank_file(r) for r in range(saved["world"])])
+                         [rank_file(r) for r in written_ranks(saved)])
                 state = consolidate.place_state(
                     consolidate.whole_state_of(step_dir), layout, self.rt,
                     device)

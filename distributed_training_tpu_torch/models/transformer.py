@@ -74,9 +74,24 @@ its part of that loss's, which the trainer sums over ``sp``. Dropout
 masks are drawn over the global sequence and sliced, so they equal the
 masks of a run at sp 1.
 
-MoE (item 16c) and pipeline parallelism (item 16b) wait for later
-slices (ROADMAP.md queue A) and raise ``NotImplementedError`` when asked
-for.
+Under pipeline parallelism (a mesh with ``pp``) the trainer binds the
+pp group (``bind_pipeline``) and takes each step's gradients from
+``pipeline_grads``: stage 0 embeds the whole batch (positions and the
+embedding's dropout as at pp 1) and splits it into ``M`` strided
+microbatches (``parallel/pipeline.py::num_microbatches``, the JAX rule
+over the global batch); every stage runs its chunks of blocks
+(``_run_layers``, given their global layer ids, no remat: the pipeline
+keeps each chunk's input and recomputes it) under the ``pp_schedule``;
+the last stage applies the final norm, the head and the loss to the
+whole batch, so the loss is the batch's mean over its real tokens, and
+broadcasts it over ``pp``. A layer's dropout seed folds the pipeline
+microbatch when ``M > 1``, so with one microbatch pp N draws exactly
+the pp 1 masks. Inside a stage, tp and sp run as above (each stage's tp
+ranks compute their heads; JAX's stage params are whole over tp). The
+dense block has no aux loss to divide by ``M``.
+
+MoE (item 16c) waits for a later slice (ROADMAP.md queue A) and raises
+``NotImplementedError`` when asked for.
 """
 
 from __future__ import annotations
@@ -90,6 +105,7 @@ import torch.utils.checkpoint
 
 from distributed_training_tpu_torch.ops.attention import dot_product_attention
 from distributed_training_tpu_torch.ops.xent import lm_cross_entropy
+from distributed_training_tpu_torch.parallel import pipeline
 from distributed_training_tpu_torch.parallel.ring_attention import (
     SPGroup,
     ring_attention,
@@ -345,9 +361,11 @@ class _RematMLP(torch.autograd.Function):
 
 
 # The embedding's dropout key (JAX folds 1_000_003 into the step's rng
-# for ``embd_pdrop``) and the layers' (JAX's ``fold_in(rng, 7)``).
+# for ``embd_pdrop``), the layers' (JAX's ``fold_in(rng, 7)``) and the
+# pipeline microbatch's.
 _EMBED_KEY = 1_000_003
 _LAYER_KEY = 7
+_PP_MICROBATCH_KEY = 11
 
 
 def fold_seed(seed: int, *keys: int) -> int:
@@ -460,6 +478,8 @@ class Transformer:
         self._tp = None
         self._kv_index = None
         self._sp = None
+        self._pp = None
+        self._pp_shards = 1
 
     def param_shapes(self) -> dict:
         return param_shapes(self.cfg)
@@ -530,6 +550,29 @@ class Transformer:
                 "attention_impl 'ring' or 'ulysses', not "
                 f"'{self.cfg.attention_impl}'")
         self._sp = sp
+
+    def bind_pipeline(self, pp: pipeline.PPGroup | None,
+                      data_shards: int = 1) -> None:
+        """Train with the layers' work split over a pp group (``pp``: a
+        ``parallel.pipeline.PPGroup``): this process runs its stage's
+        chunks of every microbatch under ``pp_schedule``; gradients come
+        from ``pipeline_grads``. ``data_shards``: the global batch's
+        data shards (the microbatch count's rule). ``None`` (or a group
+        of one) unbinds. Raises when pp does not divide the layers
+        (interleaved: ``pp_virtual_stages * pp``)."""
+        if pp is not None and pp.size > 1:
+            c = self.cfg
+            pipeline.check_pipeline(c.pp_schedule, 1, 1, c.n_layers,
+                                    pp.size, c.pp_virtual_stages)
+            if (c.attention_impl == "ulysses" and self._sp is not None
+                    and (c.n_kv_heads % self._sp.size
+                         or c.n_heads % self._sp.size)):
+                raise ValueError(
+                    f"attention_impl='ulysses' under pp with "
+                    f"sp={self._sp.size} needs n_heads ({c.n_heads}) and "
+                    f"n_kv_heads ({c.n_kv_heads}) divisible by sp")
+        self._pp = pp if pp is not None and pp.size > 1 else None
+        self._pp_shards = data_shards
 
     def _seq_slice(self, s_local: int) -> tuple[int, int] | None:
         """(start, global length) of this process's sequence slice, or
@@ -681,11 +724,11 @@ class Transformer:
         x = x + drop(reduce(part) + m["bo"].to(dt), 1)
         return (x, (k, v)) if return_kv else x
 
-    def _trunk(self, params: dict, tokens: torch.Tensor,
-               remat: str | None = None, rng: int | None = None) -> tuple:
-        """tokens (B, S) → final-norm hidden states (B, S, D) in compute
-        dtype, plus the (zero) aux loss. ``rng``: the step's dropout
-        seed (None: no dropout)."""
+    def _embed(self, params: dict, tokens: torch.Tensor,
+               rng: int | None = None) -> torch.Tensor:
+        """tokens (B, S) → embeddings (B, S, D) in compute dtype, the
+        positions (under sp, this slice's) added and the embedding's
+        dropout applied: the pipeline's first stage."""
         c = self.cfg
         dt = torch_dtype(c.dtype)
         S = tokens.shape[1]
@@ -697,14 +740,35 @@ class Transformer:
         # slices of the whole sequence's (``_dropout``'s ``seq``).
         seq = self._seq_slice(S)
         start = seq[0] if seq else 0
-        in_seq = (seq,) if seq else ()
-        positions = torch.arange(start, start + S, device=self.device)
         if c.pos_encoding == "learned":
             x = x + self._leaf(params, "pos_embed", dt)[start:start + S]
+        if rng is not None and c.dropout > 0.0:
+            x = _dropout(x, c.dropout, dropout_seed(rng, None),
+                         *((seq,) if seq else ()))
+        return x
+
+    def _run_layers(self, params: dict, x: torch.Tensor, layer_ids: range,
+                    remat: str | None = None,
+                    rng: int | None = None) -> torch.Tensor:
+        """The blocks of the global layers ``layer_ids`` (consecutive)
+        over x (B, S, D): a whole stack, or one pipeline chunk. ``rng``:
+        the dropout seed of these rows (None: no dropout)."""
+        c = self.cfg
+        dt = x.dtype
+        seq = self._seq_slice(x.shape[1])
+        start = seq[0] if seq else 0
+        in_seq = (seq,) if seq else ()
+        positions = torch.arange(start, start + x.shape[1],
+                                 device=self.device)
         dropping = rng is not None and c.dropout > 0.0
-        if dropping:
-            x = _dropout(x, c.dropout, dropout_seed(rng, None), *in_seq)
-        for lid, layer in enumerate(_layers(params, c.n_layers)):
+        whole = len(layer_ids) == c.n_layers
+        parts = {k: {n: (w if whole else w.narrow(0, layer_ids.start,
+                                                  len(layer_ids))).unbind(0)
+                     for n, w in params[k].items()}
+                 for k in _STACKED}
+        for i, lid in enumerate(layer_ids):
+            layer = {k: {n: ws[i] for n, ws in parts[k].items()}
+                     for k in _STACKED}
             if self._gather is not None:
                 layer = self._gather.layer(_cast_layer(layer, dt))
             drop = None
@@ -713,11 +777,25 @@ class Transformer:
                     return _dropout(y, c.dropout,
                                     dropout_seed(rng, lid, site), *in_seq)
             x = self._block(x, layer, positions, remat, drop=drop)
+        return x
+
+    def _final_norm(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """The final layer norm: the pipeline's last stage."""
         norm = params["final_norm"]
         if self._gather is not None:
             norm = {n: self._gather.leaf(f"final_norm/{n}", w)
                     for n, w in norm.items()}
-        x = _layer_norm(x, norm["scale"], norm["bias"])
+        return _layer_norm(x, norm["scale"], norm["bias"])
+
+    def _trunk(self, params: dict, tokens: torch.Tensor,
+               remat: str | None = None, rng: int | None = None) -> tuple:
+        """tokens (B, S) → final-norm hidden states (B, S, D) in compute
+        dtype, plus the (zero) aux loss. ``rng``: the step's dropout
+        seed (None: no dropout). Every layer runs here, also under a
+        bound pp group (``apply``'s whole forward)."""
+        x = self._embed(params, tokens, rng)
+        x = self._run_layers(params, x, range(self.cfg.n_layers), remat, rng)
+        x = self._final_norm(params, x)
         return x, torch.zeros((), dtype=torch.float32, device=self.device)
 
     def _head(self, params: dict, dt=None) -> torch.Tensor:
@@ -756,20 +834,40 @@ class Transformer:
         being recorded; dropout when ``train`` and an ``rng`` seed (the
         trainer's step seed) are given. Under a bound sp group the batch
         holds this process's slice (B, S/sp + 1) and the loss is the data
-        shard's mean over the group's real tokens."""
+        shard's mean over the group's real tokens. Under a bound pp group
+        it runs the pipeline's forward alone, with no autograd graph, and
+        returns the last stage's loss on every stage (gradients come from
+        ``pipeline_grads``)."""
         c = self.cfg
-        tp = self._tp
-        if c.loss_impl == "dense" and tp is not None:
+        if c.loss_impl == "dense" and self._tp is not None:
             raise ValueError(
                 "loss_impl='dense' needs the whole vocab's logits; under "
                 "tensor parallelism use loss_impl='fused' (vocab-parallel)")
         tokens = torch.as_tensor(batch["tokens"]).to(
             device=self.device, dtype=torch.long)
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        remat = (c.remat_policy if c.remat and torch.is_grad_enabled()
-                 else None)
-        x, _ = self._trunk(params, inputs, remat,
-                           rng=rng if train else None)
+        rng = rng if train else None
+        if self._pp is not None:
+            if torch.is_grad_enabled():
+                raise RuntimeError(
+                    "under a bound pp group the loss is not differentiable "
+                    "by autograd: take gradients from pipeline_grads")
+            loss = self._pp_step(params, tokens, rng, grads=False)
+        else:
+            remat = (c.remat_policy if c.remat and torch.is_grad_enabled()
+                     else None)
+            x, _ = self._trunk(params, tokens[:, :-1], remat, rng=rng)
+            loss = self._loss_of_hidden(params, x, tokens[:, 1:])
+        metrics = {"loss": loss.detach(),
+                   "perplexity": torch.exp(loss.detach())}
+        return loss, metrics
+
+    def _loss_of_hidden(self, params: dict, x: torch.Tensor,
+                        targets: torch.Tensor) -> torch.Tensor:
+        """The mean next-token loss over the real targets of the
+        final-norm hidden states x (B, S, D): the head, the fused or the
+        dense cross-entropy, and under sp the sums over the group."""
+        c = self.cfg
+        tp = self._tp
         head = self._head(params, x.dtype)
         if c.loss_impl == "fused":
             if tp is not None:
@@ -789,13 +887,73 @@ class Transformer:
             # count of live targets over the sp group's slices.
             tot = sum_over_sp(torch.stack(
                 [nll.sum(), (targets >= 0).sum().to(nll.dtype)]), self._sp)
-            loss = tot[0] / tot[1].clamp(min=1)
-        else:
-            valid = (targets >= 0).sum().clamp(min=1)
-            loss = nll.sum() / valid
-        metrics = {"loss": loss.detach(),
-                   "perplexity": torch.exp(loss.detach())}
-        return loss, metrics
+            return tot[0] / tot[1].clamp(min=1)
+        valid = (targets >= 0).sum().clamp(min=1)
+        return nll.sum() / valid
+
+    # -- pipeline ------------------------------------------------------------
+
+    def pipeline_grads(self, params: dict, batch, rng=None,
+                       scale: torch.Tensor | None = None) -> tuple:
+        """Under a bound pp group, this stage's part of one forward and
+        backward of ``loss`` over ``batch`` (collective over the pp
+        group): the gradients of ``loss * scale`` (``scale`` None: 1) are
+        accumulated into the ``.grad`` of each param leaf this stage
+        uses (its chunks' layers; the embedding on stage 0; the final
+        norm and the head on the last stage), partial over ``pp``.
+        Returns (loss, metrics) as ``loss``, the same on every stage."""
+        tokens = torch.as_tensor(batch["tokens"]).to(
+            device=self.device, dtype=torch.long)
+        loss = self._pp_step(params, tokens, rng, grads=True, scale=scale)
+        return loss, {"loss": loss, "perplexity": torch.exp(loss)}
+
+    def _pp_step(self, params: dict, tokens: torch.Tensor, rng,
+                 grads: bool, scale=None) -> torch.Tensor:
+        """The pipelined forward (and with ``grads`` its backward) of the
+        next-token loss over tokens (B, S + 1); returns the last stage's
+        loss on every stage (detached)."""
+        c = self.cfg
+        pp = self._pp
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        B, S = inputs.shape
+        M = pipeline.num_microbatches(B * self._pp_shards, c.pp_microbatches,
+                                      self._pp_shards)
+        pipeline.check_pipeline(c.pp_schedule, B, M, c.n_layers, pp.size,
+                                c.pp_virtual_stages)
+
+        def run_chunk(vstage, x, mb):
+            layers = pipeline.chunk_layers(c.n_layers, pp.size, c.pp_schedule,
+                                           c.pp_virtual_stages, vstage)
+            mrng = (rng if rng is None or M == 1
+                    else fold_seed(rng, _PP_MICROBATCH_KEY, mb))
+            x = self._run_layers(params, x, layers, None, mrng)
+            return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+        pipe = pipeline.Pipeline(pp, run_chunk, M, c.pp_schedule,
+                                 c.pp_virtual_stages)
+        like = ((B // M, S, c.d_model), torch_dtype(c.dtype), self.device)
+        x0 = None
+        if pp.is_first:
+            with torch.set_grad_enabled(grads):
+                x0 = self._embed(params, inputs, rng)
+        outs, _ = pipe.forward(
+            pipeline.split_microbatches(x0.detach(), M) if pp.is_first
+            else None, like)
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        g_outs = None
+        if pp.is_last:
+            h = pipeline.merge_microbatches(outs).requires_grad_(grads)
+            with torch.set_grad_enabled(grads):
+                loss = self._loss_of_hidden(
+                    params, self._final_norm(params, h), targets)
+            if grads:
+                (loss if scale is None else loss * scale).backward()
+                g_outs = pipeline.split_microbatches(h.grad, M)
+        if grads:
+            g_in = pipe.backward(g_outs, like)
+            if pp.is_first:
+                x0.backward(pipeline.merge_microbatches(g_in))
+        return pp.broadcast_from_last(loss.detach())
 
     # -- generation ----------------------------------------------------------
 

@@ -21,7 +21,11 @@ are explicit ``torch.distributed`` calls over the mesh's groups:
   shards the reduce-scatter left. Under sequence parallelism each sp
   member's gradient is its slice's part of its data shard's: the sum
   runs over ``sp`` too (every leaf is replicated over it), and the count
-  stays the data shards'.
+  stays the data shards'. Under pipeline parallelism each stage's
+  gradient holds its own chunks' layers (and the embedding or the head
+  on the first and last stage; a tied embedding gets both): every leaf
+  is replicated over ``pp`` and its gradient summed over it, the count
+  still the data shards'.
 - ``local_view``/``shard``/``all_gather_dims``/``gather_full`` cut and
   rebuild whole leaves (the init, ZeRO-1's param slices, the
   consolidated export), one split after another.
@@ -240,10 +244,10 @@ def _all_reduce_flat(tensors: list, group) -> None:
 
 def replica_axes(pl) -> tuple:
     """The axes a leaf under placement ``pl`` is replicated on whose
-    processes hold parts of one gradient: the data axes it is not split
-    over, and ``sp`` (no leaf is split over it)."""
+    processes hold parts of one gradient: ``pp`` and ``sp`` (no leaf is
+    split over either) and the data axes it is not split over."""
     used = () if pl is None else pl.axes
-    return tuple(a for a in (*BATCH_AXES, "sp") if a not in used)
+    return tuple(a for a in ("pp", *BATCH_AXES, "sp") if a not in used)
 
 
 def average_grads(grads: dict, placements: dict, runtime,
@@ -275,8 +279,9 @@ def average_grads(grads: dict, placements: dict, runtime,
 
 
 def mean_over_data(values: dict, runtime) -> dict:
-    """Scalar metrics averaged over the data processes (one
-    all-reduce)."""
+    """Scalar metrics averaged over the data processes (one all-reduce
+    over the data axes: the ``pp``, ``sp`` and ``tp`` members of a data
+    shard hold the same values and are not counted again)."""
     if runtime.data_shard_count <= 1 or not values:
         return values
     keys = sorted(values)

@@ -285,14 +285,25 @@ def check_plan_runtime(plan: Plan, mesh_spec,
                 "from it, or re-plan for this topology")
 
 
+# The model kwargs of a plan's target that shape its pipeline (``pp``):
+# the CLI takes them from the plan unless the config sets them.
+PIPELINE_KWARGS = ("pp_microbatches", "pp_schedule", "pp_virtual_stages")
+
+
 def apply_plan_to_config(cfg) -> Plan:
     """Derive ``cfg.mesh`` (and the per-shard batch) from
     ``cfg.train.sharding_plan``: every model-sharding axis pinned to the
-    plan's extent, ``dp`` the ``-1`` wildcard; the plan's per-shard batch
-    unless ``train.global_batch_size`` owns it. Returns the plan."""
+    plan's extent (``pp`` included), ``dp`` the ``-1`` wildcard; the
+    plan's per-shard batch unless ``train.global_batch_size`` owns it;
+    the target's pipeline kwargs (``PIPELINE_KWARGS``) where the config
+    names none. Returns the plan."""
     plan = load_plan(cfg.train.sharding_plan)
     for a in MESH_AXES:
         setattr(cfg.mesh, a, -1 if a == "dp" else plan.mesh.get(a, 1))
+    target = plan.inputs.get("model_kwargs", {})
+    for k in PIPELINE_KWARGS:
+        if k in target:
+            cfg.model.kwargs.setdefault(k, target[k])
     if not cfg.train.global_batch_size:
         cfg.train.batch_size = plan.batch_per_shard
     return plan

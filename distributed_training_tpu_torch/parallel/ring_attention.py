@@ -65,6 +65,7 @@ import torch.distributed as dist
 
 from distributed_training_tpu_torch.ops import flash_attention as fa
 from distributed_training_tpu_torch.ops.attention import dot_product_attention
+from distributed_training_tpu_torch.parallel.staging import through_host
 
 NEG_INF = -1e30
 
@@ -94,8 +95,8 @@ class SPGroup:
 
     def staged(self, t: torch.Tensor) -> bool:
         """Whether ``t`` goes through host memory: a card's tensor over a
-        gloo group (gloo moves CPU tensors)."""
-        return t.is_cuda and self.backend == "gloo"
+        gloo group (``parallel/staging.py``)."""
+        return through_host(t, self.backend)
 
     def rotate(self, tensors: list, tag: int = 0) -> "_Rotation":
         """Start sending ``tensors`` to the next member of the ring and

@@ -23,7 +23,11 @@ Every strategy lays its leaves out the same with ``sp`` in the mesh: no
 rule names ``sp``, so no leaf is split over it, and the data axes
 (ZeRO-1's moments, the batch) stay (dp, fsdp); the sp members of a data
 shard hold the same leaves and sum their gradients
-(``fsdp.average_grads``).
+(``fsdp.average_grads``). The same holds for ``pp``: no rule names it,
+so every stage stores every leaf (as the JAX package stores the stacked
+params replicated over ``pp`` and pipelines only the computation), and
+the stages sum their partial gradients; under ``fsdp`` each stage
+gathers the layers of its own chunks from its fsdp group.
 
 Where XLA compiles the collectives from these specs in the JAX package,
 the port runs them itself: ``placement`` turns a spec into the dims and

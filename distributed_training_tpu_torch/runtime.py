@@ -31,8 +31,14 @@ Sequence parallelism shards each row of a data shard's batch over
 (``data_shard_count``/``data_shard_index`` stay over ``BATCH_AXES``), each
 takes its slice of the sequence (``seq_shard_index``), and attention
 crosses the slices over the ``sp`` group (``parallel/ring_attention.py``,
-``parallel/ulysses.py``). Pipeline parallelism (``pp``) waits for
-ROADMAP.md queue A item 16b.
+``parallel/ulysses.py``). Pipeline parallelism shards the layers'
+work over ``pp``: the ``pp`` members of a data shard (and of an ``sp``
+slice and a ``tp`` block) read the same rows, each runs the layer chunks
+of its stage (its coordinate on ``pp``), and activations and their
+gradients pass between neighbouring stages over its ``pp`` group
+(``group(("pp",))``, ``parallel/pipeline.py::PPGroup``): the ranks with
+the same ``dp``, ``fsdp``, ``sp`` and ``tp`` coordinates, in stage
+order.
 """
 
 from __future__ import annotations
@@ -54,8 +60,6 @@ MESH_AXES = ("pp", "dp", "fsdp", "sp", "tp")
 # The batch dimension is sharded over both data-parallel-like axes,
 # dp-major (the JAX package's BATCH_AXES).
 BATCH_AXES = ("dp", "fsdp")
-# Mesh axes this port does not shard over yet → their ROADMAP.md item.
-_UNPORTED_AXES = {"pp": "16b (pipeline parallelism)"}
 
 
 class MeshSpecError(ValueError):
@@ -315,14 +319,6 @@ class Runtime:
                 f"backend={self.backend} mesh={mesh}")
 
 
-def _refuse_unported_axes(sizes: dict) -> None:
-    for axis, item in _UNPORTED_AXES.items():
-        if sizes[axis] not in (1, -1):
-            raise NotImplementedError(
-                f"mesh.{axis}={sizes[axis]}: sharding over '{axis}' waits "
-                f"for ROADMAP.md queue A item {item}")
-
-
 def initialize_runtime(cfg, timeout: datetime.timedelta | None = None
                        ) -> Runtime:
     """The runtime for ``cfg`` (a ``config.Config``, or any object with
@@ -335,14 +331,13 @@ def initialize_runtime(cfg, timeout: datetime.timedelta | None = None
     from torchrun's environment when ``RANK`` and ``WORLD_SIZE`` are
     set; otherwise the world is this one process. The mesh
     (``MeshSpec.resolve``, at most one ``-1`` axis) must cover the world
-    exactly; ``pp`` above 1 raises. ``timeout`` bounds each
+    exactly. ``timeout`` bounds each
     collective of a group started here (torch's default when None)."""
     pref = cfg.train.device
     if pref not in ("auto", "", "cuda", "gpu", "cpu"):
         raise ValueError(f"train.device '{pref}' is not a device of the "
                          "port (auto | cuda | cpu)")
     cpu = pref == "cpu"
-    _refuse_unported_axes({a: getattr(cfg.mesh, a) for a in MESH_AXES})
     env = os.environ
     local_rank = int(env.get("LOCAL_RANK", "0"))
     device = resolve_device("cpu" if cpu else f"cuda:{local_rank}"
@@ -369,7 +364,6 @@ def initialize_runtime(cfg, timeout: datetime.timedelta | None = None
     world = dist.get_world_size() if backend else 1
     try:
         spec = MeshSpec.resolve(cfg.mesh, world)
-        _refuse_unported_axes(spec.as_dict())
         rt = (slice_runtime([spec], device) if backend
               else Runtime(device=device, spec=spec))
     except BaseException:
@@ -399,8 +393,6 @@ def slice_runtime(specs: list[MeshSpec], device) -> Runtime:
     the process group already initialized (collective: every process
     calls this with the same specs). ``specs`` of one mesh over the
     whole world is ``initialize_runtime``'s runtime."""
-    for spec in specs:
-        _refuse_unported_axes(spec.as_dict())
     rank = dist.get_rank()
     mesh = next(m for m in slice_meshes(specs, rank)
                 if m.first <= rank < m.first + m.size)

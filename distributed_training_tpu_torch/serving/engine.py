@@ -164,7 +164,8 @@ logger = logging.getLogger(__name__)
 MESH_AXIS_ITEMS = {
     "fsdp": "ROADMAP.md queue A item 17 (the planner's serving layouts)",
     "sp": "ROADMAP.md queue A item 16a's remainder (serving over sp)",
-    "pp": "ROADMAP.md queue A item 16b (pipeline parallelism)"}
+    "pp": ("ROADMAP.md queue A item 16b's remainder (serving over pp: the "
+           "JAX engine leaves pp an auto axis of its shard_map)")}
 TP_RESIDENT_ITEM = ("ROADMAP.md queue A 'Left from done items': 'the resident "
                     "burst under tp > 1 on cards'")
 

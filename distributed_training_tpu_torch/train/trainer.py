@@ -32,7 +32,15 @@ parallelism (``sp``) the sp members of a data shard take the same rows,
 each its slice of the sequence (the loader cuts it), the model's
 attention crosses the slices (``bind_sequence_parallel``), gradients
 are summed over ``sp``, and tokens/s and MFU count each token once (the
-global batch's rows at the global length). Under
+global batch's rows at the global length). Under pipeline parallelism
+(``pp``) the stages of a data shard take the same rows; each grad-accum
+microbatch goes through the pipeline's forward and backward schedule
+(``model.pipeline_grads``, ``parallel/pipeline.py``) in place of
+``torch.autograd.grad``, the last stage's loss is broadcast over ``pp``
+(so the logged metrics, the ``nan_guard`` decision and the stop poll
+agree on every stage), each stage's partial gradients are summed over
+``pp``, the pipeline's waits count in ``sync_s``, and tokens/s and MFU
+count each token once. Under
 ``train.sharding_plan`` the placements come from the plan's sharding
 map instead (``parallel/planner.py::PlannedStrategy``), and a runtime
 mesh other than the plan's raises ``PlanError`` here.
@@ -78,6 +86,7 @@ import torch.distributed as dist
 from distributed_training_tpu_torch.models.base import count_params
 from distributed_training_tpu_torch.models.transformer import fold_seed
 from distributed_training_tpu_torch.parallel import fsdp, planner
+from distributed_training_tpu_torch.parallel import pipeline as pp_lib
 from distributed_training_tpu_torch.parallel.ring_attention import (
     EXCHANGES,
     SPGroup,
@@ -155,7 +164,13 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
     tokens, as the JAX step's is: with several shards and a token batch,
     each shard's loss is weighted by its share of the live targets (one
     all-reduce of the counts per step, ``_live_targets``), a weight of
-    exactly 1 when the shards hold equal counts."""
+    exactly 1 when the shards hold equal counts. Under a mesh with
+    ``pp`` the model's ``pipeline_grads`` runs each microbatch's
+    forward and backward schedule and accumulates this stage's
+    gradients into the leaves' ``.grad``, which the step takes and
+    clears; within a microbatch the loss is the batch's sum of
+    negative log-likelihoods over its count of live targets, whatever
+    the pipeline's microbatches hold."""
     shard = runtime.data_shard_index if runtime is not None else 0
     pls = (layout or {}).get("params", {})
     opt_pls = (layout or {}).get("opt", {})
@@ -170,6 +185,7 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
     norm_groups = {k: split_over[pl.axes] for k, pl in pls.items()
                    if pl is not None}
     weigh = sharded and runtime.data_shard_count > 1
+    pipelined = sharded and runtime.spec.pp > 1
 
     def train_step(state: dict, batch: Mapping[str, torch.Tensor]) -> dict:
         params = state["params"]
@@ -177,7 +193,7 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
         leaves = list(flat.values())
         grads, metrics = None, {}
         micro = microbatches(batch, grad_accum_steps)
-        wait0 = EXCHANGES["wait_s"]
+        wait0 = EXCHANGES["wait_s"] + pp_lib.EXCHANGES["wait_s"]
         t_counts = time.perf_counter()
         weighted = weigh and "tokens" in batch
         if weighted:
@@ -188,15 +204,28 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
         for i, mb in enumerate(micro):
             rng = (None if dropout_seed is None else
                    fold_seed(dropout_seed, state["step"] + 1, i, shard))
-            loss, m = model.loss(params, mb, rng=rng, train=True)
+            if pipelined:
+                loss, m = model.pipeline_grads(
+                    params, mb, rng=rng,
+                    scale=weights[i] if weighted else None)
+            else:
+                loss, m = model.loss(params, mb, rng=rng, train=True)
             if weighted:
                 loss = loss * weights[i]
                 m = {**m, "loss": m["loss"] * weights[i]}
-            g = torch.autograd.grad(loss, leaves)
-            grads = list(g) if grads is None else [
-                a + b for a, b in zip(grads, g)]
+            if not pipelined:
+                g = torch.autograd.grad(loss, leaves)
+                grads = list(g) if grads is None else [
+                    a + b for a, b in zip(grads, g)]
             for k, v in m.items():
                 metrics[k] = v if k not in metrics else metrics[k] + v
+        if pipelined:
+            # Accumulated over the microbatches; a leaf this stage never
+            # used (another stage's embedding or head) is a zero part.
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in leaves]
+            for p in leaves:
+                p.grad = None
         grads = dict(zip(flat, grads))
         if len(micro) > 1:
             grads = {k: g / len(micro) for k, g in grads.items()}
@@ -213,11 +242,13 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
                             [norm_groups.get(k) for k in grads])
         metrics["grad_norm"] = gnorm
         # Host seconds in the step's collectives (the gradient
-        # synchronisation, the sequence-parallel exchanges, the count of
-        # live targets): on a blocking backend (gloo) they are the wait
-        # for the slowest process.
+        # synchronisation, the sequence-parallel and the pipeline's
+        # exchanges, the count of live targets): on a blocking backend
+        # (gloo) they are the wait for the slowest process, or for a
+        # neighbouring stage.
         train_step.sync_s = (time.perf_counter() - t_sync + counts_s
-                             + EXCHANGES["wait_s"] - wait0
+                             + EXCHANGES["wait_s"]
+                             + pp_lib.EXCHANGES["wait_s"] - wait0
                              if sharded else 0.0)
         ok = True
         if nan_guard:
@@ -326,6 +357,7 @@ class Trainer:
         self._bind_gather()
         self._bind_tensor_parallel()
         self._bind_sequence_parallel()
+        self._bind_pipeline()
         self._check_dataset()
         self.optimizer.bind_layout(
             flatten(model.param_shapes()),
@@ -457,6 +489,20 @@ class Trainer:
                 "sequence to split over sp")
         if bind is not None:
             bind(SPGroup(self.rt.group(("sp",))) if n > 1 else None)
+
+    def _bind_pipeline(self) -> None:
+        """With ``pp`` > 1, bind this process's pp group to the model
+        (after the sp group: Ulysses' head check reads it); a model
+        without a pipeline raises."""
+        n = self.rt.spec.pp
+        bind = getattr(self.model, "bind_pipeline", None)
+        if n > 1 and bind is None:
+            raise ValueError(
+                f"mesh.pp={n}: {type(self.model).__name__} has no "
+                "pipeline of layers to split over pp")
+        if bind is not None:
+            bind(pp_lib.PPGroup(self.rt.group(("pp",))) if n > 1 else None,
+                 self.rt.data_shard_count)
 
     def offload_opt_state(self) -> None:
         """Move the optimizer moments to host memory (pinned when the

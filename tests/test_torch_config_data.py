@@ -112,6 +112,6 @@ def test_runtime_resolves_one_device_and_refuses_a_mesh():
     with pytest.raises(MeshSpecError, match="device count 1"):
         initialize_runtime(port_config.load_config(
             overrides=["train.device=cpu", "mesh.sp=2"]))
-    with pytest.raises(NotImplementedError, match="item 16b"):
+    with pytest.raises(MeshSpecError, match="device count 1"):
         initialize_runtime(port_config.load_config(
             overrides=["train.device=cpu", "mesh.pp=2"]))

@@ -102,11 +102,14 @@ def test_no_deferral_names_left_in_the_port():
     data) and 15 (telemetry and utils), of item 3 (the remat and dropout
     refusals named its RoPE/GQA half), of item 7 (serving on a mesh,
     which the ``apply`` refusal under tp named) and of item 16 undivided
-    (its refusals now name 16a-16d), and no refusal of sequence
-    parallelism (the ``sp`` axis, ring and Ulysses attention)."""
+    (its refusals now name 16a-16d), no refusal of sequence parallelism
+    (the ``sp`` axis, ring and Ulysses attention), and no refusal of
+    pipeline parallelism (the runtime's ``"pp"`` entry, and any item 16b
+    but serving's remainder)."""
     names = ("OPS_ITEM", "CLI_ITEM", "MESH_ITEM", "INCIDENTS_ITEM",
-             '"sp": "16', "is sequence-parallel attention, which waits")
-    item14 = re.compile(r"items?\s+(?:14|15|16|3|7)\b")
+             '"sp": "16', "is sequence-parallel attention, which waits",
+             '"pp": "16', "_UNPORTED_AXES")
+    item14 = re.compile(r"items?\s+(?:14|15|16|3|7)\b|16b(?!'s remainder)")
     pkg = os.path.join(REPO, "distributed_training_tpu_torch")
     found = []
     for root, _dirs, files in os.walk(pkg):

@@ -299,7 +299,7 @@ def test_pool_shard_rules_follow_jax():
         port_engine.Engine(pm, params, cfg, device="cpu", mesh=Runtime(
             device=torch.device("cpu"), spec=MeshSpec(tp=4)))
     for axis, item in (("fsdp", "item 17"), ("sp", "item 16a"),
-                       ("pp", "item 16b")):
+                       ("pp", "item 16b's remainder")):
         with pytest.raises(NotImplementedError, match=item):
             port_engine.Engine(pm, params, cfg, device="cpu", mesh=Runtime(
                 device=torch.device("cpu"), spec=MeshSpec(**{axis: 2})))

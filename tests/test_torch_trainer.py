@@ -143,19 +143,18 @@ def test_cli_save_stop_resume_matches_uninterrupted(tmp_path):
 
 
 def test_cli_refuses_unported_features(tmp_path):
-    """Tensor and sequence parallelism run: ``mesh.tp=2`` or
-    ``mesh.sp=2`` in a world of one is the mesh error, as any axis that
-    needs more processes, and ring attention trains at sp 1; pipeline
-    parallelism names ROADMAP item 16b. No train field is refused any
-    more: straggler eviction runs, and in a world of one its detector is
-    a no-op."""
+    """Tensor, sequence and pipeline parallelism run: ``mesh.tp=2``,
+    ``mesh.sp=2`` or ``mesh.pp=2`` in a world of one is the mesh error,
+    as any axis that needs more processes, and ring attention trains at
+    sp 1. No train field is refused any more: straggler eviction runs,
+    and in a world of one its detector is a no-op."""
     for axis in ("tp", "sp"):
         with pytest.raises(MeshSpecError, match="needs 2 devices"):
             cli.main(["train.device=cpu", "train.parallel_strategy=tp",
                       "mesh.dp=1", f"mesh.{axis}=2", "model=gpt2_125m",
                       "train=gpt2", f"run.output_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        cli.main(["train.device=cpu", "mesh.pp=2",
+    with pytest.raises(MeshSpecError, match="needs 2 devices"):
+        cli.main(["train.device=cpu", "mesh.dp=1", "mesh.pp=2",
                   f"run.output_dir={tmp_path}"])
     assert cli.main(["train.device=cpu", "+model.attention_impl=ring",
                   "train.dataset_size=4", "train.batch_size=2",
