@@ -150,7 +150,21 @@ a seed:
   limits, and two runs under the split backward that repeat their bits.
   Each stage's attention runs B1 twice a layer and microbatch (the
   forward and the backward's recompute) and B2 (or B3a/B3b); the kernel
-  phase holds them at the microbatch shape (B 2, H 12, S 1024).
+  phase holds them at the microbatch shape (B 2, H 12, S 1024);
+- MoE and expert parallelism, moe_transformer at full width (8 experts,
+  top-2, d_ff 2048, 168.65M params) on conf/train/gpt2.yaml at sequence
+  512: the trainer CLI for 20 steps and 10 under the split backward,
+  with its step time, tokens/s, MFU from ``flops_per_token``, peak
+  memory and the share of (token, slot) pairs capacity dropped
+  (``train_moe``); one MoE layer in f32, routed against dense at ample
+  capacity, and in bf16 against its f32 run (``moe_parity``); the model
+  under ``fsdp`` at fsdp 2, the experts split 4 a process, in two
+  processes on ``cuda:0`` over gloo against world 1, with a planted
+  fault (the expert leaves' gradients unsummed over fsdp) that must fall
+  outside the limits, and the gathered and reduce-scattered bytes a step
+  (``train_moe_ep2``); and ``generate.py`` on its checkpoint, the fused
+  decode (``generate_moe``). The kernel phase holds B1, B2, B3a and B3b
+  at its attention's shape (B 8, H 8, S 512).
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -279,6 +293,49 @@ PP2_MICROBATCHES = 4
 PP2_VIRTUAL_STAGES = 2
 PP_LOSS_RTOL = TP_LOSS_RTOL
 PP_GRAD_NORM_RTOL = TP_GRAD_NORM_RTOL
+# MoE (train_moe, moe_parity, train_moe_ep2, generate_moe):
+# moe_transformer at full width (d_model 512, 8 layers, 8 heads, 8
+# experts top-2, d_ff 2048, capacity factor 1.25, routing groups of up to
+# 1024 tokens: one group of 512 a row, C 160), trained on
+# conf/train/gpt2.yaml at sequence 512 (batch 8, bf16 compute, f32
+# params, AdamW, gpt2_125m.yaml's remat "mlp") through the CLI, then
+# TRAIN_MOE_SPLIT_STEPS under the split backward. Its attention is B1
+# and B2 (B3a/B3b) at (B 8, H 8, S 512, D 64).
+MOE_OVERRIDES = ("model.name=moe_transformer",
+                 "train.dataset_kwargs.seq_len=512")
+# train_moe takes one batch of synthetic_lm again every step (an epoch of
+# one batch) with the warm-up cut from gpt2.yaml's 100 steps to 2, so
+# that its losses fall inside the run: on fresh uniform random tokens
+# they only wander (PR 19's first two chip calls, warm-up 100 and 2).
+TRAIN_MOE_WARMUP = 2
+MOE_SEQ = 512
+TRAIN_MOE_STEPS = 20
+TRAIN_MOE_SPLIT_STEPS = 10
+# moe_parity: one MoE layer with its residual at full width (B 8, S 512)
+# in f32, routed against dense at ample capacity (capacity factor E/k:
+# C is the group's length, nothing drops): outputs relative to the
+# largest and the aux within MOE_PARITY_TOL, each gradient within
+# MOE_PARITY_GRAD_TOL of its largest; then the bf16 routed layer against
+# its f32 run at the bf16 training parity limits (the mean square of the
+# layer's output, the gradients' norms).
+MOE_PARITY_TOL = 1e-5
+MOE_PARITY_GRAD_TOL = 1e-4
+# train_moe_ep2: moe_transformer under fsdp at fsdp 2 (the experts'
+# dim split: 4 of 8 a process) in two processes on cuda:0 over gloo,
+# batch 4 a process, held against world 1 (batch 8) over
+# TRAIN_MOE_EP2_STEPS at the tp 2 limits; the planted fault leaves the
+# expert leaves' gradients unsummed over fsdp (each process keeps its
+# own part of its shard). Both sides run float32 compute and the split
+# backward (SIMT kernels at f32): the routing turns any rounding
+# difference into other experts for a few tokens, so in bf16 two world-1
+# runs under the fused backward part by 1.3e-4 (losses) and 4.2e-3
+# (norms) over 5 steps, and fsdp 2 under the split one (its halves of
+# each gradient summed in bf16) by 1.3e-4 and 6.4e-3, against 8.7e-8 and
+# 9.6e-8 at f32 (PR 19's second chip call, PERF.md).
+TRAIN_MOE_EP2_STEPS = 5
+MOE_EP2_OVERRIDES = ("train.dtype=float32",)
+EP_LOSS_RTOL = TP_LOSS_RTOL
+EP_GRAD_NORM_RTOL = TP_GRAD_NORM_RTOL
 # Serving on a mesh (serving_dp2, serving_tp2): two processes on cuda:0
 # over gloo, each one mesh rank. At float32 the logits of the first
 # decoded position of every request, mesh engine against one process,
@@ -772,6 +829,10 @@ def phase_kernels() -> dict:
     # One pipeline microbatch of gpt2_125m (train_pp2_*): B 2 of 8.
     flash["pp_microbatch"] = _flash_case(timer, 2, 12, 12, 1024, 64, bf16,
                                          library=True)
+    # moe_transformer's attention (train_moe, train_moe_ep2's world 1):
+    # B 8, H 8, S 512.
+    flash["moe"] = _flash_case(timer, 8, 8, 8, MOE_SEQ, 64, bf16,
+                               library=True)
     # generate.py --decode fused on byte_lm: its prompt's prefill.
     flash["generate"] = _flash_case(timer, 1, 8, 8, GEN_PROMPT_BYTES, 64,
                                     bf16, library=True)
@@ -836,6 +897,11 @@ def phase_kernels() -> dict:
         tag = "split" if split else "fused"
         bwd[f"{tag}_pp_microbatch"] = _bwd_case(
             timer, 2, 12, 12, 1024, 64, bf16, split, library=True)
+    # moe_transformer (train_moe): the fused backward and the split pair.
+    for split in (False, True):
+        tag = "split" if split else "fused"
+        bwd[f"{tag}_moe"] = _bwd_case(timer, 8, 8, 8, MOE_SEQ, 64, bf16,
+                                      split, library=True)
     # gpt2_125m under tp 2 (train_tp2, the fused backward): each rank's 6
     # heads.
     bwd["fused_tp2"] = _bwd_case(timer, 8, 6, 6, 1024, 64, bf16, False,
@@ -873,6 +939,10 @@ def phase_kernels() -> dict:
             **{f"flash_fwd_ring_{tag}": flash[f"ring_{tag}"]
                for tag in ("past", "diag")},
             "flash_fwd_pp": flash["pp_microbatch"],
+            "flash_fwd_moe": flash["moe"],
+            "flash_bwd_fused_moe": bwd["fused_moe"]["flash_bwd_fused"],
+            "flash_bwd_dq_moe": bwd["split_moe"]["flash_bwd_dq"],
+            "flash_bwd_dkv_moe": bwd["split_moe"]["flash_bwd_dkv"],
             "flash_bwd_fused_pp": bwd["fused_pp_microbatch"]["flash_bwd_fused"],
             "flash_bwd_dq_pp": bwd["split_pp_microbatch"]["flash_bwd_dq"],
             "flash_bwd_dkv_pp": bwd["split_pp_microbatch"]["flash_bwd_dkv"],
@@ -3212,6 +3282,8 @@ def _tp2_steps(trainer, loader) -> dict:
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
         out["sync_s"].append(trainer._step_fn.sync_s)
+        if "moe_aux" in m:
+            out.setdefault("moe_aux", []).append(float(m["moe_aux"]))
     return out
 
 
@@ -5513,6 +5585,436 @@ def phase_train_dropout(tmp: str) -> tuple:
           "launches_by_design": designs})
     return launches, designs
 
+# -- MoE ---------------------------------------------------------------------
+
+
+def _moe_model(dtype: str = "bfloat16"):
+    from distributed_training_tpu_torch.models.transformer import (
+        build_transformer,
+    )
+
+    return build_transformer("moe_transformer", dtype=dtype)
+
+
+def phase_train_moe(tmp: str) -> tuple:
+    """moe_transformer at full width through the trainer CLI on
+    ``cuda:0``: TRAIN_MOE_STEPS fused steps (saved, for generate_moe),
+    then TRAIN_MOE_SPLIT_STEPS under the split backward. Returns the
+    launches of both runs and the fused run's directory."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.parallel import expert
+    from distributed_training_tpu_torch.train import cli
+
+    L = _moe_model().cfg.n_layers
+    flops = _moe_model().flops_per_sample() * 8
+    runs, launches, designs = {}, [], []
+    for name, steps, split in (("fused", TRAIN_MOE_STEPS, False),
+                               ("split", TRAIN_MOE_SPLIT_STEPS, True)):
+        out = os.path.join(tmp, f"train_moe_{name}")
+        _free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        expert.ROUTING.clear()
+        fa.FORCE_SPLIT_BWD = split
+        t0 = time.perf_counter()
+        try:
+            check(cli.main(_train_overrides(out, steps, extra=(
+                *MOE_OVERRIDES, f"train.warmup_steps={TRAIN_MOE_WARMUP}",
+                "train.dataset_size=8", f"train.total_epochs={steps}",
+                f"train.save_every={0 if split else steps}"))) == 0,
+                f"train_moe {name} failed")
+            torch.cuda.synchronize()
+        finally:
+            fa.FORCE_SPLIT_BWD = False
+        wall = time.perf_counter() - t0
+        launches.append(_read_counts())
+        designs.append(_read_designs())
+        rows = _metrics_rows(out)
+        losses = [r["loss"] for r in rows]
+        check(len(losses) == steps, f"train_moe {name}: {len(losses)} rows")
+        check(all(math.isfinite(x) for x in losses),
+              f"train_moe {name}: non-finite loss {losses}")
+        check(all("moe_aux" in r and math.isfinite(r["moe_aux"])
+                  for r in rows), f"train_moe {name}: a row lacks moe_aux")
+        kernels = (("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if split
+                   else ("flash_fwd", "flash_bwd_fused"))
+        _check_designs({n: designs[-1][n] for n in kernels}, "wgmma",
+                       f"train_moe {name} (bf16, head dim 64)")
+        for n in kernels:
+            check(launches[-1][n] == L * steps,
+                  f"train_moe {name}: {n} launched {launches[-1][n]} "
+                  f"times, not {L} x {steps}")
+        others = ({"flash_bwd_fused"} if split
+                  else {"flash_bwd_dq", "flash_bwd_dkv"})
+        check(all(launches[-1][n] == 0 for n in others),
+              f"train_moe {name}: launches {launches[-1]}")
+        step_s = float(np.median([1.0 / r["steps_per_sec"]
+                                  for r in rows[3:]]))
+        runs[name] = {
+            "steps": steps, "wall_s": wall, "median_step_s": step_s,
+            "tokens_per_s": 8 * MOE_SEQ / step_s,
+            "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+            "mfu_logged_median": float(np.median(
+                [r.get("mfu", float("nan")) for r in rows[3:]])),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "dropped_share": expert.dropped_share(),
+            "losses": losses, "moe_aux": [r["moe_aux"] for r in rows],
+            "grad_norms": [r["grad_norm"] for r in rows if "grad_norm" in r],
+            "launches": launches[-1], "launches_by_design": designs[-1]}
+    fused = runs["fused"]["losses"]
+    check(np.mean(fused[-5:]) < np.mean(fused[:5]),
+          f"train_moe: losses not falling {fused}")
+    emit({"phase": "train_moe", "model": "moe_transformer",
+          "config": "gpt2.yaml", "batch": 8, "seq": MOE_SEQ,
+          "flops_per_token": _moe_model().flops_per_token(),
+          "params": _moe_model().num_params(), **runs})
+    return ((_sum_counts(launches), _sum_designs(designs)),
+            os.path.join(tmp, "train_moe_fused", "default"))
+
+
+def _sum_counts(counts: list) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def _sum_designs(designs: list) -> dict:
+    return {k: {d: sum(ds[k][d] for ds in designs) for d in designs[0][k]}
+            for k in designs[0]}
+
+
+def _moe_layer_run(mlp: dict, x: torch.Tensor, cfg, dt, routed: bool):
+    """One MoE layer with its residual, ``x + moe(layer_norm(x))``, in
+    ``dt``: (output, aux, loss = mean square of the output, gradients of
+    the loss by x, router, wi, wo, in f32)."""
+    from distributed_training_tpu_torch.models import transformer as tf
+
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in
+              {"x": x, **mlp}.items()}
+    xd = leaves["x"].to(dt)
+    h = F.layer_norm(xd.float(), (xd.shape[-1],), eps=1e-5).to(dt)
+    fn = tf._moe_mlp_routed if routed else tf._moe_mlp_dense
+    out, aux = fn(h, {k: leaves[k] for k in mlp}, cfg)
+    loss = ((xd + out).float() ** 2).mean()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return (out.detach().float(), float(aux), float(loss),
+            dict(zip(leaves, grads)))
+
+
+def phase_moe_parity() -> None:
+    """One MoE layer of moe_transformer at full width (B 8, S 512, the
+    init's scales), on the card: the f32 routed dispatch against the
+    dense one at ample capacity, then the bf16 routed layer against its
+    f32 run."""
+    import dataclasses
+
+    cfg = _moe_model().cfg
+    B, D, E, Fw = 8, cfg.d_model, cfg.moe_num_experts, cfg.d_ff
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def normal(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    std = 0.02
+    mlp = {"router": normal(D, E, std=std), "wi": normal(E, D, Fw, std=std),
+           "wo": normal(E, Fw, D, std=std / (2 * cfg.n_layers) ** 0.5)}
+    x = normal(B, MOE_SEQ, D)
+    ample = dataclasses.replace(cfg, moe_capacity_factor=E / cfg.moe_top_k)
+    f32 = torch.float32
+    routed = _moe_layer_run(mlp, x, ample, f32, True)
+    dense = _moe_layer_run(mlp, x, ample, f32, False)
+    out_err = float((routed[0] - dense[0]).abs().max()
+                    / dense[0].abs().max())
+    aux_err = abs(routed[1] - dense[1]) / dense[1]
+    grad_err = {k: float((routed[3][k] - dense[3][k]).abs().max()
+                         / dense[3][k].abs().max()) for k in dense[3]}
+    bf16 = _moe_layer_run(mlp, x, cfg, torch.bfloat16, True)
+    want = _moe_layer_run(mlp, x, cfg, f32, True)
+    loss_rel = abs(bf16[2] - want[2]) / abs(want[2])
+    norm_rel = {k: float(abs(bf16[3][k].norm() - want[3][k].norm())
+                         / want[3][k].norm()) for k in want[3]}
+
+    def global_norm(grads):
+        return torch.stack([grads[k].norm() for k in mlp]).norm()
+    # The training parity phase's reading: the global norm of the
+    # weights' gradients (each leaf's is reported beside it).
+    gnorm_rel = float(abs(global_norm(bf16[3]) - global_norm(want[3]))
+                      / global_norm(want[3]))
+    emit({"phase": "moe_parity", "shape": [B, MOE_SEQ, D], "experts": E,
+          "top_k": cfg.moe_top_k,
+          "f32_routed_vs_dense": {"capacity_factor": E / cfg.moe_top_k,
+                                  "out_rel_err": out_err,
+                                  "aux": [routed[1], dense[1]],
+                                  "aux_rel_err": aux_err,
+                                  "grad_rel_err": grad_err},
+          "bf16_vs_f32_routed": {"capacity_factor": cfg.moe_capacity_factor,
+                                 "loss": [bf16[2], want[2]],
+                                 "loss_rel_diff": loss_rel,
+                                 "aux": [bf16[1], want[1]],
+                                 "grad_norm_rel_diff": gnorm_rel,
+                                 "leaf_grad_norm_rel_diff": norm_rel},
+          "tol": MOE_PARITY_TOL, "grad_tol": MOE_PARITY_GRAD_TOL,
+          "bf16_loss_rtol": TRAIN_BF16_PARITY_RTOL,
+          "bf16_grad_norm_rtol": TRAIN_BF16_GRAD_NORM_RTOL})
+    check(out_err <= MOE_PARITY_TOL and aux_err <= MOE_PARITY_TOL,
+          f"moe_parity: routed vs dense outputs {out_err}, aux {aux_err}")
+    check(all(e <= MOE_PARITY_GRAD_TOL for e in grad_err.values()),
+          f"moe_parity: routed vs dense gradients {grad_err}")
+    check(loss_rel <= TRAIN_BF16_PARITY_RTOL
+          and gnorm_rel <= TRAIN_BF16_GRAD_NORM_RTOL,
+          f"moe_parity: bf16 vs f32 loss {loss_rel}, norm {gnorm_rel}")
+
+
+def _moe_trainer(rt, strategy: str):
+    """A Trainer on moe_transformer / conf/train/gpt2.yaml at sequence 512
+    for TRAIN_MOE_EP2_STEPS steps of a global batch of 8 under
+    ``strategy`` over ``rt`` (8 / data shards rows a process), with
+    MOE_EP2_OVERRIDES, and its loader."""
+    from distributed_training_tpu_torch.config import load_config
+    from distributed_training_tpu_torch.data import (
+        ShardedDataLoader,
+        build_dataset,
+    )
+    from distributed_training_tpu_torch.models.registry import build_model
+    from distributed_training_tpu_torch.train.trainer import Trainer
+
+    steps, batch = TRAIN_MOE_EP2_STEPS, 8 // rt.data_shard_count
+    cfg = load_config(overrides=[
+        "model=gpt2_125m", "train=gpt2", *MOE_OVERRIDES,
+        f"train.batch_size={batch}", f"train.dataset_size={steps * 8}",
+        f"train.total_steps={steps}", "train.total_epochs=1",
+        "train.log_every=0", f"train.parallel_strategy={strategy}",
+        *MOE_EP2_OVERRIDES])
+    kwargs = dict(cfg.model.kwargs)
+    dtype = kwargs.pop("dtype", cfg.train.dtype)
+    model = build_model(cfg.model.name, loss=cfg.train.loss, dtype=dtype,
+                        device=rt.device, **kwargs)
+    loader = ShardedDataLoader(
+        build_dataset(cfg.train.dataset,
+                      _defaults={"size": cfg.train.dataset_size,
+                                 "seed": cfg.train.seed},
+                      **cfg.train.dataset_kwargs),
+        rt, batch_size=batch, shuffle=cfg.train.shuffle,
+        seed=cfg.train.seed)
+    return Trainer(cfg, rt, model, loader), loader
+
+
+def _experts_unreduced(real):
+    """``fsdp.reduce_scatter_dims`` with each expert leaf's gradient
+    (E, D, F) or (E, F, D) cut to this process's shard unsummed: the
+    planted fault of train_moe_ep2."""
+    import torch.distributed as dist
+
+    cfg = _moe_model().cfg
+
+    def cut(fulls, dims, group):
+        out = real(fulls, dims, group)
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        for i, (g, d) in enumerate(zip(fulls, dims)):
+            if (g.dim() == 3 and g.shape[0] == cfg.moe_num_experts
+                    and cfg.d_ff in g.shape):
+                a = g.shape[d] // n
+                out[i] = g.narrow(d, r * a, a).contiguous()
+        return out
+    return cut
+
+
+def train_moe_ep2_rank(rank: int, port: int, out_path: str) -> int:
+    """One of phase train_moe_ep2's two processes: on ``cuda:0``, in a
+    gloo group of 2 over ``127.0.0.1:port``, a runtime over the mesh
+    fsdp 2 built here, the sound run then the planted fault's, under the
+    split backward and MOE_EP2_OVERRIDES; writes its readings to
+    ``out_path``."""
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.parallel import fsdp
+    from distributed_training_tpu_torch.runtime import MeshSpec, slice_runtime
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    real = fsdp.reduce_scatter_dims
+    try:
+        rt = slice_runtime([MeshSpec(fsdp=2)], torch.device("cuda", 0))
+        result = {"rank": rank, "describe": rt.describe()}
+        for run in ("sound", "fault"):
+            trainer, loader = _moe_trainer(rt, "fsdp")
+            _free_memory()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            fsdp.TRAFFIC.clear()
+            if run == "fault":
+                fsdp.reduce_scatter_dims = _experts_unreduced(real)
+            fa.FORCE_SPLIT_BWD = True
+            try:
+                got = _tp2_steps(trainer, loader)
+            finally:
+                fsdp.reduce_scatter_dims = real
+                fa.FORCE_SPLIT_BWD = False
+            mlp = trainer.state["params"]["mlp"]
+            result[run] = {
+                **got, "traffic": dict(fsdp.TRAFFIC),
+                "placements": {k: list(pl.splits) for k, pl in
+                               trainer.layout["params"].items()
+                               if k.startswith("mlp/") and pl is not None},
+                "local_shapes": {k: list(v.shape) for k, v in mlp.items()},
+                "launches": _read_counts(),
+                "launches_by_design": _read_designs(),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            del trainer, loader
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_train_moe_ep2(tmp: str) -> tuple:
+    """moe_transformer at full width under ``fsdp`` at fsdp 2, the
+    experts split 4 a process (expert parallelism), in two processes on
+    ``cuda:0`` over gloo, against world 1 on the same batches, both
+    under the split backward and MOE_EP2_OVERRIDES; the planted fault
+    (the expert leaves' gradients unsummed over fsdp) must fall outside
+    the limits."""
+    from distributed_training_tpu_torch.ops import flash_attention as fa
+    from distributed_training_tpu_torch.runtime import Runtime
+
+    _free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, loader = _moe_trainer(Runtime(device=torch.device("cuda", 0)),
+                                   "ddp")
+    fa.FORCE_SPLIT_BWD = True
+    try:
+        want = _tp2_steps(trainer, loader)
+    finally:
+        fa.FORCE_SPLIT_BWD = False
+    want["peak"] = torch.cuda.max_memory_allocated()
+    del trainer, loader
+    _free_memory()
+    port = _free_port()
+    outs = [os.path.join(tmp, f"train_moe_ep2.rank{r}.json")
+            for r in range(2)]
+    logs = [open(os.path.join(tmp, f"train_moe_ep2.rank{r}.log"), "w")
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-moe-ep2-rank",
+         str(r), str(port), outs[r]], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    if codes != [0, 0]:
+        for r in range(2):
+            with open(logs[r].name) as f:
+                print(f"train_moe_ep2 rank {r}:\n{f.read()[-4000:]}",
+                      file=sys.stderr)
+    check(codes == [0, 0], f"train_moe_ep2: ranks exited {codes}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    steps = TRAIN_MOE_EP2_STEPS
+    L = _moe_model().cfg.n_layers
+    readings = {}
+    for run in ("sound", "fault"):
+        got = ranks[0][run]
+        check(len(got["losses"]) == len(want["losses"]) == steps,
+              f"train_moe_ep2 {run}: {got['losses']} vs {want['losses']}")
+        readings[run] = {
+            "loss_rel_diff": _rel_diffs(got["losses"], want["losses"]),
+            "grad_norm_rel_diff": _rel_diffs(got["grad_norms"],
+                                             want["grad_norms"]),
+            "moe_aux_rel_diff": _rel_diffs(got["moe_aux"], want["moe_aux"])}
+        readings[run]["within"] = (
+            readings[run]["loss_rel_diff"] <= EP_LOSS_RTOL
+            and readings[run]["grad_norm_rel_diff"] <= EP_GRAD_NORM_RTOL)
+    per_rank = [{
+        "rank": r["rank"], "describe": r["describe"],
+        "losses": r["sound"]["losses"], "moe_aux": r["sound"]["moe_aux"],
+        "grad_norms": r["sound"]["grad_norms"],
+        "median_step_s": float(np.median(r["sound"]["step_s"][1:])),
+        "median_sync_s": float(np.median(r["sound"]["sync_s"][1:])),
+        "peak_mem_bytes": r["sound"]["peak_mem_bytes"],
+        "placements": r["sound"]["placements"],
+        "local_shapes": r["sound"]["local_shapes"],
+        "gathered_bytes_per_step":
+            r["sound"]["traffic"]["gathered_bytes"] / steps,
+        "reduce_scattered_bytes_per_step":
+            r["sound"]["traffic"]["reduce_scattered_bytes"] / steps,
+        "launches": r["sound"]["launches"],
+        "launches_by_design": r["sound"]["launches_by_design"],
+        "fault_losses": r["fault"]["losses"],
+        "fault_grad_norms": r["fault"]["grad_norms"]} for r in ranks]
+    emit({"phase": "train_moe_ep2", "model": "moe_transformer",
+          "strategy": "fsdp", "mesh": {"fsdp": 2}, "backend": "gloo",
+          "processes_on_card": 2, "batch": 8, "seq": MOE_SEQ,
+          "steps": steps, "split_backward": True,
+          "overrides": list(MOE_EP2_OVERRIDES), "wall_s": wall,
+          "world1_losses": want["losses"],
+          "world1_grad_norms": want["grad_norms"],
+          "world1_moe_aux": want["moe_aux"],
+          "world1_median_step_s": float(np.median(want["step_s"][1:])),
+          "world1_peak_mem_bytes": want["peak"],
+          "loss_rtol": EP_LOSS_RTOL, "grad_norm_rtol": EP_GRAD_NORM_RTOL,
+          "fault": "expert leaves' gradients unsummed over fsdp",
+          "readings": readings, "ranks": per_rank})
+    E = _moe_model().cfg.moe_num_experts
+    for r in per_rank:
+        check(r["losses"] == per_rank[0]["losses"]
+              and r["grad_norms"] == per_rank[0]["grad_norms"],
+              "train_moe_ep2: the two ranks report different metrics")
+        check(r["local_shapes"]["wi"][1] == E // 2
+              and r["local_shapes"]["wo"][1] == E // 2,
+              f"train_moe_ep2: experts not split {r['local_shapes']}")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            check(r["launches"][name] == L * steps,
+                  f"train_moe_ep2: rank {r['rank']} {name} launches "
+                  f"{r['launches'][name]}")
+    check(readings["sound"]["within"],
+          f"train_moe_ep2: fsdp 2 against world 1 outside the limits: "
+          f"{readings}")
+    check(not readings["fault"]["within"],
+          f"train_moe_ep2: the planted fault passed the limits: {readings}")
+    return (_sum_counts([r["launches"] for r in per_rank]),
+            _sum_designs([r["launches_by_design"] for r in per_rank]))
+
+
+def phase_generate_moe(run_dir: str) -> tuple:
+    """generate.py on train_moe's checkpoint: greedy ``--decode paged``
+    falls back to the fused decode for MoE (the serving engine has none);
+    its prompt of 128 ids takes B1 once a layer."""
+    ids = np.random.default_rng(SEED).integers(
+        0, _moe_model().cfg.vocab_size, GEN_PROMPT_BYTES)
+    report = _last_json(_run_module([
+        "distributed_training_tpu_torch.generate", "--run-dir", run_dir,
+        "--prompt-ids", ",".join(str(int(i)) for i in ids),
+        "-n", str(GEN_TOKENS), "--decode", "paged", "--json"]))
+    launches = _subprocess_launches(report["kernel_launches"])
+    L = _moe_model().cfg.n_layers
+    emit({"phase": "generate_moe", "decode": report["decode"],
+          "prompt_tokens": report["prompt_tokens"],
+          "new_tokens": len(report["tokens"]),
+          "seconds": report["seconds"],
+          "tokens_per_s": report["tokens_per_s"],
+          "launches": launches[0], "launches_by_design": launches[1]})
+    check(report["decode"] == "fused",
+          f"generate_moe: decode {report['decode']}, not the fused fallback")
+    check(len(report["tokens"]) == GEN_TOKENS
+          and all(0 <= t < _moe_model().cfg.vocab_size
+                  for t in report["tokens"]),
+          f"generate_moe: tokens {report['tokens']}")
+    check(launches[0]["flash_fwd"] == L and launches[0]["paged_decode"] == 0,
+          f"generate_moe: launches {launches[0]}")
+    return launches
+
 
 def main() -> int:
     if sys.argv[1:2] == ["--train-tp2-rank"]:
@@ -5524,6 +6026,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--train-pp2-rank"]:
         return train_pp2_rank(int(sys.argv[2]), int(sys.argv[3]),
                               sys.argv[4], sys.argv[5])
+    if sys.argv[1:2] == ["--train-moe-ep2-rank"]:
+        return train_moe_ep2_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                  sys.argv[4])
     if sys.argv[1:2] == ["--train-elastic-rank"]:
         return train_elastic_rank(int(sys.argv[2]), int(sys.argv[3]),
                                   sys.argv[4], sys.argv[5],
@@ -5587,6 +6092,13 @@ def main() -> int:
         world1 = _pp_world1()
         slice18 = {f"train_pp2_{s}": phase_train_pp2(tmp, s, world1)
                    for s in ("gpipe", "interleaved")}
+        moe_launches, moe_run = phase_train_moe(tmp)
+        phase_moe_parity()
+        # train_moe_ep2 runs f32 (MOE_EP2_OVERRIDES), its launches on the
+        # SIMT kernels: a correctness phase, reported beside the paths.
+        ep2_launches = phase_train_moe_ep2(tmp)
+        slice19 = {"train_moe": moe_launches,
+                   "generate_moe": phase_generate_moe(moe_run)}
     phase_train_trace()
     phase_train_trace(split=True)
     phase_train_1b_trace()
@@ -5622,14 +6134,15 @@ def main() -> int:
     # telemetry run and the three dropout runs; then sequence parallelism
     # at sp 2: the ring, Ulysses and the windowed ring, both processes'
     # sound runs; then pipeline parallelism at pp 2 under each schedule,
-    # both processes' sound and split runs).
+    # both processes' sound and split runs; then MoE: moe_transformer's
+    # fused and split runs and generate.py's fused decode on it).
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
              int8_launches, swap_launches, recovery_launches, disagg_launches,
              cli_launches,
              *mesh_launches.values(), train_launches, split_launches,
              train_1b_launches, tp_1b_launches, tp2_launches,
              *slice14.values(), *slice15.values(), *slice16.values(),
-             *slice17.values(), *slice18.values())
+             *slice17.values(), *slice18.values(), *slice19.values())
     kernels = []
     for name in KERNELS:
         src, replaces = sources[name]
@@ -5692,7 +6205,20 @@ def main() -> int:
         # split runs).
         kernels[-1]["pipeline_launches"] = {
             path: counts[name] for path, (counts, _) in slice18.items()}
+        # And on the MoE paths (train_moe's fused and split runs,
+        # generate_moe), and in train_moe_ep2's f32 sound run (both
+        # processes, the SIMT design, not in the total).
+        kernels[-1]["moe_launches"] = {
+            path: counts[name] for path, (counts, _) in slice19.items()}
+        kernels[-1]["moe_ep2_f32_launches_by_design"] = ep2_launches[1].get(
+            name, {"simt": ep2_launches[0][name]})
         if name.startswith("flash_"):
+            # The same kernel at moe_transformer's shape (B 8, H 8, S
+            # 512, D 64).
+            kernels[-1]["moe_case"] = {
+                k: measured[f"{name}_moe"][k]
+                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms")}
             # The same kernel at the pipeline's microbatch shape (B 2, H
             # 12, S 1024, D 64).
             kernels[-1]["pp_microbatch_case"] = {

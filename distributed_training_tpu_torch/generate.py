@@ -16,8 +16,9 @@ checkpoint directory, whatever mesh wrote it
 (``checkpoint/export.py::restore_step_local``), or from a consolidated
 artifact (``--artifact``). ``--decode paged`` (the default, greedy) runs
 a one-slot serving ``Engine`` over the paged KV cache, its decode on the
-paged-decode kernel; ``--decode fused`` and every sampled run take the
-model's dense-cache ``generate``, its prompt through the model's
+paged-decode kernel; ``--decode fused``, every sampled run and a MoE
+model (the serving engine has no MoE decode, in either package) take
+the model's dense-cache ``generate``, its prompt through the model's
 attention (the flash forward on the card). Sampling draws from a
 ``torch.Generator`` seeded by ``--seed``: the JAX package's
 ``jax.random`` stream is not reproduced, so only greedy tokens agree
@@ -226,7 +227,8 @@ def main(argv: list[str] | None = None) -> int:
 
     t0 = time.perf_counter()
     out_ids, decode = None, "fused"
-    if args.decode == "paged" and args.temperature <= 0:
+    if (args.decode == "paged" and args.temperature <= 0
+            and getattr(model.cfg, "moe_num_experts", 0) == 0):
         out_ids = _paged_generate(model, params, ids, args.max_new_tokens,
                                   device)
         decode = "paged" if out_ids is not None else "fused"

@@ -8,9 +8,10 @@
 converted to numpy (``jax.tree.map(np.asarray, params)``), and returns
 the port's weight pytree: the same keys, the same stacked ``(L, …)``
 shapes, no ``lm_head`` when embeddings are tied (the head is
-``tok_embed.T`` on both sides). This module imports neither framework's
-model code from the other: it checks the tree against
-``param_shapes(cfg)``.
+``tok_embed.T`` on both sides), and under MoE the ``mlp`` leaves
+``router`` (L, D, E), ``wi`` (L, E, D, F) and ``wo`` (L, E, F, D). This
+module imports neither framework's model code from the other: it checks
+the tree against ``param_shapes(cfg)``.
 
 An int8 weight-only tree (``serving/disagg.py::quantize_params_int8``,
 or the JAX package's) carries across too: a ``{"qw", "scale"}`` node at

@@ -87,15 +87,37 @@ whole batch, so the loss is the batch's mean over its real tokens, and
 broadcasts it over ``pp``. A layer's dropout seed folds the pipeline
 microbatch when ``M > 1``, so with one microbatch pp N draws exactly
 the pp 1 masks. Inside a stage, tp and sp run as above (each stage's tp
-ranks compute their heads; JAX's stage params are whole over tp). The
-dense block has no aux loss to divide by ``M``.
+ranks compute their heads; JAX's stage params are whole over tp).
 
-MoE (item 16c) waits for a later slice (ROADMAP.md queue A) and raises
-``NotImplementedError`` when asked for.
+MoE (``moe_num_experts > 0``, JAX's helpers of the same names): every
+MLP becomes ``E`` experts (``mlp.{router,wi,wo}``, no biases) that a
+router reaches top-k. ``moe_impl="routed"`` routes each row's sequence
+in groups of ``moe_group_size`` into per-expert capacity buffers (a
+slot-major cumsum gives each (token, slot) its place; what overflows is
+dropped), gathers each buffer's tokens by index where JAX multiplies by
+one-hot matrices (the same values), runs the experts as batched
+products over the buffers and combines by index; ``"dense"`` runs every
+expert on every token. The load-balancing aux, ``E · Σ frac · mean_prob``
+before capacity, is summed over the layers and divided by ``n_layers``
+(under pp also by ``M``) and enters the loss at ``moe_aux_weight``. Its
+statistics are the global batch's: under a bound data group
+(``bind_data_group``, ``parallel/expert.py``) they are summed over the
+data shards and the sequence slices, and each process backpropagates
+its share. Under sp a rank's capacity places follow the group's
+earlier slices (``expert.slot_counts``). Under tp the routing is
+replicated, the experts split their hidden width (``wi`` by column,
+``wo`` by row), the tokens enter the experts through ``copy_to_tp`` and
+the experts' outputs are summed over tp before the combine, so the
+router's gradient is whole on every rank. Under ``fsdp`` the experts'
+``expert`` dim is stored split (expert parallelism) and gathered per
+layer. Remat ``mlp`` and ``mlp_pre`` recompute the experts' hiddens and
+gelu (``_RematExperts``); ``full`` and ``selective`` checkpoint the
+experts alone, so no collective of the routing is run twice.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -105,7 +127,7 @@ import torch.utils.checkpoint
 
 from distributed_training_tpu_torch.ops.attention import dot_product_attention
 from distributed_training_tpu_torch.ops.xent import lm_cross_entropy
-from distributed_training_tpu_torch.parallel import pipeline
+from distributed_training_tpu_torch.parallel import expert, pipeline
 from distributed_training_tpu_torch.parallel.ring_attention import (
     SPGroup,
     ring_attention,
@@ -244,6 +266,10 @@ def param_shapes(cfg: TransformerConfig) -> dict:
                 "bo": (L, D)},
         "final_norm": {"scale": (D,), "bias": (D,)},
     }
+    if cfg.moe_num_experts > 0:
+        E = cfg.moe_num_experts
+        shapes["mlp"] = {"router": (L, D, E), "wi": (L, E, D, F_),
+                         "wo": (L, E, F_, D)}
     if cfg.pos_encoding == "learned":
         shapes["pos_embed"] = (cfg.max_seq_len, D)
     if not cfg.tie_embeddings:
@@ -360,6 +386,186 @@ class _RematMLP(torch.autograd.Function):
         return g_h, g_wi, g_pre.sum((0, 1)), g_wo, None
 
 
+# -- MoE ---------------------------------------------------------------------
+
+
+def _expert_ffn(x: torch.Tensor, wi: torch.Tensor,
+                wo: torch.Tensor) -> torch.Tensor:
+    """Every expert's ``gelu(x @ wi) @ wo``: x (E, N, D), wi (E, D, F),
+    wo (E, F, D) → (E, N, D)."""
+    return torch.bmm(F.gelu(torch.bmm(x, wi), approximate="tanh"), wo)
+
+
+class _RematExperts(torch.autograd.Function):
+    """``_expert_ffn`` that saves its inputs and nothing F-wide: the
+    backward recomputes the ``wi`` products and the gelu, never the
+    ``wo`` products (the recompute set of JAX's ``mlp`` allow-list, to
+    which ``mlp_pre`` degrades under MoE)."""
+
+    @staticmethod
+    def forward(ctx, x, wi, wo):
+        ctx.save_for_backward(x, wi, wo)
+        return _expert_ffn(x, wi, wo)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wi, wo = ctx.saved_tensors
+        pre = torch.bmm(x, wi)
+        g_wo = torch.bmm(F.gelu(pre, approximate="tanh").transpose(1, 2), g)
+        g_pre = torch.ops.aten.gelu_backward(
+            torch.bmm(g, wo.transpose(1, 2)), pre, approximate="tanh")
+        return (torch.bmm(g_pre, wi.transpose(1, 2)),
+                torch.bmm(x.transpose(1, 2), g_pre), g_wo)
+
+
+def _experts(remat: str | None):
+    """The expert FFN under the remat policy ``remat``."""
+    if remat in ("mlp", "mlp_pre"):
+        return _RematExperts.apply
+    if remat in ("full", "selective"):
+        return lambda *a: _checkpoint(_expert_ffn, *a)
+    return _expert_ffn
+
+
+def _topk_by_argmax(p: torch.Tensor, k: int) -> tuple:
+    """Top-k along the last dim by k rounds of argmax and mask: values
+    descending, the first index on ties (``torch.argmax`` returns the
+    first maximum; ``torch.topk`` does not promise it), and the values
+    gathered from the original ``p``, so the gradient reaches only the
+    selected entries."""
+    orig = p
+    vals, idxs = [], []
+    for _ in range(k):
+        i = torch.argmax(p, dim=-1)
+        vals.append(torch.gather(orig, -1, i[..., None])[..., 0])
+        idxs.append(i)
+        p = p.masked_fill(F.one_hot(i, p.shape[-1]).bool(), -torch.inf)
+    return torch.stack(vals, -1), torch.stack(idxs, -1)
+
+
+def _moe_router(h: torch.Tensor, mlp: dict, c: TransformerConfig,
+                aux_fn=None) -> tuple:
+    """The routing head over h (…, D): the router product in h's dtype,
+    the softmax in f32, the top-k renormalised. Returns (weights (…, k),
+    experts (…, k), one-hots (…, k, E), aux). The aux is the Switch/GShard
+    load-balancing loss ``E · Σ_e frac_e · mean_prob_e`` over h's tokens,
+    before capacity; ``aux_fn(counts, probsum, n)`` forms it from the
+    per-expert assignment counts and probability sums over ``n`` tokens
+    (default ``expert.local_aux``; the model's sums them over its data
+    group)."""
+    E, k = c.moe_num_experts, c.moe_top_k
+    gates = torch.einsum("...d,de->...e", h, mlp["router"].to(h.dtype))
+    probs = torch.softmax(gates.float(), dim=-1)
+    topv, topi = _topk_by_argmax(probs, k)
+    topv = topv / topv.sum(-1, keepdim=True)
+    onehot = F.one_hot(topi, E).float()
+    red = tuple(range(probs.ndim - 1))
+    counts = onehot.sum(red + (onehot.ndim - 2,))
+    probsum = probs.sum(red)
+    n = probs[..., 0].numel()
+    aux = (aux_fn(counts, probsum, n) if aux_fn is not None
+           else expert.local_aux(counts, probsum, n, E))
+    return topv, topi, onehot, aux
+
+
+def _moe_mlp_dense(h: torch.Tensor, mlp: dict, c: TransformerConfig,
+                   aux_fn=None, copy=_same, reduce=_same,
+                   ffn=_expert_ffn) -> tuple:
+    """Every expert on every token, the outputs combined by the top-k
+    weights (exact, O(E) FLOPs: the routed path's reference). ``copy``
+    and ``reduce``: the tp seams around the experts."""
+    dt = h.dtype
+    B, S, D = h.shape
+    E = c.moe_num_experts
+    topv, _, onehot, aux = _moe_router(h, mlp, c, aux_fn)
+    combine = torch.einsum("bsk,bske->bse", topv, onehot)
+    x = copy(h).reshape(1, B * S, D).expand(E, B * S, D)
+    down = reduce(ffn(x, mlp["wi"].to(dt), mlp["wo"].to(dt)))
+    out = torch.einsum("ebsd,bse->bsd", down.view(E, B, S, D),
+                       combine.to(dt))
+    return out, aux
+
+
+def _moe_group_size(S: int, cap: int) -> tuple[int, int]:
+    """The routing group's length along the sequence and the padded
+    sequence length: S pads up to a multiple of ``min(S, cap)`` (a
+    divisor search would collapse poorly composite lengths to tiny
+    groups); pad positions route nowhere."""
+    g = min(S, max(1, cap))
+    return g, -(-S // g) * g
+
+
+def _moe_positions(topi: torch.Tensor, E: int, gs: int, G: int,
+                   start: int, sp=None) -> torch.Tensor:
+    """Each (token, slot)'s place in its expert's buffer: topi (B, S, k)
+    holds the experts of the tokens at global positions ``start`` … of a
+    sequence routed in G groups of ``gs``. Slot-major within a group:
+    slot 0's assignments take places before slot 1's, each slot's in
+    sequence order. ``sp``: (group, rank) of the sequence slices, whose
+    counts come first (``expert.slot_counts``)."""
+    B, S, k = topi.shape
+    frame = topi.new_zeros((B, G * gs, k, E))
+    frame[:, start:start + S] = F.one_hot(topi, E)
+    frame = frame.view(B, G, gs, k, E)
+    counts = frame.sum(2)                                   # (B, G, k, E)
+    before = 0
+    if sp is not None:
+        counts, before = expert.slot_counts(counts, *sp)
+    base = counts.cumsum(2) - counts + before
+    pos = ((frame.cumsum(2) + base[:, :, None] - 1) * frame).sum(-1)
+    return pos.view(B, G * gs, k)[:, start:start + S]
+
+
+def _moe_mlp_routed(h: torch.Tensor, mlp: dict, c: TransformerConfig,
+                    seq: tuple | None = None, sp=None, aux_fn=None,
+                    copy=_same, reduce=_same, ffn=_expert_ffn) -> tuple:
+    """Capacity-bounded top-k dispatch (GShard). Each row's sequence is
+    routed in groups of ``gs`` tokens into per-expert buffers of
+    ``C = ceil(cf · k · gs / E)`` places (``_moe_positions``); what
+    overflows is dropped (its combine weight lands nowhere). The buffers
+    are gathered by index and the experts run as E batched products of
+    (B · G · C) rows, so their FLOPs do not grow with E. ``seq``:
+    (start, global length) of h's slice of the sequence under sp, with
+    ``sp`` the (group, rank) the slot counts are exchanged over."""
+    dt = h.dtype
+    E, k = c.moe_num_experts, c.moe_top_k
+    B, S, D = h.shape
+    start, total = seq or (0, S)
+    gs, S_pad = _moe_group_size(total, c.moe_group_size)
+    G = S_pad // gs
+    C = int(-(-c.moe_capacity_factor * k * gs // E))  # ceil
+    C = min(C, gs * k)  # can't hold more than every (token, slot)
+    topv, topi, _, aux = _moe_router(h, mlp, c, aux_fn)
+    pos = _moe_positions(topi, E, gs, G, start, sp)
+    keep = pos < C
+    expert.count_routing(B * S * k, (~keep).sum())
+    dev = h.device
+    b = torch.arange(B, device=dev)[:, None, None]
+    g = (torch.arange(start, start + S, device=dev) // gs)[None, :, None]
+    N = E * B * G * C
+    place = torch.where(keep, ((topi * B + b) * G + g) * C + pos, N)
+    tok = (b * S + torch.arange(S, device=dev)[None, :, None]).expand(B, S, k)
+    src = torch.full((N + 1,), B * S, dtype=torch.long, device=dev)
+    src.scatter_(0, place.reshape(-1), tok.reshape(-1))
+    x = torch.cat([copy(h).reshape(B * S, D), h.new_zeros(1, D)])
+    down = reduce(ffn(x[src[:N]].view(E, B * G * C, D), mlp["wi"].to(dt),
+                      mlp["wo"].to(dt)))
+    down = torch.cat([down.reshape(N, D), down.new_zeros(1, D)])
+    w = torch.where(keep, topv, 0.0).to(dt)
+    out = torch.einsum("bskd,bsk->bsd", down[place].float(), w.float())
+    return out.to(dt), aux
+
+
+def _moe_mlp(h: torch.Tensor, mlp: dict, c: TransformerConfig,
+             seq: tuple | None = None, sp=None, aux_fn=None, copy=_same,
+             reduce=_same, ffn=_expert_ffn) -> tuple:
+    """Top-k routed expert MLP: (out, aux), the dispatch per
+    ``cfg.moe_impl``."""
+    if c.moe_impl == "routed":
+        return _moe_mlp_routed(h, mlp, c, seq, sp, aux_fn, copy, reduce, ffn)
+    return _moe_mlp_dense(h, mlp, c, aux_fn, copy, reduce, ffn)
+
+
 # The embedding's dropout key (JAX folds 1_000_003 into the step's rng
 # for ``embd_pdrop``), the layers' (JAX's ``fold_in(rng, 7)``) and the
 # pipeline microbatch's.
@@ -468,10 +674,6 @@ class Transformer:
     stacked_keys: tuple[str, ...] = _STACKED
 
     def __init__(self, cfg: TransformerConfig, device=None):
-        if cfg.moe_num_experts > 0:
-            raise NotImplementedError(
-                "MoE layers wait for ROADMAP.md queue A item 16c (MoE and "
-                "expert parallelism)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._gather = None
@@ -480,6 +682,8 @@ class Transformer:
         self._sp = None
         self._pp = None
         self._pp_shards = 1
+        self._data = None
+        self._aux_scale = 1.0
 
     def param_shapes(self) -> dict:
         return param_shapes(self.cfg)
@@ -507,6 +711,12 @@ class Transformer:
                 "bo": (None, "embed"),
             },
         }
+        if c.moe_num_experts > 0:
+            axes["mlp"] = {
+                "router": (None, "embed", None),
+                "wi": (None, "expert", "embed", "mlp"),
+                "wo": (None, "expert", "mlp", "embed"),
+            }
         if c.pos_encoding == "learned":
             axes["pos_embed"] = (None, "embed")
         if not c.tie_embeddings:
@@ -574,6 +784,21 @@ class Transformer:
         self._pp = pp if pp is not None and pp.size > 1 else None
         self._pp_shards = data_shards
 
+    def bind_data_group(self, data: expert.DataGroup | None) -> None:
+        """Train with the global batch split over a data group (``data``:
+        a ``parallel.expert.DataGroup`` over the dp, fsdp and sp axes):
+        the MoE aux's statistics are summed over it. ``None`` unbinds."""
+        self._data = data
+
+    def _moe_aux(self, counts: torch.Tensor, probsum: torch.Tensor,
+                 n) -> torch.Tensor:
+        """A layer's MoE aux over the bound data group (module
+        docstring), its gradient scaled by ``_aux_scale``."""
+        E = self.cfg.moe_num_experts
+        if self._data is None:
+            return expert.local_aux(counts, probsum, n, E)
+        return self._data.aux(counts, probsum, n, E, self._aux_scale)
+
     def _seq_slice(self, s_local: int) -> tuple[int, int] | None:
         """(start, global length) of this process's sequence slice, or
         None without a bound sp group larger than 1."""
@@ -611,6 +836,17 @@ class Transformer:
                                         device=self.device)}
 
         a, m = shapes["attn"], shapes["mlp"]
+
+        def mlp():
+            if c.moe_num_experts > 0:
+                return {"router": normal(m["router"], std),
+                        "wi": normal(m["wi"], std),
+                        "wo": normal(m["wo"], out_std)}
+            return {"wi": normal(m["wi"], std),
+                    "bi": torch.zeros(m["bi"], dtype=pdt, device=self.device),
+                    "wo": normal(m["wo"], out_std),
+                    "bo": torch.zeros(m["bo"], dtype=pdt, device=self.device)}
+
         params = {
             "tok_embed": normal(shapes["tok_embed"], std),
             "ln1": norm_pair(shapes["ln1"]["scale"]),
@@ -620,12 +856,7 @@ class Transformer:
                      "wv": normal(a["wv"], std),
                      "wo": normal(a["wo"], out_std)},
             "final_norm": norm_pair(shapes["final_norm"]["scale"]),
-            "mlp": {"wi": normal(m["wi"], std),
-                    "bi": torch.zeros(m["bi"], dtype=pdt,
-                                      device=self.device),
-                    "wo": normal(m["wo"], out_std),
-                    "bo": torch.zeros(m["bo"], dtype=pdt,
-                                      device=self.device)},
+            "mlp": mlp(),
         }
         if "pos_embed" in shapes:
             params["pos_embed"] = normal(shapes["pos_embed"], std)
@@ -661,17 +892,21 @@ class Transformer:
 
     def _block(self, x: torch.Tensor, layer: dict,
                positions: torch.Tensor, remat: str | None = None,
-               return_kv: bool = False, attend=None, drop=None):
-        """One decoder block. x: (B, S, D) in compute dtype. ``remat``:
-        the remat policy to apply (None: save everything autograd
-        needs). Under a tp binding the weights are this rank's blocks
-        and the two ``reduce_from_tp`` stay outside every recomputed
-        function. ``return_kv``: also return the post-rope (k, v), from
-        which generation's prefill fills its cache. ``attend(q, k, v)``:
-        the attention (default: the model's, over these positions).
+               return_kv: bool = False, attend=None, drop=None,
+               local_aux: bool = False):
+        """One decoder block. x: (B, S, D) in compute dtype. Returns (x,
+        aux): the MoE layer's aux (0 for the dense MLP), and with
+        ``return_kv`` the post-rope (k, v) third, from which generation's
+        prefill fills its cache. ``remat``: the remat policy to apply
+        (None: save everything autograd needs). Under a tp binding the
+        weights are this rank's blocks and every ``reduce_from_tp`` stays
+        outside every recomputed function. ``attend(q, k, v)``: the
+        attention (default: the model's, over these positions).
         ``drop(y, site)``: dropout on the residual branches (site 0 the
         attention's projection, 1 the MLP's output with ``bo``), outside
-        every recomputed function."""
+        every recomputed function. ``local_aux``: the MoE aux of these
+        tokens alone, not summed over the bound data group
+        (generation)."""
         attend = attend or self._attention
         drop = drop or (lambda y, site: y)
         c = self.cfg
@@ -695,9 +930,8 @@ class Transformer:
                 q, k = _rope(q, k, positions)
             return q, k, v
 
-        def mlp_in(x):
-            return copy(_layer_norm(x, layer["ln2"]["scale"],
-                                    layer["ln2"]["bias"]))
+        def ln2(x):
+            return _layer_norm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
 
         def mlp(h):
             """This rank's part of the MLP's output, before ``bo``."""
@@ -708,21 +942,31 @@ class Transformer:
             return reduce(torch.einsum("bshk,hkd->bsd", attn,
                                        a["wo"].to(dt)))
 
-        if remat in ("full", "selective"):
-            q, k, v = _checkpoint(qkv, x)
-            x = x + drop(attn_out(attend(q, k, v)), 0)
-            part = _checkpoint(lambda x: mlp(mlp_in(x)), x)
+        ckpt = remat in ("full", "selective")
+        q, k, v = _checkpoint(qkv, x) if ckpt else qkv(x)
+        x = x + drop(attn_out(attend(q, k, v)), 0)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if c.moe_num_experts > 0:
+            # Routed on ln2's output itself: only the experts' input
+            # goes through copy_to_tp, so the router's gradient is whole.
+            seq = self._seq_slice(x.shape[1])
+            part, aux = _moe_mlp(
+                ln2(x), m, c, seq=seq,
+                sp=(self._sp.group, self._sp.rank) if seq else None,
+                aux_fn=None if local_aux else self._moe_aux,
+                copy=copy, reduce=reduce, ffn=_experts(remat))
+            x = x + drop(part, 1)
         else:
-            q, k, v = qkv(x)
-            x = x + drop(attn_out(attend(q, k, v)), 0)
-            h = mlp_in(x)
-            if remat in ("mlp", "mlp_pre"):
-                part = _RematMLP.apply(h, m["wi"].to(dt), m["bi"].to(dt),
-                                       m["wo"].to(dt), remat == "mlp_pre")
+            if ckpt:
+                part = _checkpoint(lambda x: mlp(copy(ln2(x))), x)
+            elif remat in ("mlp", "mlp_pre"):
+                part = _RematMLP.apply(copy(ln2(x)), m["wi"].to(dt),
+                                       m["bi"].to(dt), m["wo"].to(dt),
+                                       remat == "mlp_pre")
             else:
-                part = mlp(h)
-        x = x + drop(reduce(part) + m["bo"].to(dt), 1)
-        return (x, (k, v)) if return_kv else x
+                part = mlp(copy(ln2(x)))
+            x = x + drop(reduce(part) + m["bo"].to(dt), 1)
+        return (x, aux, (k, v)) if return_kv else (x, aux)
 
     def _embed(self, params: dict, tokens: torch.Tensor,
                rng: int | None = None) -> torch.Tensor:
@@ -749,10 +993,11 @@ class Transformer:
 
     def _run_layers(self, params: dict, x: torch.Tensor, layer_ids: range,
                     remat: str | None = None,
-                    rng: int | None = None) -> torch.Tensor:
+                    rng: int | None = None) -> tuple:
         """The blocks of the global layers ``layer_ids`` (consecutive)
-        over x (B, S, D): a whole stack, or one pipeline chunk. ``rng``:
-        the dropout seed of these rows (None: no dropout)."""
+        over x (B, S, D): a whole stack, or one pipeline chunk. Returns
+        (x, the sum of the layers' MoE aux). ``rng``: the dropout seed of
+        these rows (None: no dropout)."""
         c = self.cfg
         dt = x.dtype
         seq = self._seq_slice(x.shape[1])
@@ -766,6 +1011,7 @@ class Transformer:
                                                   len(layer_ids))).unbind(0)
                      for n, w in params[k].items()}
                  for k in _STACKED}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, lid in enumerate(layer_ids):
             layer = {k: {n: ws[i] for n, ws in parts[k].items()}
                      for k in _STACKED}
@@ -776,8 +1022,9 @@ class Transformer:
                 def drop(y, site, lid=lid):
                     return _dropout(y, c.dropout,
                                     dropout_seed(rng, lid, site), *in_seq)
-            x = self._block(x, layer, positions, remat, drop=drop)
-        return x
+            x, part = self._block(x, layer, positions, remat, drop=drop)
+            aux = aux + part
+        return x, aux
 
     def _final_norm(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """The final layer norm: the pipeline's last stage."""
@@ -790,13 +1037,15 @@ class Transformer:
     def _trunk(self, params: dict, tokens: torch.Tensor,
                remat: str | None = None, rng: int | None = None) -> tuple:
         """tokens (B, S) → final-norm hidden states (B, S, D) in compute
-        dtype, plus the (zero) aux loss. ``rng``: the step's dropout
-        seed (None: no dropout). Every layer runs here, also under a
-        bound pp group (``apply``'s whole forward)."""
+        dtype, plus the MoE aux, the mean over the layers (0 without
+        MoE). ``rng``: the step's dropout seed (None: no dropout). Every
+        layer runs here, also under a bound pp group (``apply``'s whole
+        forward)."""
         x = self._embed(params, tokens, rng)
-        x = self._run_layers(params, x, range(self.cfg.n_layers), remat, rng)
+        x, aux = self._run_layers(params, x, range(self.cfg.n_layers), remat,
+                                  rng)
         x = self._final_norm(params, x)
-        return x, torch.zeros((), dtype=torch.float32, device=self.device)
+        return x, aux / self.cfg.n_layers
 
     def _head(self, params: dict, dt=None) -> torch.Tensor:
         """Unembedding matrix (D, V), cast to ``dt`` when given; under a
@@ -822,8 +1071,8 @@ class Transformer:
 
     # -- training ------------------------------------------------------------
 
-    def loss(self, params: dict, batch, rng=None,
-             train: bool = True) -> tuple:
+    def loss(self, params: dict, batch, rng=None, train: bool = True,
+             shard_weight=None) -> tuple:
         """Next-token loss over ``batch["tokens"]`` (B, S + 1): the
         model reads ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``.
         Returns (scalar f32 loss, metrics), differentiable in the params
@@ -837,7 +1086,12 @@ class Transformer:
         shard's mean over the group's real tokens. Under a bound pp group
         it runs the pipeline's forward alone, with no autograd graph, and
         returns the last stage's loss on every stage (gradients come from
-        ``pipeline_grads``)."""
+        ``pipeline_grads``). With MoE the loss adds ``moe_aux_weight``
+        times the aux, reported as ``moe_aux``; ``shard_weight``: the
+        weight the caller puts on this loss before it averages the
+        gradients over the data shards (the trainer's live-target share
+        times the shard count; None: 1), which the aux's gradient, a
+        share of the global batch's, undoes."""
         c = self.cfg
         if c.loss_impl == "dense" and self._tp is not None:
             raise ValueError(
@@ -851,14 +1105,34 @@ class Transformer:
                 raise RuntimeError(
                     "under a bound pp group the loss is not differentiable "
                     "by autograd: take gradients from pipeline_grads")
-            loss = self._pp_step(params, tokens, rng, grads=False)
-        else:
-            remat = (c.remat_policy if c.remat and torch.is_grad_enabled()
-                     else None)
-            x, _ = self._trunk(params, tokens[:, :-1], remat, rng=rng)
-            loss = self._loss_of_hidden(params, x, tokens[:, 1:])
+            return self._pp_step(params, tokens, rng, grads=False)
+        remat = (c.remat_policy if c.remat and torch.is_grad_enabled()
+                 else None)
+        with self._aux_scaled(shard_weight):
+            x, aux = self._trunk(params, tokens[:, :-1], remat, rng=rng)
+        loss = self._loss_of_hidden(params, x, tokens[:, 1:])
+        return self._with_aux(loss, aux)
+
+    @contextlib.contextmanager
+    def _aux_scaled(self, shard_weight):
+        """Within it, the MoE aux's gradient share is scaled by the data
+        shards over ``shard_weight`` (``loss``)."""
+        shards = self._data.shards if self._data is not None else 1
+        self._aux_scale = (shards if shard_weight is None
+                           else shards / shard_weight)
+        try:
+            yield
+        finally:
+            self._aux_scale = 1.0
+
+    def _with_aux(self, loss: torch.Tensor, aux: torch.Tensor) -> tuple:
+        """(the loss plus the weighted MoE aux, metrics): ``loss`` the
+        next-token loss, as JAX's ``loss`` reports it."""
         metrics = {"loss": loss.detach(),
                    "perplexity": torch.exp(loss.detach())}
+        if self.cfg.moe_num_experts > 0:
+            loss = loss + self.cfg.moe_aux_weight * aux
+            metrics["moe_aux"] = aux.detach()
         return loss, metrics
 
     def _loss_of_hidden(self, params: dict, x: torch.Tensor,
@@ -904,14 +1178,17 @@ class Transformer:
         Returns (loss, metrics) as ``loss``, the same on every stage."""
         tokens = torch.as_tensor(batch["tokens"]).to(
             device=self.device, dtype=torch.long)
-        loss = self._pp_step(params, tokens, rng, grads=True, scale=scale)
-        return loss, {"loss": loss, "perplexity": torch.exp(loss)}
+        return self._pp_step(params, tokens, rng, grads=True, scale=scale)
 
     def _pp_step(self, params: dict, tokens: torch.Tensor, rng,
-                 grads: bool, scale=None) -> torch.Tensor:
+                 grads: bool, scale=None) -> tuple:
         """The pipelined forward (and with ``grads`` its backward) of the
-        next-token loss over tokens (B, S + 1); returns the last stage's
-        loss on every stage (detached)."""
+        next-token loss over tokens (B, S + 1); returns (loss, metrics)
+        as ``loss`` does, the same on every stage (detached). The MoE
+        aux is summed over the microbatches, the layers and the stages
+        and divided by ``M`` and ``n_layers``, as JAX's; its gradient
+        reaches every recomputed chunk through the pipeline's
+        ``g_aux``."""
         c = self.cfg
         pp = self._pp
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
@@ -926,8 +1203,7 @@ class Transformer:
                                            c.pp_virtual_stages, vstage)
             mrng = (rng if rng is None or M == 1
                     else fold_seed(rng, _PP_MICROBATCH_KEY, mb))
-            x = self._run_layers(params, x, layers, None, mrng)
-            return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            return self._run_layers(params, x, layers, None, mrng)
 
         pipe = pipeline.Pipeline(pp, run_chunk, M, c.pp_schedule,
                                  c.pp_virtual_stages)
@@ -936,9 +1212,13 @@ class Transformer:
         if pp.is_first:
             with torch.set_grad_enabled(grads):
                 x0 = self._embed(params, inputs, rng)
-        outs, _ = pipe.forward(
-            pipeline.split_microbatches(x0.detach(), M) if pp.is_first
-            else None, like)
+        with self._aux_scaled(scale):
+            outs, aux = pipe.forward(
+                pipeline.split_microbatches(x0.detach(), M) if pp.is_first
+                else None, like)
+        div = M * c.n_layers
+        if c.moe_num_experts > 0:
+            aux = pp.sum(aux) / div
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         g_outs = None
         if pp.is_last:
@@ -950,10 +1230,16 @@ class Transformer:
                 (loss if scale is None else loss * scale).backward()
                 g_outs = pipeline.split_microbatches(h.grad, M)
         if grads:
-            g_in = pipe.backward(g_outs, like)
+            g_aux = None
+            if c.moe_num_experts > 0:
+                g_aux = (c.moe_aux_weight / div) * torch.as_tensor(
+                    1.0 if scale is None else scale, dtype=torch.float32,
+                    device=self.device)
+            with self._aux_scaled(scale):
+                g_in = pipe.backward(g_outs, like, g_aux)
             if pp.is_first:
                 x0.backward(pipeline.merge_microbatches(g_in))
-        return pp.broadcast_from_last(loss.detach())
+        return self._with_aux(pp.broadcast_from_last(loss.detach()), aux)
 
     # -- generation ----------------------------------------------------------
 
@@ -997,7 +1283,8 @@ class Transformer:
                       pos: int) -> torch.Tensor:
         """One block (``_block``) for one new token at position ``pos``,
         x (B, 1, D): its attention writes the token's k and v into the
-        layer's cache in place and reads the cache."""
+        layer's cache in place and reads the cache. A MoE layer routes
+        the token alone (a group of 1, capacity 1: nothing drops)."""
         def attend(q, k, v):
             slot = pos % k_cache.shape[1]
             k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
@@ -1005,7 +1292,7 @@ class Transformer:
             return self._attend_cache(q, k_cache, v_cache, pos)
 
         return self._block(x, layer, torch.full((1,), pos, device=x.device),
-                           attend=attend)
+                           attend=attend, local_aux=True)[0]
 
     def _lm_head(self, params: dict, x_last: torch.Tensor) -> torch.Tensor:
         """(B, D) hidden → (B, V) f32 logits (final norm and head)."""
@@ -1033,7 +1320,8 @@ class Transformer:
             x = x + params["pos_embed"][:P].to(dt)
         ks, vs = [], []
         for layer in _layers(params, c.n_layers):
-            x, (k, v) = self._block(x, layer, positions, return_kv=True)
+            x, _, (k, v) = self._block(x, layer, positions, return_kv=True,
+                                       local_aux=True)
             ks.append(k)
             vs.append(v)
         Sm = self._decode_cache_len(max_len)
@@ -1116,15 +1404,21 @@ class Transformer:
     def flops_per_token(self, seq_len: int | None = None) -> float:
         """Forward + backward FLOPs per token: 6 * N plus the attention
         quadratic term (causal: half; sliding window: the band's mean
-        width), the JAX package's PaLM-appendix accounting."""
+        width), the JAX package's PaLM-appendix accounting; under MoE N
+        counts top_k of the E experts."""
         c = self.cfg
         S = seq_len or c.max_seq_len
+        N = self.num_params()
+        if c.moe_num_experts > 0:
+            # Only top_k of the experts run for a token.
+            expert_p = c.moe_num_experts * 2 * c.d_model * c.d_ff * c.n_layers
+            N = N - expert_p + expert_p * c.moe_top_k // c.moe_num_experts
         if c.attention_window:
             W = min(c.attention_window, S)
             avg_keys = W - W * (W - 1) / (2 * S)
         else:
             avg_keys = S * 0.5
-        return 6.0 * self.num_params() + 12 * c.n_layers * c.d_model * avg_keys
+        return 6.0 * N + 12 * c.n_layers * c.d_model * avg_keys
 
     def flops_per_sample(self) -> float:
         S = self.cfg.max_seq_len
@@ -1136,11 +1430,10 @@ def build_transformer(name: str, loss: str = "auto",
                       **kwargs) -> Transformer:
     """Build from a preset name or raw kwargs (the registry's entry),
     as the JAX ``build_transformer``; ``device`` as ``Transformer``."""
-    if name == "moe_transformer":
-        raise NotImplementedError(
-            "MoE layers wait for ROADMAP.md queue A item 16c (MoE and "
-            "expert parallelism)")
     preset = dict(PRESETS.get(name, {}))
+    if name == "moe_transformer":
+        preset = dict(d_model=512, n_layers=8, n_heads=8, max_seq_len=512,
+                      moe_num_experts=8)
     preset.update(kwargs)
     preset.setdefault("dtype", dtype)
     if loss != "auto":

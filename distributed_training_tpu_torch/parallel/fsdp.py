@@ -14,7 +14,11 @@ are explicit ``torch.distributed`` calls over the mesh's groups:
   shards. A leaf split on two dims (``tp_fsdp``) is gathered on its fsdp
   dim only: its tp block stays local, for the tensor-parallel block.
   ``GATHERS`` counts the gathers: ``"layer"`` one per layer per forward,
-  and one per top-level leaf name.
+  and one per top-level leaf name; ``TRAFFIC`` their bytes:
+  ``"gathered_bytes"`` the whole tensors the all-gathers give, and
+  ``"reduce_scattered_bytes"`` the whole gradients the backward
+  reduce-scatters. Under MoE the experts' ``expert`` dim is stored split
+  (expert parallelism), gathered and reduce-scattered like any other.
 - ``average_grads`` sums every gradient over the data processes and
   divides by their count: an all-reduce over (dp, fsdp) for replicated
   leaves, over the axes a sharded leaf is replicated on (dp) for the
@@ -62,6 +66,7 @@ from distributed_training_tpu_torch.runtime import BATCH_AXES
 # Gathers for compute launched since the last reset: "layer" counts one
 # per layer per forward, a top-level leaf's name one per gather of it.
 GATHERS: collections.Counter = collections.Counter()
+TRAFFIC: collections.Counter = collections.Counter()
 
 
 def _by_dtype(tensors: list) -> dict:
@@ -126,10 +131,15 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dims, group, *shards):
         ctx.dims, ctx.group = dims, group
-        return tuple(all_gather_dims(list(shards), list(dims), group))
+        out = tuple(all_gather_dims(list(shards), list(dims), group))
+        TRAFFIC["gathered_bytes"] += sum(t.numel() * t.element_size()
+                                         for t in out)
+        return out
 
     @staticmethod
     def backward(ctx, *grads):
+        TRAFFIC["reduce_scattered_bytes"] += sum(
+            g.numel() * g.element_size() for g in grads)
         return (None, None, *reduce_scatter_dims(
             [g.contiguous() for g in grads], list(ctx.dims), ctx.group))
 

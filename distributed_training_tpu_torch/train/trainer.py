@@ -40,7 +40,12 @@ microbatch goes through the pipeline's forward and backward schedule
 (so the logged metrics, the ``nan_guard`` decision and the stop poll
 agree on every stage), each stage's partial gradients are summed over
 ``pp``, the pipeline's waits count in ``sync_s``, and tokens/s and MFU
-count each token once. Under
+count each token once. A MoE model's load-balancing aux is the global
+batch's: the trainer binds the data group (the dp, fsdp and sp axes;
+``bind_data_group``, ``parallel/expert.py``) over which its statistics
+are summed, passes each microbatch's shard weight to the loss so that
+the aux's gradient share is not weighted twice, and logs ``moe_aux``,
+averaged over the grad-accum microbatches. Under
 ``train.sharding_plan`` the placements come from the plan's sharding
 map instead (``parallel/planner.py::PlannedStrategy``), and a runtime
 mesh other than the plan's raises ``PlanError`` here.
@@ -87,6 +92,7 @@ from distributed_training_tpu_torch.models.base import count_params
 from distributed_training_tpu_torch.models.transformer import fold_seed
 from distributed_training_tpu_torch.parallel import fsdp, planner
 from distributed_training_tpu_torch.parallel import pipeline as pp_lib
+from distributed_training_tpu_torch.parallel.expert import DataGroup
 from distributed_training_tpu_torch.parallel.ring_attention import (
     EXCHANGES,
     SPGroup,
@@ -209,7 +215,13 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
                     params, mb, rng=rng,
                     scale=weights[i] if weighted else None)
             else:
-                loss, m = model.loss(params, mb, rng=rng, train=True)
+                # A model with a data group (its MoE aux is the global
+                # batch's) is told the weight, which the aux's gradient
+                # must not take a second time.
+                kw = ({"shard_weight": weights[i]}
+                      if weighted and hasattr(model, "bind_data_group")
+                      else {})
+                loss, m = model.loss(params, mb, rng=rng, train=True, **kw)
             if weighted:
                 loss = loss * weights[i]
                 m = {**m, "loss": m["loss"] * weights[i]}
@@ -358,6 +370,7 @@ class Trainer:
         self._bind_tensor_parallel()
         self._bind_sequence_parallel()
         self._bind_pipeline()
+        self._bind_data_group()
         self._check_dataset()
         self.optimizer.bind_layout(
             flatten(model.param_shapes()),
@@ -503,6 +516,18 @@ class Trainer:
         if bind is not None:
             bind(pp_lib.PPGroup(self.rt.group(("pp",))) if n > 1 else None,
                  self.rt.data_shard_count)
+
+    def _bind_data_group(self) -> None:
+        """Bind the processes that hold parts of one global batch (the
+        dp, fsdp and sp axes) to a model that sums statistics over them
+        (MoE's aux); None with no such axis."""
+        bind = getattr(self.model, "bind_data_group", None)
+        if bind is None:
+            return
+        sizes = self.rt.spec.as_dict()
+        axes = tuple(a for a in (*BATCH_AXES, "sp") if sizes[a] > 1)
+        bind(DataGroup(self.rt.group(axes), self.rt.data_shard_count)
+             if self.layout is not None and axes else None)
 
     def offload_opt_state(self) -> None:
         """Move the optimizer moments to host memory (pinned when the

@@ -64,7 +64,8 @@ class MetricsLogger:
     flagged ``"warmup": true`` and carries no throughput: the window
     opens there, so build and first-step time never fold into a rate.
     ``num_devices`` is the world's card count: rates and MFU are per
-    card. A ``replica_divergence`` metric rides its row.
+    card. A ``replica_divergence`` metric rides its row, and a MoE
+    model's ``moe_aux`` every row.
     Reading a row's loss waits for the device (one sync per row)."""
 
     log_every: int = 10
@@ -116,6 +117,8 @@ class MetricsLogger:
         if self._last_time is None:
             entry = {"epoch": epoch, "step": step, "loss": loss,
                      "warmup": True}
+            if "moe_aux" in metrics:
+                entry["moe_aux"] = float(metrics["moe_aux"])
             if "replica_divergence" in metrics:
                 entry["replica_divergence"] = int(
                     metrics["replica_divergence"])
@@ -138,6 +141,8 @@ class MetricsLogger:
         }
         if "grad_norm" in metrics:
             entry["grad_norm"] = float(metrics["grad_norm"])
+        if "moe_aux" in metrics:
+            entry["moe_aux"] = float(metrics["moe_aux"])
         if "replica_divergence" in metrics:
             entry["replica_divergence"] = int(metrics["replica_divergence"])
         mfu = compute_mfu(

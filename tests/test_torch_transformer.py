@@ -12,6 +12,7 @@ import torch
 
 from distributed_training_tpu_torch.models import transformer as port_tf
 from distributed_training_tpu_torch.models.convert import from_jax_params
+from distributed_training_tpu_torch.models.registry import build_model
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -81,10 +82,13 @@ def test_gpt2_125m_preset_is_the_jax_one():
 
 
 def test_deferred_model_features_raise():
+    # MoE runs (item 16c): the model builds, and ResNet's refusal stays.
+    moe = port_tf.Transformer(port_tf.TransformerConfig(
+        vocab_size=64, d_model=32, n_layers=1, n_heads=2,
+        moe_num_experts=4), device="cpu")
+    assert set(moe.init(0)["mlp"]) == {"router", "wi", "wo"}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_tf.Transformer(port_tf.TransformerConfig(
-            vocab_size=64, d_model=32, n_layers=1, n_heads=2,
-            moe_num_experts=4), device="cpu")
+        build_model("resnet18", device="cpu")
     cfg = port_tf.TransformerConfig(vocab_size=64, d_model=32, n_layers=1,
                                     n_heads=2, dtype="float32")
     params = port_tf.Transformer(cfg, device="cpu").init(0)
