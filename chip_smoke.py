@@ -164,7 +164,19 @@ a seed:
   outside the limits, and the gathered and reduce-scattered bytes a step
   (``train_moe_ep2``); and ``generate.py`` on its checkpoint, the fused
   decode (``generate_moe``). The kernel phase holds B1, B2, B3a and B3b
-  at its attention's shape (B 8, H 8, S 512).
+  at its attention's shape (B 8, H 8, S 512);
+- ResNet-18 (BASELINE.json config 2) at full width, 11,172,170 params,
+  with no flash or paged kernel on its path (cuDNN's convs, eager
+  GroupNorm): JAX's resnet18_ddp configuration through the trainer CLI
+  for an epoch of 32 steps, resumed for a second, then ``eval.py`` on the
+  run, every conv input channels_last (``train_resnet18``); one batch of
+  64 at f32 on the card against the CPU and an f64 run, with cuDNN's
+  TF32 allowed beside it, and bf16 against f32, with a planted fault
+  (the 3x3 stride-2 convs padded (1, 1)) that must fail
+  (``resnet_parity``); and f32 under ``ddp`` and ``fsdp`` in two
+  processes on ``cuda:0`` over gloo against world 1, with a planted
+  fault (every gradient unsummed) that must fall outside the limits
+  (``train_resnet_dp2``).
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -178,6 +190,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import hashlib
+import io
 import json
 import math
 import os
@@ -270,11 +283,13 @@ TP_GRAD_NORM_RTOL = 3e-3
 # losses and gradient norms bit for bit over SP2_HELD_STEPS steps; the
 # planted fault (each process's gradients left unsummed over sp) runs
 # SP2_HELD_STEPS steps and must fall outside the limits. The windowed
-# ring takes SP2_WINDOW_STEPS steps at window SP2_WINDOW.
-TRAIN_SP2_STEPS = 10
-SP2_HELD_STEPS = 5
+# ring takes SP2_WINDOW_STEPS steps at window SP2_WINDOW. (Cut from 10,
+# 5 and 4 steps to keep the whole smoke inside its time limit: each
+# gloo step costs 2-2.5 s.)
+TRAIN_SP2_STEPS = 4
+SP2_HELD_STEPS = 3
 SP2_WINDOW = 256
-SP2_WINDOW_STEPS = 4
+SP2_WINDOW_STEPS = 3
 SP_LOSS_RTOL = TP_LOSS_RTOL
 SP_GRAD_NORM_RTOL = TP_GRAD_NORM_RTOL
 # Pipeline parallelism at pp 2 (train_pp2_gpipe, train_pp2_interleaved):
@@ -286,9 +301,10 @@ SP_GRAD_NORM_RTOL = TP_GRAD_NORM_RTOL
 # (the tied embedding's gradient left unsummed over pp: stage 0 keeps
 # the lookup's part, the last stage the head's) runs PP2_HELD_STEPS steps
 # and must fall outside them; two runs under the split backward repeat
-# their losses bit for bit over PP2_HELD_STEPS steps.
-TRAIN_PP2_STEPS = 10
-PP2_HELD_STEPS = 5
+# their losses bit for bit over PP2_HELD_STEPS steps. (Cut from 10 and 5
+# steps to keep the whole smoke inside its time limit.)
+TRAIN_PP2_STEPS = 4
+PP2_HELD_STEPS = 3
 PP2_MICROBATCHES = 4
 PP2_VIRTUAL_STAGES = 2
 PP_LOSS_RTOL = TP_LOSS_RTOL
@@ -348,6 +364,11 @@ EP_GRAD_NORM_RTOL = TP_GRAD_NORM_RTOL
 # 2.93; the limit lies between.
 MESH_LOGITS_TOL = 1e-4
 SERVING_MESHES = {"dp2": {"dp": 2}, "tp2": {"tp": 2}}
+# New tokens a request in the mesh phases' bf16 bursts and in the
+# profiled bursts of trace and trace_resident (cut from 64 to keep the
+# whole smoke inside its time limit; the other serving phases keep 64).
+MESH_NEW_TOKENS = 16
+TRACE_NEW_TOKENS = 16
 # serving_int8: float32 logits of the int8 engine's first decoded
 # position against the plain forward on the dequantized weights, max
 # abs; the two differ in summation order only (paged attention and the
@@ -403,11 +424,59 @@ DROPOUT_STEPS, DROPOUT_RATE = 10, 0.1
 ANOMALY_SLOW_AT = 7
 ANOMALY_SLOW_FAULT = f"slow_host@{ANOMALY_SLOW_AT}:host=0:300ms"
 ANOMALY_MIN_SAMPLES = 4
+# ResNet-18 (BASELINE.json config 2): the JAX package's own resnet18_ddp
+# configuration (benchmarks/run.py): CIFAR-shaped synthetic images
+# (32x32x3, 10 classes), batch 64, AdamW at 1e-3, ddp, bf16, unshuffled.
+# One epoch of its 2048 images is 32 steps; a second, resumed from the
+# first's checkpoint, is 32 more.
+RESNET_OVERRIDES = ("model=resnet18", "+model.num_classes=10",
+                    "train.dataset=synthetic_images",
+                    "train.dataset_kwargs.size=2048", "train.batch_size=64",
+                    "train.optimizer=adamw", "train.learning_rate=1e-3",
+                    "train.parallel_strategy=ddp", "train.shuffle=false")
+RESNET_BATCH, RESNET_STEPS = 64, 32
+# resnet_parity, on one batch of 64 from one init. f32: the card's
+# logits and loss against the port's CPU run, relative; each leaf's
+# gradient against an f64 run on the card (its largest difference over
+# its largest magnitude), the card's worst leaf at most
+# RESNET_GRAD_ERR_RATIO times the CPU f32 run's worst. f32 rounding alone
+# parts this model's gradients from f64 by 4.6e-3 (CPU) and 4.7e-3
+# (card) of a leaf's largest, so the two f32 runs cannot agree to 1e-4
+# leaf by leaf; with cuDNN's TF32 allowed the card's reads 0.072. bf16
+# against f32 on the card: the loss and the global gradient norm; the
+# bf16 logits alone (2^-9 each) part the loss by 9.2e-4 and the norm by
+# 4.4e-3, past the bf16-against-bf16 limits of the transformer phases
+# (1e-4, 1e-3). The planted fault (the 3x3 stride-2 convs padded (1, 1))
+# reads 0.21 (f32 logits) and 8.6e-3 and 6.3e-2 (bf16). Readings on the
+# H100, PERF.md PR 20; each limit lies between the sound run and the
+# fault.
+RESNET_PARITY_RTOL = 1e-4
+RESNET_GRAD_ERR_RATIO = 2.0
+RESNET_BF16_LOSS_RTOL = 3e-3
+RESNET_BF16_GRAD_NORM_RTOL = 2e-2
+# train_resnet_dp2: steps of each f32 run at the global batch of 64. The
+# first step's gradient norm (the same params on both sides) within
+# RESNET_DP2_FIRST_NORM_RTOL of world 1's; over the 5 steps the losses
+# and norms within the limits below. A process's convs see 32 images
+# where world 1's see 64, and at this model's f32 conditioning (above)
+# that parts the losses by up to 2.8e-4 and the norms by 1.2e-3 in 5
+# steps; the planted fault (every gradient unsummed) 0.2 and 0.6.
+RESNET_DP2_STEPS = 5
+RESNET_DP2_FIRST_NORM_RTOL = 1e-5
+RESNET_DP2_LOSS_RTOL = 1e-3
+RESNET_DP2_GRAD_NORM_RTOL = TP_GRAD_NORM_RTOL
 # Readings one phase reports beside another's (train's median step).
 READINGS: dict = {}
 
 
+# The script's clock: every phase line carries its seconds since start
+# (``t_s``), so a phase's wall is the step from the line before it.
+T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2523,7 +2592,7 @@ def serving_mesh_rank(rank: int, port: int, out_path: str,
         model, params = _gpt2("bfloat16")
         eng = _engine(model, params, mesh=rt)
         torch.cuda.reset_peak_memory_stats()
-        result["bf16"] = _mesh_serve(eng, prompts, 64)
+        result["bf16"] = _mesh_serve(eng, prompts, MESH_NEW_TOKENS)
         result["bf16"]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         result["pool_bytes"] = eng.cache.pool_bytes
         result["pool_shape"] = list(eng.cache.k_pages.shape)
@@ -2533,7 +2602,7 @@ def serving_mesh_rank(rank: int, port: int, out_path: str,
         long = [p for p in prompts if len(p) >= 128]
         eng = _engine(model, params, mesh=rt, prefill_mode="sequential",
                       prefill_chunk=128)
-        result["bf16_sequential"] = _mesh_serve(eng, long, 64)
+        result["bf16_sequential"] = _mesh_serve(eng, long, MESH_NEW_TOKENS)
         result["long_ids"] = [i for i, p in enumerate(prompts)
                               if len(p) >= 128]
         del eng
@@ -2555,8 +2624,8 @@ def phase_serving_mesh(name: str, prompts: list, batched_tokens: dict,
     12 heads, half the MLP and half the vocab), against one process: the
     float32 logits of every request's first decoded position within
     MESH_LOGITS_TOL and the planted fault outside it; at bf16 the
-    smoke's 8 prompts batched (64 new tokens) and its long ones
-    sequential (B1 at the rank's heads), token agreement with the
+    smoke's 8 prompts batched (MESH_NEW_TOKENS new tokens) and its long
+    ones sequential (B1 at the rank's heads), token agreement with the
     one-process engine reported, the collectives and launches held to
     the design. The kernels are built (by phase_build) before the
     processes start."""
@@ -2636,7 +2705,8 @@ def phase_serving_mesh(name: str, prompts: list, batched_tokens: dict,
             check(got["compile_counts_stable"], f"{what}: kernel builds "
                   "after warmup")
             n = len(got["tokens"])
-            check(all(len(t) == 64 for t in got["tokens"].values()),
+            check(all(len(t) == MESH_NEW_TOKENS
+                      for t in got["tokens"].values()),
                   f"{what}: a request returned the wrong number of tokens")
             if run == "bf16_sequential":
                 # Every process launches every first chunk (its own
@@ -2677,7 +2747,8 @@ def phase_serving_mesh(name: str, prompts: list, batched_tokens: dict,
                          **runs})
     emit({"phase": f"serving_{name}", "model": "gpt2_125m", "mesh": mesh,
           "backend": "gloo", "processes_on_card": 2,
-          "requests": len(prompts), "new_tokens": 64, "wall_s": wall,
+          "requests": len(prompts), "new_tokens": MESH_NEW_TOKENS,
+          "wall_s": wall,
           "f32_first_decode_logits": {
               "max_abs_diff": sound, "fault_max_abs_diff": fault,
               "limit": MESH_LOGITS_TOL, "max_abs_logit": scale,
@@ -4222,10 +4293,24 @@ def _byte_corpus(tmp: str) -> str:
     return corpus
 
 
-def _generate(src: list, decode: str, prompt: str) -> dict:
-    return _last_json(_run_module([
-        "distributed_training_tpu_torch.generate", *src, "--prompt", prompt,
-        "-n", str(GEN_TOKENS), "--decode", decode, "--json"]))
+def _generate(src: list, decode: str, prompt: str,
+              here: bool = False) -> dict:
+    """generate.py's ``--json`` report: in a process of its own, or
+    (``here``) through its ``main`` in this one, the launch counters
+    from 0 (a process start saved, for the f32 checks' runs)."""
+    args = [*src, "--prompt", prompt, "-n", str(GEN_TOKENS), "--decode",
+            decode, "--json"]
+    if not here:
+        return _last_json(_run_module(
+            ["distributed_training_tpu_torch.generate", *args]))
+    from distributed_training_tpu_torch import generate as gen
+
+    _reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(gen.main(args) == 0, f"generate {args[:4]} failed")
+    _free_memory()
+    return _last_json(out.getvalue())
 
 
 def _bf16_decode_logits(run_dir: str, prompt: str) -> dict:
@@ -4417,7 +4502,8 @@ def phase_train_bytes_lm(tmp: str, corpus: str) -> dict:
                        ("float32", ["--artifact", art, "--model-kwargs",
                                     '{"dtype": "float32"}'])):
         for decode in ("paged", "fused"):
-            gens[(dtype, decode)] = _generate(src, decode, prompt)
+            gens[(dtype, decode)] = _generate(src, decode, prompt,
+                                              here=dtype == "float32")
             check(gens[(dtype, decode)]["decode"] == decode,
                   f"generate {dtype} {decode}: {gens[(dtype, decode)]}")
     same = {d: sum(a == b for a, b in zip(gens[(d, "paged")]["tokens"],
@@ -6016,7 +6102,466 @@ def phase_generate_moe(run_dir: str) -> tuple:
     return launches
 
 
+# -- ResNet-18 (BASELINE.json config 2) ---------------------------------------
+
+
+def _resnet(dtype: str = "bfloat16", device="cuda"):
+    from distributed_training_tpu_torch.models.registry import build_model
+
+    return build_model("resnet18", num_classes=10, dtype=dtype, device=device)
+
+
+def phase_train_resnet18(tmp: str) -> tuple:
+    """ResNet-18 at full width through the trainer CLI on ``cuda:0``:
+    JAX's resnet18_ddp configuration (RESNET_OVERRIDES) for one epoch of
+    RESNET_STEPS steps, saved, then resumed for a second epoch, then
+    ``eval.py --run-dir`` on the run in a subprocess. No flash or paged
+    kernel is on ResNet's path: every launch count must stay 0. Returns
+    the launches of both runs and of eval.py."""
+    from distributed_training_tpu_torch.models import resnet
+    from distributed_training_tpu_torch.train import cli
+    from distributed_training_tpu_torch.train.optimizer import flatten
+
+    out = os.path.join(tmp, "train_resnet18")
+    model = _resnet()
+    params = sum(math.prod(s) for s in flatten(model.param_shapes()).values())
+    flops = model.flops_per_sample() * RESNET_BATCH
+    runs, launches, designs = {}, [], []
+    for name, epochs in (("epoch_1", 1), ("resumed", 2)):
+        _free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _reset_counts()
+        resnet.LAYOUTS.clear()
+        t0 = time.perf_counter()
+        check(cli.main([*RESNET_OVERRIDES, "train.dtype=bfloat16",
+                        f"train.total_epochs={epochs}", "train.save_every=1",
+                        "train.log_every=1", "run.log_level=WARNING",
+                        f"run.output_dir={out}"]) == 0,
+              f"train_resnet18 {name} failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches.append(_read_counts())
+        designs.append(_read_designs())
+        rows = _metrics_rows(out)[(epochs - 1) * RESNET_STEPS:]
+        losses = [r["loss"] for r in rows]
+        check(len(losses) == RESNET_STEPS,
+              f"train_resnet18 {name}: {len(losses)} rows")
+        check(all(math.isfinite(x) for x in losses),
+              f"train_resnet18 {name}: non-finite loss {losses}")
+        step_s = float(np.median([1.0 / r["steps_per_sec"]
+                                  for r in rows[3:]]))
+        runs[name] = {
+            "steps": len(rows), "first_step": rows[0]["step"],
+            "wall_s": wall, "median_step_s": step_s,
+            "images_per_s": RESNET_BATCH / step_s,
+            "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+            "mfu_logged_median": float(np.median(
+                [r.get("mfu", float("nan")) for r in rows[3:]])),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            # What earlier phases still hold is in the peak: the run's
+            # own is the difference.
+            "held_before_bytes": held,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "losses": losses, "conv_input_layouts": dict(resnet.LAYOUTS),
+            "launches": launches[-1]}
+    events = _events(out)
+    devices = {e["device"] for e in events if e["kind"] == "runtime"}
+    resumes = [e for e in events if e["kind"] == "resume"]
+    run_dir = os.path.join(out, "default")
+    report = _last_json(_run_module([
+        "distributed_training_tpu_torch.eval", "--run-dir", run_dir]))
+    eval_launches = _subprocess_launches(report["kernel_launches"])
+    every = runs["epoch_1"]["losses"] + runs["resumed"]["losses"]
+    emit({"phase": "train_resnet18", "model": "resnet18",
+          "config": "benchmarks/run.py resnet18_ddp", "params": params,
+          "batch": RESNET_BATCH, "image": [32, 32, 3], "dtype": "bfloat16",
+          "flops_per_sample": model.flops_per_sample(),
+          "devices": sorted(devices),
+          "resume": [{k: e.get(k) for k in ("step", "epoch")}
+                     for e in resumes],
+          "first_rows_mean": float(np.mean(every[:5])),
+          "last_rows_mean": float(np.mean(every[-5:])),
+          **runs, "eval": {k: report[k] for k in
+                           ("loss", "tokens", "batches", "step", "seconds")},
+          "eval_launches": eval_launches[0]})
+    check(params == 11_172_170, f"train_resnet18: {params} params")
+    check(len(devices) == 1 and next(iter(devices)).startswith("cuda"),
+          f"train_resnet18: runtime devices {devices}")
+    check(len(resumes) == 1 and resumes[0]["step"] == RESNET_STEPS
+          and runs["resumed"]["first_step"] == RESNET_STEPS + 1,
+          f"train_resnet18: resume events {resumes}")
+    check(np.mean(every[:5]) > np.mean(every[-5:]),
+          f"train_resnet18: losses not falling {every}")
+    check(math.isfinite(report["loss"])
+          and report["step"] == 2 * RESNET_STEPS,
+          f"train_resnet18: eval.py reported {report}")
+    for name, run in runs.items():
+        check(run["conv_input_layouts"].get("other", 0) == 0,
+              f"train_resnet18 {name}: conv inputs "
+              f"{run['conv_input_layouts']}")
+    for counts in (*launches, eval_launches[0]):
+        check(all(n == 0 for n in counts.values()),
+              f"train_resnet18: a flash or paged kernel ran: {counts}")
+    return (_sum_counts([*launches, eval_launches[0]]),
+            _sum_designs([*designs, eval_launches[1]]))
+
+
+def _resnet_run(model, params: dict, x, y) -> tuple:
+    """(f32 logits on the host, loss, {leaf: f32 gradient on the host})
+    of one forward and backward of ``model`` from ``params``."""
+    from distributed_training_tpu_torch.train.optimizer import flatten
+
+    flat = flatten(params)
+    for v in flat.values():
+        v.requires_grad_(True)
+    loss, _ = model.loss(params, {"x": x, "y": y})
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    with torch.no_grad():
+        logits = model.apply(params, x)
+    return (logits.float().cpu(), float(loss.detach()),
+            {k: g.float().cpu() for k, g in zip(flat, grads)})
+
+
+def _leaf_errs(got: dict, want: dict) -> dict:
+    """Each leaf's largest difference over its largest magnitude."""
+    return {k: float((g.double() - want[k].double()).abs().max()
+                     / want[k].double().abs().max()) for k, g in got.items()}
+
+
+def _worst(errs: dict) -> list:
+    k = max(errs, key=errs.get)
+    return [errs[k], k]
+
+
+def _rel(a, b) -> float:
+    """|a - b| over |b| for scalars; largest difference over the largest
+    magnitude of ``b`` for tensors."""
+    if torch.is_tensor(a):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+    return abs(a - b) / abs(b)
+
+
+def _gnorm(grads: dict) -> float:
+    return float(torch.stack([g.double().norm() for g in grads.values()])
+                 .norm())
+
+
+def phase_resnet_parity() -> None:
+    """ResNet-18 at full width on one batch of RESNET_BATCH images from
+    one init. f32 on the card (TF32 off, as every port process sets it)
+    against the port's CPU run: the logits and the loss within
+    RESNET_PARITY_RTOL; the gradients against an f64 run on the card,
+    the card's worst leaf error at most RESNET_GRAD_ERR_RATIO times the
+    CPU f32 run's (f32 rounding alone parts this model's gradients from
+    f64 by about 5e-3 of a leaf's largest, on either device). The same
+    f32 run with cuDNN's TF32 allowed is reported beside it. Then bf16
+    against f32 on the card, the loss and the global gradient norm
+    within RESNET_BF16_LOSS_RTOL and RESNET_BF16_GRAD_NORM_RTOL. A
+    planted fault (every 3x3 stride-2 conv padded (1, 1), where XLA pads
+    (0, 1)) must fall outside both, at f32 and at bf16."""
+    from distributed_training_tpu_torch.models import resnet
+
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((RESNET_BATCH, 32, 32, 3), dtype=np.float32)
+    y = rng.integers(0, 10, (RESNET_BATCH,))
+    cpu_model = _resnet("float32", "cpu")
+    init = cpu_model.init(SEED)
+    t0 = time.perf_counter()
+    cpu = _resnet_run(cpu_model, init, x, y)
+    cpu_s = time.perf_counter() - t0
+    f64, f32, bf16 = (_resnet(dt) for dt in ("float64", "float32",
+                                             "bfloat16"))
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    ref = _resnet_run(f64, _tree_to(init, "cuda", torch.float64), x, y)
+    card = _resnet_run(f32, _tree_to(init, "cuda"), x, y)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = _resnet_run(f32, _tree_to(init, "cuda"), x, y)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    low = _resnet_run(bf16, _tree_to(init, "cuda"), x, y)
+    same_pads = resnet._same_pads
+    resnet._same_pads = lambda size, k, stride: (k // 2, k // 2)
+    try:
+        fault = {"f32": _resnet_run(f32, _tree_to(init, "cuda"), x, y),
+                 "bf16": _resnet_run(bf16, _tree_to(init, "cuda"), x, y)}
+    finally:
+        resnet._same_pads = same_pads
+    cpu_err = _worst(_leaf_errs(cpu[2], ref[2]))
+
+    def f32_reading(run):
+        err = _worst(_leaf_errs(run[2], ref[2]))
+        out = {"logits_vs_cpu": _rel(run[0], cpu[0]),
+               "loss_vs_cpu": _rel(run[1], cpu[1]),
+               "grad_err_vs_f64": err, "grad_err_ratio": err[0] / cpu_err[0]}
+        out["within"] = (out["logits_vs_cpu"] <= RESNET_PARITY_RTOL
+                         and out["loss_vs_cpu"] <= RESNET_PARITY_RTOL
+                         and out["grad_err_ratio"] <= RESNET_GRAD_ERR_RATIO)
+        return out
+
+    def bf16_reading(run):
+        out = {"loss": [run[1], card[1]],
+               "loss_rel_diff": _rel(run[1], card[1]),
+               "grad_norm": [_gnorm(run[2]), _gnorm(card[2])],
+               "grad_norm_rel_diff": _rel(_gnorm(run[2]), _gnorm(card[2]))}
+        out["within"] = (out["loss_rel_diff"] <= RESNET_BF16_LOSS_RTOL
+                         and out["grad_norm_rel_diff"]
+                         <= RESNET_BF16_GRAD_NORM_RTOL)
+        return out
+
+    readings = {"f32": f32_reading(card), "tf32": f32_reading(tf32),
+                "f32_fault": f32_reading(fault["f32"]),
+                "bf16": bf16_reading(low),
+                "bf16_fault": bf16_reading(fault["bf16"])}
+    emit({"phase": "resnet_parity", "batch": RESNET_BATCH,
+          "tf32_flags_on_card": {"matmul": flags[0], "cudnn": flags[1]},
+          "cpu_s": cpu_s, "cpu_f32_grad_err_vs_f64": cpu_err,
+          "f64_loss": ref[1], "rtol": RESNET_PARITY_RTOL,
+          "grad_err_ratio": RESNET_GRAD_ERR_RATIO,
+          "bf16_loss_rtol": RESNET_BF16_LOSS_RTOL,
+          "bf16_grad_norm_rtol": RESNET_BF16_GRAD_NORM_RTOL,
+          "fault": "3x3 stride-2 convs padded (1, 1)", **readings})
+    check(flags == (False, False), f"resnet_parity: TF32 flags {flags}")
+    check(readings["f32"]["within"],
+          f"resnet_parity: f32 card outside the limits {readings['f32']}")
+    check(readings["bf16"]["within"],
+          f"resnet_parity: bf16 outside the limits {readings['bf16']}")
+    check(not readings["f32_fault"]["within"]
+          and not readings["bf16_fault"]["within"],
+          f"resnet_parity: the planted fault passed the limits {readings}")
+
+
+def _tree_to(tree: dict, device, dtype=None) -> dict:
+    return {k: _tree_to(v, device, dtype) if isinstance(v, dict)
+            else v.detach().to(device, dtype) for k, v in tree.items()}
+
+
+def _resnet_trainer(rt, strategy: str):
+    """A Trainer on ResNet-18 at f32 for RESNET_DP2_STEPS steps of a
+    global batch of RESNET_BATCH (RESNET_OVERRIDES otherwise) under
+    ``strategy`` over ``rt``, and its loader."""
+    from distributed_training_tpu_torch.config import load_config
+    from distributed_training_tpu_torch.data import (
+        ShardedDataLoader,
+        build_dataset,
+    )
+    from distributed_training_tpu_torch.models.registry import build_model
+    from distributed_training_tpu_torch.train.trainer import Trainer
+
+    batch = RESNET_BATCH // rt.data_shard_count
+    cfg = load_config(overrides=[
+        *RESNET_OVERRIDES, "train.dtype=float32",
+        f"train.dataset_kwargs.size={RESNET_DP2_STEPS * RESNET_BATCH}",
+        f"train.batch_size={batch}", "train.total_epochs=1",
+        "train.log_every=0", f"train.parallel_strategy={strategy}"])
+    kwargs = dict(cfg.model.kwargs)
+    dtype = kwargs.pop("dtype", cfg.train.dtype)
+    model = build_model(cfg.model.name, loss=cfg.train.loss, dtype=dtype,
+                        device=rt.device, **kwargs)
+    loader = ShardedDataLoader(
+        build_dataset(cfg.train.dataset,
+                      _defaults={"size": cfg.train.dataset_size,
+                                 "seed": cfg.train.seed},
+                      **cfg.train.dataset_kwargs),
+        rt, batch_size=batch, shuffle=cfg.train.shuffle,
+        seed=cfg.train.seed)
+    return Trainer(cfg, rt, model, loader), loader
+
+
+def train_resnet_dp2_rank(rank: int, port: int, out_path: str,
+                          strategies: str) -> int:
+    """One of phase train_resnet_dp2's two processes: on ``cuda:0``, in a
+    gloo group of 2 over ``127.0.0.1:port``, for each of the
+    comma-separated ``strategies`` a runtime over the mesh dp 2
+    (``ddp``) or fsdp 2 (``fsdp``) built here and its sound run, and
+    under ``ddp`` then the planted fault's (every gradient unsummed);
+    writes its readings to ``out_path``."""
+    import torch.distributed as dist
+
+    from distributed_training_tpu_torch.parallel import fsdp
+    from distributed_training_tpu_torch.runtime import MeshSpec, slice_runtime
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        result = {"rank": rank}
+        # The fault run patches the collectives for good: ddp runs last.
+        for strategy in sorted(strategies.split(","), key="ddp".__eq__):
+            spec = MeshSpec(fsdp=2) if strategy == "fsdp" else MeshSpec(dp=2)
+            rt = slice_runtime([spec], torch.device("cuda", 0))
+            runs = {"describe": rt.describe()}
+            for run in (("sound", "fault") if strategy == "ddp"
+                        else ("sound",)):
+                trainer, loader = _resnet_trainer(rt, strategy)
+                _free_memory()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                fsdp.TRAFFIC.clear()
+                if run == "fault":
+                    _unsynced_grads()
+                t0 = time.perf_counter()
+                got = _tp2_steps(trainer, loader)
+                runs[run] = {
+                    **got, "wall_s": time.perf_counter() - t0,
+                    "traffic": dict(fsdp.TRAFFIC),
+                    "placements": {k: list(pl.splits) for k, pl in
+                                   trainer.layout["params"].items()
+                                   if pl is not None},
+                    "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                             torch.backends.cudnn.allow_tf32],
+                    "launches": _read_counts(),
+                    "launches_by_design": _read_designs(),
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+                del trainer, loader
+            result[strategy] = runs
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _resnet_dp2_world(tmp: str, strategies: str) -> tuple:
+    """(both ranks' readings, wall seconds) of one world of 2."""
+    port = _free_port()
+    outs = [os.path.join(tmp, f"train_resnet_dp2.rank{r}.json")
+            for r in range(2)]
+    logs = [open(os.path.join(tmp, f"train_resnet_dp2.rank{r}.log"), "w")
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-resnet-dp2-rank",
+         str(r), str(port), outs[r], strategies], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    if codes != [0, 0]:
+        for r in range(2):
+            with open(logs[r].name) as f:
+                print(f"train_resnet_dp2 rank {r}:\n{f.read()[-4000:]}",
+                      file=sys.stderr)
+    check(codes == [0, 0], f"train_resnet_dp2: ranks exited {codes}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks, wall
+
+
+def phase_train_resnet_dp2(tmp: str) -> tuple:
+    """ResNet-18 at full width and f32 in two processes on ``cuda:0``
+    over gloo, under ``ddp`` (dp 2) and ``fsdp`` (fsdp 2), against world
+    1 on the same global batches (TF32 off in every process); the
+    planted fault (every gradient left unsummed) must fall outside the
+    limits."""
+    from distributed_training_tpu_torch.runtime import Runtime
+
+    _free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    trainer, loader = _resnet_trainer(Runtime(device=torch.device("cuda", 0)),
+                                      "ddp")
+    want = _tp2_steps(trainer, loader)
+    want["peak"] = torch.cuda.max_memory_allocated()
+    del trainer, loader
+    _free_memory()
+    steps = RESNET_DP2_STEPS
+    readings, per_strategy, counts, designs = {}, {}, [], []
+    both, wall = _resnet_dp2_world(tmp, "ddp,fsdp")
+    for strategy in ("ddp", "fsdp"):
+        ranks = [r[strategy] for r in both]
+        for run in [r for r in ("sound", "fault") if r in ranks[0]]:
+            got = ranks[0][run]
+            check(len(got["losses"]) == len(want["losses"]) == steps,
+                  f"train_resnet_dp2 {strategy} {run}: {got['losses']}")
+            d = {"first_grad_norm_rel_diff": _rel(got["grad_norms"][0],
+                                                  want["grad_norms"][0]),
+                 "loss_rel_diff": _rel_diffs(got["losses"], want["losses"]),
+                 "grad_norm_rel_diff": _rel_diffs(got["grad_norms"],
+                                                  want["grad_norms"])}
+            d["within"] = (d["first_grad_norm_rel_diff"]
+                           <= RESNET_DP2_FIRST_NORM_RTOL
+                           and d["loss_rel_diff"] <= RESNET_DP2_LOSS_RTOL
+                           and d["grad_norm_rel_diff"]
+                           <= RESNET_DP2_GRAD_NORM_RTOL)
+            readings[f"{strategy}_{run}"] = d
+        sound = [r["sound"] for r in ranks]
+        per_strategy[strategy] = {
+            "wall_s": [s["wall_s"] for s in sound],
+            "describe": [r["describe"] for r in ranks],
+            "losses": sound[0]["losses"], "grad_norms": sound[0]["grad_norms"],
+            "median_step_s": [float(np.median(s["step_s"][1:]))
+                              for s in sound],
+            "median_sync_s": [float(np.median(s["sync_s"][1:]))
+                              for s in sound],
+            "peak_mem_bytes": [s["peak_mem_bytes"] for s in sound],
+            "tf32": [s["tf32"] for s in sound],
+            "gathered_bytes_per_step": [
+                s["traffic"].get("gathered_bytes", 0) / steps for s in sound],
+            "reduce_scattered_bytes_per_step": [
+                s["traffic"].get("reduce_scattered_bytes", 0) / steps
+                for s in sound],
+            "placements": sound[0]["placements"],
+            "launches": [s["launches"] for s in sound]}
+        if "fault" in ranks[0]:
+            per_strategy[strategy]["fault_losses"] = ranks[0]["fault"][
+                "losses"]
+            per_strategy[strategy]["fault_grad_norms"] = ranks[0]["fault"][
+                "grad_norms"]
+        for s in sound:
+            check(s["losses"] == sound[0]["losses"]
+                  and s["grad_norms"] == sound[0]["grad_norms"],
+                  f"train_resnet_dp2 {strategy}: the ranks disagree")
+            check(s["tf32"] == [False, False],
+                  f"train_resnet_dp2 {strategy}: TF32 flags {s['tf32']}")
+            counts.append(s["launches"])
+            designs.append(s["launches_by_design"])
+    emit({"phase": "train_resnet_dp2", "model": "resnet18",
+          "backend": "gloo", "processes_on_card": 2, "wall_s": wall,
+          "batch": RESNET_BATCH, "steps": steps, "dtype": "float32",
+          "world1_losses": want["losses"],
+          "world1_grad_norms": want["grad_norms"],
+          "world1_median_step_s": float(np.median(want["step_s"][1:])),
+          "world1_peak_mem_bytes": want["peak"],
+          "world1_held_before_bytes": held,
+          "first_grad_norm_rtol": RESNET_DP2_FIRST_NORM_RTOL,
+          "loss_rtol": RESNET_DP2_LOSS_RTOL,
+          "grad_norm_rtol": RESNET_DP2_GRAD_NORM_RTOL,
+          "fault": "ddp with every gradient unsummed",
+          "readings": readings, **per_strategy})
+    fsdp_pl = per_strategy["fsdp"]["placements"]
+    check(per_strategy["ddp"]["placements"] == {}
+          and "stem/w" not in fsdp_pl
+          and "stage0/0/gn1/scale" not in fsdp_pl
+          and fsdp_pl.get("stage3/1/conv2") == [[2, ["fsdp"]]],
+          f"train_resnet_dp2: placements {fsdp_pl}")
+    check(all(n == 0 for c in counts for n in c.values()),
+          f"train_resnet_dp2: a flash or paged kernel ran: {counts}")
+    for name in ("ddp_sound", "fsdp_sound"):
+        check(readings[name]["within"],
+              f"train_resnet_dp2: {name} outside the limits: {readings}")
+    check(not readings["ddp_fault"]["within"],
+          f"train_resnet_dp2: the planted fault passed the limits: "
+          f"{readings}")
+    return _sum_counts(counts), _sum_designs(designs)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--train-resnet-dp2-rank"]:
+        return train_resnet_dp2_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                     sys.argv[4], sys.argv[5])
     if sys.argv[1:2] == ["--train-tp2-rank"]:
         return train_tp2_rank(int(sys.argv[2]), int(sys.argv[3]),
                               sys.argv[4])
@@ -6042,6 +6587,20 @@ def main() -> int:
         return 2
     import distributed_training_tpu_torch  # noqa: F401 — needs the repo
 
+    # A bytecode cache for the processes this script starts: the chip
+    # machine's Python writes none (PYTHONDONTWRITEBYTECODE) and its
+    # packages ship none, so every child compiled torch's sources again.
+    # Under the prefix the first child writes the cache and the others
+    # read it; it goes with this directory.
+    with tempfile.TemporaryDirectory(prefix="dtt_chip_smoke_pyc_") as pyc:
+        os.environ["PYTHONPYCACHEPREFIX"] = pyc
+        os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+        return _smoke()
+
+
+def _smoke() -> int:
+    """Every phase of the smoke, in order; the last line is the
+    contract's."""
     device = phase_device()
     phase_build()
     phase_native()
@@ -6057,8 +6616,8 @@ def main() -> int:
     int8_launches = phase_serving_int8(prompts, 64, batched)
     swap_launches = phase_serving_swap(prompts, 64)
     phase_parity([p for p in prompts if len(p) >= 128][:2], 16)
-    phase_trace(prompts, 64)
-    phase_trace_resident(prompts, 64)
+    phase_trace(prompts, TRACE_NEW_TOKENS)
+    phase_trace_resident(prompts, TRACE_NEW_TOKENS)
     with tempfile.TemporaryDirectory(prefix="dtt_chip_smoke_") as tmp:
         mesh_launches = {name: phase_serving_mesh(name, prompts, batched, tmp)
                          for name in SERVING_MESHES}
@@ -6099,6 +6658,11 @@ def main() -> int:
         ep2_launches = phase_train_moe_ep2(tmp)
         slice19 = {"train_moe": moe_launches,
                    "generate_moe": phase_generate_moe(moe_run)}
+        # ResNet-18 runs no flash or paged kernel: its launches, all 0,
+        # are counted like any other path's.
+        slice20 = {"train_resnet18": phase_train_resnet18(tmp)}
+        phase_resnet_parity()
+        slice20["train_resnet_dp2"] = phase_train_resnet_dp2(tmp)
     phase_train_trace()
     phase_train_trace(split=True)
     phase_train_1b_trace()
@@ -6135,14 +6699,17 @@ def main() -> int:
     # at sp 2: the ring, Ulysses and the windowed ring, both processes'
     # sound runs; then pipeline parallelism at pp 2 under each schedule,
     # both processes' sound and split runs; then MoE: moe_transformer's
-    # fused and split runs and generate.py's fused decode on it).
+    # fused and split runs and generate.py's fused decode on it; then
+    # ResNet-18's CLI runs, eval.py and its world-2 runs, where nothing
+    # launches).
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
              int8_launches, swap_launches, recovery_launches, disagg_launches,
              cli_launches,
              *mesh_launches.values(), train_launches, split_launches,
              train_1b_launches, tp_1b_launches, tp2_launches,
              *slice14.values(), *slice15.values(), *slice16.values(),
-             *slice17.values(), *slice18.values(), *slice19.values())
+             *slice17.values(), *slice18.values(), *slice19.values(),
+             *slice20.values())
     kernels = []
     for name in KERNELS:
         src, replaces = sources[name]
@@ -6212,6 +6779,10 @@ def main() -> int:
             path: counts[name] for path, (counts, _) in slice19.items()}
         kernels[-1]["moe_ep2_f32_launches_by_design"] = ep2_launches[1].get(
             name, {"simt": ep2_launches[0][name]})
+        # And on ResNet-18's paths (train_resnet18's two CLI runs and
+        # eval.py; train_resnet_dp2's sound runs, both processes): 0.
+        kernels[-1]["resnet_launches"] = {
+            path: counts[name] for path, (counts, _) in slice20.items()}
         if name.startswith("flash_"):
             # The same kernel at moe_transformer's shape (B 8, H 8, S
             # 512, D 64).

@@ -25,3 +25,13 @@ def uniform_fan_in(gen: torch.Generator, shape: tuple, fan_in: int,
     u = torch.rand(shape, generator=gen, dtype=torch.float32,
                    device=device or gen.device)
     return (u * (2 * bound) - bound).to(dtype)
+
+
+def normal_init(gen: torch.Generator, shape: tuple, std: float,
+                dtype=torch.float32, device=None) -> torch.Tensor:
+    """``std`` times a standard normal draw from ``gen`` (the JAX
+    ``normal_init``; the two frameworks draw different numbers from one
+    seed)."""
+    z = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=device or gen.device)
+    return (z * std).to(dtype)

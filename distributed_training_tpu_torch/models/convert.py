@@ -1,7 +1,9 @@
 """Carry JAX-package weights into the port, leaf for leaf.
 
 ``mlp_from_jax_params`` does the same for the MLP's ``{"layer<i>":
-{"w", "b"}}`` tree against ``MLP.param_shapes()``.
+{"w", "b"}}`` tree against ``MLP.param_shapes()``, and
+``resnet_from_jax_params`` for ResNet's against ``ResNet.param_shapes()``
+(each stage's list of blocks becomes a dict keyed by the block's index).
 
 ``from_jax_params`` takes the nested dict that
 ``distributed_training_tpu.models.transformer.Transformer.init`` returns,
@@ -103,3 +105,31 @@ def mlp_from_jax_params(np_tree: dict, model, device=None) -> dict:
                                  f"{arr.shape} != expected {shape}")
             out[layer][k] = torch.from_numpy(arr).to(dev)
     return out
+
+
+def resnet_from_jax_params(np_tree: dict, model, device=None) -> dict:
+    """A ResNet's numpy weight tree (``jax.tree.map(np.asarray, params)``
+    of the JAX ``ResNet.init``) → the port's f32 tensors on ``device``
+    (None → the CUDA card): each ``stage<i>`` list of blocks becomes
+    ``{"0": block, "1": block, …}``. Raises ``ValueError`` on a missing
+    or extra key or a wrong shape."""
+    dev = resolve_device(device)
+
+    def conv(node, expected, path):
+        if isinstance(node, (list, tuple)):
+            node = {str(i): blk for i, blk in enumerate(node)}
+        if isinstance(expected, dict):
+            if not isinstance(node, dict) or set(node) != set(expected):
+                got = sorted(node) if isinstance(node, dict) else node
+                raise ValueError(
+                    f"ResNet weights at '{path or '/'}': keys {got} != "
+                    f"expected {sorted(expected)}")
+            return {k: conv(node[k], expected[k], f"{path}/{k}")
+                    for k in expected}
+        arr = np.array(node, dtype=np.float32)
+        if arr.shape != tuple(expected):
+            raise ValueError(f"ResNet weights at '{path}': shape "
+                             f"{arr.shape} != expected {tuple(expected)}")
+        return torch.from_numpy(arr).to(dev)
+
+    return conv(np_tree, model.param_shapes(), "")

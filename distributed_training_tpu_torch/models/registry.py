@@ -14,8 +14,8 @@ def build_model(name: str, loss: str = "auto", dtype: str = "float32",
     """Construct a model family from config, as the JAX ``build_model``
     (``loss="auto"`` keeps the family's default: mse for the MLP,
     next-token xent for a transformer). ``device`` as ``Transformer``
-    (None = the CUDA card). ResNet waits for ROADMAP.md queue A item
-    16d."""
+    (None = the CUDA card). ResNet ignores ``loss``, as the JAX
+    branch does."""
     name = name.lower()
     if name == "mlp":
         from distributed_training_tpu_torch.models.mlp import MLP, MLPConfig
@@ -28,7 +28,6 @@ def build_model(name: str, loss: str = "auto", dtype: str = "float32",
         return build_transformer(name, loss=loss, dtype=dtype,
                                  device=device, **kwargs)
     if name in ("resnet", "resnet18"):
-        raise NotImplementedError(
-            f"model '{name}' waits for ROADMAP.md queue A item 16d "
-            "(ResNet)")
+        from distributed_training_tpu_torch.models.resnet import ResNet
+        return ResNet(dtype=dtype, device=device, **kwargs)
     raise ValueError(f"unknown model '{name}'")

@@ -117,13 +117,19 @@ def resolve_device(device=None) -> torch.device:
 
     ``None`` means the CUDA card; without one this raises rather than
     running on the CPU. The CPU is taken only when the caller names it
-    (``device="cpu"``), as the tests do."""
+    (``device="cpu"``), as the tests do.
+
+    On the card an f32 run computes in f32: TF32 is turned off for
+    matmuls and for cuDNN's convolutions (PyTorch allows it for the
+    latter by default), in every process that picks its device here."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise NoCudaDeviceError(
                 "no CUDA device is visible; pass device='cpu' explicitly "
                 "to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         if dev.index is None:
             # Tensors report an indexed device; compare like with like.
             dev = torch.device("cuda", torch.cuda.current_device())

@@ -565,7 +565,10 @@ class Trainer:
             if not need <= have:
                 raise ValueError(
                     f"model expects batch keys {sorted(need)} but the "
-                    f"{role} dataset yields {sorted(have)}")
+                    f"{role} dataset yields {sorted(have)}: pick a "
+                    "matching train.dataset (LMs: synthetic_lm / bytes / "
+                    "memmap_tokens; regression: synthetic*; images: "
+                    "synthetic_images)")
         ds = getattr(self.loader, "dataset", None)
         if ds is None or len(ds) == 0:
             return

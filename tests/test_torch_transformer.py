@@ -82,13 +82,14 @@ def test_gpt2_125m_preset_is_the_jax_one():
 
 
 def test_deferred_model_features_raise():
-    # MoE runs (item 16c): the model builds, and ResNet's refusal stays.
+    # MoE runs (item 16c): the model builds, and so does ResNet-18
+    # (item 16d), on the CPU when asked.
     moe = port_tf.Transformer(port_tf.TransformerConfig(
         vocab_size=64, d_model=32, n_layers=1, n_heads=2,
         moe_num_experts=4), device="cpu")
     assert set(moe.init(0)["mlp"]) == {"router", "wi", "wo"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model("resnet18", device="cpu")
+    resnet = build_model("resnet18", device="cpu")
+    assert resnet.device.type == "cpu" and resnet.width == 64
     cfg = port_tf.TransformerConfig(vocab_size=64, d_model=32, n_layers=1,
                                     n_heads=2, dtype="float32")
     params = port_tf.Transformer(cfg, device="cpu").init(0)
