@@ -49,14 +49,26 @@ a seed:
   a resume from it that matches the uninterrupted run bit for bit, as
   do ``ddp`` with no process group and ``ddp`` with its optimizer state
   offloaded to pinned host memory;
-- serving on a mesh (``serving_dp2``, ``serving_tp2``): two processes
-  on ``cuda:0`` in a gloo group, each one rank of the mesh dp 2 (a dp
-  group of 4 slots with its own pool) or tp 2 (6 of the 12 heads, half
-  the MLP and the vocab), through ``Engine(..., mesh=runtime)``: the
-  float32 logits of every request's first decoded position held against
-  one process, with a planted fault that must fail the same limit; then
-  bf16, the serving prompts batched and the long ones sequential, token
-  agreement reported, collectives and launches held to the design;
+- serving on a mesh (``serving_dp2``, ``serving_tp2``,
+  ``serving_fsdp2``): two processes on ``cuda:0`` in a gloo group, each
+  one rank of the mesh dp 2 (a dp group of 4 slots with its own pool),
+  tp 2 (6 of the 12 heads, half the MLP and the vocab) or fsdp 2 (half
+  of every weight, gathered whole a layer at a time in every launch),
+  through ``Engine(..., mesh=runtime)``: the float32 logits of every
+  request's first decoded position held against one process, with a
+  planted fault that must fail the same limit; then bf16, the serving
+  prompts batched and the long ones sequential, token agreement
+  reported, collectives and launches held to the design; under fsdp the
+  bytes one decode step gathers equal the planner's price of that
+  layout (``_score_serving``'s ``all-gather`` term);
+- the planner (``plan``): ``parallel/planner.py --check`` against the
+  committed plans (five clean, and JAX's ranking drift on
+  ``multichip_8dev_cpu``), then the search over gpt2_125m at full width
+  on the card (12 candidates) whose gate trains the winner one step
+  under its plan and one unplanned (B1, B2), the estimate's memory and
+  compute time beside the step's peak allocation and device time, and a
+  planted fault (the first candidate's planned run from another seed)
+  that must be disqualified;
 - tensor parallelism: transformer_1b at full width under ``tp_fsdp``
   (tp 1, fsdp 1) through the CLI in a NCCL group of one rank, every
   tensor-parallel collective over a group of one, its losses held
@@ -352,18 +364,32 @@ TRAIN_MOE_EP2_STEPS = 5
 MOE_EP2_OVERRIDES = ("train.dtype=float32",)
 EP_LOSS_RTOL = TP_LOSS_RTOL
 EP_GRAD_NORM_RTOL = TP_GRAD_NORM_RTOL
-# Serving on a mesh (serving_dp2, serving_tp2): two processes on cuda:0
-# over gloo, each one mesh rank. At float32 the logits of the first
-# decoded position of every request, mesh engine against one process,
-# max abs difference; the sound engine differs from the one-process one
-# only in summation order (tp's split sums, paged decode's split plan at
-# B_local rows or Hkv/tp heads). The planted faults (dp2: rank 1 launches
-# group 0's rows; tp2: layer 0's attention all-reduce dropped) must fall
-# outside the limit. Readings on the H100 (PERF.md, PR 9): sound 2.1e-6
-# for both meshes, faults 2.96 (dp2) and 1.97 (tp2), the largest logit
-# 2.93; the limit lies between.
+# Serving on a mesh (serving_dp2, serving_tp2, serving_fsdp2): two
+# processes on cuda:0 over gloo, each one mesh rank. At float32 the
+# logits of the first decoded position of every request, mesh engine
+# against one process, max abs difference; the sound engine differs from
+# the one-process one only in summation order (tp's split sums, paged
+# decode's split plan at B_local rows or Hkv/tp heads; fsdp's gathered
+# weights are the whole weights, bit for bit). The planted faults (dp2:
+# rank 1 launches group 0's rows; tp2: layer 0's attention all-reduce
+# dropped; fsdp2: rank 1 concatenates layer 0's gathered shards in the
+# wrong order) must fall outside the limit. Readings on the H100
+# (PERF.md, PR 9): sound 2.1e-6 for both meshes, faults 2.96 (dp2) and
+# 1.97 (tp2), the largest logit 2.93; the limit lies between.
 MESH_LOGITS_TOL = 1e-4
-SERVING_MESHES = {"dp2": {"dp": 2}, "tp2": {"tp": 2}}
+SERVING_MESHES = {"dp2": {"dp": 2}, "tp2": {"tp": 2}, "fsdp2": {"fsdp": 2}}
+# Phase plan: the committed targets ``planner --check`` must find clean,
+# and the one whose JAX ranking drifted from its committed file in the
+# last bit of a few scores (ROADMAP.md, "Reference caveats"), for which
+# the check must print JAX's ranking-drift line and nothing else.
+PLAN_CLEAN = ("multichip_8dev", "serving_8dev_cpu_decode",
+              "serving_4dev_cpu_prefill", "serving_4dev_cpu_decode",
+              "serving_8dev_cpu_decode_int8")
+PLAN_DRIFTED = "multichip_8dev_cpu"
+# The card target the phase searches: gpt2_125m at full width, bf16
+# compute, 12 candidates (3 remat x 4 batch) on one device, every comms
+# term 0; the scores tie over batch and the largest batch wins.
+PLAN_WINNER = "pp1.dp1.fsdp1.sp1.tp1/none/b8"
 # New tokens a request in the mesh phases' bf16 bursts and in the
 # profiled bursts of trace and trace_resident (cut from 64 to keep the
 # whole smoke inside its time limit; the other serving phases keep 64).
@@ -991,6 +1017,9 @@ def phase_kernels() -> dict:
             "paged_decode_chain": paged["chain"],
             "paged_decode_tp2": paged["tp2_rank"],
             "paged_decode_dp2": paged["dp2_rank"],
+            # An fsdp rank decodes every slot at every head: the main
+            # case's geometry.
+            "paged_decode_fsdp2": paged["main"],
             "flash_fwd_tp2": flash["tp2"],
             "flash_bwd_fused_tp2": bwd["fused_tp2"]["flash_bwd_fused"],
             "flash_fwd_byte_lm": flash["byte_lm"],
@@ -2502,6 +2531,7 @@ def _mesh_serve(eng, prompts: list, new_tokens: int) -> dict:
     """The prompts through the engine (no HTTP) to the end, timed, with
     the kernel launches, the tensor-parallel collectives and the
     engine's own gathers counted from 0."""
+    from distributed_training_tpu_torch.parallel import fsdp as fsdp_lib
     from distributed_training_tpu_torch.parallel import tensor as tp_lib
     from distributed_training_tpu_torch.serving.engine import Request
 
@@ -2509,6 +2539,8 @@ def _mesh_serve(eng, prompts: list, new_tokens: int) -> dict:
     _reset_counts()
     tp_lib.ALL_REDUCES.clear()
     tp_lib.ALL_GATHERS.clear()
+    fsdp_lib.GATHERS.clear()
+    fsdp_lib.TRAFFIC.clear()
     eng.gathers.clear()
     syncs0, slots_active = eng.host_syncs, []
     t0 = time.perf_counter()
@@ -2531,6 +2563,8 @@ def _mesh_serve(eng, prompts: list, new_tokens: int) -> dict:
             "gathers": dict(eng.gathers),
             "all_reduces": dict(tp_lib.ALL_REDUCES),
             "all_gathers": dict(tp_lib.ALL_GATHERS),
+            "fsdp_gathers": dict(fsdp_lib.GATHERS),
+            "fsdp_gathered_bytes": fsdp_lib.TRAFFIC["gathered_bytes"],
             "launches": _read_counts(), "launches_by_design": _read_designs(),
             "compile_counts_stable": eng.compile_counts() == counts,
             "pages_left": [eng.cache.pages_used_in(g)
@@ -2563,7 +2597,14 @@ def serving_mesh_rank(rank: int, port: int, out_path: str,
         model, params = _gpt2("float32")
         for run in ("sound", "fault"):
             eng = _engine(model, params, mesh=rt)
-            if run == "fault" and name == "tp2":
+            if name == "fsdp2" and run == "sound":
+                result["f32_decode_gathers"] = _measure_first_decode_gathers(
+                    eng)
+            if run == "fault" and name == "fsdp2":
+                if rank == 1:
+                    eng._fsdp.__class__ = _swap_layer0_halves(
+                        type(eng._fsdp))
+            elif run == "fault" and name == "tp2":
                 layers = model.cfg.n_layers
 
                 class DropLayer0AttentionReduce(TPGroup):
@@ -2579,9 +2620,9 @@ def serving_mesh_rank(rank: int, port: int, out_path: str,
                 eng._g = 0   # rank 1 launches group 0's rows
             result[f"f32_{run}"] = _first_decode_logits(eng, prompts)
             del eng
-        if name == "tp2":
+        if name in ("tp2", "fsdp2"):
             # The resident burst is a CUDA graph, which cannot capture
-            # gloo's all-reduces: the engine must refuse it.
+            # gloo's all-reduces or all-gathers: the engine must refuse it.
             try:
                 _engine(model, params, mesh=rt, resident_k=8)
                 result["resident_refusal"] = None
@@ -2612,6 +2653,63 @@ def serving_mesh_rank(rank: int, port: int, out_path: str,
     return 0
 
 
+def _swap_layer0_halves(cls):
+    """serving_fsdp2's planted fault: the engine's fsdp gather (``cls``,
+    ``serving/engine.py::_FsdpWeights``) with layer 0's gathered shards
+    concatenated in the wrong order."""
+
+    class SwapLayer0Halves(cls):
+        def layer(self, layer, i):
+            out = super().layer(layer, i)
+            if i == 0:
+                for g, n, m, d in self.layer_parts:
+                    w = out[g][n] if m is None else out[g][n][m]
+                    w = torch.cat(list(reversed(w.chunk(2, d))), d)
+                    out[g][n] = w if m is None else {**out[g][n], m: w}
+            return out
+    return SwapLayer0Halves
+
+
+def _measure_first_decode_gathers(eng) -> dict:
+    """Wrap ``eng``'s decode launch so that its first one records the
+    fsdp gathers and gathered bytes of that one launch (filled in the
+    returned dict)."""
+    from distributed_training_tpu_torch.parallel import fsdp as fsdp_lib
+
+    box: dict = {}
+    decode = eng._decode
+
+    def measured(*args):
+        b0, g0 = fsdp_lib.TRAFFIC["gathered_bytes"], dict(fsdp_lib.GATHERS)
+        out = decode(*args)
+        if "bytes" not in box:
+            box["bytes"] = fsdp_lib.TRAFFIC["gathered_bytes"] - b0
+            box["gathers"] = {k: n - g0.get(k, 0)
+                              for k, n in fsdp_lib.GATHERS.items()
+                              if n != g0.get(k, 0)}
+        return out
+
+    eng._decode = measured
+    return box
+
+
+def _fsdp2_decode_target(dtype: str):
+    """serving_fsdp2's layout as a planner target: gpt2_125m at full
+    width at ``dtype`` (params and compute, as ``_gpt2``), the decode
+    objective over 2 devices, 8 slots of 1024 tokens; and its candidate
+    fsdp 2."""
+    from distributed_training_tpu_torch.models.transformer import PRESETS
+    from distributed_training_tpu_torch.parallel import planner
+
+    target = planner.PlanTarget(
+        name=f"gpt2_125m_fsdp2_decode_{dtype}", devices=2,
+        model_kwargs=dict(PRESETS["gpt2_125m"], dtype=dtype,
+                          param_dtype=dtype),
+        seq_len=1024, optimizer="none", chip="nvidia h100 80gb hbm3",
+        batch_candidates=(8,), objective="decode")
+    return target, planner.Candidate(1, 1, 2, 1, 1, "none", 8)
+
+
 def _logit_diffs(got: dict, want: dict) -> float:
     return max(float((got[k] - want[k]).abs().max()) for k in got)
 
@@ -2620,8 +2718,10 @@ def phase_serving_mesh(name: str, prompts: list, batched_tokens: dict,
                        tmp: str) -> tuple:
     """Serving gpt2_125m at full width on a mesh of two processes sharing
     ``cuda:0`` over gloo (SERVING_MESHES[name]: dp 2, each process one
-    dp group of 4 slots and its own pool; or tp 2, each process 6 of the
-    12 heads, half the MLP and half the vocab), against one process: the
+    dp group of 4 slots and its own pool; tp 2, each process 6 of the
+    12 heads, half the MLP and half the vocab; or fsdp 2, each process
+    half of every weight, gathered whole a layer at a time, every slot
+    on both), against one process: the
     float32 logits of every request's first decoded position within
     MESH_LOGITS_TOL and the planted fault outside it; at bf16 the
     smoke's 8 prompts batched (MESH_NEW_TOKENS new tokens) and its long
@@ -2666,7 +2766,29 @@ def phase_serving_mesh(name: str, prompts: list, batched_tokens: dict,
     check(codes == [0, 0], f"serving_{name}: ranks exited {codes}")
     ranks = [torch.load(path, weights_only=False) for path in outs]
     L = PRESETS["gpt2_125m"]["n_layers"]
-    tp = mesh.get("tp", 1)
+    tp, fs = mesh.get("tp", 1), mesh.get("fsdp", 1)
+    # Under fsdp the planner's price of one decode step's weight
+    # all-gather (_score_serving, the whole weights at the compute
+    # dtype) at float32 and at bf16.
+    priced = {}
+    if fs > 1:
+        from distributed_training_tpu_torch.parallel import planner
+        for dt in ("float32", "bfloat16"):
+            rec = planner.score_candidate(*_fsdp2_decode_target(dt))
+            check(rec["feasible"], f"serving_{name}: the cost model finds "
+                  f"its layout infeasible at {dt}: {rec}")
+            priced[dt] = rec["comms_bytes_by_kind"]["all-gather"]
+        top = ("tok_embed", "pos_embed", "final_norm/scale",
+               "final_norm/bias")
+        for r in ranks:
+            got = r["f32_decode_gathers"]
+            check(got["bytes"] == priced["float32"],
+                  f"serving_{name} rank {r['rank']}: one f32 decode step "
+                  f"gathered {got['bytes']} bytes, the cost model prices "
+                  f"{priced['float32']}")
+            check(got["gathers"] == {"layer": L, **dict.fromkeys(top, 1)},
+                  f"serving_{name} rank {r['rank']}: one decode step's "
+                  f"gathers {got['gathers']}")
     sound = max(_logit_diffs(r["f32_sound"], want) for r in ranks)
     fault = max(_logit_diffs(r["f32_fault"], want) for r in ranks)
     scale = max(float(v.abs().max()) for v in want.values())
@@ -2682,6 +2804,8 @@ def phase_serving_mesh(name: str, prompts: list, batched_tokens: dict,
             # row-parallel all-reduces, and one all-gather of the
             # logits; per fetch one all-gather over dp; per step one
             # lock-step gather over the mesh.
+            # Under fsdp: per forward one gather of each layer and of
+            # each top-level leaf, the whole weights' bytes.
             design = {
                 "all_reduces": ({"reduce_from_tp": (2 * L + 1) * forwards}
                                 if tp > 1 else {}),
@@ -2689,7 +2813,12 @@ def phase_serving_mesh(name: str, prompts: list, batched_tokens: dict,
                                 if tp > 1 else {}),
                 "gathers": {"lockstep": got["steps"],
                             **({"dp_fetch": got["host_syncs"]}
-                               if G > 1 else {})}}
+                               if G > 1 else {})},
+                "fsdp_gathers": ({"layer": L * forwards,
+                                  **dict.fromkeys(top, forwards)}
+                                 if fs > 1 else {}),
+                "fsdp_gathered_bytes": (priced["bfloat16"] * forwards
+                                        if fs > 1 else 0)}
             for k, v in design.items():
                 check(got[k] == v, f"{what}: {k} {got[k]}, design {v}")
             check(got["launches"]["paged_decode"]
@@ -2724,7 +2853,8 @@ def phase_serving_mesh(name: str, prompts: list, batched_tokens: dict,
                 k: got[k] for k in (
                     "wall_s", "tokens_per_s", "steps", "prefill_launches",
                     "decode_launches", "host_syncs", "gathers",
-                    "all_reduces", "all_gathers", "launches",
+                    "all_reduces", "all_gathers", "fsdp_gathers",
+                    "fsdp_gathered_bytes", "launches",
                     "launches_by_design")}
             runs[run].update(
                 forwards=forwards, design=design,
@@ -2753,16 +2883,30 @@ def phase_serving_mesh(name: str, prompts: list, batched_tokens: dict,
               "max_abs_diff": sound, "fault_max_abs_diff": fault,
               "limit": MESH_LOGITS_TOL, "max_abs_logit": scale,
               "fault": ("layer 0's attention all-reduce dropped"
-                        if tp > 1 else "rank 1 launches group 0's rows")},
+                        if tp > 1 else
+                        "rank 1 concatenates layer 0's gathered shards in "
+                        "the wrong order" if fs > 1 else
+                        "rank 1 launches group 0's rows")},
+          **({"fsdp_all_gather": {
+              "f32_decode_step_bytes": [r["f32_decode_gathers"]["bytes"]
+                                        for r in ranks],
+              "cost_model_bytes": priced,
+              "bf16_bytes_per_forward": [
+                  r["bf16"]["fsdp_gathered_bytes"]
+                  / (r["bf16"]["prefill_launches"]
+                     + r["bf16"]["decode_launches"]) for r in ranks]}}
+             if fs > 1 else {}),
           "resident_refusal": ranks[0].get("resident_refusal"),
           "ranks": per_rank})
-    if tp > 1:
+    if tp > 1 or fs > 1:
         from distributed_training_tpu_torch.serving.engine import (
-            TP_RESIDENT_ITEM)
-        check(all(TP_RESIDENT_ITEM in (r["resident_refusal"] or "")
-                  for r in ranks),
-              f"serving_{name}: the resident burst under tp over gloo was "
-              f"not refused: {[r['resident_refusal'] for r in ranks]}")
+            FSDP_RESIDENT_NOTE,
+            TP_RESIDENT_ITEM,
+        )
+        note = TP_RESIDENT_ITEM if tp > 1 else FSDP_RESIDENT_NOTE
+        check(all(note in (r["resident_refusal"] or "") for r in ranks),
+              f"serving_{name}: the resident burst over gloo was not "
+              f"refused: {[r['resident_refusal'] for r in ranks]}")
     check(sound <= MESH_LOGITS_TOL, f"serving_{name}: f32 logits off the "
           f"one-process engine's by {sound} > {MESH_LOGITS_TOL}")
     check(fault > MESH_LOGITS_TOL, f"serving_{name}: the planted fault "
@@ -2777,6 +2921,125 @@ def phase_serving_mesh(name: str, prompts: list, batched_tokens: dict,
                 for d, v in ds.items():
                     designs.setdefault(k, {}).setdefault(d, 0)
                     designs[k][d] += v
+    return launches, designs
+
+
+def _plan_target():
+    """phase plan's target, built in memory (no plan is committed)."""
+    from distributed_training_tpu_torch.models.transformer import PRESETS
+    from distributed_training_tpu_torch.parallel.planner import PlanTarget
+
+    return PlanTarget(name="gpt2_125m_h100", devices=1,
+                      model_kwargs=dict(PRESETS["gpt2_125m"],
+                                        dtype="bfloat16"),
+                      seq_len=1024, chip="nvidia h100 80gb hbm3")
+
+
+def phase_plan(device: dict) -> tuple:
+    """The planner's search on the card.
+
+    1. ``python -m distributed_training_tpu_torch.parallel.planner
+       --check`` in a subprocess: an OK line for each of PLAN_CLEAN and
+       JAX's ranking-drift line, alone, for PLAN_DRIFTED (whose live
+       ranking, re-derived here, keeps the committed keys, order and
+       winner; its largest relative score gap is printed).
+    2. ``plan_search`` on gpt2_125m at full width with the torch gate on
+       ``cuda:0``: every candidate scored, the winner's gate (one step
+       under its plan through the trainer and one unplanned, B1 and B2
+       on the card) agreeing; the estimate's HBM and compute time beside
+       the step's peak allocation and device time (CUDA events).
+    3. Planted fault: the same search with a gate whose first planned
+       run starts from another init seed must disqualify that candidate
+       and settle on the next.
+
+    Returns the launches and designs of step 2's gate."""
+    from distributed_training_tpu_torch.parallel import planner
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_training_tpu_torch.parallel."
+         "planner", "--check"], cwd=here, capture_output=True, text=True,
+        timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("[planner] ")]
+    drift = (f"[planner] {PLAN_DRIFTED}: stage-1 ranking changed (cost "
+             "model or search space drift) — re-run planner --write")
+    ok = {n for n in PLAN_CLEAN for ln in lines
+          if ln.startswith(f"[planner] {n}: OK (")}
+    check(ok == set(PLAN_CLEAN) and drift in lines and len(lines) == 6,
+          f"plan: planner --check printed {lines} (rc {proc.returncode}, "
+          f"stderr {proc.stderr[-2000:]})")
+    committed = planner.load_plan(PLAN_DRIFTED)
+    live = planner.rank_candidates(planner.PLAN_TARGETS[PLAN_DRIFTED])
+    recorded = committed.provenance["ranking"]
+    check([c.key for c, _s in live] == [r["candidate"] for r in recorded]
+          and live[0][0].key == committed.candidate_key,
+          f"plan: {PLAN_DRIFTED}'s live ranking moved keys or winner")
+    gaps = [abs(s["score"] - r["score"]) / r["score"]
+            for (_c, s), r in zip(live, recorded)]
+
+    target = _plan_target()
+    cands = planner.enumerate_candidates(target)
+    ranked = planner.rank_candidates(target)
+    _free_memory()
+    _reset_counts()
+    plan = planner.plan_search(
+        target, lambda t, p: planner.compile_verify(t, p, device="cuda:0"))
+    launches, designs = _read_counts(), _read_designs()
+    rec = plan.provenance["score"]
+    gate = plan.provenance["compile_evidence"]["gate"]
+    check(len(cands) == 12 and len(ranked) == 12,
+          f"plan: {len(cands)} candidates, {len(ranked)} feasible")
+    check(plan.candidate_key == ranked[0][0].key == PLAN_WINNER,
+          f"plan: winner {plan.candidate_key}, ranked first "
+          f"{ranked[0][0].key}, expected {PLAN_WINNER}")
+    check(gate["agree"] and plan.provenance["disqualified"] == [],
+          f"plan: the winner's gate disagrees: {gate}")
+    check(launches["flash_fwd"] > 0 and launches["flash_bwd_fused"] > 0,
+          f"plan: the gate's steps launched {launches}")
+    _check_designs({k: designs[k] for k in ("flash_fwd", "flash_bwd_fused")},
+                   "wgmma", "plan")
+    # Planted fault: the first candidate's planned run from another seed.
+    calls: list = []
+
+    def faulty(t, p):
+        calls.append(p.candidate_key)
+        return planner.compile_verify(
+            t, p, device="cuda:0",
+            planned_seed=planner.GATE_SEED + 1 if len(calls) == 1 else None)
+
+    _free_memory()
+    fplan = planner.plan_search(target, faulty)
+    dq = fplan.provenance["disqualified"]
+    check([d["candidate"] for d in dq] == [ranked[0][0].key]
+          and fplan.candidate_key == ranked[1][0].key
+          and fplan.provenance["rank"] == 1 and len(calls) == 2,
+          f"plan: the planted fault's search chose {fplan.candidate_key} "
+          f"after {calls}, disqualified {dq}")
+    _free_memory()
+    emit({"phase": "plan", "card": device["card"],
+          "check": {"lines": lines, "rc": proc.returncode,
+                    "drifted": PLAN_DRIFTED,
+                    "drifted_scores": sum(g > 0 for g in gaps),
+                    "max_rel_score_gap": max(gaps)},
+          "target": target.name, "candidates": len(cands),
+          "feasible": len(ranked), "winner": plan.candidate_key,
+          "calibration": plan.provenance["calibration"]["source"],
+          "hbm_gib_estimate": rec["hbm_gib"],
+          "peak_allocated_gib": gate["planned"]["peak_bytes"] / 2**30,
+          "compute_s_estimate": rec["compute_s"],
+          "step_ms_planned": gate["planned"]["step_ms"],
+          "step_ms_unplanned": gate["unplanned"]["step_ms"],
+          "losses": [gate["planned"]["loss"], gate["unplanned"]["loss"]],
+          "grad_norms": [gate["planned"]["grad_norm"],
+                         gate["unplanned"]["grad_norm"]],
+          "launches": launches, "launches_by_design": designs,
+          "fault": {"disqualified": [d["candidate"] for d in dq],
+                    "losses": [dq[0]["gate"]["planned"]["loss"],
+                               dq[0]["gate"]["unplanned"]["loss"]],
+                    "grad_norms": [dq[0]["gate"]["planned"]["grad_norm"],
+                                   dq[0]["gate"]["unplanned"]["grad_norm"]],
+                    "winner": fplan.candidate_key}})
     return launches, designs
 
 
@@ -6621,6 +6884,7 @@ def _smoke() -> int:
     with tempfile.TemporaryDirectory(prefix="dtt_chip_smoke_") as tmp:
         mesh_launches = {name: phase_serving_mesh(name, prompts, batched, tmp)
                          for name in SERVING_MESHES}
+        plan_launches = phase_plan(device)
         recovery_launches = phase_serving_recovery(prompts, tmp)
         disagg_launches = phase_serving_disagg(prompts, 64, tmp)
         cli_launches = phase_serving_cli(prompts, 64, batched, tmp)
@@ -6690,8 +6954,9 @@ def _smoke() -> int:
     # the disaggregated pipeline's bf16 run, the CLI-started server's bf16
     # run (counted in its process), training, split-backward
     # training, transformer_1b under fsdp and under tp_fsdp, gpt2_125m
-    # under tp at tp 2, serving on the meshes dp 2 and tp 2: both
-    # processes; then byte_lm's training, eval.py and generate.py's bf16
+    # under tp at tp 2, serving on the meshes dp 2, tp 2 and fsdp 2: both
+    # processes, the plan phase's gate (its planned and unplanned step);
+    # then byte_lm's training, eval.py and generate.py's bf16
     # runs, each in its process, and gpt2_125m under Adafactor; then the
     # resilience paths: the supervised crash-restart, the preempted
     # stream under each backward and the elastic resize; then the observability paths: the
@@ -6705,7 +6970,8 @@ def _smoke() -> int:
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
              int8_launches, swap_launches, recovery_launches, disagg_launches,
              cli_launches,
-             *mesh_launches.values(), train_launches, split_launches,
+             *mesh_launches.values(), plan_launches, train_launches,
+             split_launches,
              train_1b_launches, tp_1b_launches, tp2_launches,
              *slice14.values(), *slice15.values(), *slice16.values(),
              *slice17.values(), *slice18.values(), *slice19.values(),

@@ -144,6 +144,15 @@ class _Gather(torch.autograd.Function):
             [g.contiguous() for g in grads], list(ctx.dims), ctx.group))
 
 
+def gather_shards(shards: list, dims: list, group) -> list:
+    """Each shard whole along its dim, gathered over ``group`` (one
+    all-gather per dtype), with its bytes counted in ``TRAFFIC``; under
+    autograd the gradients reduce-scatter back to the shards. The
+    gather for compute of the trainer (``GatherForCompute``) and of the
+    serving engine under fsdp (``serving/engine.py::_FsdpWeights``)."""
+    return list(_Gather.apply(tuple(dims), group, *shards))
+
+
 class GatherForCompute:
     """The model's gather binding over sharded storage.
 
@@ -184,8 +193,9 @@ class GatherForCompute:
         if not keys:
             return layer
         GATHERS["layer"] += 1
-        fulls = _Gather.apply(tuple(self.layer_dims[kn] for kn in keys),
-                              self.group, *[layer[k][n] for k, n in keys])
+        fulls = gather_shards([layer[k][n] for k, n in keys],
+                              [self.layer_dims[kn] for kn in keys],
+                              self.group)
         out = {k: dict(ws) for k, ws in layer.items()}
         for (k, n), w in zip(keys, fulls):
             out[k][n] = w
@@ -198,7 +208,7 @@ class GatherForCompute:
         if d is None:
             return w
         GATHERS[name] += 1
-        return _Gather.apply((d,), self.group, w)[0]
+        return gather_shards([w], [d], self.group)[0]
 
 
 def local_view(t: torch.Tensor, pl, runtime) -> torch.Tensor:

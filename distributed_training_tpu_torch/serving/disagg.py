@@ -16,10 +16,18 @@
   sequences' dense KV from their own pages, gathered over a mesh's
   processes) and ``import_kv``/``import_kv_batch`` (one scatter per
   pool);
+- ``plan_shardings``/``place_params``: the placements a plan's sharding
+  map implies for each leaf on a mesh, and this process's blocks of the
+  weights under them (the layout ``serving/engine.py::_rank_params``
+  cuts for the plan's mesh);
 - ``engine_config_for_plan``, the one engine geometry a plan implies,
   and ``DisaggPipeline``: prompts prefill on one engine under the
   prefill plan, their KV is handed to another under the decode plan,
-  and decode ends there.
+  and decode ends there;
+- ``compile_verify_serving``, the planner's gate for serving plans:
+  where JAX compiles the engine's decode or prefill program under the
+  plan and counts reshard warnings, the port runs one launch of it on
+  the plan's mesh and holds its logits to the one-process engine's.
 
 The JAX pipeline drives two meshes from one process. The port runs one
 process per mesh rank: either one process holds both engines (each plan
@@ -27,10 +35,8 @@ at a mesh of 1; the card's form, where the handoff stays on the device),
 or the world is cut into a prefill slice and a decode slice
 (``runtime.slice_runtime``) and the KV crosses from the one to the other
 by broadcasts that every process of the world enters in one order.
-``plan_shardings``/``place_params`` and the serving verifier build jax
-shardings or XLA programs and wait for ROADMAP.md queue A item 17; the
-engine cuts its rank's weights with the trainer's placements
-(``serving/engine.py::_rank_params``), which equal the plans'.
+JAX's ``lower_serving_program``/``compile_serving_hlo`` lower XLA
+programs and have no counterpart (PyTorch compiles nothing).
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ from distributed_training_tpu_torch.models.transformer import (
     _QUANT_AXES,
     _is_quant_leaf,
 )
-from distributed_training_tpu_torch.parallel import planner
+from distributed_training_tpu_torch.parallel import fsdp, planner
+from distributed_training_tpu_torch.parallel.strategy import placement
 from distributed_training_tpu_torch.runtime import MeshSpec, resolve_device
 from distributed_training_tpu_torch.train.optimizer import flatten, unflatten
 
@@ -56,6 +63,53 @@ logger = logging.getLogger(__name__)
 
 class ProvenanceError(ValueError):
     """Plan provenance contradicts the committed plan or the engine's."""
+
+
+# ---------------------------------------------------------------------------
+# Plan-directed placement
+# ---------------------------------------------------------------------------
+
+
+def plan_shardings(plan, mesh, params: dict) -> dict:
+    """The placements ``plan``'s sharding map implies for the weight tree
+    ``params`` on ``mesh`` (a ``Runtime`` whose mesh is the plan's): a
+    tree like ``params`` of ``parallel/strategy.py::Placement`` (None:
+    replicated). An int8 leaf (``{"qw", "scale"}``) takes its weight's
+    entry: ``qw`` verbatim, ``scale`` on the dims where it is larger than
+    1 (JAX's rule). A path the plan does not name raises ``ValueError``
+    (a model/plan mismatch fails at placement, not as a replicated
+    layout)."""
+    planner.check_plan_runtime(
+        plan, mesh.spec if mesh is not None else MeshSpec(), elastic=False)
+    out = {}
+    for key, leaf in quant_leaves(params).items():
+        try:
+            entries = plan.sharding_map[key]
+        except KeyError:
+            raise ValueError(
+                f"plan '{plan.name}' names no sharding for param '{key}' "
+                "— it was resolved against a different model") from None
+
+        def pl(ent):
+            return placement(tuple(tuple(e) if isinstance(e, list) else e
+                                   for e in ent))
+
+        if _is_quant_leaf(leaf):
+            out[key] = {"qw": pl(entries), "scale": pl(
+                [None if leaf["scale"].shape[d] == 1 else e
+                 for d, e in enumerate(entries)])}
+        else:
+            out[key] = pl(entries)
+    return unflatten(out)
+
+
+def place_params(params: dict, mesh, plan) -> dict:
+    """This process's blocks of the whole weights ``params`` under
+    ``plan`` on ``mesh`` (``plan_shardings``), each in storage of its own
+    (a replicated leaf is ``params``' own tensor)."""
+    pls = flatten(plan_shardings(plan, mesh, params))
+    return unflatten({k: fsdp.shard(t, pls[k], mesh) if mesh is not None
+                      else t for k, t in flatten(params).items()})
 
 
 def _quantize_leaf(w: torch.Tensor, axes: tuple[int, ...]) -> dict:
@@ -563,3 +617,96 @@ class DisaggPipeline:
         dist.broadcast_object_list(box, src=self._first["decode"])
         return box[0]
 
+
+
+# ---------------------------------------------------------------------------
+# The planner's gate for serving plans
+# ---------------------------------------------------------------------------
+
+# The serving gate's limit on the f32 logits of the plan's engine against
+# the one-process engine's, max abs: chip_smoke.py's MESH_LOGITS_TOL.
+# The sound layouts differ from one process only in summation order.
+SERVING_GATE_LOGITS_TOL = 1e-4
+
+
+def _gated_launch(engine, prompts: list, decode: bool) -> dict:
+    """``{request id: f32 logits}`` of the gated launch on this process's
+    rows: every prompt submitted; for ``decode`` the engine stepped until
+    every prompt is prefilled, then one decode step; else its first step,
+    one batched prefill launch."""
+    from distributed_training_tpu_torch.serving.engine import Request
+
+    for i, p in enumerate(prompts):
+        engine.submit(Request(id=str(i), prompt=p,
+                              max_new_tokens=2 if decode else 1))
+    if decode:
+        while engine.queue or any(s is not None and not s.prefill_done
+                                  for s in engine.slots):
+            engine.step()
+    engine.logits_sink = []
+    engine.step()
+    (ids, logits), = engine.logits_sink
+    engine.logits_sink = None
+    return {rid: row.float().cpu() for rid, row in zip(ids, logits)
+            if rid is not None}
+
+
+def compile_verify_serving(target, plan, device=None) -> dict:
+    """The planner's gate for a serving plan (JAX's name; JAX compiles
+    the engine's decode or batched-prefill program under the plan and
+    counts reshard warnings).
+
+    Runs the engine laid out by ``plan`` on the plan's mesh
+    (``planner.gate_runtime``: one process on ``device``, or the caller's
+    process group of ``plan.devices`` processes) and the one-process
+    engine, on the plan's model at its init from ``planner.GATE_SEED``
+    and ``plan.batch_per_shard`` prompts made from it: one decode step
+    for a ``decode`` plan, one batched prefill launch of
+    ``SERVING_PREFILL_CHUNK``-token lanes for a ``prefill`` plan. The
+    gate holds every request's f32 logits of that launch to the
+    one-process engine's within ``SERVING_GATE_LOGITS_TOL``.
+
+    Returns the training gate's keys (``planner.compile_verify``), the
+    collective evidence over the gated launch, ``program`` as JAX names
+    it, and ``gate`` with the largest difference and ``agree``, agreed
+    by every process."""
+    import dataclasses
+
+    from distributed_training_tpu_torch.serving.engine import Engine
+
+    decode = target.objective == "decode"
+    rt = planner.gate_runtime(plan, device)
+    model = planner.model_for_plan(plan, device=rt.device)
+    params = model.init(planner.GATE_SEED)
+    cfg = engine_config_for_plan(plan)
+    rng = np.random.default_rng(planner.GATE_SEED)
+    hi = min(planner.SERVING_PREFILL_CHUNK, plan.seq_len - 2)
+    prompts = [rng.integers(1, model.cfg.vocab_size,
+                            size=int(rng.integers(2, hi + 1))).astype(np.int32)
+               for _ in range(plan.batch_per_shard)]
+    G = plan.mesh.get("dp", 1)
+    ref = _gated_launch(
+        Engine(model, params,
+               dataclasses.replace(cfg, num_pages=G * (cfg.num_pages - 1) + 1),
+               device=rt.device), prompts, decode)
+    eng = Engine(model, params, cfg, mesh=rt if rt.mesh is not None
+                 else None, device=rt.device)
+    before = planner.counter_snapshot()
+    gathers0 = dict(eng.gathers)
+    got = _gated_launch(eng, prompts, decode)
+    ev = planner.collective_evidence(before, planner.counter_snapshot())
+    gathers = {k: n - gathers0.get(k, 0) for k, n in eng.gathers.items()
+               if n != gathers0.get(k, 0)}
+    diff = max(float((got[k] - ref[k]).abs().max()) for k in got)
+    agree = planner.all_agree(diff <= SERVING_GATE_LOGITS_TOL, rt)
+    return {
+        "spmd_reshard_warnings": 0,
+        "reshard_ops": [],
+        "collective_bytes_per_step": ev["collective_bytes_per_step"],
+        "total_collectives": ev["total_collectives"] + sum(gathers.values()),
+        "program": "decode" if decode else "prefill_batch",
+        "gate": {"max_abs_logit_diff": diff, "rows": len(got),
+                 "limit": SERVING_GATE_LOGITS_TOL, "agree": agree,
+                 "device": str(rt.device), "counters": ev["counters"],
+                 "engine_gathers": gathers},
+    }

@@ -1,7 +1,7 @@
 """Continuous-batching engine over the paged KV cache (port).
 
 The port of ``distributed_training_tpu/serving/engine.py``, on one card
-or on a mesh of ``dp x tp`` processes (below). Requests join and leave
+or on a mesh of ``dp x fsdp x tp`` processes (below). Requests join and leave
 the running batch at every step against fixed-shape programs:
 
 - **prefill**, in one of two modes:
@@ -69,6 +69,18 @@ fetch (``_fetch_host``) is one all-gather over the dp group followed by
 one copy to the host, after which every process reads the ``(G, …)``
 results, as the JAX engine does.
 
+Over ``fsdp`` (an ``auto`` axis of the JAX engine's ``shard_map``) the
+weights are stored split, each process keeping its fsdp shard of every
+leaf (``_rank_params``: the placements a plan of the mesh names), and
+gathered whole for compute with the trainer's gather
+(``_FsdpWeights``): in every launch one all-gather of the top-level
+leaves, then one per layer (per dtype) just before that layer's compute,
+so the whole weights are never resident at once. Slots are dealt over
+dp only: the fsdp members of a dp group hold the same slots, pool and KV
+and compute the same rows. Per decode step the gathers move the whole
+weights once, the ``all-gather`` bytes the planner's ``_score_serving``
+prices for the layout.
+
 The contract is SPMD: every process is given the same submissions in
 the same order and steps as often. Each step begins with one all-gather
 over the whole mesh of a 64-bit digest of the scheduler state (queued
@@ -104,8 +116,9 @@ incoming KV, and a drain's deadline is rank 0's clock, broadcast at
 every step so that every process stops at the same one.
 
 What waits for later slices raises ``NotImplementedError`` naming its
-ROADMAP.md item: a mesh over other axes than dp and tp, and the
-resident burst under tp > 1 on the card over anything but NCCL.
+ROADMAP.md item: a mesh over sp or pp, and the resident burst under tp
+> 1 on the card over anything but NCCL. The resident burst under fsdp
+> 1 on the card over gloo is refused by design (``FSDP_RESIDENT_NOTE``).
 """
 
 from __future__ import annotations
@@ -162,12 +175,15 @@ logger = logging.getLogger(__name__)
 
 # ROADMAP.md queue A items the deferred features name.
 MESH_AXIS_ITEMS = {
-    "fsdp": "ROADMAP.md queue A item 17 (the planner's serving layouts)",
     "sp": "ROADMAP.md queue A item 16a's remainder (serving over sp)",
     "pp": ("ROADMAP.md queue A item 16b's remainder (serving over pp: the "
            "JAX engine leaves pp an auto axis of its shard_map)")}
 TP_RESIDENT_ITEM = ("ROADMAP.md queue A 'Left from done items': 'the resident "
                     "burst under tp > 1 on cards'")
+# Serving over fsdp runs the resident burst only where the group's
+# backend can be captured in a CUDA graph (NCCL) or eagerly (the CPU).
+FSDP_RESIDENT_NOTE = ("serve over fsdp with resident_k 1 on gloo (ROADMAP.md "
+                      "section C, differences by design)")
 
 # The CUDA kernels each program launches (``compile_counts``).
 _PROGRAM_KERNELS = {
@@ -505,6 +521,20 @@ def _w(leaf) -> torch.Tensor:
     return leaf
 
 
+def _whole_top(params: dict, fs) -> dict:
+    """``params`` with its top-level leaves (embeddings, head, final
+    norm) whole: under fsdp > 1 gathered once at a program's start
+    (``_FsdpWeights.top``), else ``params`` itself."""
+    return params if fs is None else fs.top(params)
+
+
+def _layer(params: dict, i: int, fs) -> dict:
+    """Layer ``i``'s weights, whole over fsdp: under fsdp > 1 its shards
+    gathered just before its compute (``_FsdpWeights.layer``)."""
+    layer = layer_slice(params, i)
+    return layer if fs is None else fs.layer(layer, i)
+
+
 def _mlp(x: torch.Tensor, layer: dict, tp=None) -> torch.Tensor:
     h = _layer_norm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
     m = {n: _w(w) for n, w in layer["mlp"].items()}
@@ -518,15 +548,19 @@ def _mlp(x: torch.Tensor, layer: dict, tp=None) -> torch.Tensor:
 @torch.no_grad()
 def _decode_program(params, k_pages, v_pages, tokens, positions,
                     page_tables, active, gen, *, cfg, temperature,
-                    top_k, paged_impl, tp=None) -> torch.Tensor:
+                    top_k, paged_impl, tp=None, fs=None,
+                    sink=None) -> torch.Tensor:
     """One token for every slot of the table.
 
     ``params`` in compute dtype (``cast_for_compute``); tokens (B,) —
     last sampled token per slot; positions (B,) — the absolute position
     that token occupies (== kv entries already written); page_tables
     (B, P) int32; active (B,) bool. Returns next tokens (B,); inactive
-    slots write into the scratch page and return 0."""
+    slots write into the scratch page and return 0. ``fs``: the fsdp
+    gather of sharded weights (None: whole). ``sink``: a list the f32
+    logits (B, V) are appended to (None: not kept)."""
     ps, P = k_pages.shape[4], page_tables.shape[1]
+    params = _whole_top(params, fs)
     x = _embed(params, tokens, tp)                       # (B, D)
     if cfg.pos_encoding == "learned":
         x = x + params["pos_embed"][positions]
@@ -536,7 +570,7 @@ def _decode_program(params, k_pages, v_pages, tokens, positions,
     offsets = torch.where(active, positions % ps, 0)
     lengths = torch.where(active, positions + 1, 0).int()
     for i in range(cfg.n_layers):
-        layer = layer_slice(params, i)
+        layer = _layer(params, i, fs)
         a = {n: _w(w) for n, w in layer["attn"].items()}
         kp, vp = k_pages[0, i], v_pages[0, i]
         h = _layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
@@ -554,13 +588,15 @@ def _decode_program(params, k_pages, v_pages, tokens, positions,
     x = _layer_norm(x, params["final_norm"]["scale"],
                     params["final_norm"]["bias"])
     logits = _logits(x, params, cfg, tp)
+    if sink is not None:
+        sink.append(logits)
     return torch.where(active, _sample(logits, temperature, top_k, gen), 0)
 
 
 @torch.no_grad()
 def _prefill_program(params, k_pages, v_pages, page_row, live,
                      chunk_tokens, start_pos, n_valid, *, cfg,
-                     first, tp=None) -> torch.Tensor:
+                     first, tp=None, fs=None) -> torch.Tensor:
     """One prompt chunk of one sequence (the sequential prefill).
 
     page_row (P,) int32; live — False writes everything into the
@@ -575,6 +611,7 @@ def _prefill_program(params, k_pages, v_pages, page_row, live,
     chunk form. Both write then read the pool identically."""
     C = chunk_tokens.shape[0]
     ps, P = k_pages.shape[4], page_row.shape[0]
+    params = _whole_top(params, fs)
     idx = torch.arange(C, device=chunk_tokens.device)
     abs_pos = start_pos + idx
     valid = (idx < n_valid) & live
@@ -590,7 +627,7 @@ def _prefill_program(params, k_pages, v_pages, page_row, live,
     impl = (cfg.attention_impl
             if cfg.attention_impl in ("auto", "flash", "naive") else "auto")
     for i in range(cfg.n_layers):
-        layer = layer_slice(params, i)
+        layer = _layer(params, i, fs)
         a = {n: _w(w) for n, w in layer["attn"].items()}
         kp, vp = k_pages[0, i], v_pages[0, i]
         h = _layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
@@ -617,7 +654,7 @@ def _prefill_program(params, k_pages, v_pages, page_row, live,
 
 def _chunk_hidden(params, k_pages, v_pages, page_rows, tokens, start_pos,
                   n_valid, active, *, cfg, chain, paged_impl="auto",
-                  tp=None):
+                  tp=None, fs=None):
     """The multi-lane chunk forward shared by batched prefill, spec
     verification and every resident iteration, so none of them can
     drift from the others.
@@ -630,8 +667,9 @@ def _chunk_hidden(params, k_pages, v_pages, page_rows, tokens, start_pos,
     own pages at positions <= its own: through the paged chunk form
     (``chain=False``, batched prefill), or through single-token decode
     at S·C rows (``chain=True``, ``paged_decode_chain``: the kernel on
-    the card). Returns ``(x (S, C, D) final hidden states, valid (S,
-    C))``."""
+    the card). ``params``' top-level leaves are whole (the caller's
+    ``_whole_top``); ``fs`` gathers each layer under fsdp > 1. Returns
+    ``(x (S, C, D) final hidden states, valid (S, C))``."""
     S, C = tokens.shape
     ps, P = k_pages.shape[4], page_rows.shape[1]
     idx = torch.arange(C, device=tokens.device)
@@ -649,7 +687,7 @@ def _chunk_hidden(params, k_pages, v_pages, page_rows, tokens, start_pos,
     offsets = torch.where(valid, abs_pos % ps, 0)
     q_pos = torch.where(valid, abs_pos, -1)
     for i in range(cfg.n_layers):
-        layer = layer_slice(params, i)
+        layer = _layer(params, i, fs)
         a = {n: _w(w) for n, w in layer["attn"].items()}
         kp, vp = k_pages[0, i], v_pages[0, i]
         h = _layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
@@ -688,7 +726,7 @@ def _argmax_chain(params, x, valid, cfg, tp=None) -> torch.Tensor:
 def _chunk_program(params, k_pages, v_pages, page_rows, tokens,
                    start_pos, n_valid, active, gen, *, cfg, temperature,
                    top_k, emit="last", paged_impl="auto",
-                   tp=None) -> torch.Tensor:
+                   tp=None, fs=None, sink=None) -> torch.Tensor:
     """Multi-token chunks for a whole lane table: batched prefill
     (``emit="last"``, S = prefill lanes, C = prefill_chunk) and
     speculative decode (``emit="all"``, S = decode slots, C = spec_k).
@@ -700,12 +738,14 @@ def _chunk_program(params, k_pages, v_pages, page_rows, tokens,
       (``_argmax_chain``); the chain attends through single-token
       decode. The host accepts the longest prefix whose drafts match.
 
-    Inactive lanes give 0."""
+    Inactive lanes give 0. ``sink`` (``emit="last"``): a list the f32
+    logits (S, V) are appended to."""
     S = tokens.shape[0]
+    params = _whole_top(params, fs)
     x, valid = _chunk_hidden(params, k_pages, v_pages, page_rows, tokens,
                              start_pos, n_valid, active, cfg=cfg,
                              chain=emit == "all", paged_impl=paged_impl,
-                             tp=tp)
+                             tp=tp, fs=fs)
     if emit == "all":
         return _argmax_chain(params, x, valid, cfg, tp)
     last = torch.clamp(n_valid - 1, min=0)
@@ -713,6 +753,8 @@ def _chunk_program(params, k_pages, v_pages, page_rows, tokens,
     x_last = _layer_norm(x_last, params["final_norm"]["scale"],
                          params["final_norm"]["bias"])
     logits = _logits(x_last, params, cfg, tp)
+    if sink is not None:
+        sink.append(logits)
     return torch.where(active, _sample(logits, temperature, top_k, gen), 0)
 
 
@@ -749,7 +791,7 @@ def _draft_cols(hist, hlen, last, C: int, ngram: int) -> torch.Tensor:
 @torch.no_grad()
 def _resident_program(params, k_pages, v_pages, page_rows, history, kv_len,
                       budget, active, *, cfg, K, C, ngram, eos_id,
-                      paged_impl="auto", tp=None) -> tuple:
+                      paged_impl="auto", tp=None, fs=None) -> tuple:
     """Device-resident K-step decode for the slot table (JAX
     ``_resident_program``), a function of static-shape tensors.
 
@@ -775,6 +817,7 @@ def _resident_program(params, k_pages, v_pages, page_rows, history, kv_len,
     B, Lmax = history.shape
     T = K * C
     dev = history.device
+    params = _whole_top(params, fs)
     pos = torch.arange(Lmax, device=dev)
     cl = torch.arange(C, device=dev)
     tl = torch.arange(T, device=dev)
@@ -798,7 +841,8 @@ def _resident_program(params, k_pages, v_pages, page_rows, history, kv_len,
             tokens = last[:, None]
         x, valid = _chunk_hidden(params, k_pages, v_pages, page_rows,
                                  tokens, kvl, n, running, cfg=cfg,
-                                 chain=True, paged_impl=paged_impl, tp=tp)
+                                 chain=True, paged_impl=paged_impl, tp=tp,
+                                 fs=fs)
         nxt = _argmax_chain(params, x, valid, cfg, tp)   # (B, C)
         if C > 1:
             match = ((tokens[:, 1:] == nxt[:, :-1])
@@ -998,49 +1042,150 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return torch.stack(parts)
 
 
-def _mesh_extents(mesh, cfg: EngineConfig) -> tuple[int, int]:
-    """(dp groups, tp) of ``mesh`` (a ``Runtime``; (1, 1) without one).
-    The engine deals its slots over ``cfg.dp_axis`` = ``dp`` and splits
-    heads over ``cfg.kv_axis`` = ``tp``; any other axis above 1 raises
-    naming its ROADMAP.md item."""
+def _mesh_extents(mesh, cfg: EngineConfig) -> tuple[int, int, int]:
+    """(dp groups, fsdp, tp) of ``mesh`` (a ``Runtime``; (1, 1, 1)
+    without one). The engine deals its slots over ``cfg.dp_axis`` =
+    ``dp``, splits heads over ``cfg.kv_axis`` = ``tp`` and stores its
+    weights split over ``fsdp`` (gathered for compute); ``sp`` or ``pp``
+    above 1 raises naming its ROADMAP.md item."""
     if mesh is None:
-        return 1, 1
+        return 1, 1, 1
     sizes = mesh.spec.as_dict()
     for axis, n in sizes.items():
         if n > 1 and not (axis == "dp" == cfg.dp_axis
-                          or axis == "tp" == cfg.kv_axis):
+                          or axis == "tp" == cfg.kv_axis
+                          or axis == "fsdp"):
             raise NotImplementedError(
                 f"serving over mesh axis '{axis}'={n} (dp_axis="
                 f"'{cfg.dp_axis}', kv_axis='{cfg.kv_axis}') waits for "
-                f"{MESH_AXIS_ITEMS.get(axis, MESH_AXIS_ITEMS['fsdp'])}")
-    return sizes["dp"], sizes["tp"]
+                f"{MESH_AXIS_ITEMS.get(axis, MESH_AXIS_ITEMS['sp'])}")
+    return sizes["dp"], sizes["fsdp"], sizes["tp"]
 
 
-def _rank_params(params: dict, model, mesh, tp: int) -> dict:
-    """This process's blocks of the whole weights ``params``: under tp >
-    1 each leaf cut by the trainer's ``TensorParallel`` placements (query
-    and kv heads, MLP columns and rows, vocab rows of the embedding and
-    columns of the head; norms, ``bo`` and positions whole), else the
-    weights themselves. An int8 leaf's ``qw`` is cut like its weight and
-    its ``scale`` only on the dims where it is larger than 1 (the JAX
-    ``plan_shardings`` rule): column-parallel scales split with their
-    heads or columns, row-parallel ``wo`` scales stay whole."""
-    if tp == 1:
+def weight_layout(model, mesh) -> dict | None:
+    """``{path: Placement | None}`` of the weights on ``mesh``: the
+    placements of the base strategy a plan of that mesh names
+    (``planner.base_strategy_for``: ``tp`` when tp > 1, else ``fsdp``
+    when fsdp > 1), every leaf eligible (``min_shard_elems`` 1, as every
+    plan the planner resolves), the trainer's ``layout``. None when
+    neither axis is above 1 (every process holds the whole weights)."""
+    if mesh is None or (mesh.spec.tp == 1 and mesh.spec.fsdp == 1):
+        return None
+    from distributed_training_tpu_torch.parallel.planner import (
+        base_strategy_for,
+    )
+    strat = get_strategy(base_strategy_for(mesh.spec.as_dict()), mesh.spec,
+                         min_shard_elems=1)
+    return layout(strat, flatten(model.param_shapes()),
+                  flatten(model.logical_axes()))["params"]
+
+
+def _scale_placement(pl, scale: torch.Tensor):
+    """An int8 leaf's ``scale`` placement: its weight's splits on the
+    dims where the scale is larger than 1 (the JAX ``plan_shardings``
+    rule): column-parallel scales split with their heads or columns, a
+    reduced dim stays whole."""
+    spl = pl and pl._replace(splits=tuple(
+        (d, axes) for d, axes in pl.splits if scale.shape[d] > 1))
+    return spl or None
+
+
+def _rank_params(params: dict, model, mesh) -> dict:
+    """This process's blocks of the whole weights ``params``, cut by
+    ``weight_layout``'s placements: under tp > 1 query and kv heads, MLP
+    columns and rows, vocab rows of the embedding and columns of the
+    head; under fsdp > 1 each leaf's storage dim (``embed`` dims, else
+    its largest divisible one); the weights themselves when neither
+    axis is above 1. An int8 leaf's ``qw`` is cut like its weight and
+    its ``scale`` by ``_scale_placement``."""
+    lay = weight_layout(model, mesh)
+    if lay is None:
         return params
-    lay = layout(get_strategy("tp", mesh.spec),
-                 flatten(model.param_shapes()), flatten(model.logical_axes()))
     out = {}
     for k, leaf in quant_leaves(params).items():
-        pl = lay["params"][k]
+        pl = lay[k]
         if not _is_quant_leaf(leaf):
             out[k] = fsdp.shard(leaf, pl, mesh)
             continue
-        scale = leaf["scale"]
-        spl = pl and pl._replace(splits=tuple(
-            (d, axes) for d, axes in pl.splits if scale.shape[d] > 1))
         out[k] = {"qw": fsdp.shard(leaf["qw"], pl, mesh),
-                  "scale": fsdp.shard(scale, spl or None, mesh)}
+                  "scale": fsdp.shard(
+                      leaf["scale"], _scale_placement(pl, leaf["scale"]),
+                      mesh)}
     return unflatten(out)
+
+
+class _FsdpWeights:
+    """The weights stored split over ``fsdp`` and gathered whole for
+    compute, with the trainer's gather (``parallel/fsdp.py::
+    gather_shards``): in every program launch, one all-gather over the
+    fsdp group (per dtype) of the top-level leaves at its start
+    (``top``), and one of each layer's shards just before that layer's
+    compute (``layer``), counted in ``fsdp.GATHERS`` and
+    ``fsdp.TRAFFIC`` as the trainer's forward counts its gathers. A leaf
+    split over tp too is gathered on its fsdp dim only (its tp block
+    stays local); an int8 leaf's ``qw`` on its weight's dim and its
+    ``scale`` where ``_scale_placement`` split it.
+
+    ``placements``: ``weight_layout``'s; ``params``: the whole weights
+    (for the int8 scales' shapes)."""
+
+    def __init__(self, placements: dict, params: dict, mesh,
+                 layer_keys: tuple):
+        self.group = mesh.group(("fsdp",))
+        self.layer_parts: list = []   # (group, name, member, dim)
+        self.top_parts: list = []     # (path, dim)
+        leaves = quant_leaves(params)
+        for path, pl in placements.items():
+            leaf = leaves[path]
+            members = ((("qw", pl), ("scale", _scale_placement(
+                pl, leaf["scale"]))) if _is_quant_leaf(leaf)
+                else ((None, pl),))
+            for member, mpl in members:
+                data = [(d, axes) for d, axes in (mpl.splits if mpl else ())
+                        if axes != ("tp",)]
+                if not data:
+                    continue
+                (dim, axes), = data
+                if axes != ("fsdp",):
+                    raise ValueError(f"{path}: weights split over {axes}; "
+                                     "the engine gathers over fsdp alone")
+                top, _, name = path.partition("/")
+                if top in layer_keys:
+                    self.layer_parts.append((top, name, member, dim - 1))
+                else:
+                    self.top_parts.append((path, dim))
+
+    def top(self, params: dict) -> dict:
+        """``params`` with its split top-level leaves whole."""
+        if not self.top_parts:
+            return params
+        flat = flatten(params)
+        fulls = fsdp.gather_shards([flat[p] for p, _d in self.top_parts],
+                                   [d for _p, d in self.top_parts],
+                                   self.group)
+        for (path, _d), full in zip(self.top_parts, fulls):
+            fsdp.GATHERS[path] += 1
+            flat[path] = full
+        return unflatten(flat)
+
+    def layer(self, layer: dict, i: int) -> dict:
+        """Layer ``i``'s weights (a layer slice) whole."""
+        del i  # every layer gathers alike
+        if not self.layer_parts:
+            return layer
+        fsdp.GATHERS["layer"] += 1
+        shards = [layer[g][n] if m is None else layer[g][n][m]
+                  for g, n, m, _d in self.layer_parts]
+        fulls = fsdp.gather_shards(shards,
+                                   [d for *_x, d in self.layer_parts],
+                                   self.group)
+        out = {k: dict(ws) for k, ws in layer.items()}
+        for (g, n, m, _d), w in zip(self.layer_parts, fulls):
+            if m is None:
+                out[g][n] = w
+            else:
+                out[g][n] = {**out[g][n], m: w}
+        return out
 
 
 class Engine:
@@ -1051,10 +1196,11 @@ class Engine:
     engine copies what it needs (``self.params``) and keeps no reference
     to it, so the caller may free it. ``device=None`` runs on the CUDA
     card and raises without one.
-    ``mesh``: a ``Runtime`` over ``dp x tp`` processes, each running one
-    engine given the same submissions (and the same ``swap_weights``,
-    ``preempt`` and ``drain`` calls); this one keeps its tp rank's
-    blocks of the weights and its dp group's pool (module docstring).
+    ``mesh``: a ``Runtime`` over ``dp x fsdp x tp`` processes, each
+    running one engine given the same submissions (and the same
+    ``swap_weights``, ``preempt`` and ``drain`` calls); this one keeps
+    its tp rank's and fsdp rank's blocks of the weights and its dp
+    group's pool (module docstring).
     ``weights_provenance``: the plan stamp (``{"name", "fingerprint"}``)
     every later publish must carry. Every step emits a ``serving``
     telemetry record through the ambient sink."""
@@ -1072,7 +1218,7 @@ class Engine:
         self.model = model
         self.cfg = cfg
         self.mesh = mesh
-        self.dp_groups, tp = _mesh_extents(mesh, cfg)
+        self.dp_groups, fsdp_n, tp = _mesh_extents(mesh, cfg)
         G = self.dp_groups
         if cfg.max_batch % G:
             raise ValueError(
@@ -1088,11 +1234,14 @@ class Engine:
                 "like the decode table")
         self.prefill_local = prefill_slots // G
         # This process's groups on a mesh of more than one: every process
-        # (the step's digest), its dp group (each fetch) and its tp group
-        # (the programs' collectives).
-        self._mesh_group = self._dp_group = self._tp = None
+        # (the step's digest, a drain's deadline), the processes holding
+        # distinct KV (dp x tp: the export's all-gather; the fsdp members
+        # of a dp group hold the same slots, pool and KV), its dp group
+        # (each fetch) and its tp group (the programs' collectives).
+        self._mesh_group = self._kv_group = self._dp_group = self._tp = None
         if mesh is not None and mesh.process_count > 1:
-            self._mesh_group = mesh.group(("dp", "tp"))
+            self._mesh_group = mesh.group(("dp", "fsdp", "tp"))
+            self._kv_group = mesh.group(("dp", "tp"))
             if G > 1:
                 self._dp_group = mesh.group(("dp",))
             if tp > 1:
@@ -1114,8 +1263,12 @@ class Engine:
         self._g = self.cache.local_group or 0
         _check_weight_leaves(params, self.device)
         self._specs = _leaf_specs(params)
-        self._tp_size = tp
-        rank = _rank_params(params, model, mesh, tp)
+        rank = _rank_params(params, model, mesh)
+        # Under fsdp > 1 the weights stay split and every launch gathers
+        # them for compute (``_FsdpWeights``).
+        self._fsdp = (_FsdpWeights(weight_layout(model, mesh), params, mesh,
+                                   model.stacked_keys)
+                      if fsdp_n > 1 else None)
         # Bytes of this rank's weights as given (an int8 leaf's qw and
         # f32 scale): the JAX engine's count.
         self.weight_bytes = _check_weight_leaves(rank, self.device)
@@ -1186,6 +1339,11 @@ class Engine:
         # over the groups that ran.
         self.resident_stats = {"launches": 0, "steps": 0, "emitted": 0}
         self._step_resident: float | None = None
+        # When a list: every decode and batched-prefill launch of
+        # ``step()`` appends ``(ids, logits)``, the request id of each of
+        # this process's rows (None: a dead row) and the f32 logits (rows,
+        # V) its tokens were sampled from (the serving gate's reading).
+        self.logits_sink: list | None = None
         self._resident = None
         if cfg.resident_k > 1:
             if (self._tp is not None and self.device.type == "cuda"
@@ -1195,12 +1353,19 @@ class Engine:
                     "graph, which cannot capture "
                     f"{dist.get_backend(self._tp.group)}'s collectives: it "
                     f"waits for {TP_RESIDENT_ITEM}")
+            if (self._fsdp is not None and self.device.type == "cuda"
+                    and dist.get_backend(self._fsdp.group) != "nccl"):
+                raise NotImplementedError(
+                    "the resident burst under fsdp > 1 on the card is a "
+                    "CUDA graph, which cannot capture "
+                    f"{dist.get_backend(self._fsdp.group)}'s weight "
+                    f"all-gathers: {FSDP_RESIDENT_NOTE}")
             self._resident = _ResidentGraph(
                 functools.partial(
                     _resident_program, self.params, cfg=model.cfg,
                     K=cfg.resident_k, C=cfg.spec_k, ngram=cfg.spec_ngram,
                     eos_id=cfg.eos_id, paged_impl=cfg.paged_impl,
-                    tp=self._tp),
+                    tp=self._tp, fs=self._fsdp),
                 self.cache.k_pages, self.cache.v_pages, self.batch_local,
                 self.cache.cfg.pages_per_seq, cfg.max_seq_len, self.device)
 
@@ -1217,7 +1382,8 @@ class Engine:
             self._t(tokens).long(), self._t(positions).long(),
             self._t(rows), self._t(active), self._gen,
             cfg=self.model.cfg, temperature=c.temperature, top_k=c.top_k,
-            paged_impl=c.paged_impl, tp=self._tp)
+            paged_impl=c.paged_impl, tp=self._tp, fs=self._fsdp,
+            sink=self.logits_sink)
 
     def _chunk(self, rows, tokens, start_pos, n_valid, active,
                emit: str) -> torch.Tensor:
@@ -1230,14 +1396,22 @@ class Engine:
             self._t(start_pos).long(), self._t(n_valid).long(),
             self._t(active), self._gen, cfg=self.model.cfg,
             temperature=c.temperature, top_k=c.top_k, emit=emit,
-            paged_impl=c.paged_impl, tp=self._tp)
+            paged_impl=c.paged_impl, tp=self._tp, fs=self._fsdp,
+            sink=self.logits_sink if emit == "last" else None)
 
     def _prefill_one(self, row, live: bool, chunk, start: int,
                      n_valid: int) -> torch.Tensor:
         return _prefill_program(
             self.params, self.cache.k_pages, self.cache.v_pages,
             self._t(row), live, self._t(chunk).long(), start, n_valid,
-            cfg=self.model.cfg, first=start == 0, tp=self._tp)
+            cfg=self.model.cfg, first=start == 0, tp=self._tp,
+            fs=self._fsdp)
+
+    def _label_logits(self, ids: list) -> None:
+        """Pair the logits the launch just appended to ``logits_sink``
+        with its rows' request ids."""
+        if self.logits_sink is not None:
+            self.logits_sink[-1] = (ids, self.logits_sink[-1])
 
     def _cow(self, src: np.ndarray, dst: np.ndarray) -> None:
         _cow_program(self.cache.k_pages, self.cache.v_pages,
@@ -1919,6 +2093,8 @@ class Engine:
         me = self._g
         nxt = self._chunk(rows[me], tokens[me], start_pos[me], n_valid[me],
                           active[me], emit="last")
+        self._label_logits([s.req.id for s in chosen[me]]
+                           + [None] * (Sp - len(chosen[me])))
         self._last_prefill_lanes = [len(seqs) for seqs in chosen]
         self.prefill_launches += 1
         total = 0
@@ -2168,6 +2344,7 @@ class Engine:
         rows = self.cache.page_rows_grouped(seq_ids)
         me = self._g
         nxt = self._decode(tokens[me], positions[me], rows[me], active[me])
+        self._label_logits(seq_ids[me])
         self.decode_launches += 1
         (nxt,) = self._fetch_host(nxt)
         now = time.monotonic()
@@ -2432,7 +2609,7 @@ class Engine:
             refuse(ValueError(
                 f"swap to {version!r}: {len(bad)} leaf(s) differ in "
                 f"shape/dtype (first at flat index {bad[0]})"))
-        rank = _rank_params(params, self.model, self.mesh, self._tp_size)
+        rank = _rank_params(params, self.model, self.mesh)
         with torch.no_grad():
             ours = flatten(self.params)
             for k, t in flatten(rank).items():
@@ -2510,9 +2687,9 @@ class Engine:
     def export_kv(self, seq_ids: list, to_host: bool = True) -> tuple:
         """Dense KV of ``seq_ids`` (``disagg.export_kv_batch``): on a mesh
         gathered over its processes, the same on every one."""
-        if self._mesh_group is not None and seq_ids:
+        if self._kv_group is not None and seq_ids:
             self.gathers["kv_export"] += 1
-        return export_kv_batch(self.cache, seq_ids, group=self._mesh_group,
+        return export_kv_batch(self.cache, seq_ids, group=self._kv_group,
                                to_host=to_host)
 
     def export_in_flight(self) -> dict:

@@ -9,7 +9,8 @@ plan alike. ``state_bytes_per_device`` is the exact per-device
 residency of a state tree under the port's placements
 (``parallel/strategy.py::Placement``), which the HBM telemetry
 (``telemetry/hbm.py``) carries beside the allocator's counters. The
-planner's search over these numbers is ROADMAP.md queue A item 17's.
+planner (``parallel/planner.py``) scores its candidates' fit with
+``estimate_transformer_memory``, as JAX's does with its own.
 
 Estimates are per device: pass ``fsdp`` (and ``tp``) shard counts to see
 the sharded footprint.

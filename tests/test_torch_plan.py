@@ -26,6 +26,12 @@ held against the JAX package.
   fsdp 2 x sp 2 whose model names ring attention trains through the CLI
   to the losses of JAX's trainer under it within 1e-5. A plan whose mesh
   is not the runtime's raises at trainer construction.
+- The planner's search with its real gate: in the same world the port's
+  ``plan_search`` on JAX's e2e target at 4 devices runs the gate
+  (``compile_verify``: one step of the candidate under its plan and
+  unplanned, on the CPU) and chooses the plan JAX's ``build_plan`` makes
+  of JAX's stage-1 winner, fingerprint for fingerprint; the gate's two
+  losses agree, and every process chose alike.
 """
 
 import copy
@@ -85,6 +91,10 @@ E2E_MESH = {"dp": 1, "fsdp": 2, "tp": 2}
 # The same model under ring attention, planned on fsdp 2 x sp 2.
 E2E_RING_MODEL = dict(E2E_MODEL, attention_impl="ring")
 E2E_RING_MESH = {"dp": 1, "fsdp": 2, "sp": 2}
+# JAX's e2e target (test_planner.py) at the world's 4 devices.
+E2E_SEARCH = dict(name="e2e_tiny", devices=4, model_kwargs=E2E_MODEL,
+                  seq_len=16, optimizer="adamw", batch_candidates=(2,),
+                  remat_candidates=("none",))
 
 
 # -- plan files ----------------------------------------------------------------
@@ -323,7 +333,7 @@ def world(tmp_path_factory):
     jax_ring = _jax_cli_planned(ring, _port_cli_init(ring), E2E_RING_MESH)
     job = {"rdzv": str(out / "rdzv"), "out": str(out), "plan": plan,
            "model": E2E_MODEL, "mesh": E2E_MESH, "ring_plan": ring_plan,
-           "ring_model": E2E_RING_MODEL}
+           "ring_model": E2E_RING_MODEL, "search": E2E_SEARCH}
     with open(out / "job.json", "w") as f:
         json.dump(job, f)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
@@ -346,11 +356,15 @@ def world(tmp_path_factory):
     def cli_losses(run):
         with open(out / run / "default" / "metrics.jsonl") as f:
             return [r["loss"] for r in map(json.loads, f) if "loss" in r]
+    searched = []
+    for r in range(4):
+        with open(out / f"searched.rank{r}.json") as f:
+            searched.append(json.load(f))
     return {"planned": cli_losses("planned"),
             "unplanned": cli_losses("unplanned"),
             "jax_planned": jax_losses, "plan": plan,
             "ring_planned": cli_losses("ring_planned"),
-            "jax_ring_planned": jax_ring}
+            "jax_ring_planned": jax_ring, "searched": searched}
 
 
 def test_cli_under_a_plan_matches_the_unplanned_layout(world):
@@ -390,3 +404,26 @@ def test_trainer_rejects_plan_mesh_mismatch(world):
                                 device="cpu")
     with pytest.raises(port_planner.PlanError, match="does not match plan"):
         Trainer(cfg, rt, model, loader)
+
+
+def test_plan_search_with_the_real_gate_chooses_jaxs_winner(world):
+    """The port's search in the world of 4, its gate run for real on the
+    CPU: JAX's stage-1 winner, JAX's fingerprint, a gate that agrees."""
+    target = jax_planner.PlanTarget(**E2E_SEARCH)
+    winner = jax_planner.rank_candidates(target)[0][0]
+    want = jax_planner.build_plan(target, winner).fingerprint()
+    plans = [port_planner.Plan.from_doc(d) for d in world["searched"]]
+    # Every process chose alike (their evidence holds their own timings).
+    assert {p.fingerprint() for p in plans} == {want}
+    plan = plans[0]
+    assert plan.candidate_key == winner.key
+    prov = plan.provenance
+    assert (prov["rank"], prov["disqualified"]) == (0, [])
+    gate = prov["compile_evidence"]["gate"]
+    assert gate["agree"] and gate["device"] == "cpu"
+    assert gate["planned"]["loss"] == pytest.approx(
+        gate["unplanned"]["loss"], rel=port_planner.GATE_LOSS_RTOL)
+    assert prov["compile_evidence"]["spmd_reshard_warnings"] == 0
+    assert prov["calibration"]["source"] == "nominal"
+    assert [r["candidate"] for r in prov["ranking"]] == [
+        c.key for c, _s in jax_planner.rank_candidates(target)]

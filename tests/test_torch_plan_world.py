@@ -7,7 +7,10 @@ Every process runs, in one world, the port's training CLI for three
 steps under ``train.sharding_plan=<the job's plan>`` (fsdp 2 x tp 2),
 then the same CLI under ``tp_fsdp`` on the same mesh with no plan, then
 the CLI under the job's ring plan (fsdp 2 x sp 2, ring attention); each
-run writes its ``metrics.jsonl`` under ``<out>/<run>/default``. It
+run writes its ``metrics.jsonl`` under ``<out>/<run>/default``. Then
+the port's planner searches the job's target (``search``: JAX's e2e
+model at 4 devices) with its real gate on the CPU in the same world,
+and writes the plan it chose to ``<out>/searched.rank<r>.json``. It
 imports only the port (and torch), never JAX. The file holds no tests.
 """
 
@@ -20,6 +23,7 @@ import sys
 import torch
 import torch.distributed as dist
 
+from distributed_training_tpu_torch.parallel import planner
 from distributed_training_tpu_torch.train import cli
 
 STEPS = 3
@@ -57,6 +61,11 @@ def main(job_path: str, rank: int) -> int:
         assert cli.main(cli_overrides(job["ring_model"])
                         + [f"train.sharding_plan={job['ring_plan']}",
                            f"run.output_dir={out}/ring_planned"]) == 0
+        target = planner.PlanTarget(**job["search"])
+        plan = planner.plan_search(
+            target, lambda t, p: planner.compile_verify(t, p, "cpu"))
+        with open(f"{out}/searched.rank{rank}.json", "w") as f:
+            json.dump(plan.to_doc(), f)
         dist.barrier()
     finally:
         dist.destroy_process_group()

@@ -106,12 +106,17 @@ def test_no_deferral_names_left_in_the_port():
     (the ``sp`` axis, ring and Ulysses attention), and no refusal of
     pipeline parallelism (the runtime's ``"pp"`` entry, and any item 16b
     but serving's remainder), no refusal of MoE (any item 16c but a
-    composition's remainder), and no mention of item 16d (ResNet runs)."""
+    composition's remainder), no mention of item 16d (ResNet runs), and
+    none of item 17b (the planner's search and serving over fsdp): no
+    ``MESH_AXIS_ITEMS["fsdp"]`` refusal. Items 17c-17f's deferrals
+    stay."""
     names = ("OPS_ITEM", "CLI_ITEM", "MESH_ITEM", "INCIDENTS_ITEM",
              '"sp": "16', "is sequence-parallel attention, which waits",
-             '"pp": "16', "_UNPORTED_AXES")
+             '"pp": "16', "_UNPORTED_AXES", 'MESH_AXIS_ITEMS["fsdp"]',
+             "MESH_AXIS_ITEMS['fsdp']", '"fsdp": "ROADMAP')
     item14 = re.compile(r"items?\s+(?:14|15|16|3|7)\b"
-                        r"|16b(?!'s remainder)|16c(?!'s remainder)|16d")
+                        r"|16b(?!'s remainder)|16c(?!'s remainder)|16d"
+                        r"|17b")
     pkg = os.path.join(REPO, "distributed_training_tpu_torch")
     found = []
     for root, _dirs, files in os.walk(pkg):

@@ -297,10 +297,11 @@ def test_server_round_trip_streamed_equals_plain(models):
 def test_deferred_mesh_int8_and_server_options_raise(models):
     _, _, pm, pp = models
     cfg = port_engine.EngineConfig(**ENGINE)
-    # A mesh axis the engine does not serve over (dp and tp it does).
-    fsdp_mesh = Runtime(device=torch.device("cpu"), spec=MeshSpec(fsdp=2))
+    # A mesh axis the engine does not serve over (dp, fsdp and tp it
+    # does).
+    sp_mesh = Runtime(device=torch.device("cpu"), spec=MeshSpec(sp=2))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        port_engine.Engine(pm, pp, cfg, mesh=fsdp_mesh, device="cpu")
+        port_engine.Engine(pm, pp, cfg, mesh=sp_mesh, device="cpu")
     # int8 weight-only leaves serve (tests/test_torch_int8.py holds
     # their tokens against the JAX int8 engine).
     int8 = port_disagg.quantize_params_int8(pp)
