@@ -69,6 +69,12 @@ a seed:
   compute time beside the step's peak allocation and device time, and a
   planted fault (the first candidate's planned run from another seed)
   that must be disqualified;
+- the static analysis (``audit``): the pitfall rules (DTT0xx) over the
+  tree, and the ``single_chip_headline`` target (gpt2_125m, seq 1024,
+  batch 4, bf16) audited, one step of its Trainer on the card whose
+  recorded collectives and findings must both be none (B1, B2); and the
+  calibration's matmul ladder (``calibrate``: f32, 256 to 2048 square)
+  beside the card's name and power limit;
 - tensor parallelism: transformer_1b at full width under ``tp_fsdp``
   (tp 1, fsdp 1) through the CLI in a NCCL group of one rank, every
   tensor-parallel collective over a group of one, its losses held
@@ -77,7 +83,9 @@ a seed:
   gloo group, each on 6 of the 12 heads and half the vocab, the Trainer
   driven directly, its losses and gradient norms held against one
   process under ``ddp``, with a planted fault (layer 0's attention
-  all-reduce dropped) that must fail the same limits;
+  all-reduce dropped) that must fail the same limits, and its first
+  step's ``collectives`` event (rank 0's alone) held against the
+  phase's all-reduce counts;
 - serving weights and recovery: gpt2_125m served from int8 weight-only
   leaves (``serving_int8``: batched and sequential prefill, one-token
   and resident decode beside the bf16 engine, and float32 first-decode
@@ -187,7 +195,9 @@ a seed:
   (the 3x3 stride-2 convs padded (1, 1)) that must fail
   (``resnet_parity``); and f32 under ``ddp`` and ``fsdp`` in two
   processes on ``cuda:0`` over gloo against world 1, with a planted
-  fault (every gradient unsummed) that must fall outside the limits
+  fault (every gradient unsummed) that must fall outside the limits,
+  and each first step's ``collectives`` event held against the leaves'
+  bytes and the gathered and reduce-scattered traffic
   (``train_resnet_dp2``).
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
@@ -2935,6 +2945,74 @@ def _plan_target():
                       seq_len=1024, chip="nvidia h100 80gb hbm3")
 
 
+def phase_audit() -> tuple:
+    """The port's analysis gate on the card: the pitfall rules (DTT0xx)
+    over the tree, and the ``single_chip_headline`` target (gpt2_125m,
+    seq 1024, batch 4, bf16, remat ``mlp``) audited: one step of its
+    Trainer on the card with its collectives recorded, which must give
+    zero collectives and zero findings. The step runs B1 and B2 on the
+    tensor cores, once a layer."""
+    from distributed_training_tpu_torch.analysis import (
+        audit,
+        pitfalls,
+        targets,
+    )
+    from distributed_training_tpu_torch.models.transformer import PRESETS
+
+    t0 = time.perf_counter()
+    problems = pitfalls.run_rules()
+    rules_s = time.perf_counter() - t0
+    _free_memory()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rec = audit.audit_target(targets.TARGETS["single_chip_headline"], "cuda")
+    torch.cuda.synchronize()
+    audit_s = time.perf_counter() - t0
+    launches, designs = _read_counts(), _read_designs()
+    pins = audit.pinned_violations(audit.assemble_doc([rec]))
+    emit({"phase": "audit", "rules": {"files": len(list(
+              pitfalls.iter_py_files())), "violations": problems,
+              "seconds": rules_s},
+          "target": rec["target"], "mesh": rec["mesh"],
+          "collectives": rec["collectives"], "findings": rec["findings"],
+          "pin_violations": pins, "audit_s": audit_s,
+          "launches": launches})
+    check(problems == [], f"audit: rule violations {problems}")
+    check(rec["collectives"]["total_collectives"] == 0
+          and rec["collectives"]["bytes_per_step"] == 0
+          and rec["findings"] == [] and pins == [],
+          f"audit: single_chip_headline {rec}")
+    L = PRESETS["gpt2_125m"]["n_layers"]
+    check(launches["flash_fwd"] == launches["flash_bwd_fused"] == L,
+          f"audit: the headline step launched {launches}")
+    _check_designs({k: designs[k] for k in ("flash_fwd", "flash_bwd_fused")},
+                   "wgmma", "audit")
+    return launches, designs
+
+
+def phase_calibrate(device: dict) -> None:
+    """The calibration's matmul ladder on the card
+    (``calibration/microbench.py::bench_matmul``: square f32 matmuls,
+    TF32 off, 2n³ FLOPs a point, CUDA events over 10 back-to-back
+    launches after one warm-up), beside the card's name and power
+    limit. No collective curve: gloo between processes on one card
+    measures the host."""
+    from distributed_training_tpu_torch.calibration import microbench
+
+    t0 = time.perf_counter()
+    pts = microbench.bench_matmul(microbench.DEFAULT_MATMUL_SIZES, iters=10,
+                                  device="cuda")
+    ladder = [{"edge": n, "flops": f, "flops_per_s": r, "tflops": r / 1e12,
+               "of_f32_peak": r / PEAK_FLOPS[torch.float32]}
+              for n, (f, r) in zip(microbench.DEFAULT_MATMUL_SIZES, pts)]
+    emit({"phase": "calibrate", "card": device["card"],
+          "kind": device["kind"], "dtype": "float32", "tf32": False,
+          "matmul": ladder, "seconds": time.perf_counter() - t0})
+    check(all(p["flops"] == 2.0 * p["edge"] ** 3 and 0 < p["flops_per_s"]
+              < PEAK_FLOPS[torch.float32] * 1.05 for p in ladder),
+          f"calibrate: matmul ladder {ladder}")
+
+
 def phase_plan(device: dict) -> tuple:
     """The planner's search on the card.
 
@@ -3621,6 +3699,28 @@ def _tp2_steps(trainer, loader) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _event_sink(path: str, rank: int):
+    """An event sink writing ``path``, installed for the block: the
+    trainer emits its ``collectives`` event only while a sink records
+    (and only on the coordinator). Yields the sink."""
+    from distributed_training_tpu_torch.telemetry import events
+
+    tel = events.install(events.Telemetry(path, host_id=rank))
+    try:
+        yield tel
+    finally:
+        tel.close()
+        events.uninstall()
+
+
+def _collectives_events(path: str) -> list:
+    """The ``collectives`` events of the stream at ``path``."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    return [r for r in recs if r.get("kind") == "collectives"]
+
+
 def train_tp2_rank(rank: int, port: int, out_path: str) -> int:
     """One of phase train_tp2's two processes: on ``cuda:0``, in a gloo
     group of 2 over ``127.0.0.1:port``, a runtime over the mesh tp 2
@@ -3641,16 +3741,27 @@ def train_tp2_rank(rank: int, port: int, out_path: str) -> int:
                            torch.device("cuda", 0))
         result = {"rank": rank, "describe": rt.describe()}
         for run in ("sound", "fault"):
-            trainer, loader = _tp2_trainer(rt, "tp", fault=run == "fault")
-            _free_memory()
-            torch.cuda.reset_peak_memory_stats()
-            _reset_counts()
-            tp_lib.ALL_REDUCES.clear()
-            result[run] = {**_tp2_steps(trainer, loader),
-                           "all_reduces": dict(tp_lib.ALL_REDUCES),
-                           "launches": _read_counts(),
-                           "launches_by_design": _read_designs(),
-                           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            # The sound run records its events: the collectives audit.
+            events = f"{out_path}.events.jsonl"
+            with (_event_sink(events, rank) if run == "sound"
+                  else contextlib.nullcontext()):
+                trainer, loader = _tp2_trainer(rt, "tp",
+                                               fault=run == "fault")
+                _free_memory()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                tp_lib.ALL_REDUCES.clear()
+                result[run] = {
+                    **_tp2_steps(trainer, loader),
+                    "all_reduces": dict(tp_lib.ALL_REDUCES),
+                    "launches": _read_counts(),
+                    "launches_by_design": _read_designs(),
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            if run == "sound":
+                result[run]["collectives"] = _collectives_events(events)
+                result[run]["tp_split_leaves"] = sum(
+                    1 for pl in trainer.layout["params"].values()
+                    if pl is not None and "tp" in pl.axes)
             del trainer, loader
         with open(out_path, "w") as f:
             json.dump(result, f)
@@ -3767,6 +3878,7 @@ def phase_train_tp2(tmp: str) -> tuple:
           f"train_tp2: tp 2 against ddp outside the limits: {readings}")
     check(not readings["fault"]["within"],
           f"train_tp2: the planted fault passed the limits: {readings}")
+    _check_tp2_collectives(ranks, want_reduces, steps)
     # Both ranks' launches are the card's.
     launches = {k: sum(r["launches"][k] for r in per_rank)
                 for k in per_rank[0]["launches"]}
@@ -3774,6 +3886,35 @@ def phase_train_tp2(tmp: str) -> tuple:
                    for d in per_rank[0]["launches_by_design"][k]}
                for k in per_rank[0]["launches_by_design"]}
     return launches, designs
+
+
+def _check_tp2_collectives(ranks: list, want_reduces: dict,
+                           steps: int) -> None:
+    """train_tp2's ``collectives`` event (the first step's, emitted by
+    rank 0 alone) against the counts the phase holds: every collective
+    an all-reduce over tp, the tp all-reduces of one step (``ALL_REDUCES``
+    over the steps) and the gradient norm's one all-reduce of the
+    tp-split leaves' partial sums (f32, one per leaf)."""
+    events = [r["sound"]["collectives"] for r in ranks]
+    check([len(e) for e in events] == [1, 0],
+          f"train_tp2: collectives events per rank {[len(e) for e in events]}")
+    ev = events[0][0]
+    per_step = sum(want_reduces.values()) // steps
+    split = ranks[0]["sound"]["tp_split_leaves"]
+    norm = [r for r in ev["rows"] if r["shape"] == str(split)
+            and r["dtype"] == "f32"]
+    emit({"phase": "train_tp2_collectives",
+          **{k: ev[k] for k in ("total_collectives", "bytes_per_step",
+                                "by_kind", "by_axis", "mesh",
+                                "spmd_reshard_warnings")},
+          "all_reduces_per_step": per_step, "tp_split_leaves": split})
+    check(ev["mesh"] == {"tp": 2} and set(ev["by_axis"]) == {"tp"}
+          and set(ev["by_kind"]) == {"all-reduce"},
+          f"train_tp2: collectives event {ev['by_kind']} {ev['by_axis']}")
+    check(ev["by_kind"]["all-reduce"]["count"] == per_step + 1
+          and len(norm) == 1 and norm[0]["bytes"] == 4 * split,
+          f"train_tp2: {ev['by_kind']} against {per_step} tp all-reduces "
+          f"and one norm all-reduce of {split} leaves")
 
 
 def _sp_trainer(rt, impl: str, steps: int, window: int = 0):
@@ -6646,6 +6787,7 @@ def train_resnet_dp2_rank(rank: int, port: int, out_path: str,
 
     from distributed_training_tpu_torch.parallel import fsdp
     from distributed_training_tpu_torch.runtime import MeshSpec, slice_runtime
+    from distributed_training_tpu_torch.train.optimizer import flatten
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -6659,15 +6801,18 @@ def train_resnet_dp2_rank(rank: int, port: int, out_path: str,
             runs = {"describe": rt.describe()}
             for run in (("sound", "fault") if strategy == "ddp"
                         else ("sound",)):
-                trainer, loader = _resnet_trainer(rt, strategy)
-                _free_memory()
-                torch.cuda.reset_peak_memory_stats()
-                _reset_counts()
-                fsdp.TRAFFIC.clear()
-                if run == "fault":
-                    _unsynced_grads()
-                t0 = time.perf_counter()
-                got = _tp2_steps(trainer, loader)
+                events = f"{out_path}.{strategy}.events.jsonl"
+                with (_event_sink(events, rank) if run == "sound"
+                      else contextlib.nullcontext()):
+                    trainer, loader = _resnet_trainer(rt, strategy)
+                    _free_memory()
+                    torch.cuda.reset_peak_memory_stats()
+                    _reset_counts()
+                    fsdp.TRAFFIC.clear()
+                    if run == "fault":
+                        _unsynced_grads()
+                    t0 = time.perf_counter()
+                    got = _tp2_steps(trainer, loader)
                 runs[run] = {
                     **got, "wall_s": time.perf_counter() - t0,
                     "traffic": dict(fsdp.TRAFFIC),
@@ -6679,6 +6824,11 @@ def train_resnet_dp2_rank(rank: int, port: int, out_path: str,
                     "launches": _read_counts(),
                     "launches_by_design": _read_designs(),
                     "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+                if run == "sound":
+                    runs[run]["collectives"] = _collectives_events(events)
+                    runs[run]["param_bytes"] = sum(
+                        math.prod(s) * 4 for s in
+                        flatten(trainer.model.param_shapes()).values())
                 del trainer, loader
             result[strategy] = runs
         with open(out_path, "w") as f:
@@ -6721,6 +6871,45 @@ def _resnet_dp2_world(tmp: str, strategies: str) -> tuple:
         with open(path) as f:
             ranks.append(json.load(f))
     return ranks, wall
+
+
+def _check_resnet_dp2_collectives(both: list, steps: int) -> None:
+    """train_resnet_dp2's ``collectives`` events (the first step's, from
+    rank 0 alone) against the leaves' bytes and the phase's counts:
+    under ddp every collective an all-reduce over dp, the largest the
+    whole gradient (every f32 leaf); under fsdp every one over fsdp, the
+    all-gathers the whole tensors ``fsdp.TRAFFIC`` counts in a step and
+    the reduce-scatters their shards (half)."""
+    out = {}
+    for strategy, axis in (("ddp", "dp"), ("fsdp", "fsdp")):
+        events = [r[strategy]["sound"]["collectives"] for r in both]
+        check([len(e) for e in events] == [1, 0],
+              f"train_resnet_dp2 {strategy}: collectives events per rank "
+              f"{[len(e) for e in events]}")
+        ev = events[0][0]
+        sound = both[0][strategy]["sound"]
+        out[strategy] = {k: ev[k] for k in (
+            "total_collectives", "bytes_per_step", "by_kind", "by_axis",
+            "mesh")}
+        out[strategy]["param_bytes"] = sound["param_bytes"]
+        check(ev["mesh"] == {axis: 2} and set(ev["by_axis"]) == {axis},
+              f"train_resnet_dp2 {strategy}: {ev['mesh']} {ev['by_axis']}")
+        kinds = ev["by_kind"]
+        if strategy == "ddp":
+            check(set(kinds) == {"all-reduce"}
+                  and max(r["bytes"] for r in ev["rows"])
+                  == sound["param_bytes"],
+                  f"train_resnet_dp2 ddp: {kinds} against "
+                  f"{sound['param_bytes']} param bytes")
+        else:
+            traffic = sound["traffic"]
+            check(kinds["all-gather"]["bytes"] * steps
+                  == traffic["gathered_bytes"]
+                  and 2 * kinds["reduce-scatter"]["bytes"] * steps
+                  == traffic["reduce_scattered_bytes"],
+                  f"train_resnet_dp2 fsdp: {kinds} against {traffic} over "
+                  f"{steps} steps")
+    emit({"phase": "train_resnet_dp2_collectives", **out})
 
 
 def phase_train_resnet_dp2(tmp: str) -> tuple:
@@ -6812,6 +7001,7 @@ def phase_train_resnet_dp2(tmp: str) -> tuple:
           f"train_resnet_dp2: placements {fsdp_pl}")
     check(all(n == 0 for c in counts for n in c.values()),
           f"train_resnet_dp2: a flash or paged kernel ran: {counts}")
+    _check_resnet_dp2_collectives(both, steps)
     for name in ("ddp_sound", "fsdp_sound"):
         check(readings[name]["within"],
               f"train_resnet_dp2: {name} outside the limits: {readings}")
@@ -6885,6 +7075,8 @@ def _smoke() -> int:
         mesh_launches = {name: phase_serving_mesh(name, prompts, batched, tmp)
                          for name in SERVING_MESHES}
         plan_launches = phase_plan(device)
+        audit_launches = phase_audit()
+        phase_calibrate(device)
         recovery_launches = phase_serving_recovery(prompts, tmp)
         disagg_launches = phase_serving_disagg(prompts, 64, tmp)
         cli_launches = phase_serving_cli(prompts, 64, batched, tmp)
@@ -6955,7 +7147,8 @@ def _smoke() -> int:
     # run (counted in its process), training, split-backward
     # training, transformer_1b under fsdp and under tp_fsdp, gpt2_125m
     # under tp at tp 2, serving on the meshes dp 2, tp 2 and fsdp 2: both
-    # processes, the plan phase's gate (its planned and unplanned step);
+    # processes, the plan phase's gate (its planned and unplanned step),
+    # the audit phase's headline step;
     # then byte_lm's training, eval.py and generate.py's bf16
     # runs, each in its process, and gpt2_125m under Adafactor; then the
     # resilience paths: the supervised crash-restart, the preempted
@@ -6970,7 +7163,8 @@ def _smoke() -> int:
     paths = (serve_launches, seq_launches, spec_launches, resident_launches,
              int8_launches, swap_launches, recovery_launches, disagg_launches,
              cli_launches,
-             *mesh_launches.values(), plan_launches, train_launches,
+             *mesh_launches.values(), plan_launches, audit_launches,
+             train_launches,
              split_launches,
              train_1b_launches, tp_1b_launches, tp2_launches,
              *slice14.values(), *slice15.values(), *slice16.values(),

@@ -7,9 +7,10 @@ interpolation, chip-slug lookup) over the committed
 ``benchmarks/calibrate.py`` measured. The planner
 (``parallel/planner.py``) prices a target from the table matching its
 chip, or from nominal per-chip constants when none does, and records
-which in the plan's provenance. Measuring a table on the card
-(``calibration/microbench.py``'s counterpart) is ROADMAP.md queue A
-item 17f's remainder.
+which in the plan's provenance. ``microbench``: the micro-benchmarks
+that measure a table (collective curves over the world's process group,
+the matmul curve on the device); no card table is committed, since gloo
+between processes on one card measures the host.
 """
 
 from distributed_training_tpu_torch.calibration.table import (  # noqa: F401

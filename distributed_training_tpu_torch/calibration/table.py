@@ -8,8 +8,9 @@ seconds)`` curves and a ``(flops, flops_per_s)`` achievable-matmul
 curve — plus enough provenance (platform, device count, backend
 versions) to judge whether it still describes the hardware. The
 committed artifacts live at ``conf/calibration/<chip>.json``, shared by
-both packages; the port reads them and measures none (the card's table
-is ROADMAP.md queue A item 17f's remainder).
+both packages. The port's ``calibration/microbench.py`` measures tables
+in the same format; it commits none for the card (gloo between
+processes on one card measures the host, not a link).
 
 Conventions (shared with the planner's comms accounting — the table
 exists to be evaluated on exactly the bytes ``score_candidate``

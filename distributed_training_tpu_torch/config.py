@@ -113,15 +113,13 @@ class TrainConfig:
     # never an in-band kill. 0 disables (verdicts stay advisory).
     # Meaningful under launch.local --supervise --elastic.
     straggler_evict_after: int = 0
-    # One-shot static audit of the compiled step's collective traffic
-    # (telemetry/collectives.py): after the first step the coordinator
-    # lowers+compiles the same program device-less and emits a
-    # `collectives` event (op counts + bytes/step per mesh axis) so
-    # the summarizer can print a comms roofline next to MFU. Costs one
-    # extra (cache-warm trace) compile on the coordinator; only runs
-    # when an event sink is installed. The port reads the field and
-    # runs no audit: counting NCCL kernels from a trace is ROADMAP.md
-    # queue A item 17's.
+    # One-shot audit of the first step's collective traffic
+    # (telemetry/collectives.py): the coordinator records every
+    # collective the step function launches (kind, bytes, mesh axes)
+    # and emits a `collectives` event (op counts + bytes/step per mesh
+    # axis) so the summarizer can print a comms roofline next to MFU.
+    # Reads tensor metadata only (no host sync, no collective); only
+    # runs when an event sink is installed.
     collectives_audit: bool = True
     dataset_size: int = 2048
     learning_rate: float = 1e-3

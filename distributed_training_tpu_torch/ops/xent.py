@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from distributed_training_tpu_torch.parallel.tensor import ALL_REDUCES
+from distributed_training_tpu_torch.telemetry import collectives
 
 DEFAULT_CHUNK_ROWS = 2048
 
@@ -90,6 +91,7 @@ class _LMXent(torch.autograd.Function):
             if group is not None:
                 ALL_REDUCES["xent"] += 1
                 dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+                collectives.record("all-reduce", group, m)
             col, own = _own_targets(tb, v0, logits.shape[-1])
             sums = torch.stack([
                 torch.exp(logits - m[..., None]).sum(dim=-1),
@@ -98,6 +100,7 @@ class _LMXent(torch.autograd.Function):
             if group is not None:
                 ALL_REDUCES["xent"] += 1
                 dist.all_reduce(sums, group=group)
+                collectives.record("all-reduce", group, sums)
             lse_b = torch.log(sums[0]) + m
             nll[:, s0:s0 + sc] = torch.where(tb >= 0, lse_b - sums[1], 0.0)
             lse[:, s0:s0 + sc] = lse_b

@@ -50,6 +50,8 @@ import collections
 import torch
 import torch.distributed as dist
 
+from distributed_training_tpu_torch.telemetry import collectives
+
 EXCHANGES: collections.Counter = collections.Counter()
 ROUTING: dict = {}
 
@@ -98,6 +100,7 @@ class DataGroup:
                            n.reshape(1)])
         EXCHANGES["aux"] += 1
         dist.all_reduce(stats, group=self.group)
+        collectives.record("all-reduce", self.group, stats)
         counts_g, probsum_g, n_g = stats[:E], stats[E:2 * E], stats[2 * E]
         frac = counts_g / n_g
         value = E * torch.sum(frac * (probsum_g / n_g))
@@ -114,5 +117,6 @@ def slot_counts(counts: torch.Tensor, group, rank: int) -> tuple:
     buf = counts.new_empty(n * counts.numel())
     dist.all_gather_into_tensor(buf, counts.contiguous().reshape(-1),
                                 group=group)
+    collectives.record("all-gather", group, buf)
     buf = buf.view(n, *counts.shape)
     return buf.sum(0), buf[:rank].sum(0)

@@ -62,6 +62,7 @@ import torch
 import torch.distributed as dist
 
 from distributed_training_tpu_torch.runtime import BATCH_AXES
+from distributed_training_tpu_torch.telemetry import collectives
 
 # Gathers for compute launched since the last reset: "layer" counts one
 # per layer per forward, a top-level leaf's name one per gather of it.
@@ -86,6 +87,7 @@ def all_gather_dims(shards: list, dims: list, group) -> list:
         buf = flat.new_empty(n * flat.numel())
         # torch 2.11's name (later versions call it all_gather_single).
         dist.all_gather_into_tensor(buf, flat, group=group)
+        collectives.record("all-gather", group, buf)
         buf = buf.view(n, -1)
         off = 0
         for i in idx:
@@ -116,6 +118,7 @@ def reduce_scatter_dims(fulls: list, dims: list, group) -> list:
         flat = torch.cat(parts, dim=1)
         buf = flat.new_empty(flat.shape[1])
         dist.reduce_scatter_tensor(buf, flat.reshape(-1), group=group)
+        collectives.record("reduce-scatter", group, buf)
         off = 0
         for i, part, shp in zip(idx, parts, shapes):
             k = part.shape[1]
@@ -255,6 +258,7 @@ def _all_reduce_flat(tensors: list, group) -> None:
     for idx in _by_dtype(tensors).values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
         dist.all_reduce(flat, group=group)
+        collectives.record("all-reduce", group, flat)
         off = 0
         for i in idx:
             t = tensors[i]
@@ -306,6 +310,8 @@ def mean_over_data(values: dict, runtime) -> dict:
         return values
     keys = sorted(values)
     v = torch.stack([values[k].detach().float().reshape(()) for k in keys])
-    dist.all_reduce(v, group=runtime.group(BATCH_AXES))
+    group = runtime.group(BATCH_AXES)
+    dist.all_reduce(v, group=group)
+    collectives.record("all-reduce", group, v)
     v = v / runtime.data_shard_count
     return dict(zip(keys, v.unbind()))

@@ -74,6 +74,7 @@ import torch
 import torch.distributed as dist
 
 from distributed_training_tpu_torch.parallel.staging import through_host
+from distributed_training_tpu_torch.telemetry import collectives
 from distributed_training_tpu_torch.train.optimizer import flatten, unflatten
 
 SCHEDULES = ("gpipe", "interleaved")
@@ -292,6 +293,7 @@ class PPGroup:
                 EXCHANGES["staged_bytes"] += nbytes
             keep.append(t)
             ops.append(dist.P2POp(dist.isend, t, self.ranks[to], self.group))
+            collectives.record("collective-permute", self.group, t)
             EXCHANGES["sends"] += 1
             EXCHANGES["bytes"] += nbytes
         if recv is not None:
@@ -318,6 +320,8 @@ class PPGroup:
         host = through_host(t, self.backend)
         buf = t.detach().cpu() if host else t.detach().clone()
         fn(buf)
+        # JAX broadcasts over pp as a masked psum: both are all-reduces.
+        collectives.record("all-reduce", self.group, buf)
         EXCHANGES["wait_s"] += time.perf_counter() - t0
         return buf.to(t.device) if host else buf
 

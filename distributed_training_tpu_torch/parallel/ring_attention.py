@@ -66,6 +66,7 @@ import torch.distributed as dist
 from distributed_training_tpu_torch.ops import flash_attention as fa
 from distributed_training_tpu_torch.ops.attention import dot_product_attention
 from distributed_training_tpu_torch.parallel.staging import through_host
+from distributed_training_tpu_torch.telemetry import collectives
 
 NEG_INF = -1e30
 
@@ -115,11 +116,13 @@ class SPGroup:
             host = src.cpu()
             out = torch.empty_like(host)
             dist.all_to_all_single(out, host, group=self.group)
+            collectives.record("all-to-all", self.group, out)
             EXCHANGES["staged_bytes"] += 2 * host.numel() * host.element_size()
             out = out.to(src.device)
         else:
             out = torch.empty_like(src)
             dist.all_to_all_single(out, src, group=self.group)
+            collectives.record("all-to-all", self.group, out)
         EXCHANGES["wait_s"] += time.perf_counter() - t0
         return out
 
@@ -143,6 +146,8 @@ class _Rotation:
                + [dist.P2POp(dist.irecv, t, prv, sp.group, tag=tag + i)
                   for i, t in enumerate(self.recvs)])
         self.works = dist.batch_isend_irecv(ops)
+        for t in sends:
+            collectives.record("collective-permute", sp.group, t)
         self._sends = sends     # kept alive until the exchange completes
         nbytes = sum(t.numel() * t.element_size() for t in sends)
         EXCHANGES["rotations"] += 1
@@ -173,6 +178,7 @@ class _SumOverSP(torch.autograd.Function):
         out = x.clone(memory_format=torch.contiguous_format)
         if sp.size > 1:
             dist.all_reduce(out, group=sp.group)
+            collectives.record("all-reduce", sp.group, out)
         return out
 
     @staticmethod

@@ -38,6 +38,8 @@ import collections
 import torch
 import torch.distributed as dist
 
+from distributed_training_tpu_torch.telemetry import collectives
+
 ALL_REDUCES: collections.Counter = collections.Counter()
 ALL_GATHERS: collections.Counter = collections.Counter()
 
@@ -55,6 +57,7 @@ class _CopyToTP(torch.autograd.Function):
         g = g.clone(memory_format=torch.contiguous_format)
         ALL_REDUCES["copy_to_tp"] += 1
         dist.all_reduce(g, group=ctx.group)
+        collectives.record("all-reduce", ctx.group, g)
         return g, None
 
 
@@ -64,6 +67,7 @@ class _ReduceFromTP(torch.autograd.Function):
         out = x.clone(memory_format=torch.contiguous_format)
         ALL_REDUCES["reduce_from_tp"] += 1
         dist.all_reduce(out, group=group)
+        collectives.record("all-reduce", group, out)
         return out
 
     @staticmethod
@@ -97,6 +101,7 @@ def gather_from_tp(x: torch.Tensor, group) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     ALL_GATHERS["gather_from_tp"] += 1
     dist.all_gather(parts, x.contiguous(), group=group)
+    collectives.record("all-gather", group, parts)
     return torch.cat(parts, dim=-1)
 
 

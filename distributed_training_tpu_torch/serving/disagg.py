@@ -41,6 +41,7 @@ programs and have no counterpart (PyTorch compiles nothing).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 
@@ -56,6 +57,7 @@ from distributed_training_tpu_torch.models.transformer import (
 from distributed_training_tpu_torch.parallel import fsdp, planner
 from distributed_training_tpu_torch.parallel.strategy import placement
 from distributed_training_tpu_torch.runtime import MeshSpec, resolve_device
+from distributed_training_tpu_torch.telemetry import collectives
 from distributed_training_tpu_torch.train.optimizer import flatten, unflatten
 
 logger = logging.getLogger(__name__)
@@ -241,11 +243,13 @@ def _gather_group_blocks(cache, pages_of: list, group, to_host: bool
     kv = F.pad(kv, (0, 0, 0, 0, 0, width - kv.shape[3]))
     parts = [torch.empty_like(kv) for _ in range(G * tp)]
     dist.all_gather(parts, kv.contiguous(), group=group)
+    collectives.record("all-gather", group, parts)
     out = {}
     for gg in range(G):
         whole = torch.cat(parts[gg * tp:(gg + 1) * tp], dim=2)
         whole = whole[:, :, :, :len(by_group[gg])]
-        out[gg] = tuple(whole.cpu() if to_host else whole)
+        out[gg] = tuple(whole.cpu()  # noqa: DTT010 — the KV export
+                        if to_host else whole)
     return out
 
 
@@ -484,7 +488,8 @@ class DisaggPipeline:
         """One request through the pair: its tokens."""
         from distributed_training_tpu_torch.serving.engine import Request
 
-        req = Request(id=req_id, prompt=np.asarray(prompt, np.int32),
+        req = Request(id=req_id,
+                      prompt=np.asarray(prompt, np.int32),  # noqa: DTT010
                       max_new_tokens=max_new_tokens, tenant=tenant)
         return self.generate_many([req])[req_id]
 
@@ -600,6 +605,7 @@ class DisaggPipeline:
             kv = torch.empty((2, c.n_layers, c.n_kv_heads, total,
                               c.head_dim), dtype=getattr(torch, c.dtype))
         dist.broadcast(kv, src=src)
+        collectives.record("all-reduce", None, kv)
         out, off = [], 0
         for rid, tok, n in meta:
             out.append((by_id[rid], tok, kv[0, :, :, off:off + n],
@@ -629,11 +635,13 @@ class DisaggPipeline:
 SERVING_GATE_LOGITS_TOL = 1e-4
 
 
-def _gated_launch(engine, prompts: list, decode: bool) -> dict:
+def _gated_launch(engine, prompts: list, decode: bool,
+                  rows: list | None = None) -> dict:
     """``{request id: f32 logits}`` of the gated launch on this process's
     rows: every prompt submitted; for ``decode`` the engine stepped until
     every prompt is prefilled, then one decode step; else its first step,
-    one batched prefill launch."""
+    one batched prefill launch. ``rows``: gets the gated step's
+    collectives (``telemetry/collectives.py``)."""
     from distributed_training_tpu_torch.serving.engine import Request
 
     for i, p in enumerate(prompts):
@@ -644,14 +652,21 @@ def _gated_launch(engine, prompts: list, decode: bool) -> dict:
                                   for s in engine.slots):
             engine.step()
     engine.logits_sink = []
-    engine.step()
+    with (collectives.recording() if rows is not None
+          else contextlib.nullcontext()) as got:
+        engine.step()
+    if rows is not None:
+        rows.extend(got)
     (ids, logits), = engine.logits_sink
     engine.logits_sink = None
-    return {rid: row.float().cpu() for rid, row in zip(ids, logits)
+    # The gate's readout, once a launch.
+    return {rid: row.float().cpu()  # noqa: DTT010
+            for rid, row in zip(ids, logits)
             if rid is not None}
 
 
-def compile_verify_serving(target, plan, device=None) -> dict:
+def compile_verify_serving(target, plan, device=None,
+                           audit: bool = False) -> dict:
     """The planner's gate for a serving plan (JAX's name; JAX compiles
     the engine's decode or batched-prefill program under the plan and
     counts reshard warnings).
@@ -669,7 +684,9 @@ def compile_verify_serving(target, plan, device=None) -> dict:
     Returns the training gate's keys (``planner.compile_verify``), the
     collective evidence over the gated launch, ``program`` as JAX names
     it, and ``gate`` with the largest difference and ``agree``, agreed
-    by every process."""
+    by every process. With ``audit``, also ``collectives``: this
+    process's ``collectives`` report of the gated step (the audit of
+    ``analysis/``)."""
     import dataclasses
 
     from distributed_training_tpu_torch.serving.engine import Engine
@@ -693,13 +710,14 @@ def compile_verify_serving(target, plan, device=None) -> dict:
                  else None, device=rt.device)
     before = planner.counter_snapshot()
     gathers0 = dict(eng.gathers)
-    got = _gated_launch(eng, prompts, decode)
+    rows = [] if audit else None
+    got = _gated_launch(eng, prompts, decode, rows)
     ev = planner.collective_evidence(before, planner.counter_snapshot())
     gathers = {k: n - gathers0.get(k, 0) for k, n in eng.gathers.items()
                if n != gathers0.get(k, 0)}
     diff = max(float((got[k] - ref[k]).abs().max()) for k in got)
     agree = planner.all_agree(diff <= SERVING_GATE_LOGITS_TOL, rt)
-    return {
+    out = {
         "spmd_reshard_warnings": 0,
         "reshard_ops": [],
         "collective_bytes_per_step": ev["collective_bytes_per_step"],
@@ -710,3 +728,6 @@ def compile_verify_serving(target, plan, device=None) -> dict:
                  "device": str(rt.device), "counters": ev["counters"],
                  "engine_gathers": gathers},
     }
+    if audit:
+        out["collectives"] = collectives.report(rt, rows)
+    return out

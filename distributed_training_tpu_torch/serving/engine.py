@@ -168,16 +168,18 @@ from distributed_training_tpu_torch.serving.kv_cache import (
     PagedCacheConfig,
     PagedKVCache,
 )
-from distributed_training_tpu_torch.telemetry import event
+from distributed_training_tpu_torch.telemetry import collectives, event
 from distributed_training_tpu_torch.train.optimizer import flatten, unflatten
 
 logger = logging.getLogger(__name__)
 
-# ROADMAP.md queue A items the deferred features name.
-MESH_AXIS_ITEMS = {
-    "sp": "ROADMAP.md queue A item 16a's remainder (serving over sp)",
-    "pp": ("ROADMAP.md queue A item 16b's remainder (serving over pp: the "
-           "JAX engine leaves pp an auto axis of its shard_map)")}
+# Serving over sp or pp is a difference by design (ROADMAP.md section C):
+# JAX's planner emits no serving layout with either axis above 1 (JAX
+# parallel/planner.py:586-590) and no JAX test serves over them, so no
+# reference behaviour defines it.
+UNSERVED_AXIS = ("a difference by design (ROADMAP.md section C): JAX's "
+                 "planner emits no serving layout over sp or pp and no "
+                 "JAX test serves over them")
 TP_RESIDENT_ITEM = ("ROADMAP.md queue A 'Left from done items': 'the resident "
                     "burst under tp > 1 on cards'")
 # Serving over fsdp runs the resident burst only where the group's
@@ -1039,6 +1041,7 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     order (the list form, which gloo takes for CUDA tensors too)."""
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
+    collectives.record("all-gather", group, parts)
     return torch.stack(parts)
 
 
@@ -1047,7 +1050,7 @@ def _mesh_extents(mesh, cfg: EngineConfig) -> tuple[int, int, int]:
     without one). The engine deals its slots over ``cfg.dp_axis`` =
     ``dp``, splits heads over ``cfg.kv_axis`` = ``tp`` and stores its
     weights split over ``fsdp`` (gathered for compute); ``sp`` or ``pp``
-    above 1 raises naming its ROADMAP.md item."""
+    above 1 raises (``UNSERVED_AXIS``)."""
     if mesh is None:
         return 1, 1, 1
     sizes = mesh.spec.as_dict()
@@ -1057,8 +1060,8 @@ def _mesh_extents(mesh, cfg: EngineConfig) -> tuple[int, int, int]:
                           or axis == "fsdp"):
             raise NotImplementedError(
                 f"serving over mesh axis '{axis}'={n} (dp_axis="
-                f"'{cfg.dp_axis}', kv_axis='{cfg.kv_axis}') waits for "
-                f"{MESH_AXIS_ITEMS.get(axis, MESH_AXIS_ITEMS['sp'])}")
+                f"'{cfg.dp_axis}', kv_axis='{cfg.kv_axis}') is not served: "
+                f"{UNSERVED_AXIS}")
     return sizes["dp"], sizes["fsdp"], sizes["tp"]
 
 
@@ -1467,7 +1470,7 @@ class Engine:
             W = self._cow_width
             self._cow(np.zeros((W,), np.int32), np.zeros((W,), np.int32))
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(self.device)  # noqa: DTT010 — warmup
         return self.compile_counts()
 
     # -- admission -----------------------------------------------------------
@@ -1485,7 +1488,7 @@ class Engine:
                 f"max_new_tokens ({req.max_new_tokens}) exceeds "
                 f"max_seq_len ({self.cfg.max_seq_len})")
         vocab = self.model.cfg.vocab_size
-        p = np.asarray(req.prompt)
+        p = np.asarray(req.prompt)  # noqa: DTT010 — host data
         if p.min() < 0 or p.max() >= vocab:
             raise ValueError(
                 f"request {req.id}: prompt ids must be in [0, {vocab})")
@@ -1846,14 +1849,15 @@ class Engine:
         differs every process raises, at the same step."""
         mine = torch.tensor([self._scheduler_digest(), self._step_counter],
                             dtype=torch.int64, device=self.device)
-        got = _all_gather(mine, self._mesh_group).cpu().numpy()
+        got = _all_gather(mine, self._mesh_group)
+        got = got.cpu().numpy()  # noqa: DTT010 — the check's one sync
         self.gathers["lockstep"] += 1
         if (got != got[0]).any():
             raise RuntimeError(
                 f"serving mesh out of lock-step at step "
                 f"{self._step_counter}: the processes' (scheduler digest, "
-                f"step) are {got.tolist()}; every process must be given "
-                "the same submissions in the same order")
+                f"step) are {got.tolist()}; every process "  # noqa: DTT010
+                "must be given the same submissions in the same order")
 
     def step(self) -> dict:
         """One scheduling decision + one program launch. Returns a
@@ -2140,7 +2144,7 @@ class Engine:
         idx = seq.ngram
         if idx is None:
             idx = seq.ngram = NgramIndex(self.cfg.spec_ngram)
-            idx.extend(seq.req.prompt.tolist())
+            idx.extend(seq.req.prompt.tolist())  # noqa: DTT010 — host data
             idx.extend(seq.generated)
         else:
             idx.extend(seq.generated[len(idx) - seq.prompt_len:])
@@ -2681,8 +2685,9 @@ class Engine:
         flag = torch.tensor([past], dtype=torch.int64, device=self.device)
         dist.broadcast(flag, src=self.mesh.first_rank,
                        group=self._mesh_group)
+        collectives.record("all-reduce", self._mesh_group, flag)
         self.gathers["deadline"] += 1
-        return bool(flag.item())
+        return bool(flag.item())  # noqa: DTT010 — the deadline's flag
 
     def export_kv(self, seq_ids: list, to_host: bool = True) -> tuple:
         """Dense KV of ``seq_ids`` (``disagg.export_kv_batch``): on a mesh

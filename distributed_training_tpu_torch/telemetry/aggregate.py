@@ -41,11 +41,11 @@ import re
 
 import numpy as np
 
+from distributed_training_tpu_torch.telemetry import collectives as collectives_lib
 from distributed_training_tpu_torch.telemetry.goodput import goodput_of_stream
 from distributed_training_tpu_torch.telemetry.straggler import flag_stragglers
 from distributed_training_tpu_torch.telemetry.summarize import (
-    _attribution, _attribution_static, _collectives, _loss_stats,
-    _recovery,
+    _attribution, _attribution_static, _loss_stats, _recovery,
     load_jsonl, render_attribution_lines, render_recovery_lines)
 
 # Bump when the aggregate summary's keys change meaning.
@@ -243,12 +243,12 @@ def aggregate_run(run_dir: str, threshold: float | None = None) -> dict:
     # the same all-gathered table, so the last event seen is THE
     # latest cross-host state.
     runtime_events = [e for e in merged if e.get("kind") == "straggler"]
-    # A JAX run's static collective audit (coordinator-emitted,
-    # identical SPMD program on every host).
+    # The collectives audit (coordinator-emitted: the same step on every
+    # host).
     coll = next((e for e in merged if e.get("kind") == "collectives"),
                 None)
     if coll is not None:
-        coll = _collectives([coll])
+        coll = collectives_lib.summary_of_event(coll)
     postmortems = {}
     for h, d in host_dirs(run_dir).items():
         pm = os.path.join(d, "postmortem")
@@ -362,6 +362,9 @@ def render_multihost(summary: dict) -> str:
             lines.append(
                 f"straggler exchanges: {sv['runtime_exchanges']} "
                 "(no persistent verdicts)")
+    coll = summary.get("collectives")
+    if coll:
+        lines.extend(collectives_lib.render_lines(coll))
     lines.extend(render_attribution_lines(
         summary.get("attribution"), summary.get("attribution_static")))
     rec = summary.get("recovery")

@@ -19,8 +19,10 @@ profiler; ``stop_s``: draining the card, stopping, writing and
 attributing the trace).
 
 The JAX module's static half (``hlo_overlap_report``,
-``overlap_summary``) scores a compiled XLA schedule; it waits for
-ROADMAP.md queue A item 17 with ``analysis/``.
+``overlap_summary``) scores the overlap a compiled XLA schedule promises.
+Eager PyTorch compiles no schedule to score: the half is left out by
+design (ROADMAP.md section C, "Differences by design"), and the measured
+overlap above is the port's reading.
 """
 
 from __future__ import annotations

@@ -12,9 +12,9 @@ answers a post-run triage actually asks: did the loss move, where did
 the wall-clock go, how close to the HBM ceiling did it run, and did
 anything hang. Works on partial streams (a crashed run's artifacts are
 exactly when this gets used), and lists any ``postmortem/`` bundles it
-finds. A JAX run's ``collectives`` event is carried into the JSON summary
-but not rendered: the port's own collectives audit is ROADMAP.md queue A
-item 17's.
+finds. The ``collectives`` event (either package's trainer) renders
+through ``telemetry/collectives.py::render_lines``, JAX's lines, with the
+bandwidth its bytes sustain over the measured steps.
 """
 
 from __future__ import annotations
@@ -24,6 +24,10 @@ import json
 import os
 import sys
 
+from distributed_training_tpu_torch.telemetry.collectives import (
+    render_lines,
+    summary_of_event,
+)
 from distributed_training_tpu_torch.telemetry.goodput import (
     goodput_of_stream)
 
@@ -75,20 +79,13 @@ def _goodput(events: list[dict]) -> dict | None:
     return goodput_of_stream(events)
 
 
-# The summary keys of the JAX trainer's ``collectives`` event (its
-# telemetry/collectives.py schema).
-COLLECTIVES_KEYS = ("schema", "total_collectives", "bytes_per_step",
-                    "by_kind", "by_axis", "mesh", "spmd_reshard_warnings",
-                    "sharding_plan")
-
-
 def _collectives(events: list[dict]) -> dict | None:
-    """Latest static collective-traffic audit (a JAX run's
-    ``collectives`` event)."""
+    """Latest collective-traffic audit (trainer-emitted
+    ``collectives`` event, telemetry/collectives.py schema)."""
     rows = [e for e in events if e.get("kind") == "collectives"]
     if not rows:
         return None
-    return {k: rows[-1][k] for k in COLLECTIVES_KEYS if k in rows[-1]}
+    return summary_of_event(rows[-1])
 
 
 def _attribution(events: list[dict]) -> dict | None:
@@ -468,7 +465,21 @@ def render(summary: dict) -> str:
             line += (f" (state estimate "
                      f"{hbm['estimate_bytes'] / 1024 ** 3:.3f} GiB)")
         lines.append(line)
+    coll = summary.get("collectives")
     spans = summary.get("spans") or {}
+    if coll:
+        headline, *axis_lines = render_lines(coll)
+        lines.append(headline)
+        step_agg = spans.get("step")
+        if step_agg and step_agg["count"] and coll["bytes_per_step"]:
+            # The comms roofline next to MFU: bytes the step's
+            # collectives move divided by measured step time — the
+            # interconnect bandwidth the run sustains.
+            mean_step = step_agg["total_s"] / step_agg["count"]
+            lines.append(
+                f"  ~{coll['bytes_per_step'] / mean_step / 1e9:.2f} "
+                f"GB/s sustained over {mean_step * 1e3:.1f}ms steps")
+        lines.extend(axis_lines)
     # Step-time attribution next to MFU: where the measured step went
     # (compute / exposed collective / host+data, overlap hidden) and
     # what the compiled schedule statically promises.

@@ -42,6 +42,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from distributed_training_tpu_torch.telemetry import collectives
+
 # optax.adamw's default epsilon (outside the square root).
 _EPS = 1e-8
 # Leaf names that never decay under decay_mask="matrices", whatever their
@@ -135,6 +137,7 @@ def global_norm(tensors, groups=()) -> torch.Tensor:
     for group, idx in by_group.values():
         part = torch.stack([sums[i] for i in idx])
         dist.all_reduce(part, group=group)
+        collectives.record("all-reduce", group, part)
         for j, i in enumerate(idx):
             sums[i] = part[j]
     return torch.sqrt(torch.as_tensor(sum(sums), dtype=torch.float32))
@@ -270,7 +273,9 @@ class Optimizer:
         if not axes:
             return x.mean(dim=dims, keepdim=keepdim)
         total = x.sum(dim=dims, keepdim=keepdim)
-        dist.all_reduce(total, group=self._group_of(axes))
+        group = self._group_of(axes)
+        dist.all_reduce(total, group=group)
+        collectives.record("all-reduce", group, total)
         return total / math.prod(full[d] for d in dims)
 
     def _adafactor(self, k: str, g: torch.Tensor, p: torch.Tensor,

@@ -73,12 +73,16 @@ emits an ``attribution`` event; the ``StragglerDetector`` exchanges the
 window's step and data_wait times every ``straggler_every`` steps in a
 world of several processes, and a verdict that persists
 ``straggler_evict_after`` windows stops every process at the same step
-for an elastic eviction. Dropout masks are seeded from ``train.seed``,
+for an elastic eviction. After the first step the coordinator emits a
+``collectives`` event: the collectives that step launched, per kind and
+mesh axis (``telemetry/collectives.py``; with ``train.collectives_audit``
+while a sink records). Dropout masks are seeded from ``train.seed``,
 the step, the microbatch and the data shard.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -104,6 +108,7 @@ from distributed_training_tpu_torch.parallel.strategy import (
 from distributed_training_tpu_torch.parallel.tensor import TPGroup
 from distributed_training_tpu_torch.resilience import elastic
 from distributed_training_tpu_torch.runtime import BATCH_AXES, MESH_AXES
+from distributed_training_tpu_torch.telemetry import collectives
 from distributed_training_tpu_torch.telemetry import events as telemetry
 from distributed_training_tpu_torch.telemetry.goodput import GoodputLedger
 from distributed_training_tpu_torch.telemetry.hbm import HBMSampler
@@ -145,7 +150,9 @@ def _live_targets(micro: list, runtime) -> torch.Tensor:
     counts[runtime.data_shard_index] = torch.stack(
         [(torch.as_tensor(mb["tokens"])[:, 1:] >= 0).sum()
          for mb in micro]).to(counts)
-    dist.all_reduce(counts, group=runtime.group(BATCH_AXES + ("sp",)))
+    group = runtime.group(BATCH_AXES + ("sp",))
+    dist.all_reduce(counts, group=group)
+    collectives.record("all-reduce", group, counts)
     return counts
 
 
@@ -264,8 +271,10 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
                              if sharded else 0.0)
         ok = True
         if nan_guard:
-            ok = bool(torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm))
-            metrics["skipped_nonfinite"] = torch.tensor(float(not ok))
+            # nan_guard's one sync a step decides the skip.
+            ok = bool(torch.isfinite(metrics["loss"])  # noqa: DTT003
+                      & torch.isfinite(gnorm))
+            metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
         if ok:
             if before_update is not None:
                 before_update()
@@ -657,6 +666,7 @@ class Trainer:
         # span); later ones are "step" spans. Kernels run asynchronously:
         # a span is host time up to the enqueue of the step's last launch.
         name = "compile" if self._steps_dispatched == 0 else "step"
+        audit = name == "compile" and self._audits_collectives()
         with self.telemetry.span(name, step=self.global_step + 1):
             if self.faults is not None:
                 # slow_host: the stall lands inside the measured step.
@@ -667,13 +677,31 @@ class Trainer:
             if self._offload:
                 host = self.state["opt_state"]
                 self.state["opt_state"] = self._opt_to(host)
-            metrics = self._step_fn(self.state, batch)
+            with (collectives.recording() if audit
+                  else contextlib.nullcontext()) as rows:
+                metrics = self._step_fn(self.state, batch)
             if self._offload:
                 self.state["opt_state"] = self._opt_to(
                     self.state["opt_state"], host)
         self._steps_dispatched += 1
         self.global_step += 1
+        if audit:
+            with self.telemetry.span("collectives_audit"):
+                rep = collectives.report(self.rt, rows,
+                                         getattr(self.strategy, "plan", None))
+            self.telemetry.event("collectives", **rep)
         return metrics
+
+    def _audits_collectives(self) -> bool:
+        """Whether the first step records its collectives for the
+        ``collectives`` event (``telemetry/collectives.py``): with
+        ``train.collectives_audit``, on the coordinator, and only while an
+        event sink records. The window is the step function alone
+        (forward, backward, gradient sync, optimizer), JAX's jitted
+        ``train_step``; the stop poll, the straggler exchange,
+        checkpoints and evaluation stay outside it."""
+        return bool(self.cfg.train.collectives_audit
+                    and self.telemetry.enabled and self.rt.is_coordinator)
 
     def _sync(self) -> None:
         """Wait for the card's queued work (nothing on the CPU)."""
@@ -783,7 +811,7 @@ class Trainer:
             it.close()
         # One host sync per epoch (the losses stay on the device until
         # here, unless a metrics row read one).
-        mean_loss = (float(np.mean([float(x) for x in losses]))
+        mean_loss = (float(np.mean([float(x) for x in losses]))  # noqa: DTT003
                      if losses else float("nan"))
         return {"epoch": epoch, "mean_loss": mean_loss}
 
@@ -860,7 +888,7 @@ class Trainer:
                 count += 1
             if count == 0:
                 return float("nan")
-            return float(total) / count
+            return float(total) / count  # noqa: DTT003 — the one sync
 
     def _save(self, epoch: int, force: bool = False) -> None:
         if self._offload and self.model.device.type == "cuda":

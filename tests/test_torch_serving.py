@@ -297,10 +297,10 @@ def test_server_round_trip_streamed_equals_plain(models):
 def test_deferred_mesh_int8_and_server_options_raise(models):
     _, _, pm, pp = models
     cfg = port_engine.EngineConfig(**ENGINE)
-    # A mesh axis the engine does not serve over (dp, fsdp and tp it
-    # does).
+    # A mesh axis the engine does not serve over, by design (dp, fsdp
+    # and tp it does).
     sp_mesh = Runtime(device=torch.device("cpu"), spec=MeshSpec(sp=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+    with pytest.raises(NotImplementedError, match="a difference by design"):
         port_engine.Engine(pm, pp, cfg, mesh=sp_mesh, device="cpu")
     # int8 weight-only leaves serve (tests/test_torch_int8.py holds
     # their tokens against the JAX int8 engine).
