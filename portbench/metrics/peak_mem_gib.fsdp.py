@@ -1,0 +1,6 @@
+"""``peak_mem_gib.train``'s reading in the fsdp cell, where it moves
+``train_samples_per_s.fsdp``."""
+
+from portbench import harness
+
+read = harness.load_module("metrics", "peak_mem_gib.train").read
