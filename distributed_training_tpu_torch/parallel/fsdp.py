@@ -63,6 +63,7 @@ import torch.distributed as dist
 
 from distributed_training_tpu_torch.runtime import BATCH_AXES
 from distributed_training_tpu_torch.telemetry import collectives
+from distributed_training_tpu_torch.telemetry.events import span
 
 # Gathers for compute launched since the last reset: "layer" counts one
 # per layer per forward, a top-level leaf's name one per gather of it.
@@ -128,13 +129,16 @@ def reduce_scatter_dims(fulls: list, dims: list, group) -> list:
 
 
 class _Gather(torch.autograd.Function):
-    """shards → whole tensors (all-gather over ``group``); gradients →
-    shards (reduce-scatter, summed over the group)."""
+    """shards → whole tensors (all-gather over ``group``, the span
+    ``fsdp.gather``); gradients → shards (reduce-scatter, summed over the
+    group, the span ``fsdp.reduce_scatter``, on the thread the autograd
+    engine runs the backward on)."""
 
     @staticmethod
     def forward(ctx, dims, group, *shards):
         ctx.dims, ctx.group = dims, group
-        out = tuple(all_gather_dims(list(shards), list(dims), group))
+        with span("fsdp.gather"):
+            out = tuple(all_gather_dims(list(shards), list(dims), group))
         TRAFFIC["gathered_bytes"] += sum(t.numel() * t.element_size()
                                          for t in out)
         return out
@@ -143,8 +147,10 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, *grads):
         TRAFFIC["reduce_scattered_bytes"] += sum(
             g.numel() * g.element_size() for g in grads)
-        return (None, None, *reduce_scatter_dims(
-            [g.contiguous() for g in grads], list(ctx.dims), ctx.group))
+        with span("fsdp.reduce_scatter"):
+            return (None, None, *reduce_scatter_dims(
+                [g.contiguous() for g in grads], list(ctx.dims),
+                ctx.group))
 
 
 def gather_shards(shards: list, dims: list, group) -> list:

@@ -168,7 +168,7 @@ from distributed_training_tpu_torch.serving.kv_cache import (
     PagedCacheConfig,
     PagedKVCache,
 )
-from distributed_training_tpu_torch.telemetry import collectives, event
+from distributed_training_tpu_torch.telemetry import collectives, event, span
 from distributed_training_tpu_torch.train.optimizer import flatten, unflatten
 
 logger = logging.getLogger(__name__)
@@ -1299,6 +1299,11 @@ class Engine:
         self.prefill_tokens_computed = 0
         self.prefill_launches = 0
         self.decode_launches = 0
+        # Steps taken, and the KV pages in use summed at each step's
+        # start: their ratio over the pool's usable pages is the mean
+        # occupancy over any stretch of steps.
+        self.engine_steps = 0
+        self.kv_pages_used = 0
         self._cow_width = max(self.batch_local, self.prefill_local)
         # Every device->host transfer of the step loop goes through
         # ``_fetch_host``, so this count is exact. ``gathers`` counts
@@ -1861,35 +1866,51 @@ class Engine:
 
     def step(self) -> dict:
         """One scheduling decision + one program launch. Returns a
-        record of what ran (``op``: prefill/decode/idle)."""
+        record of what ran (``op``: prefill/decode/idle).
+
+        Telemetry spans: ``engine.step`` around it all, inside it
+        ``engine.schedule`` (the candidates and the batched admission),
+        then ``engine.prefill`` (batched) or ``engine.decode``, each with
+        the children ``.prepare`` (pages, the launch's host arrays),
+        ``.launch``, ``.fetch`` (``_fetch_host``) and ``.emit`` (the
+        cache's advance, the tokens, the finished requests)."""
+        with span("engine.step"):
+            return self._step()
+
+    def _step(self) -> dict:
         t0 = time.monotonic()
+        self.engine_steps += 1
+        self.kv_pages_used += self.cache.pages_used
         if self._mesh_group is not None:
             self._check_lockstep()
-        pending = self._prefill_candidates()
-        can_admit = (not self.draining and bool(self.queue)
-                     and self._free_slot() is not None)
-        want_prefill = bool(pending or can_admit)
-        decodable = self._decode_candidates()
-        if self.cfg.policy == "prefill":
-            kind = "prefill" if want_prefill else (
-                "decode" if decodable else "idle")
-        else:
-            kind = "decode" if decodable else (
-                "prefill" if want_prefill else "idle")
         tokens_out = 0
         self._step_spec = None
         self._step_resident = None
         self._last_prefill_lanes = None
         self._step_prefix = [0, 0]
         syncs0 = self.host_syncs
-        if kind == "prefill":
-            if self.cfg.prefill_mode == "batched":
+        with span("engine.schedule"):
+            pending = self._prefill_candidates()
+            can_admit = (not self.draining and bool(self.queue)
+                         and self._free_slot() is not None)
+            want_prefill = bool(pending or can_admit)
+            decodable = self._decode_candidates()
+            if self.cfg.policy == "prefill":
+                kind = "prefill" if want_prefill else (
+                    "decode" if decodable else "idle")
+            else:
+                kind = "decode" if decodable else (
+                    "prefill" if want_prefill else "idle")
+            if kind == "prefill" and self.cfg.prefill_mode == "batched":
                 # Admit everything slots+pages allow before the launch.
                 while not self.draining and self.queue \
                         and self._admit() is not None:
                     pass
-                tokens_out = self._run_prefill_batch(
-                    self._prefill_candidates())
+        if kind == "prefill":
+            if self.cfg.prefill_mode == "batched":
+                with span("engine.prefill"):
+                    tokens_out = self._run_prefill_batch(
+                        self._prefill_candidates())
                 if tokens_out == 0:
                     # Backpressure, or every admission was a zero-
                     # prefill attach: decode instead.
@@ -1907,7 +1928,8 @@ class Engine:
                 elif seq is None or not self._run_prefill_chunk(seq):
                     kind = "decode" if decodable else "idle"
         if kind == "decode":
-            tokens_out = self._run_decode(decodable)
+            with span("engine.decode"):
+                tokens_out = self._run_decode(decodable)
         dur = time.monotonic() - t0
         rec = {"op": kind, "dur_s": dur, "tokens": tokens_out,
                "in_flight": self.in_flight,
@@ -2061,76 +2083,80 @@ class Engine:
         every pending chunk stalled on pages)."""
         c = self.cfg
         G, Sp, C = self.dp_groups, self.prefill_local, c.prefill_chunk
-        chosen: list[list[_Seq]] = [[] for _ in range(G)]
-        cow: list = []
-        for s in pending:
-            g = self.cache.group_of(s.req.id)
-            if len(chosen[g]) >= Sp:
-                continue
-            n = min(C, s.prompt_len - s.prefilled)
-            if not self.cache.ensure(s.req.id, s.prefilled + n):
-                continue  # this lane stalls; others still launch
-            if self._sharing:
-                pairs = self._cow_guard(s.req.id)
-                if pairs is None:
-                    continue  # lane stalls on fork pages
-                cow += [(g, a, b) for a, b in pairs]
-            chosen[g].append(s)
-        if not any(chosen):
-            return 0
-        if cow:
-            self._apply_cow(cow)
-        tokens = np.zeros((G, Sp, C), np.int32)
-        start_pos = np.zeros((G, Sp), np.int32)
-        n_valid = np.zeros((G, Sp), np.int32)
-        active = np.zeros((G, Sp), bool)
-        for g, seqs in enumerate(chosen):
-            for i, s in enumerate(seqs):
-                start = s.prefilled
-                n = min(C, s.prompt_len - start)
-                tokens[g, i, :n] = s.req.prompt[start:start + n]
-                start_pos[g, i] = start
-                n_valid[g, i] = n
-                active[g, i] = True
-        rows = self.cache.page_rows_grouped(
-            [[s.req.id for s in seqs] for seqs in chosen], width=Sp)
+        with span("engine.prefill.prepare"):
+            chosen: list[list[_Seq]] = [[] for _ in range(G)]
+            cow: list = []
+            for s in pending:
+                g = self.cache.group_of(s.req.id)
+                if len(chosen[g]) >= Sp:
+                    continue
+                n = min(C, s.prompt_len - s.prefilled)
+                if not self.cache.ensure(s.req.id, s.prefilled + n):
+                    continue  # this lane stalls; others still launch
+                if self._sharing:
+                    pairs = self._cow_guard(s.req.id)
+                    if pairs is None:
+                        continue  # lane stalls on fork pages
+                    cow += [(g, a, b) for a, b in pairs]
+                chosen[g].append(s)
+            if not any(chosen):
+                return 0
+            if cow:
+                self._apply_cow(cow)
+            tokens = np.zeros((G, Sp, C), np.int32)
+            start_pos = np.zeros((G, Sp), np.int32)
+            n_valid = np.zeros((G, Sp), np.int32)
+            active = np.zeros((G, Sp), bool)
+            for g, seqs in enumerate(chosen):
+                for i, s in enumerate(seqs):
+                    start = s.prefilled
+                    n = min(C, s.prompt_len - start)
+                    tokens[g, i, :n] = s.req.prompt[start:start + n]
+                    start_pos[g, i] = start
+                    n_valid[g, i] = n
+                    active[g, i] = True
+            rows = self.cache.page_rows_grouped(
+                [[s.req.id for s in seqs] for seqs in chosen], width=Sp)
         me = self._g
-        nxt = self._chunk(rows[me], tokens[me], start_pos[me], n_valid[me],
-                          active[me], emit="last")
+        with span("engine.prefill.launch"):
+            nxt = self._chunk(rows[me], tokens[me], start_pos[me],
+                              n_valid[me], active[me], emit="last")
         self._label_logits([s.req.id for s in chosen[me]]
                            + [None] * (Sp - len(chosen[me])))
         self._last_prefill_lanes = [len(seqs) for seqs in chosen]
         self.prefill_launches += 1
-        total = 0
-        fetched = None
-        now = None
         t_launch = time.monotonic()  # for lanes that trigger no fetch
-        for g, seqs in enumerate(chosen):
-            for i, s in enumerate(seqs):
-                n = int(n_valid[g, i])
-                self.cache.advance(s.req.id, n)
-                s.prefilled += n
-                total += n
-                if not s.prefill_done:
-                    s.span("prefill", t_launch, tokens=n)
-                if s.prefill_done:
-                    if fetched is None:
-                        # One (G, Sp) pull for the whole launch, and only
-                        # when some prompt completed; the clock is read
-                        # after it.
-                        (fetched,) = self._fetch_host(nxt)
-                        now = time.monotonic()
-                    tok = int(fetched[g, i])
-                    s.span("prefill", now, tokens=n)
-                    s.first_token_t = now
-                    s.token_times.append(now)
-                    s.generated.append(tok)
-                    if self.cfg.eos_id >= 0 and tok == self.cfg.eos_id:
-                        s.eos = True
-                    self._emit_token(s, tok)
-                self._register(s)
-                if s.prefill_done:
-                    self._maybe_finish(s)
+        fetched = now = None
+        if any(n_valid[g, i] == s.prompt_len - s.prefilled
+               for g, seqs in enumerate(chosen)
+               for i, s in enumerate(seqs)):
+            # One (G, Sp) pull for the whole launch, and only when some
+            # prompt completes; the clock is read after it.
+            with span("engine.prefill.fetch"):
+                (fetched,) = self._fetch_host(nxt)
+            now = time.monotonic()
+        total = 0
+        with span("engine.prefill.emit"):
+            for g, seqs in enumerate(chosen):
+                for i, s in enumerate(seqs):
+                    n = int(n_valid[g, i])
+                    self.cache.advance(s.req.id, n)
+                    s.prefilled += n
+                    total += n
+                    if not s.prefill_done:
+                        s.span("prefill", t_launch, tokens=n)
+                    if s.prefill_done:
+                        tok = int(fetched[g, i])
+                        s.span("prefill", now, tokens=n)
+                        s.first_token_t = now
+                        s.token_times.append(now)
+                        s.generated.append(tok)
+                        if self.cfg.eos_id >= 0 and tok == self.cfg.eos_id:
+                            s.eos = True
+                        self._emit_token(s, tok)
+                    self._register(s)
+                    if s.prefill_done:
+                        self._maybe_finish(s)
         self.prefill_tokens_computed += total
         return total
 
@@ -2175,71 +2201,77 @@ class Engine:
         (masked) and the next launch overwrites it. Eager on the card
         too, as the JAX host loop is."""
         G, B, K = self.dp_groups, self.batch_local, self.cfg.spec_k
-        tokens = np.zeros((G, B, K), np.int32)
-        start_pos = np.zeros((G, B), np.int32)
-        n_valid = np.zeros((G, B), np.int32)
-        active = np.zeros((G, B), bool)
-        seq_ids: list[list] = [[None] * B for _ in range(G)]
-        stepped: list[tuple[_Seq, int, np.ndarray]] = []
-        cow: list = []
-        for s in decodable:
-            length = self.cache.length(s.req.id)
-            remaining = s.req.max_new_tokens - len(s.generated)
-            # Clamp the chain to what the sequence can still hold:
-            # positions past max_seq_len or the budget ride as masked
-            # padding, never as writes.
-            n = min(K, remaining, self.cfg.max_seq_len - length)
-            if not self.cache.ensure(s.req.id, length + n):
-                # Pages for the whole chain are short: a one-token
-                # launch in the same program before stalling outright.
-                if n == 1 or not self.cache.ensure(s.req.id, length + 1):
-                    continue
-                n = 1
-            g, i = divmod(s.slot, B)
-            if self._sharing:
-                pairs = self._cow_guard(s.req.id)
-                if pairs is None:
-                    continue  # fork stalled on pages; retry next step
-                cow += [(g, a, b) for a, b in pairs]
-            draft = self._draft(s, n - 1)
-            tokens[g, i, 0] = s.last_token
-            tokens[g, i, 1:n] = draft
-            start_pos[g, i] = length
-            n_valid[g, i] = n
-            active[g, i] = True
-            seq_ids[g][i] = s.req.id
-            stepped.append((s, n, draft))
-        if not stepped:
-            return 0
-        if cow:
-            self._apply_cow(cow)
-        rows = self.cache.page_rows_grouped(seq_ids)
+        with span("engine.decode.prepare"):
+            tokens = np.zeros((G, B, K), np.int32)
+            start_pos = np.zeros((G, B), np.int32)
+            n_valid = np.zeros((G, B), np.int32)
+            active = np.zeros((G, B), bool)
+            seq_ids: list[list] = [[None] * B for _ in range(G)]
+            stepped: list[tuple[_Seq, int, np.ndarray]] = []
+            cow: list = []
+            for s in decodable:
+                length = self.cache.length(s.req.id)
+                remaining = s.req.max_new_tokens - len(s.generated)
+                # Clamp the chain to what the sequence can still hold:
+                # positions past max_seq_len or the budget ride as masked
+                # padding, never as writes.
+                n = min(K, remaining, self.cfg.max_seq_len - length)
+                if not self.cache.ensure(s.req.id, length + n):
+                    # Pages for the whole chain are short: a one-token
+                    # launch in the same program before stalling outright.
+                    if n == 1 or not self.cache.ensure(s.req.id, length + 1):
+                        continue
+                    n = 1
+                g, i = divmod(s.slot, B)
+                if self._sharing:
+                    pairs = self._cow_guard(s.req.id)
+                    if pairs is None:
+                        continue  # fork stalled on pages; retry next step
+                    cow += [(g, a, b) for a, b in pairs]
+                draft = self._draft(s, n - 1)
+                tokens[g, i, 0] = s.last_token
+                tokens[g, i, 1:n] = draft
+                start_pos[g, i] = length
+                n_valid[g, i] = n
+                active[g, i] = True
+                seq_ids[g][i] = s.req.id
+                stepped.append((s, n, draft))
+            if not stepped:
+                return 0
+            if cow:
+                self._apply_cow(cow)
+            rows = self.cache.page_rows_grouped(seq_ids)
         me = self._g
-        out = self._chunk(rows[me], tokens[me], start_pos[me], n_valid[me],
-                          active[me], emit="all")
+        with span("engine.decode.launch"):
+            out = self._chunk(rows[me], tokens[me], start_pos[me],
+                              n_valid[me], active[me], emit="all")
         self.decode_launches += 1
-        (out,) = self._fetch_host(out)
+        with span("engine.decode.fetch"):
+            (out,) = self._fetch_host(out)
         now = time.monotonic()
         total = 0
-        for s, n, draft in stepped:
-            g, i = divmod(s.slot, B)
-            # out[g, i, j] is the verified argmax after position j. Draft
-            # j is accepted while it equals the chain's previous token,
-            # so every accepted argmax is conditioned on true tokens only.
-            emit = [int(out[g, i, 0])]
-            j = 1
-            while j < n and int(draft[j - 1]) == emit[-1]:
-                emit.append(int(out[g, i, j]))
-                j += 1
-            if self.cfg.eos_id >= 0 and self.cfg.eos_id in emit:
-                # Later positions are conditioned on an ended sequence.
-                emit = emit[:emit.index(self.cfg.eos_id) + 1]
-            self.cache.advance(s.req.id, len(emit))
-            self.spec_stats["launches"] += 1
-            self.spec_stats["emitted"] += len(emit)
-            total += len(emit)
-            s.span("decode", now, emitted=len(emit), budget=n)
-            self._emit_tokens(s, emit, now)
+        with span("engine.decode.emit"):
+            for s, n, draft in stepped:
+                g, i = divmod(s.slot, B)
+                # out[g, i, j] is the verified argmax after position j.
+                # Draft j is accepted while it equals the chain's
+                # previous token, so every accepted argmax is conditioned
+                # on true tokens only.
+                emit = [int(out[g, i, 0])]
+                j = 1
+                while j < n and int(draft[j - 1]) == emit[-1]:
+                    emit.append(int(out[g, i, j]))
+                    j += 1
+                if self.cfg.eos_id >= 0 and self.cfg.eos_id in emit:
+                    # Later positions are conditioned on an ended
+                    # sequence.
+                    emit = emit[:emit.index(self.cfg.eos_id) + 1]
+                self.cache.advance(s.req.id, len(emit))
+                self.spec_stats["launches"] += 1
+                self.spec_stats["emitted"] += len(emit)
+                total += len(emit)
+                s.span("decode", now, emitted=len(emit), budget=n)
+                self._emit_tokens(s, emit, now)
         self._step_spec = (len(stepped), total)
         return total
 
@@ -2254,57 +2286,63 @@ class Engine:
         advances only after the fetch."""
         G, B = self.dp_groups, self.batch_local
         T = self.cfg.resident_k * self.cfg.spec_k
-        history = np.zeros((G, B, self.cfg.max_seq_len), np.int32)
-        kv_len = np.zeros((G, B), np.int32)
-        budget = np.zeros((G, B), np.int32)
-        active = np.zeros((G, B), bool)
-        seq_ids: list[list] = [[None] * B for _ in range(G)]
-        stepped: list[_Seq] = []
-        cow: list = []
-        for s in decodable:
-            length = self.cache.length(s.req.id)
-            remaining = s.req.max_new_tokens - len(s.generated)
-            # The budget is clamped to the pages the slot could claim
-            # now (its own plus its group's free list): a tight pool
-            # shrinks the burst toward one token instead of stalling it.
-            want = min(remaining, T,
-                       self.cache.token_capacity(s.req.id) - length)
-            if want < 1:
-                continue  # no headroom: wait for frees
-            if not self.cache.ensure(s.req.id, length + want):
-                continue
-            g, i = divmod(s.slot, B)
-            if self._sharing:
-                pairs = self._cow_guard(s.req.id)
-                if pairs is None:
-                    continue  # fork stalled on pages; retry next step
-                cow += [(g, a, b) for a, b in pairs]
-            hist = np.concatenate([np.array(s.req.prompt, np.int32),
-                                   np.array(s.generated, np.int32)])
-            history[g, i, :hist.shape[0]] = hist
-            kv_len[g, i] = length
-            budget[g, i] = want
-            active[g, i] = True
-            seq_ids[g][i] = s.req.id
-            stepped.append(s)
-        if not stepped:
-            return 0
-        if cow:
-            self._apply_cow(cow)
-        rows = self.cache.page_rows_grouped(seq_ids)
+        with span("engine.decode.prepare"):
+            history = np.zeros((G, B, self.cfg.max_seq_len), np.int32)
+            kv_len = np.zeros((G, B), np.int32)
+            budget = np.zeros((G, B), np.int32)
+            active = np.zeros((G, B), bool)
+            seq_ids: list[list] = [[None] * B for _ in range(G)]
+            stepped: list[_Seq] = []
+            cow: list = []
+            for s in decodable:
+                length = self.cache.length(s.req.id)
+                remaining = s.req.max_new_tokens - len(s.generated)
+                # The budget is clamped to the pages the slot could claim
+                # now (its own plus its group's free list): a tight pool
+                # shrinks the burst toward one token instead of stalling
+                # it.
+                want = min(remaining, T,
+                           self.cache.token_capacity(s.req.id) - length)
+                if want < 1:
+                    continue  # no headroom: wait for frees
+                if not self.cache.ensure(s.req.id, length + want):
+                    continue
+                g, i = divmod(s.slot, B)
+                if self._sharing:
+                    pairs = self._cow_guard(s.req.id)
+                    if pairs is None:
+                        continue  # fork stalled on pages; retry next step
+                    cow += [(g, a, b) for a, b in pairs]
+                hist = np.concatenate([np.array(s.req.prompt, np.int32),
+                                       np.array(s.generated, np.int32)])
+                history[g, i, :hist.shape[0]] = hist
+                kv_len[g, i] = length
+                budget[g, i] = want
+                active[g, i] = True
+                seq_ids[g][i] = s.req.id
+                stepped.append(s)
+            if not stepped:
+                return 0
+            if cow:
+                self._apply_cow(cow)
+            rows = self.cache.page_rows_grouped(seq_ids)
         me = self._g
-        out, n_emitted, steps = self._fetch_host(*self._resident.run(
-            rows[me], history[me], kv_len[me], budget[me], active[me]))
+        with span("engine.decode.launch"):
+            outs = self._resident.run(rows[me], history[me], kv_len[me],
+                                      budget[me], active[me])
+        with span("engine.decode.fetch"):
+            out, n_emitted, steps = self._fetch_host(*outs)
         self.decode_launches += 1
         now = time.monotonic()
         total = 0
-        for s in stepped:
-            g, i = divmod(s.slot, B)
-            e = int(n_emitted[g, i])
-            self.cache.advance(s.req.id, e)
-            total += e
-            s.span("decode", now, emitted=e, budget=int(budget[g, i]))
-            self._emit_tokens(s, [int(t) for t in out[g, i, :e]], now)
+        with span("engine.decode.emit"):
+            for s in stepped:
+                g, i = divmod(s.slot, B)
+                e = int(n_emitted[g, i])
+                self.cache.advance(s.req.id, e)
+                total += e
+                s.span("decode", now, emitted=e, budget=int(budget[g, i]))
+                self._emit_tokens(s, [int(t) for t in out[g, i, :e]], now)
         g_steps = [int(steps[g]) for g in range(G) if active[g].any()]
         self.resident_stats["launches"] += 1
         self.resident_stats["steps"] += max(g_steps, default=0)
@@ -2318,45 +2356,50 @@ class Engine:
         if self.cfg.spec_k > 1:
             return self._run_decode_spec(decodable)
         G, B = self.dp_groups, self.batch_local
-        tokens = np.zeros((G, B), np.int32)
-        positions = np.zeros((G, B), np.int32)
-        active = np.zeros((G, B), bool)
-        seq_ids: list[list] = [[None] * B for _ in range(G)]
-        stepped: list[_Seq] = []
-        cow: list = []
-        for s in decodable:
-            # The new token's KV lands at position length(seq); a full
-            # pool stalls the slot this step.
-            if not self.cache.ensure(s.req.id,
-                                     self.cache.length(s.req.id) + 1):
-                continue
-            g, i = divmod(s.slot, B)
-            if self._sharing:
-                pairs = self._cow_guard(s.req.id)
-                if pairs is None:
-                    continue  # fork stalled on pages; retry next step
-                cow += [(g, a, b) for a, b in pairs]
-            tokens[g, i] = s.last_token
-            positions[g, i] = self.cache.length(s.req.id)
-            active[g, i] = True
-            seq_ids[g][i] = s.req.id
-            stepped.append(s)
-        if not stepped:
-            return 0
-        if cow:
-            self._apply_cow(cow)
-        rows = self.cache.page_rows_grouped(seq_ids)
+        with span("engine.decode.prepare"):
+            tokens = np.zeros((G, B), np.int32)
+            positions = np.zeros((G, B), np.int32)
+            active = np.zeros((G, B), bool)
+            seq_ids: list[list] = [[None] * B for _ in range(G)]
+            stepped: list[_Seq] = []
+            cow: list = []
+            for s in decodable:
+                # The new token's KV lands at position length(seq); a full
+                # pool stalls the slot this step.
+                if not self.cache.ensure(s.req.id,
+                                         self.cache.length(s.req.id) + 1):
+                    continue
+                g, i = divmod(s.slot, B)
+                if self._sharing:
+                    pairs = self._cow_guard(s.req.id)
+                    if pairs is None:
+                        continue  # fork stalled on pages; retry next step
+                    cow += [(g, a, b) for a, b in pairs]
+                tokens[g, i] = s.last_token
+                positions[g, i] = self.cache.length(s.req.id)
+                active[g, i] = True
+                seq_ids[g][i] = s.req.id
+                stepped.append(s)
+            if not stepped:
+                return 0
+            if cow:
+                self._apply_cow(cow)
+            rows = self.cache.page_rows_grouped(seq_ids)
         me = self._g
-        nxt = self._decode(tokens[me], positions[me], rows[me], active[me])
+        with span("engine.decode.launch"):
+            nxt = self._decode(tokens[me], positions[me], rows[me],
+                               active[me])
         self._label_logits(seq_ids[me])
         self.decode_launches += 1
-        (nxt,) = self._fetch_host(nxt)
+        with span("engine.decode.fetch"):
+            (nxt,) = self._fetch_host(nxt)
         now = time.monotonic()
-        for s in stepped:
-            g, i = divmod(s.slot, B)
-            self.cache.advance(s.req.id, 1)
-            s.span("decode", now, emitted=1)
-            self._emit_tokens(s, [int(nxt[g, i])], now)
+        with span("engine.decode.emit"):
+            for s in stepped:
+                g, i = divmod(s.slot, B)
+                self.cache.advance(s.req.id, 1)
+                s.span("decode", now, emitted=1)
+                self._emit_tokens(s, [int(nxt[g, i])], now)
         return len(stepped)
 
     def _maybe_finish(self, seq: _Seq) -> None:

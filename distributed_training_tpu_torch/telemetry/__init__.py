@@ -1,7 +1,9 @@
 """Telemetry for the port: one instrumentation surface, its consumers.
 
-- ``span()``/``event()`` (events.py) — the structured ``events.jsonl``
-  stream, doubling as ``torch.profiler`` ranges;
+- ``span()``/``event()``/``count()`` (events.py) — the structured
+  ``events.jsonl`` stream, doubling as ``torch.profiler`` ranges while a
+  profiler runs, or ``SpanTotals``, the in-memory per-span totals and
+  counters;
 - ``GoodputLedger`` (goodput.py) — wall-clock decomposed into
   compile/data_wait/step/checkpoint/eval/idle, goodput and MFU;
 - ``HangWatchdog`` (watchdog.py) — per-step hang detection with
@@ -42,7 +44,9 @@ from distributed_training_tpu_torch.telemetry.attribution import (  # noqa: F401
     ProfileCapture,
 )
 from distributed_training_tpu_torch.telemetry.events import (  # noqa: F401
+    SpanTotals,
     Telemetry,
+    count,
     current,
     event,
     install,

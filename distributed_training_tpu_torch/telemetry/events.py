@@ -10,16 +10,24 @@ same record schema so the JAX package's offline readers parse both:
   (hbm samples, goodput windows, watchdog firings, run_start, the
   serving engine's ``serving`` step records, ...).
 
-Every ``span()`` also opens a ``torch.profiler.record_function`` range
-(the counterpart of ``jax.profiler.TraceAnnotation``), so the same
-region names show up in a ``torch.profiler`` trace.
+While a profiler runs, every ``span()`` also opens a
+``torch.profiler.record_function`` range (the counterpart of
+``jax.profiler.TraceAnnotation``), so the same region names show up in
+a ``torch.profiler`` trace, on Kineto's clock beside the card's events.
 
 Ambient use (the ``logging`` model): entry points ``install()`` one
 ``Telemetry``; library code calls the module-level ``span()`` /
-``event()``, which no-op (except the profiler range) until something is
-installed. A ``GoodputLedger`` attached by the trainer
+``event()`` / ``count()``. With nothing recording and no profiler
+running, ``span()`` is a shared null context: no clock read, no profiler
+range, no record. A ``GoodputLedger`` attached by the trainer
 (``attach_ledger``) takes every depth-0 span's duration into its
 buckets.
+
+``SpanTotals`` is the in-memory sink: per span name the count, the
+total and the self seconds (the duration less what child spans on the
+same thread cover), and named integer counters (``count()``), read by
+``totals()`` and cleared by ``reset()``. It writes no file and builds no
+record, so it can stay installed over a measured stretch.
 """
 
 from __future__ import annotations
@@ -132,11 +140,22 @@ class Telemetry:
     def event(self, name: str, **fields) -> None:
         self._emit({"kind": name, "t": time.time(), **fields})
 
-    @contextlib.contextmanager
+    def count(self, name: str, n: int = 1) -> None:
+        """A named integer counter (kept by ``SpanTotals``; the jsonl
+        stream has none)."""
+
     def span(self, name: str, **attrs):
-        """Timed region: jsonl span record + profiler range. Nesting
-        is tracked per thread; only depth-0 spans feed the goodput
-        ledger, so a sub-operation never counts twice."""
+        """Timed region: jsonl span record + profiler range (while a
+        profiler runs). Nesting is tracked per thread; only depth-0
+        spans feed the goodput ledger, so a sub-operation never counts
+        twice. With nothing to record it is the profiler range alone,
+        or nothing at all."""
+        if not self.enabled and self.ledger is None:
+            return _profiled(name) if _profiling() else _OFF
+        return self._record(name, attrs)
+
+    @contextlib.contextmanager
+    def _record(self, name: str, attrs: dict):
         stack = getattr(self._tls, "stack", None)
         if stack is None:
             stack = self._tls.stack = []
@@ -144,7 +163,7 @@ class Telemetry:
         stack.append(name)
         t0 = time.perf_counter()
         try:
-            with torch.profiler.record_function(name):
+            with _profiled(name) if _profiling() else _OFF:
                 yield
         finally:
             dur = time.perf_counter() - t0
@@ -158,6 +177,70 @@ class Telemetry:
                         "t": time.time(), "dur_s": round(dur, 6),
                         "depth": depth, "parent": parent, **attrs})
 
+
+class SpanTotals(Telemetry):
+    """The in-memory sink: per span name ``[count, total_s, self_s]``
+    and named integer counters, kept under one lock. ``enabled`` stays
+    False (no file, no records; ``event()`` is dropped), so whatever
+    the program gates on a recording sink stays off."""
+
+    def __init__(self):
+        super().__init__(enabled=False)
+        self._spans: dict = {}
+        self._counters: collections.Counter = collections.Counter()
+
+    def count(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counters[name] += n
+
+    def span(self, name: str, **attrs):
+        return self._timed(name)
+
+    @contextlib.contextmanager
+    def _timed(self, name: str):
+        # Each frame: [seconds its children covered]; a child adds its
+        # whole duration to its parent's frame.
+        stack = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = self._tls.stack = []
+        frame = [0.0]
+        stack.append(frame)
+        t0 = time.perf_counter()
+        try:
+            with _profiled(name) if _profiling() else _OFF:
+                yield
+        finally:
+            dur = time.perf_counter() - t0
+            stack.pop()
+            if stack:
+                stack[-1][0] += dur
+            with self._lock:
+                row = self._spans.get(name)
+                if row is None:
+                    row = self._spans[name] = [0, 0.0, 0.0]
+                row[0] += 1
+                row[1] += dur
+                row[2] += dur - frame[0]
+
+    def totals(self) -> dict:
+        """``{"spans": {name: {"count", "total_s", "self_s"}},
+        "counters": {name: n}}`` since the last ``reset()``."""
+        with self._lock:
+            return {"spans": {k: {"count": c, "total_s": t, "self_s": s}
+                              for k, (c, t, s) in self._spans.items()},
+                    "counters": dict(self._counters)}
+
+    def reset(self) -> None:
+        """Forget the totals and counters (spans open now still close
+        into the fresh totals)."""
+        with self._lock:
+            self._spans = {}
+            self._counters = collections.Counter()
+
+
+_OFF = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+_profiled = torch.profiler.record_function
 
 # A permanently-disabled instance: the ambient default, so library
 # call sites never need a None check.
@@ -182,10 +265,15 @@ def current() -> Telemetry:
 
 
 def span(name: str, **attrs):
-    """Module-level span against the ambient Telemetry (always a valid
-    profiler range; a jsonl record only once ``install()``-ed)."""
+    """Module-level span against the ambient Telemetry (a profiler range
+    while a profiler runs; a record only once ``install()``-ed)."""
     return _current.span(name, **attrs)
 
 
 def event(name: str, **fields) -> None:
     _current.event(name, **fields)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Module-level counter against the ambient Telemetry."""
+    _current.count(name, n)

@@ -228,14 +228,17 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
                 kw = ({"shard_weight": weights[i]}
                       if weighted and hasattr(model, "bind_data_group")
                       else {})
-                loss, m = model.loss(params, mb, rng=rng, train=True, **kw)
+                with telemetry.span("forward"):
+                    loss, m = model.loss(params, mb, rng=rng, train=True,
+                                         **kw)
             if weighted:
                 loss = loss * weights[i]
                 m = {**m, "loss": m["loss"] * weights[i]}
             if not pipelined:
-                g = torch.autograd.grad(loss, leaves)
-                grads = list(g) if grads is None else [
-                    a + b for a, b in zip(grads, g)]
+                with telemetry.span("backward"):
+                    g = torch.autograd.grad(loss, leaves)
+                    grads = list(g) if grads is None else [
+                        a + b for a, b in zip(grads, g)]
             for k, v in m.items():
                 metrics[k] = v if k not in metrics else metrics[k] + v
         if pipelined:
@@ -245,53 +248,58 @@ def make_train_step(model, optimizer, nan_guard: bool = False,
                      for p in leaves]
             for p in leaves:
                 p.grad = None
-        grads = dict(zip(flat, grads))
-        if len(micro) > 1:
-            grads = {k: g / len(micro) for k, g in grads.items()}
-            metrics = {k: v / len(micro) for k, v in metrics.items()}
-        t_sync = time.perf_counter()
-        if sharded:
-            fsdp.average_grads(grads, pls, runtime, tp_partial)
-            metrics = fsdp.mean_over_data(metrics, runtime)
-        # Nonlinear derived metrics don't average: recompute from the
-        # mean loss, as the JAX step does.
-        if "perplexity" in metrics:
-            metrics["perplexity"] = torch.exp(metrics["loss"])
-        gnorm = global_norm(grads.values(),
-                            [norm_groups.get(k) for k in grads])
-        metrics["grad_norm"] = gnorm
-        # Host seconds in the step's collectives (the gradient
-        # synchronisation, the sequence-parallel and the pipeline's
-        # exchanges, the count of live targets): on a blocking backend
-        # (gloo) they are the wait for the slowest process, or for a
-        # neighbouring stage.
-        train_step.sync_s = (time.perf_counter() - t_sync + counts_s
-                             + EXCHANGES["wait_s"]
-                             + pp_lib.EXCHANGES["wait_s"] - wait0
-                             if sharded else 0.0)
-        ok = True
-        if nan_guard:
-            # nan_guard's one sync a step decides the skip.
-            ok = bool(torch.isfinite(metrics["loss"])  # noqa: DTT003
-                      & torch.isfinite(gnorm))
-            metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
-        if ok:
-            if before_update is not None:
-                before_update()
-            with torch.no_grad():
-                views = {k: fsdp.local_view(p, sliced.get(k), runtime)
-                         for k, p in flat.items()}
-                gviews = {k: fsdp.local_view(g, sliced.get(k), runtime)
-                          for k, g in grads.items()}
-                updates, state["opt_state"] = optimizer.update(
-                    gviews, state["opt_state"], views, gnorm=gnorm)
-                for k, v in views.items():
-                    v.add_(updates[k])
-                if sliced:
-                    whole = fsdp.gather_full(
-                        {k: views[k] for k in sliced}, sliced, runtime)
-                    for k in sliced:
-                        flat[k].copy_(whole[k])
+        # Everything after the last backward is the "optimizer" phase
+        # (no phase spans under pp, whose schedule interleaves them).
+        with (contextlib.nullcontext() if pipelined
+              else telemetry.span("optimizer")):
+            grads = dict(zip(flat, grads))
+            if len(micro) > 1:
+                grads = {k: g / len(micro) for k, g in grads.items()}
+                metrics = {k: v / len(micro) for k, v in metrics.items()}
+            t_sync = time.perf_counter()
+            if sharded:
+                fsdp.average_grads(grads, pls, runtime, tp_partial)
+                metrics = fsdp.mean_over_data(metrics, runtime)
+            # Nonlinear derived metrics don't average: recompute from the
+            # mean loss, as the JAX step does.
+            if "perplexity" in metrics:
+                metrics["perplexity"] = torch.exp(metrics["loss"])
+            gnorm = global_norm(grads.values(),
+                                [norm_groups.get(k) for k in grads])
+            metrics["grad_norm"] = gnorm
+            # Host seconds in the step's collectives (the gradient
+            # synchronisation, the sequence-parallel and the pipeline's
+            # exchanges, the count of live targets): on a blocking backend
+            # (gloo) they are the wait for the slowest process, or for a
+            # neighbouring stage.
+            train_step.sync_s = (time.perf_counter() - t_sync + counts_s
+                                 + EXCHANGES["wait_s"]
+                                 + pp_lib.EXCHANGES["wait_s"] - wait0
+                                 if sharded else 0.0)
+            ok = True
+            if nan_guard:
+                # nan_guard's one sync a step decides the skip.
+                ok = bool(torch.isfinite(metrics["loss"])  # noqa: DTT003
+                          & torch.isfinite(gnorm))
+                metrics["skipped_nonfinite"] = torch.tensor(
+                    0.0 if ok else 1.0)
+            if ok:
+                if before_update is not None:
+                    before_update()
+                with torch.no_grad():
+                    views = {k: fsdp.local_view(p, sliced.get(k), runtime)
+                             for k, p in flat.items()}
+                    gviews = {k: fsdp.local_view(g, sliced.get(k), runtime)
+                              for k, g in grads.items()}
+                    updates, state["opt_state"] = optimizer.update(
+                        gviews, state["opt_state"], views, gnorm=gnorm)
+                    for k, v in views.items():
+                        v.add_(updates[k])
+                    if sliced:
+                        whole = fsdp.gather_full(
+                            {k: views[k] for k in sliced}, sliced, runtime)
+                        for k in sliced:
+                            flat[k].copy_(whole[k])
         state["step"] += 1
         return metrics
 

@@ -6,7 +6,7 @@ kernels and copies (CUPTI), written as a Chrome-trace JSON
 Perfetto or ``chrome://tracing`` display. ``trace`` wraps a region,
 ``trace_steps`` a short window of training steps, ``annotate`` names a
 range on the timeline (``record_function``, which every telemetry span
-already opens).
+opens while a profiler runs).
 
 The JAX module's ``start_server``/``stop_server`` (an XProf server from
 which a running job is traced on demand) have no ``torch.profiler``
